@@ -1,0 +1,147 @@
+"""The port's scene builders, packers and camera against the JAX package.
+
+Scenes and cameras are built by the JAX builders and carried across with
+``scene_from_numpy`` / ``camera_from_numpy``, so both sides compute on the
+same tables; the port's own builders are checked against them too.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from tpu_pathtracer.models import camera as jcm, scene as jsc  # noqa: E402
+from tpu_pathtracer.ops.pallas import trace_kernel as jtk  # noqa: E402
+from tpu_pathtracer_torch.models import camera as tcm, scene as tsc  # noqa: E402
+from tpu_pathtracer_torch.ops.kernels import trace_kernel as ttk  # noqa: E402
+
+RTOL = 1e-6  # packers: the same f32 arithmetic on the same tables
+CAM_ATOL = 1e-5  # camera: f32 transcendentals and normalizations
+
+
+def scene_to_torch(js, device="cpu"):
+    """Carry a JAX Scene across to the port."""
+    return tsc.scene_from_numpy(
+        {f: np.asarray(getattr(js, f)) for f in tsc.ARRAY_FIELDS},
+        {f: getattr(js, f) for f in tsc.STATIC_FIELDS}, device=device)
+
+
+def camera_to_torch(jc, device="cpu"):
+    """Carry a JAX Camera across to the port."""
+    return tcm.camera_from_numpy(
+        {f: np.asarray(getattr(jc, f)) for f in tcm.ARRAY_FIELDS},
+        {f: getattr(jc, f) for f in tcm.STATIC_FIELDS}, device=device)
+
+
+def point_light_scene(mod):
+    """The point-light scene of tests/test_persistent.py, from either
+    package's builders."""
+    return mod.make_scene(
+        [mod.sphere([0, -1e4 - 1, 0], 1e4, 0)],
+        [mod.diffuse([0.7, 0.7, 0.7])],
+        [mod.point_light([0, 3, 0], [40.0, 40.0, 40.0])],
+    )
+
+
+SCENES = ["cornell", "small", "single-sphere", "point"]
+
+
+def _build(mod, name):
+    if name == "point":
+        return point_light_scene(mod)
+    return mod.BUILTIN_SCENES[name]()[0]
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_packers_match_jax(name):
+    js = _build(jsc, name)
+    ts = scene_to_torch(js)
+    np.testing.assert_allclose(ttk.pack_prims(ts).numpy(),
+                               np.asarray(jtk.pack_prims(js)), rtol=RTOL)
+    np.testing.assert_allclose(ttk.pack_lights(ts).numpy(),
+                               np.asarray(jtk.pack_lights(js)), rtol=RTOL)
+    ja, ta = jsc.prim_attrs(js), tsc.prim_attrs(ts)
+    for f in ("albedo", "coef", "mtype", "emission"):
+        np.testing.assert_allclose(getattr(ta, f).numpy(),
+                                   np.asarray(getattr(ja, f)), rtol=RTOL)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_builders_match_jax(name):
+    """The port's own builders give the JAX tables and static structure."""
+    js, ts = _build(jsc, name), _build(tsc, name)
+    for f in tsc.ARRAY_FIELDS:
+        np.testing.assert_array_equal(getattr(ts, f).numpy(),
+                                      np.asarray(getattr(js, f)), err_msg=f)
+    for f in tsc.STATIC_FIELDS:
+        assert getattr(ts, f) == getattr(js, f), f
+
+
+@pytest.mark.parametrize("name", ["cornell", "small", "single-sphere"])
+def test_camera_matches_jax(name):
+    _, cs = jsc.BUILTIN_SCENES[name]()
+    args = (cs["eye"], cs["look_at"], cs["up"], 40, 30, cs["fov"])
+    jc, tc = jcm.make_camera(*args), tcm.make_camera(*args)
+    for f in tcm.ARRAY_FIELDS:
+        np.testing.assert_allclose(getattr(tc, f).numpy(),
+                                   np.asarray(getattr(jc, f)),
+                                   atol=CAM_ATOL, err_msg=f)
+    np.testing.assert_allclose(ttk.pack_camera(tc).numpy(),
+                               np.asarray(jtk.pack_camera(jc)),
+                               atol=CAM_ATOL)
+    np.testing.assert_allclose(ttk.pack_camera(camera_to_torch(jc)).numpy(),
+                               np.asarray(jtk.pack_camera(jc)), rtol=RTOL)
+
+    moved_j = jcm.rotate(jcm.translate(jc, [1.5, -2.0, 3.0]), [0.3, -0.2])
+    moved_t = tcm.rotate(tcm.translate(tc, [1.5, -2.0, 3.0]), [0.3, -0.2])
+    for f in ("pos", "view", "px_x", "px_y", "first_ray_dir"):
+        np.testing.assert_allclose(getattr(moved_t, f).numpy(),
+                                   np.asarray(getattr(moved_j, f)),
+                                   atol=CAM_ATOL, err_msg=f)
+
+    rng = np.random.default_rng(0)
+    px = rng.integers(0, 40, 64).astype(np.int32)
+    py = rng.integers(0, 30, 64).astype(np.int32)
+    ju, jv = rng.uniform(-0.5, 0.5, (2, 64)).astype(np.float32)
+    jo, jd = jcm.generate_rays(jc, jnp.asarray(px), jnp.asarray(py),
+                               jnp.asarray(ju), jnp.asarray(jv))
+    to, td = tcm.generate_rays(tc, torch.as_tensor(px), torch.as_tensor(py),
+                               torch.as_tensor(ju), torch.as_tensor(jv))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=CAM_ATOL)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=CAM_ATOL)
+
+
+BAD_SCENES = {
+    "material id": ([{"center": [0, 0, 0], "radius": 1.0, "material": 3,
+                      "light": -1}], 1, []),
+    "area prim": ([{"center": [0, 0, 0], "radius": 1.0, "material": 0,
+                    "light": -1}], 1, [{"type": 1, "prim": 5,
+                                        "intensity": [1, 1, 1]}]),
+    "sphere light id": ([{"center": [0, 0, 0], "radius": 1.0, "material": 0,
+                          "light": 2}], 1, []),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_SCENES))
+def test_make_scene_validation_matches_jax(case):
+    spheres, n_mats, lights = BAD_SCENES[case]
+    mats = [{"type": 0, "color": [0.5, 0.5, 0.5], "coef": 0.0}] * n_mats
+    with pytest.raises(ValueError):
+        jsc.make_scene(spheres, mats, lights)
+    with pytest.raises(ValueError):
+        tsc.make_scene(spheres, mats, lights)
+
+
+def test_unported_features_raise():
+    mats = [tsc.diffuse([0.5, 0.5, 0.5])]
+    with pytest.raises(NotImplementedError):
+        tsc.make_scene([], mats, [{"type": tsc.TRI_LIGHT, "material": 0,
+                                   "intensity": [1, 1, 1]}])
+    with pytest.raises(NotImplementedError):
+        tsc.make_scene([], mats, mesh=object())
+    with pytest.raises(NotImplementedError):
+        tcm.make_camera([0, 0, 5], [0, 0, 0], [0, 1, 0], 8, 8,
+                        lens_radius=1.0, focal_distance=5.0)

@@ -1,0 +1,595 @@
+// Persistent path-regeneration kernel for Hopper (sm_90a), sphere scenes.
+//
+// Replaces: tpu_pathtracer/ops/pallas/persistent.py::_persistent_kernel
+// (launched by persistent_step) in its sphere build: brute force, and NEE+MIS
+// with point and sphere-area lights. Thin-lens DOF, the mesh walk, TRI_LIGHT
+// and textures are not ported yet.
+//
+// What bounds it on this card: it is a long, divergent, register-heavy ALU
+// state machine. Each lane does per-prim quadratics, transcendentals and
+// three BSDF lobes per iteration; memory traffic is only the 20 state planes,
+// read once and written once per launch (20 x 4 B x 2 per lane, about 49 MB
+// at 640x480), plus the uniform block in test mode.
+//
+// What the design does about it:
+//  * one thread per lane (pixel), one 128-thread block per 128-lane row of
+//    the state planes, so every block sits inside one tile; the thread loads
+//    its state into registers once, runs `budget` iterations in a device
+//    loop, and stores it once, in place;
+//  * the scene tables live in __constant__ memory: the per-prim loops read
+//    the same address on every thread of a warp, which the constant cache
+//    broadcasts. The loops run at runtime over the table (the TPU kernel
+//    unrolled them over static tuples);
+//  * lanes branch per lobe and per light instead of evaluating every lobe
+//    under masks: a lane pays only for the lobe it took;
+//  * the live-ray count is reduced per warp and added to the per-tile
+//    counter with one atomicAdd per warp.
+//
+// Randomness: with `uniforms` non-NULL the kernel reads the JAX kernel's
+// external block (n_tiles, budget, n_draw, tile_rows, 128); otherwise it draws
+// Philox4x32-10 keyed on (seed, salt) and countered on (global lane, frame,
+// iteration, draw group), which the plain PyTorch version reproduces exactly.
+//
+// Agreement: CUDA's rsqrtf/sqrtf/sinf/cosf and nvcc's FMA contraction round
+// differently from XLA on the CPU and from PyTorch's elementwise ops, and the
+// 1e5-radius walls turn an ulp into a different closest hit on a few lanes.
+// So the kernel is held to >= 98% of lanes against its plain version (the
+// JAX package's own bar), not to bitwise equality.
+//
+// C interface (loaded with ctypes): tpt_persistent_step, tpt_error_string.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int MAX_PRIMS = 256;
+constexpr int MAX_LIGHTS = 64;
+constexpr float BIG = 1e30f;
+constexpr float TMIN = 3e-2f;  // EPSILON, reference globals.h:49
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float TWO_PI = 6.28318530717958647692f;
+constexpr float INV_PI = 0.318309886183790671538f;
+constexpr int SPECULAR = 1;
+constexpr int TRANSMISSIVE = 2;
+constexpr int AREA_LIGHT = 1;
+
+// prims: cx cy cz r ax ay az coef mtype ex ey ez (pack_prims layout)
+__constant__ float c_prims[MAX_PRIMS * 12];
+// bit 0: emissive; bits 1-2: BSDF type
+__constant__ int c_pflags[MAX_PRIMS];
+// lights: px py pz ir ig ib cdf_lo sel (pack_lights layout)
+__constant__ float c_lights[MAX_LIGHTS * 8];
+// (light type, prim index or -1) per light
+__constant__ int c_lstruct[MAX_LIGHTS * 2];
+__constant__ float c_cam[24];  // pack_camera layout
+
+struct State {  // STATE_FIELDS order
+  float *lr, *lg, *lb;
+  int* n_samp;
+  float *ox, *oy, *oz, *dx, *dy, *dz;
+  float *tr, *tg, *tb, *cr, *cg, *cb;
+  int *bounce, *alive;
+  float* prev_pdf;
+  int* prev_delta;
+};
+
+struct Params {
+  int n_prims, n_lights, tile_rows, budget, width, n_lanes;
+  int max_bounces, rr_start, use_nee, strat_k, tile_offset;
+  uint32_t seed, salt, frame;
+  const float* uniforms;  // NULL: production Philox
+  int* nrays;             // (n_tiles,) live-ray counter
+};
+
+// The 1e5-radius wall spheres make the quadratic b^2 - |op|^2 + r^2 cancel
+// badly in f32, so one ulp there changes which surface a lane hits. XLA on
+// the CPU contracts multiply-adds into FMAs, nvcc does too but in its own
+// pattern, and the plain PyTorch version rounds every step. So the
+// quadratics (closest hit, light-sphere hit, shadow test) and the hit point
+// use explicit FMAs in XLA's pattern, which the plain version reproduces;
+// elsewhere nvcc contracts as it likes.
+__device__ __forceinline__ float dot3_fma(float ax, float ay, float az,
+                                          float bx, float by, float bz) {
+  return fmaf(az, bz, fmaf(ax, bx, __fmul_rn(ay, by)));
+}
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
+                                      float by, float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+  const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
+  x *= inv;
+  y *= inv;
+  z *= inv;
+}
+
+// Philox4x32-10 (Salmon et al., SC'11).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
+                                               uint32_t k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+// top 24 bits -> [0, 1), exact in f32
+__device__ __forceinline__ float bits_to_uniform(uint32_t x) {
+  return (float)(x >> 8) * (1.0f / 16777216.0f);
+}
+
+__global__ void __launch_bounds__(LANES)
+persistent_kernel(State s, Params p) {
+  const int row = blockIdx.x;  // one block per 128-lane row
+  const int col = threadIdx.x;
+  const int idx = row * LANES + col;
+  const int tile = row / p.tile_rows;
+  const int trow = row - tile * p.tile_rows;
+  const int tile_lanes = p.tile_rows * LANES;
+  const int lane = idx + p.tile_offset * tile_lanes;  // global lane = pixel
+  const bool in_domain = lane < p.n_lanes;
+  const float px = (float)(lane % p.width);
+  const float py = (float)(lane / p.width);
+  const int n_draw = p.use_nee ? 8 : 5;
+  const int kk = p.strat_k * p.strat_k;
+  const float inv_k = 1.0f / (float)p.strat_k;
+
+  float Lr = s.lr[idx], Lg = s.lg[idx], Lb = s.lb[idx];
+  int n_samp = s.n_samp[idx];
+  float ox = s.ox[idx], oy = s.oy[idx], oz = s.oz[idx];
+  float dx = s.dx[idx], dy = s.dy[idx], dz = s.dz[idx];
+  float Tr = s.tr[idx], Tg = s.tg[idx], Tb = s.tb[idx];
+  float Cr = s.cr[idx], Cg = s.cg[idx], Cb = s.cb[idx];
+  int bounce = s.bounce[idx];
+  bool alive = s.alive[idx] != 0;
+  float prev_pdf = s.prev_pdf[idx];
+  bool prev_delta = s.prev_delta[idx] != 0;
+  int n_live = 0;
+
+  for (int it = 0; it < p.budget; ++it) {
+    // ---- this iteration's uniforms: u_cam v_cam u1 u2 u3 [ul1 ul2 usel]
+    float u[8];
+    if (p.uniforms) {
+      const float* ub = p.uniforms +
+                        (size_t)(tile * p.budget + it) * n_draw * tile_lanes +
+                        trow * LANES + col;
+      for (int j = 0; j < 8; ++j) u[j] = j < n_draw ? ub[j * tile_lanes] : 0.f;
+    } else {
+      const uint4 a = philox4x32_10(make_uint4(lane, p.frame, it, 0u), p.seed, p.salt);
+      const uint4 b = philox4x32_10(make_uint4(lane, p.frame, it, 1u), p.seed, p.salt);
+      u[0] = bits_to_uniform(a.x); u[1] = bits_to_uniform(a.y);
+      u[2] = bits_to_uniform(a.z); u[3] = bits_to_uniform(a.w);
+      u[4] = bits_to_uniform(b.x); u[5] = bits_to_uniform(b.y);
+      u[6] = bits_to_uniform(b.z); u[7] = bits_to_uniform(b.w);
+    }
+    const float u1 = u[2], u2 = u[3], u3 = u[4];
+    const float ul1 = u[5], ul2 = u[6], usel = u[7];
+
+    // ---- regenerate: a dead lane starts its pixel's next sample. Stratified
+    // jitter over strat_k^2 cells picked by n_samp % strat_k^2; prev_delta
+    // is set on regeneration (camera rays count as delta for MIS).
+    if (!alive && in_domain) {
+      float jx, jy;
+      if (p.strat_k > 1) {
+        const int cell = n_samp % kk;
+        jx = ((float)(cell % p.strat_k) + u[0]) * inv_k - 0.5f;
+        jy = ((float)(cell / p.strat_k) + u[1]) * inv_k - 0.5f;
+      } else {
+        jx = u[0] - 0.5f;
+        jy = u[1] - 0.5f;
+      }
+      const float sx = px + jx, sy = py + jy;
+      dx = c_cam[0] - c_cam[6] * sy + c_cam[3] * sx;
+      dy = c_cam[1] - c_cam[7] * sy + c_cam[4] * sx;
+      dz = c_cam[2] - c_cam[8] * sy + c_cam[5] * sx;
+      normalize3(dx, dy, dz);
+      ox = c_cam[9];
+      oy = c_cam[10];
+      oz = c_cam[11];
+      Tr = Tg = Tb = 1.f;
+      Cr = Cg = Cb = 0.f;
+      bounce = 0;
+      prev_pdf = 0.f;
+      prev_delta = true;
+      alive = true;
+    }
+    if (!alive) continue;  // padding lanes never act
+    ++n_live;
+
+    // ---- closest hit. Root selection of primitive.h:44: t0 = b - sq if
+    // t0 > tmin, else b + sq. `<=` keeps the LAST prim on an exact tie, as
+    // the TPU kernel's attribute pass does.
+    float best_t = BIG;
+    int best_p = -1;
+    for (int q = 0; q < p.n_prims; ++q) {
+      const float* P = c_prims + q * 12;
+      const float opx = P[0] - ox, opy = P[1] - oy, opz = P[2] - oz;
+      const float r = P[3];
+      const float b = dot3_fma(opx, opy, opz, dx, dy, dz);
+      const float det =
+          fmaf(r, r, fmaf(b, b, -dot3_fma(opx, opy, opz, opx, opy, opz)));
+      const float sq = sqrtf(fmaxf(det, 0.f));
+      const float t0 = b - sq;
+      const float t = t0 > TMIN ? t0 : b + sq;
+      const float tv = (det >= 0.f && t > TMIN) ? t : BIG;
+      if (tv <= best_t) {
+        best_t = tv;
+        best_p = q;
+      }
+    }
+    if (!(best_t < 0.5f * BIG)) {
+      // miss: the path ends here and flushes into the pixel sum
+      Lr += Cr;
+      Lg += Cg;
+      Lb += Cb;
+      ++n_samp;
+      alive = false;
+      continue;
+    }
+    // Only acting lanes get here: lanes that do not act never compute a hit
+    // point (the TPU kernel parks them on the origin instead, so that
+    // o + d*1e30 cannot overflow into NaN in the NEE distance math).
+    const float* HP = c_prims + best_p * 12;
+    const int pflag = c_pflags[best_p];
+    const int mtype = (pflag >> 1) & 3;
+    const bool is_s = mtype == SPECULAR, is_t = mtype == TRANSMISSIVE;
+    const bool is_d = !(is_s || is_t);
+    const float hx = fmaf(dx, best_t, ox), hy = fmaf(dy, best_t, oy),
+                hz = fmaf(dz, best_t, oz);
+    const float inv_r = 1.0f / HP[3];
+    const float nx = (hx - HP[0]) * inv_r, ny = (hy - HP[1]) * inv_r,
+                nz = (hz - HP[2]) * inv_r;
+    const float ar = HP[4], ag = HP[5], ab = HP[6];
+    const float coef = is_d ? 0.f : HP[7];
+    const float wox = dx, woy = dy, woz = dz;
+
+    // ---- emitter hit (pathtracer.cu:134-137), MIS-weighted under NEE with
+    // the squared power heuristic against the light's cone pdf
+    if (pflag & 1) {
+      float take = dot3(nx, ny, nz, -wox, -woy, -woz) > 0.f ? 1.f : 0.f;
+      if (p.use_nee) {
+        float ldp = 0.f;
+        for (int li = 0; li < p.n_lights; ++li) {
+          const int lprim = c_lstruct[2 * li + 1];
+          if (c_lstruct[2 * li] != AREA_LIGHT || lprim < 0 || lprim != best_p)
+            continue;
+          const float* LP = c_prims + lprim * 12;
+          const float dlx = LP[0] - ox, dly = LP[1] - oy, dlz = LP[2] - oz;
+          const float d2l = dot3(dlx, dly, dlz, dlx, dly, dlz);
+          const float rl = LP[3];
+          const float sin2 = fminf(rl * rl / fmaxf(d2l, 1e-12f), 1.f);
+          const float ctm = sqrtf(fmaxf(1.f - sin2, 0.f));
+          float pc = 1.f / (TWO_PI * fmaxf(1.f - ctm, 1e-12f));
+          pc = d2l > rl * rl ? pc : 0.f;
+          ldp = pc * c_lights[li * 8 + 7];
+        }
+        const float pp2 = prev_pdf * prev_pdf;
+        take *= prev_delta ? 1.f : pp2 / fmaxf(pp2 + ldp * ldp, 1e-20f);
+      }
+      Cr += Tr * HP[9] * take;
+      Cg += Tg * HP[10] * take;
+      Cb += Tb * HP[11] * take;
+    }
+
+    // ---- next-event estimation: one light chosen by usel against cdf_lo,
+    // the last light taking the remainder; diffuse lanes only
+    if (p.use_nee && is_d) {
+      for (int li = 0; li < p.n_lights; ++li) {
+        const float* LT = c_lights + li * 8;
+        const float lo = LT[6], sel = LT[7];
+        const bool m_l = li == p.n_lights - 1 ? usel >= lo
+                                              : (usel >= lo && usel < lo + sel);
+        if (!m_l) continue;
+        const int ltype = c_lstruct[2 * li], lprim = c_lstruct[2 * li + 1];
+        const bool area = ltype == AREA_LIGHT && lprim >= 0;
+        float wlx, wly, wlz, dist_l, pdf_l, rad_r, rad_g, rad_b;
+        bool valid;
+        if (area) {
+          // uniform cone sampling around the light sphere's centre
+          const float* LP = c_prims + lprim * 12;
+          const float wrx = LP[0] - hx, wry = LP[1] - hy, wrz = LP[2] - hz;
+          const float rl = LP[3];
+          const float d2l = dot3_fma(wrx, wry, wrz, wrx, wry, wrz);
+          const float inv_dc = rsqrtf(fmaxf(d2l, 1e-20f));
+          const float wcx = wrx * inv_dc, wcy = wry * inv_dc, wcz = wrz * inv_dc;
+          const float sin2 = fminf(rl * rl / fmaxf(d2l, 1e-12f), 1.f);
+          const float ctm = sqrtf(fmaxf(1.f - sin2, 0.f));
+          const float cth = 1.f - ul1 * (1.f - ctm);
+          const float sth = sqrtf(fmaxf(1.f - cth * cth, 0.f));
+          const float phi = TWO_PI * ul2;
+          const bool usex = fabsf(wcx) > fabsf(wcz);
+          float ax = usex ? -wcy : 0.f, ay = usex ? wcx : -wcz,
+                az = usex ? 0.f : wcy;
+          normalize3(ax, ay, az);
+          const float bx = wcy * az - wcz * ay;
+          const float by = wcz * ax - wcx * az;
+          const float bz = wcx * ay - wcy * ax;
+          const float cp = cosf(phi) * sth, sp = sinf(phi) * sth;
+          wlx = ax * cp + bx * sp + wcx * cth;
+          wly = ay * cp + by * sp + wcy * cth;
+          wlz = az * cp + bz * sp + wcz * cth;
+          const float bq = dot3_fma(wrx, wry, wrz, wlx, wly, wlz);
+          const float detq = fmaf(rl, rl, fmaf(bq, bq, -d2l));
+          const float thit = bq - sqrtf(fmaxf(detq, 0.f));
+          valid = detq >= 0.f && thit > TMIN && d2l > rl * rl;
+          const float inv_rl = 1.0f / rl;
+          const float nsx = (hx + wlx * thit - LP[0]) * inv_rl;
+          const float nsy = (hy + wly * thit - LP[1]) * inv_rl;
+          const float nsz = (hz + wlz * thit - LP[2]) * inv_rl;
+          // one-sided emitter: the sample must see the sphere's outer face
+          valid = valid && dot3(nsx, nsy, nsz, -wlx, -wly, -wlz) > 0.f;
+          pdf_l = sel / (TWO_PI * fmaxf(1.f - ctm, 1e-12f));
+          dist_l = thit;
+          rad_r = LT[3];
+          rad_g = LT[4];
+          rad_b = LT[5];
+        } else {
+          // point light: a delta light, MIS weight 1, 1/d^2 falloff
+          const float wrx = LT[0] - hx, wry = LT[1] - hy, wrz = LT[2] - hz;
+          const float d2l = dot3(wrx, wry, wrz, wrx, wry, wrz);
+          const float inv_dl = rsqrtf(fmaxf(d2l, 1e-20f));
+          dist_l = d2l * inv_dl;
+          wlx = wrx * inv_dl;
+          wly = wry * inv_dl;
+          wlz = wrz * inv_dl;
+          const float inv_d2 = inv_dl * inv_dl;
+          rad_r = LT[3] * inv_d2;
+          rad_g = LT[4] * inv_d2;
+          rad_b = LT[5] * inv_d2;
+          pdf_l = sel;
+          valid = dist_l > TMIN;
+        }
+        const float cos_l = dot3(wlx, wly, wlz, nx, ny, nz);
+        const bool support = cos_l > 0.f && dot3(wox, woy, woz, wlx, wly, wlz) < 0.f;
+        if (!(valid && support)) continue;
+        ++n_live;  // every needed shadow segment is a traced ray
+        // shadow any-hit, segment-ball distance form: the segment
+        // [tmin, smax] hits a sphere iff its nearest point to the centre is
+        // within r. The sampled light sphere is skipped: its own hit lies
+        // beyond smax by construction.
+        const float smax = fmaf(dist_l, 0.999f, -TMIN);
+        const int skip = area ? lprim : -1;
+        bool occ = false;
+        for (int q = 0; q < p.n_prims && !occ; ++q) {
+          if (q == skip) continue;
+          const float* P = c_prims + q * 12;
+          const float sx2 = P[0] - hx, sy2 = P[1] - hy, sz2 = P[2] - hz;
+          const float rb = dot3_fma(sx2, sy2, sz2, wlx, wly, wlz);
+          const float ts = fminf(fmaxf(rb, TMIN), smax);
+          const float d2s = fmaf(-ts, __fsub_rn(2.f * rb, ts),
+                                 dot3_fma(sx2, sy2, sz2, sx2, sy2, sz2));
+          occ = d2s < __fmul_rn(P[3], P[3]);
+        }
+        if (occ) continue;
+        // squared power heuristic against BSDF sampling; a point light is a
+        // delta light with weight 1
+        const float pdf_b = cos_l * INV_PI;
+        const float w_mis =
+            area ? (pdf_l * pdf_l) / fmaxf(pdf_l * pdf_l + pdf_b * pdf_b, 1e-20f)
+                 : 1.f;
+        const float scale = cos_l * w_mis / fmaxf(pdf_l, 1e-20f);
+        Cr += Tr * (ar * INV_PI) * rad_r * scale;
+        Cg += Tg * (ag * INV_PI) * rad_g * scale;
+        Cb += Tb * (ab * INV_PI) * rad_b * scale;
+      }
+    }
+
+    // ---- BSDF sampling: one lobe per lane
+    const float won = dot3(wox, woy, woz, nx, ny, nz);
+    float wix, wiy, wiz, fr, fg, fb, pdf, wgt;
+    if (is_d) {
+      // cosine hemisphere through the polar disk map, in the (u, v, n) frame
+      const float r_d = sqrtf(u1);
+      const float th = TWO_PI * u2;
+      const float ldx = r_d * cosf(th), ldy = r_d * sinf(th);
+      const float ldz = sqrtf(fmaxf(1.f - u1, 0.f));
+      const bool use_x = fabsf(nx) > fabsf(nz);
+      float ux = use_x ? -ny : 0.f, uy = use_x ? nx : -nz, uz = use_x ? 0.f : ny;
+      normalize3(ux, uy, uz);
+      const float vx = ny * uz - nz * uy;
+      const float vy = nz * ux - nx * uz;
+      const float vz = nx * uy - ny * ux;
+      wix = ux * ldx + vx * ldy + nx * ldz;
+      wiy = uy * ldx + vy * ldy + ny * ldz;
+      wiz = uz * ldx + vz * ldy + nz * ldz;
+      pdf = dot3(wox, woy, woz, wix, wiy, wiz) < 0.f ? ldz * INV_PI : 0.f;
+      fr = ar * INV_PI;
+      fg = ag * INV_PI;
+      fb = ab * INV_PI;
+      wgt = PI_F;  // cos/pdf is exactly pi
+    } else {
+      // mirror reflection, shared by the specular lobe and the dielectric
+      const float wsx = wox - 2.f * won * nx;
+      const float wsy = woy - 2.f * won * ny;
+      const float wsz = woz - 2.f * won * nz;
+      if (is_s) {
+        wix = wsx; wiy = wsy; wiz = wsz;
+        fr = coef * ar;
+        fg = coef * ag;
+        fb = coef * ab;
+      } else {
+        // Fresnel dielectric; the reflection choice reuses u1
+        const bool entering = won < 0.f;
+        const float ior = fmaxf(coef, 1.f);
+        const float n1 = entering ? 1.f : ior, n2 = entering ? ior : 1.f;
+        const float sgn = entering ? 1.f : -1.f;
+        const float nnx = nx * sgn, nny = ny * sgn, nnz = nz * sgn;
+        const float cos_i = -(wox * nnx + woy * nny + woz * nnz);
+        const float eta = n1 / n2;
+        const float sin2t = eta * eta * (1.f - cos_i * cos_i);
+        const float cos_t = sqrtf(fmaxf(1.f - sin2t, 0.f));
+        const float r_orth = (n1 * cos_i - n2 * cos_t) / (n1 * cos_i + n2 * cos_t);
+        const float r_par = (n2 * cos_i - n1 * cos_t) / (n2 * cos_i + n1 * cos_t);
+        const float refl =
+            sin2t > 1.f ? 1.f : 0.5f * (r_orth * r_orth + r_par * r_par);
+        if (u1 < refl) {
+          wix = wsx; wiy = wsy; wiz = wsz;
+        } else {
+          const float k = eta * (-cos_i) + cos_t;
+          wix = wox * eta - k * nnx;
+          wiy = woy * eta - k * nny;
+          wiz = woz * eta - k * nnz;
+        }
+        fr = ar;
+        fg = ag;
+        fb = ab;
+      }
+      pdf = 1.f;
+      wgt = fabsf(dot3(wix, wiy, wiz, nx, ny, nz));
+    }
+    const bool f_black = fr <= 0.f && fg <= 0.f && fb <= 0.f;
+    const bool step_ok = !f_black && pdf > 0.f;
+    if (step_ok) {
+      Tr = Tr * fr * wgt;
+      Tg = Tg * fg * wgt;
+      Tb = Tb * fb * wgt;
+    }
+
+    // ---- Russian roulette once bounce > rr_start, p = min(0.5, max T)
+    const bool do_rr = bounce > p.rr_start;
+    const float p_cont = fminf(0.5f, fmaxf(Tr, fmaxf(Tg, Tb)));
+    const bool survive = u3 <= p_cont;
+    if (step_ok && do_rr && survive && p_cont > 0.f) {
+      const float inv_p = 1.f / fmaxf(p_cont, 1e-20f);
+      Tr *= inv_p;
+      Tg *= inv_p;
+      Tb *= inv_p;
+    }
+    const bool alive_next =
+        step_ok && (survive || !do_rr) && bounce < p.max_bounces;
+    if (!alive_next) {
+      // path completion: flush per-path radiance into the pixel sum
+      Lr += Cr;
+      Lg += Cg;
+      Lb += Cb;
+      ++n_samp;
+    }
+    // ---- pending ray for the next iteration (MIS previous vertex = hit)
+    ox = hx; oy = hy; oz = hz;
+    dx = wix; dy = wiy; dz = wiz;
+    prev_pdf = pdf;
+    prev_delta = !is_d;
+    ++bounce;
+    alive = alive_next;
+  }
+
+  s.lr[idx] = Lr; s.lg[idx] = Lg; s.lb[idx] = Lb;
+  s.n_samp[idx] = n_samp;
+  s.ox[idx] = ox; s.oy[idx] = oy; s.oz[idx] = oz;
+  s.dx[idx] = dx; s.dy[idx] = dy; s.dz[idx] = dz;
+  s.tr[idx] = Tr; s.tg[idx] = Tg; s.tb[idx] = Tb;
+  s.cr[idx] = Cr; s.cg[idx] = Cg; s.cb[idx] = Cb;
+  s.bounce[idx] = bounce;
+  s.alive[idx] = alive ? 1 : 0;
+  s.prev_pdf[idx] = prev_pdf;
+  s.prev_delta[idx] = prev_delta ? 1 : 0;
+
+  // per-tile live-ray count: warp sum, then one atomic per warp
+  const int warp_sum = __reduce_add_sync(0xffffffffu, n_live);
+  if ((col & 31) == 0) atomicAdd(p.nrays + tile, warp_sum);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch one persistent step on `stream`. `state` is a host array of the 20
+// device plane pointers in STATE_FIELDS order, each rows_total x 128 and
+// updated in place. prims/lights/cam/uniforms/nrays are device pointers;
+// pflags/lstruct are host arrays. The tables are copied into __constant__
+// memory on the same stream, so launches must stay on one stream. Returns
+// the first CUDA error (0 on success).
+int tpt_persistent_step(void* const* state, const float* prims,
+                        const int* pflags, int n_prims, const float* lights,
+                        const int* lstruct, int n_lights, const float* cam,
+                        const float* uniforms, int* nrays, int rows_total,
+                        int tile_rows, int budget, int width, int n_lanes,
+                        int max_bounces, int rr_start, int use_nee,
+                        int strat_k, int tile_offset, uint32_t seed,
+                        uint32_t salt, uint32_t frame, void* stream) {
+  if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 0 ||
+      n_lights > MAX_LIGHTS || rows_total <= 0 || tile_rows <= 0 ||
+      rows_total % tile_rows != 0 || width <= 0 || strat_k < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaSuccess;
+  if (n_prims > 0) {
+    err = cudaMemcpyToSymbolAsync(c_prims, prims, sizeof(float) * 12 * n_prims,
+                                  0, cudaMemcpyDeviceToDevice, st);
+    if (err == cudaSuccess)
+      err = cudaMemcpyToSymbolAsync(c_pflags, pflags, sizeof(int) * n_prims,
+                                    0, cudaMemcpyHostToDevice, st);
+  }
+  if (err == cudaSuccess && n_lights > 0) {
+    err = cudaMemcpyToSymbolAsync(c_lights, lights,
+                                  sizeof(float) * 8 * n_lights, 0,
+                                  cudaMemcpyDeviceToDevice, st);
+    if (err == cudaSuccess)
+      err = cudaMemcpyToSymbolAsync(c_lstruct, lstruct,
+                                    sizeof(int) * 2 * n_lights, 0,
+                                    cudaMemcpyHostToDevice, st);
+  }
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbolAsync(c_cam, cam, sizeof(float) * 24, 0,
+                                  cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+
+  State s;
+  s.lr = (float*)state[0];
+  s.lg = (float*)state[1];
+  s.lb = (float*)state[2];
+  s.n_samp = (int*)state[3];
+  s.ox = (float*)state[4];
+  s.oy = (float*)state[5];
+  s.oz = (float*)state[6];
+  s.dx = (float*)state[7];
+  s.dy = (float*)state[8];
+  s.dz = (float*)state[9];
+  s.tr = (float*)state[10];
+  s.tg = (float*)state[11];
+  s.tb = (float*)state[12];
+  s.cr = (float*)state[13];
+  s.cg = (float*)state[14];
+  s.cb = (float*)state[15];
+  s.bounce = (int*)state[16];
+  s.alive = (int*)state[17];
+  s.prev_pdf = (float*)state[18];
+  s.prev_delta = (int*)state[19];
+
+  Params p;
+  p.n_prims = n_prims;
+  p.n_lights = n_lights;
+  p.tile_rows = tile_rows;
+  p.budget = budget;
+  p.width = width;
+  p.n_lanes = n_lanes;
+  p.max_bounces = max_bounces;
+  p.rr_start = rr_start;
+  p.use_nee = use_nee;
+  p.strat_k = strat_k;
+  p.tile_offset = tile_offset;
+  p.seed = seed;
+  p.salt = salt;
+  p.frame = frame;
+  p.uniforms = uniforms;
+  p.nrays = nrays;
+
+  persistent_kernel<<<rows_total, LANES, 0, st>>>(s, p);
+  return (int)cudaGetLastError();
+}
+
+const char* tpt_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

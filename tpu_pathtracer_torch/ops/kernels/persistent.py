@@ -1,0 +1,778 @@
+"""Persistent path-regeneration step: CUDA kernel wrapper and plain version.
+
+Counterpart of ``tpu_pathtracer/ops/pallas/persistent.py`` for sphere
+scenes. One lane per pixel runs ``budget`` wavefront iterations; a lane whose
+path dies starts its pixel's next stratified sample at once. Per-lane path
+state is carried across calls in 20 ``(rows_total, 128)`` planes, with
+``lane = tile*tile_rows*128 + row*128 + col = pixel``. Radiance collects per
+path and is flushed into the per-pixel sums when the path completes.
+
+``persistent_step`` launches the CUDA kernel (``csrc/persistent.cu``) for
+state on a CUDA device and runs ``persistent_step_ref``, the plain PyTorch
+version, for state on the CPU. There is no fallback between the two.
+
+Randomness comes in two modes:
+
+* test mode (``uniforms`` given): the JAX kernel's external uniform block,
+  ``(n_tiles, budget, n_draw, tile_rows, 128)`` flattened to
+  ``(n_tiles*budget*n_draw*tile_rows, 128)``, draw order
+  ``u_cam, v_cam, u1, u2, u3[, ul1, ul2, usel]`` (``n_draw`` 5, or 8 with
+  NEE);
+* production mode: counter-based Philox4x32-10 with key (seed, salt) and
+  counter (global lane, frame, iteration, draw group). Draw group 0 gives
+  ``u_cam, v_cam, u1, u2`` and group 1 ``u3, ul1, ul2, usel``. The plain
+  version computes the same Philox in int64 tensor arithmetic, so kernel and
+  plain version see identical uniforms in both modes.
+
+Not ported yet: thin-lens DOF, meshes, TRI_LIGHT and textures.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import Sequence
+
+import torch
+from torch import Tensor
+
+from tpu_pathtracer_torch.models.scene import (
+    AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, Scene,
+)
+from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
+    BIG, INV_PI, LANES, pack_lights, pack_prims,
+)
+from tpu_pathtracer_torch.ops.vecmath import dot3, normalize3
+
+F32_FIELDS = ("lr", "lg", "lb", "ox", "oy", "oz", "dx", "dy", "dz",
+              "tr", "tg", "tb", "cr", "cg", "cb", "prev_pdf")
+I32_FIELDS = ("n_samp", "bounce", "alive", "prev_delta")
+# Plane order of the JAX kernel (and of the CUDA kernel's State struct).
+STATE_FIELDS = (
+    "lr", "lg", "lb", "n_samp",
+    "ox", "oy", "oz", "dx", "dy", "dz",
+    "tr", "tg", "tb", "cr", "cg", "cb",
+    "bounce", "alive", "prev_pdf", "prev_delta",
+)
+MAX_PRIMS = 256  # sizes of the kernel's __constant__ tables
+MAX_LIGHTS = 64
+
+# Kernel launches by persistent_step (plain-version calls are not counted).
+launches = 0
+
+
+@dataclasses.dataclass
+class PathState:
+    """Per-lane persistent state; every plane is (rows_total, 128).
+
+    Lanes >= width*height are padding and never activate. ``frame`` counts
+    the steps taken so far on the host (it keys the randomness), so the loop
+    never waits on the device for it.
+    """
+
+    lr: Tensor  # per-pixel radiance sums
+    lg: Tensor
+    lb: Tensor
+    n_samp: Tensor  # int32: completed paths per pixel
+    ox: Tensor  # pending-ray origin (also the MIS previous vertex)
+    oy: Tensor
+    oz: Tensor
+    dx: Tensor  # pending-ray direction
+    dy: Tensor
+    dz: Tensor
+    tr: Tensor  # throughput
+    tg: Tensor
+    tb: Tensor
+    cr: Tensor  # current-path radiance
+    cg: Tensor
+    cb: Tensor
+    bounce: Tensor  # int32 bounce depth of the pending ray
+    alive: Tensor  # int32 0/1: pending ray valid
+    prev_pdf: Tensor  # BSDF pdf that produced the pending ray (MIS)
+    prev_delta: Tensor  # int32 0/1: pending ray came from a delta lobe
+    frame: int = 0
+
+    def clone(self) -> "PathState":
+        return dataclasses.replace(
+            self, **{f: getattr(self, f).clone() for f in STATE_FIELDS})
+
+
+def init_state(width: int, height: int, tile_rows: int = 32, *,
+               device="cpu") -> PathState:
+    """Fresh all-dead state: whole tiles of tile_rows x 128 lanes."""
+    n_tiles = -(-(width * height) // (tile_rows * LANES))
+    shape = (n_tiles * tile_rows, LANES)
+    planes = {f: torch.zeros(shape, dtype=torch.float32, device=device)
+              for f in F32_FIELDS}
+    planes.update({f: torch.zeros(shape, dtype=torch.int32, device=device)
+                   for f in I32_FIELDS})
+    return PathState(**planes, frame=0)
+
+
+def state_image(state: PathState, width: int, height: int) -> Tensor:
+    """Progressive estimate: per-pixel completed-path mean, (H, W, 3)."""
+    n = torch.clamp_min(state.n_samp, 1).to(torch.float32)
+    img = torch.stack([state.lr / n, state.lg / n, state.lb / n], dim=-1)
+    return img.reshape(-1, 3)[: width * height].reshape(height, width, 3)
+
+
+def state_min_samples(state: PathState, width: int, height: int) -> Tensor:
+    """Minimum completed sample count over real (non-padding) pixels."""
+    return torch.min(state.n_samp.reshape(-1)[: width * height])
+
+
+def n_draws(use_nee: bool) -> int:
+    return 2 + 3 + (3 if use_nee else 0)
+
+
+# ---------------------------------------------------------------------------
+# Philox4x32-10 (Salmon et al., SC'11), in int64 tensor arithmetic
+# ---------------------------------------------------------------------------
+
+_MASK = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _mulhilo(m: int, x: Tensor) -> tuple[Tensor, Tensor]:
+    """(hi, lo) 32-bit words of m*x for 32-bit x. m is split into 16-bit
+    halves so that no partial product leaves int64."""
+    a = x * (m >> 16)
+    b = x * (m & 0xFFFF)
+    hi = (a + (b >> 16)) >> 16
+    lo = (((a & 0xFFFF) << 16) + b) & _MASK
+    return hi, lo
+
+
+def philox4x32(c0: Tensor, c1: int, c2: int, c3: int, k0: int, k1: int
+               ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Philox4x32-10 of counter (c0, c1, c2, c3) under key (k0, k1). c0 is an
+    int64 tensor of 32-bit values; the rest are Python ints."""
+    x0 = c0
+    x1 = torch.full_like(c0, c1 & _MASK)
+    x2 = torch.full_like(c0, c2 & _MASK)
+    x3 = torch.full_like(c0, c3 & _MASK)
+    k0 &= _MASK
+    k1 &= _MASK
+    for r in range(10):
+        if r:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK
+            k1 = (k1 + _PHILOX_W[1]) & _MASK
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], x0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], x2)
+        x0, x1, x2, x3 = hi1 ^ x1 ^ k0, lo1, hi0 ^ x3 ^ k1, lo0
+    return x0, x1, x2, x3
+
+
+def bits_to_uniform(x: Tensor) -> Tensor:
+    """Top 24 bits of a 32-bit word -> float32 in [0, 1), exactly."""
+    return (x >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def philox_uniforms(lane: Tensor, seed: int, salt: int, frame: int,
+                    iteration: int, n_draw: int) -> list[Tensor]:
+    """The production draws of one iteration, in the kernel's order."""
+    out = []
+    for group in range(-(-n_draw // 4)):
+        out += [bits_to_uniform(w) for w in
+                philox4x32(lane, frame, iteration, group, seed, salt)]
+    return out[:n_draw]
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+# The 1e5-radius wall spheres make the sphere quadratic b^2 - |op|^2 + r^2
+# cancel badly in f32, so a one-ulp difference there changes which surface a
+# lane hits. XLA on the CPU contracts multiply-adds into FMAs, and nvcc does
+# by default, while PyTorch's elementwise ops round every step. The
+# quadratics (closest hit, light-sphere hit, shadow test) and the hit point
+# are therefore written with explicit FMAs in XLA's pattern, here and in
+# csrc/persistent.cu: dot3 = fma(az, bz, fma(ax, bx, ay*by)) and
+# det = fma(r, r, fma(b, b, -|op|^2)).
+
+def fma(a, b, c) -> Tensor:
+    """a*b + c rounded once to float32: the product of two float32 values
+    is exact in float64, so only the final rounding is visible."""
+    a, b, c = (x.double() if isinstance(x, Tensor) else x for x in (a, b, c))
+    return (a * b + c).float()
+
+
+def dot3_fma(ax, ay, az, bx, by, bz) -> Tensor:
+    return fma(az, bz, fma(ax, bx, ay * by))
+
+
+def persistent_step_ref(
+    scene: Scene,
+    cam_packed: Tensor,
+    seed: Sequence[int],
+    state: PathState,
+    *,
+    budget: int,
+    width: int,
+    height: int,
+    max_bounces: int = 10,
+    rr_start: int = 3,
+    tile_rows: int = 32,
+    use_nee: bool = False,
+    strat_k: int = 2,
+    tile_offset: int = 0,
+    uniforms: Tensor | None = None,
+) -> tuple[PathState, Tensor]:
+    """Plain PyTorch version of ``persistent_step``: the JAX kernel's lane
+    math, vectorized over all lanes at once with masked selects. Returns a
+    new state (the input is not modified) and the live-ray count."""
+    dev = state.lr.device
+    rows_total = state.lr.shape[0]
+    n_tiles = rows_total // tile_rows
+    shape = (rows_total, LANES)
+    n_lanes = width * height
+    n_prims = int(scene.num_prims)
+    tmin = EPSILON
+    n_draw = n_draws(use_nee)
+    seed_i, salt = int(seed[0]), int(seed[1])
+
+    # host copies of the small tables: per-prim loops index them as scalars
+    P = pack_prims(scene).cpu().tolist()
+    Lt = pack_lights(scene).cpu().tolist()
+    cam = cam_packed.cpu().tolist()
+    emissive = tuple(scene.emissive_prims)
+    spec_prims = tuple(i for i, t in enumerate(scene.prim_mtypes)
+                       if t == SPECULAR)
+    trans_prims = tuple(i for i, t in enumerate(scene.prim_mtypes)
+                        if t == TRANSMISSIVE)
+    lights_static = tuple(scene.light_structure)
+    any_spec, any_trans = bool(spec_prims), bool(trans_prims)
+
+    lane = (torch.arange(rows_total * LANES, device=dev, dtype=torch.int64)
+            .reshape(shape) + tile_offset * tile_rows * LANES)
+    in_domain = lane < n_lanes
+    px = (lane % width).to(torch.float32)
+    py = (lane // width).to(torch.float32)
+    if uniforms is not None:
+        ublk = uniforms.reshape(n_tiles, budget, n_draw, tile_rows, LANES)
+    fzeros = torch.zeros(shape, dtype=torch.float32, device=dev)
+    bzeros = torch.zeros(shape, dtype=torch.bool, device=dev)
+    where = torch.where
+
+    Lr, Lg, Lb = state.lr, state.lg, state.lb
+    n_samp = state.n_samp
+    ox, oy, oz = state.ox, state.oy, state.oz
+    dx, dy, dz = state.dx, state.dy, state.dz
+    Tr, Tg, Tb = state.tr, state.tg, state.tb
+    Cr, Cg, Cb = state.cr, state.cg, state.cb
+    bounce = state.bounce
+    alive = state.alive != 0
+    prev_pdf = state.prev_pdf
+    prev_delta = state.prev_delta != 0
+    n_live = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
+    kk = strat_k * strat_k
+
+    def per_tile(mask):
+        return mask.reshape(n_tiles, -1).sum(1)
+
+    for it in range(budget):
+        if uniforms is not None:
+            u = [ublk[:, it, j].reshape(shape) for j in range(n_draw)]
+        else:
+            u = philox_uniforms(lane, seed_i, salt, state.frame, it, n_draw)
+        u_cam, v_cam, u1, u2, u3 = u[:5]
+        if use_nee:
+            ul1, ul2, usel = u[5:8]
+
+        # ---- regenerate: dead lanes start the next sample of their pixel
+        # (stratified jitter: cell = n_samp % strat_k^2, persistent.py:551)
+        regen = (~alive) & in_domain
+        if strat_k > 1:
+            cell = n_samp % kk
+            ccx = (cell % strat_k).to(torch.float32)
+            ccy = (cell // strat_k).to(torch.float32)
+            jx = (ccx + u_cam) * (1.0 / strat_k) - 0.5
+            jy = (ccy + v_cam) * (1.0 / strat_k) - 0.5
+        else:
+            jx = u_cam - 0.5
+            jy = v_cam - 0.5
+        sx = px + jx
+        sy = py + jy
+        gdx, gdy, gdz = normalize3(cam[0] - cam[6] * sy + cam[3] * sx,
+                                   cam[1] - cam[7] * sy + cam[4] * sx,
+                                   cam[2] - cam[8] * sy + cam[5] * sx)
+        ox = where(regen, cam[9], ox)
+        oy = where(regen, cam[10], oy)
+        oz = where(regen, cam[11], oz)
+        dx = where(regen, gdx, dx)
+        dy = where(regen, gdy, dy)
+        dz = where(regen, gdz, dz)
+        Tr = where(regen, 1.0, Tr)
+        Tg = where(regen, 1.0, Tg)
+        Tb = where(regen, 1.0, Tb)
+        Cr = where(regen, 0.0, Cr)
+        Cg = where(regen, 0.0, Cg)
+        Cb = where(regen, 0.0, Cb)
+        bounce = where(regen, 0, bounce)
+        prev_pdf = where(regen, 0.0, prev_pdf)
+        prev_delta = prev_delta | regen
+        alive = alive | regen
+        n_live += per_tile(alive)
+
+        # ---- closest hit: min over per-prim roots (root selection of
+        # primitive.h:44: t0 if t0 > tmin else b + sq). On exact ties the
+        # LAST matching prim wins the attribute selects.
+        best_t = fzeros + BIG
+        ts = []
+        for p in range(n_prims):
+            opx = P[p][0] - ox
+            opy = P[p][1] - oy
+            opz = P[p][2] - oz
+            r = P[p][3]
+            b = dot3_fma(opx, opy, opz, dx, dy, dz)
+            det = fma(r, r, fma(b, b, -dot3_fma(opx, opy, opz, opx, opy, opz)))
+            sq = torch.sqrt(torch.clamp_min(det, 0.0))
+            t0 = b - sq
+            t = where(t0 > tmin, t0, b + sq)
+            tv = where((det >= 0.0) & (t > tmin), t, BIG)
+            ts.append(tv)
+            best_t = torch.minimum(best_t, tv)
+        hit = best_t < (0.5 * BIG)
+        hx = fma(dx, best_t, ox)
+        hy = fma(dy, best_t, oy)
+        hz = fma(dz, best_t, oz)
+        cx = cy = cz = inv_r = ar = ag = ab = fzeros
+        is_ps = []
+        for p in range(n_prims):
+            is_p = ts[p] == best_t
+            is_ps.append(is_p)
+            cx = where(is_p, P[p][0], cx)
+            cy = where(is_p, P[p][1], cy)
+            cz = where(is_p, P[p][2], cz)
+            inv_r = where(is_p, _f32_div(1.0, P[p][3]), inv_r)
+            ar = where(is_p, P[p][4], ar)
+            ag = where(is_p, P[p][5], ag)
+            ab = where(is_p, P[p][6], ab)
+        nx = (hx - cx) * inv_r
+        ny = (hy - cy) * inv_r
+        nz = (hz - cz) * inv_r
+        coef = fzeros
+        for p in (*spec_prims, *trans_prims):
+            coef = where(is_ps[p], P[p][7], coef)
+        er = eg = eb = fzeros
+        for p in emissive:
+            er = where(is_ps[p], P[p][9], er)
+            eg = where(is_ps[p], P[p][10], eg)
+            eb = where(is_ps[p], P[p][11], eb)
+        is_s = bzeros
+        for p in spec_prims:
+            is_s = is_s | is_ps[p]
+        is_t = bzeros
+        for p in trans_prims:
+            is_t = is_t | is_ps[p]
+
+        act = alive & hit
+        # Lanes that do not act sit on the origin: a miss lane's o + d*1e30
+        # would overflow in the NEE distance math and turn into NaN.
+        actf = act.to(torch.float32)
+        hx = hx * actf
+        hy = hy * actf
+        hz = hz * actf
+        wox, woy, woz = dx, dy, dz
+
+        # ---- emitter hits, MIS-weighted against light sampling under NEE
+        one_sided = dot3(nx, ny, nz, -wox, -woy, -woz) > 0.0
+        take = (act & one_sided).to(torch.float32)
+        if use_nee:
+            ldp = fzeros
+            for li, (ltype, lprim) in enumerate(lights_static):
+                if ltype != AREA_LIGHT or lprim < 0:
+                    continue
+                dlx = P[lprim][0] - ox
+                dly = P[lprim][1] - oy
+                dlz = P[lprim][2] - oz
+                d2l = dot3(dlx, dly, dlz, dlx, dly, dlz)
+                rl = P[lprim][3]
+                sin2 = torch.clamp_max(
+                    rl * rl / torch.clamp_min(d2l, 1e-12), 1.0)
+                ctm = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+                pc = 1.0 / (2.0 * math.pi * torch.clamp_min(1.0 - ctm, 1e-12))
+                pc = where(d2l > rl * rl, pc, 0.0)
+                ldp = where(is_ps[lprim], pc * Lt[li][7], ldp)
+            pp2 = prev_pdf * prev_pdf
+            w_emit = where(prev_delta, 1.0,
+                           pp2 / torch.clamp_min(pp2 + ldp * ldp, 1e-20))
+            take = take * w_emit
+        Cr = Cr + Tr * er * take
+        Cg = Cg + Tg * eg * take
+        Cb = Cb + Tb * eb * take
+
+        # ---- next-event estimation
+        is_d = ~(is_s | is_t)
+        if use_nee:
+            n_l = len(lights_static)
+            for li, (ltype, lprim) in enumerate(lights_static):
+                lo, sel = Lt[li][6], Lt[li][7]
+                # the last light takes the remainder of [0, 1)
+                if li == n_l - 1:
+                    m_l = usel >= lo
+                else:
+                    m_l = (usel >= lo) & (usel < _f32_add(lo, sel))
+                ir_l, ig_l, ib_l = Lt[li][3], Lt[li][4], Lt[li][5]
+                if ltype == AREA_LIGHT and lprim >= 0:
+                    # cone sampling around the light sphere's centre
+                    wrx = P[lprim][0] - hx
+                    wry = P[lprim][1] - hy
+                    wrz = P[lprim][2] - hz
+                    rl = P[lprim][3]
+                    d2l = dot3_fma(wrx, wry, wrz, wrx, wry, wrz)
+                    inv_dc = torch.rsqrt(torch.clamp_min(d2l, 1e-20))
+                    wcx, wcy, wcz = wrx * inv_dc, wry * inv_dc, wrz * inv_dc
+                    sin2 = torch.clamp_max(
+                        rl * rl / torch.clamp_min(d2l, 1e-12), 1.0)
+                    ctm = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+                    cth = 1.0 - ul1 * (1.0 - ctm)
+                    sth = torch.sqrt(torch.clamp_min(1.0 - cth * cth, 0.0))
+                    phi = (2.0 * math.pi) * ul2
+                    usex = torch.abs(wcx) > torch.abs(wcz)
+                    ax, ay, az = normalize3(where(usex, -wcy, 0.0),
+                                            where(usex, wcx, -wcz),
+                                            where(usex, 0.0, wcy))
+                    bx = wcy * az - wcz * ay
+                    by = wcz * ax - wcx * az
+                    bz = wcx * ay - wcy * ax
+                    cp = torch.cos(phi) * sth
+                    sp = torch.sin(phi) * sth
+                    wlx = ax * cp + bx * sp + wcx * cth
+                    wly = ay * cp + by * sp + wcy * cth
+                    wlz = az * cp + bz * sp + wcz * cth
+                    bq = dot3_fma(wrx, wry, wrz, wlx, wly, wlz)
+                    detq = fma(rl, rl, fma(bq, bq, -d2l))
+                    thit = bq - torch.sqrt(torch.clamp_min(detq, 0.0))
+                    valid = (detq >= 0.0) & (thit > tmin) & (d2l > rl * rl)
+                    inv_rl = _f32_div(1.0, rl)
+                    nsx = (hx + wlx * thit - P[lprim][0]) * inv_rl
+                    nsy = (hy + wly * thit - P[lprim][1]) * inv_rl
+                    nsz = (hz + wlz * thit - P[lprim][2]) * inv_rl
+                    # one-sided emitter: only its outer face lights
+                    front = dot3(nsx, nsy, nsz, -wlx, -wly, -wlz) > 0.0
+                    valid = valid & front
+                    pdf_l = sel / (2.0 * math.pi
+                                   * torch.clamp_min(1.0 - ctm, 1e-12))
+                    dist_l = thit
+                    rad_r, rad_g, rad_b = ir_l, ig_l, ib_l
+                    is_delta = False
+                else:
+                    # point light: a delta light with 1/d^2 falloff
+                    wrx = Lt[li][0] - hx
+                    wry = Lt[li][1] - hy
+                    wrz = Lt[li][2] - hz
+                    d2l = dot3(wrx, wry, wrz, wrx, wry, wrz)
+                    inv_dl = torch.rsqrt(torch.clamp_min(d2l, 1e-20))
+                    dist_l = d2l * inv_dl
+                    wlx, wly, wlz = wrx * inv_dl, wry * inv_dl, wrz * inv_dl
+                    inv_d2 = inv_dl * inv_dl
+                    rad_r, rad_g, rad_b = (ir_l * inv_d2, ig_l * inv_d2,
+                                           ib_l * inv_d2)
+                    pdf_l = sel + fzeros
+                    valid = dist_l > tmin
+                    is_delta = True
+                # shadow any-hit: segment-ball distance form over all prims
+                # but the sampled light sphere (which cannot occlude its own
+                # cone sample: its hit lies beyond smax by construction)
+                smax = fma(dist_l, 1.0 - 1e-3, -tmin)
+                occ = bzeros
+                skip_pp = lprim if (ltype == AREA_LIGHT and lprim >= 0) else -1
+                for pp in range(n_prims):
+                    if pp == skip_pp:
+                        continue
+                    sx2 = P[pp][0] - hx
+                    sy2 = P[pp][1] - hy
+                    sz2 = P[pp][2] - hz
+                    rb = dot3_fma(sx2, sy2, sz2, wlx, wly, wlz)
+                    ts_ = torch.minimum(torch.clamp_min(rb, tmin), smax)
+                    d2s = fma(-ts_, 2.0 * rb - ts_,
+                              dot3_fma(sx2, sy2, sz2, sx2, sy2, sz2))
+                    occ = occ | (d2s < P[pp][3] * P[pp][3])
+                cos_l = dot3(wlx, wly, wlz, nx, ny, nz)
+                support = ((cos_l > 0.0)
+                           & (dot3(wox, woy, woz, wlx, wly, wlz) < 0.0)
+                           & is_d)
+                if is_delta:
+                    w_mis = 1.0
+                else:
+                    pdf_b_l = where(support, cos_l * INV_PI, 0.0)
+                    w_mis = (pdf_l * pdf_l) / torch.clamp_min(
+                        pdf_l * pdf_l + pdf_b_l * pdf_b_l, 1e-20)
+                # every needed shadow segment counts as a traced ray
+                n_live += per_tile(act & m_l & valid & support)
+                gate = (act & m_l & valid & support & ~occ).to(torch.float32)
+                scale = gate * cos_l * w_mis / torch.clamp_min(pdf_l, 1e-20)
+                Cr = Cr + Tr * (ar * INV_PI) * rad_r * scale
+                Cg = Cg + Tg * (ag * INV_PI) * rad_g * scale
+                Cb = Cb + Tb * (ab * INV_PI) * rad_b * scale
+
+        # ---- BSDF sampling: cosine hemisphere through the polar disk map
+        r_d = torch.sqrt(u1)
+        th = (2.0 * math.pi) * u2
+        ldx = r_d * torch.cos(th)
+        ldy = r_d * torch.sin(th)
+        ldz = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+        use_x = torch.abs(nx) > torch.abs(nz)
+        ux, uy, uz = normalize3(where(use_x, -ny, 0.0), where(use_x, nx, -nz),
+                                where(use_x, 0.0, ny))
+        vx = ny * uz - nz * uy
+        vy = nz * ux - nx * uz
+        vz = nx * uy - ny * ux
+        wdx = ux * ldx + vx * ldy + nx * ldz
+        wdy = uy * ldx + vy * ldy + ny * ldz
+        wdz = uz * ldx + vz * ldy + nz * ldz
+        pdf_d = where(dot3(wox, woy, woz, wdx, wdy, wdz) < 0.0,
+                      ldz * INV_PI, 0.0)
+        won = dot3(wox, woy, woz, nx, ny, nz)
+        if any_spec or any_trans:
+            wsx = wox - 2.0 * won * nx
+            wsy = woy - 2.0 * won * ny
+            wsz = woz - 2.0 * won * nz
+        if any_trans:
+            entering = won < 0.0
+            ior = torch.clamp_min(coef, 1.0)
+            n1 = where(entering, 1.0, ior)
+            n2 = where(entering, ior, 1.0)
+            sgn = where(entering, 1.0, -1.0)
+            nnx, nny, nnz = nx * sgn, ny * sgn, nz * sgn
+            cos_i = -(wox * nnx + woy * nny + woz * nnz)
+            eta = n1 / n2
+            sin2t = eta * eta * (1.0 - cos_i * cos_i)
+            cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2t, 0.0))
+            r_orth = (n1 * cos_i - n2 * cos_t) / (n1 * cos_i + n2 * cos_t)
+            r_par = (n2 * cos_i - n1 * cos_t) / (n2 * cos_i + n1 * cos_t)
+            refl = where(sin2t > 1.0, 1.0,
+                         0.5 * (r_orth * r_orth + r_par * r_par))
+            # the reflection choice reuses u1, the diffuse polar draw
+            do_reflect = u1 < refl
+            txx = wox * eta - (eta * (-cos_i) + cos_t) * nnx
+            txy = woy * eta - (eta * (-cos_i) + cos_t) * nny
+            txz = woz * eta - (eta * (-cos_i) + cos_t) * nnz
+            wtx = where(do_reflect, wsx, txx)
+            wty = where(do_reflect, wsy, txy)
+            wtz = where(do_reflect, wsz, txz)
+        wix, wiy, wiz = wdx, wdy, wdz
+        fr, fg, fb = ar * INV_PI, ag * INV_PI, ab * INV_PI
+        pdf = pdf_d
+        if any_spec:
+            wix, wiy, wiz = (where(is_s, wsx, wix), where(is_s, wsy, wiy),
+                             where(is_s, wsz, wiz))
+            fr, fg, fb = (where(is_s, coef * ar, fr),
+                          where(is_s, coef * ag, fg),
+                          where(is_s, coef * ab, fb))
+        if any_trans:
+            wix, wiy, wiz = (where(is_t, wtx, wix), where(is_t, wty, wiy),
+                             where(is_t, wtz, wiz))
+            fr, fg, fb = (where(is_t, ar, fr), where(is_t, ag, fg),
+                          where(is_t, ab, fb))
+        if any_spec or any_trans:
+            pdf = where(is_d, pdf_d, 1.0)
+        f_black = (fr <= 0.0) & (fg <= 0.0) & (fb <= 0.0)
+        contrib_ok = ~f_black & (pdf > 0.0)
+        # cos/pdf is exactly pi on diffuse lanes, |cos| on delta lanes
+        if any_spec or any_trans:
+            cos_wi = torch.abs(dot3(wix, wiy, wiz, nx, ny, nz))
+            wgt = where(is_d, math.pi, cos_wi)
+        else:
+            wgt = math.pi
+        step_ok = act & contrib_ok
+        Tr = where(step_ok, Tr * fr * wgt, Tr)
+        Tg = where(step_ok, Tg * fg * wgt, Tg)
+        Tb = where(step_ok, Tb * fb * wgt, Tb)
+
+        # ---- Russian roulette after rr_start: p = min(0.5, max T)
+        do_rr = bounce > rr_start
+        p_cont = torch.clamp_max(torch.maximum(Tr, torch.maximum(Tg, Tb)),
+                                 0.5)
+        survive = u3 <= p_cont
+        boost = step_ok & do_rr & survive & (p_cont > 0.0)
+        inv_p = 1.0 / torch.clamp_min(p_cont, 1e-20)
+        Tr = where(boost, Tr * inv_p, Tr)
+        Tg = where(boost, Tg * inv_p, Tg)
+        Tb = where(boost, Tb * inv_p, Tb)
+        alive_next = step_ok & (survive | ~do_rr) & (bounce < max_bounces)
+
+        # ---- path completion: flush per-path radiance into the pixel sum
+        died = alive & ~alive_next
+        diedf = died.to(torch.float32)
+        Lr = Lr + Cr * diedf
+        Lg = Lg + Cg * diedf
+        Lb = Lb + Cb * diedf
+        n_samp = n_samp + died.to(torch.int32)
+
+        # ---- pending ray for the next iteration
+        ox = where(act, hx, ox)
+        oy = where(act, hy, oy)
+        oz = where(act, hz, oz)
+        dx = where(act, wix, dx)
+        dy = where(act, wiy, dy)
+        dz = where(act, wiz, dz)
+        prev_pdf = where(act, pdf, prev_pdf)
+        prev_delta = (act & (is_s | is_t)) | (~act & prev_delta)
+        bounce = where(act, bounce + 1, bounce)
+        alive = alive_next
+
+    new = PathState(
+        lr=Lr, lg=Lg, lb=Lb, n_samp=n_samp, ox=ox, oy=oy, oz=oz,
+        dx=dx, dy=dy, dz=dz, tr=Tr, tg=Tg, tb=Tb, cr=Cr, cg=Cg, cb=Cb,
+        bounce=bounce, alive=alive.to(torch.int32), prev_pdf=prev_pdf,
+        prev_delta=prev_delta.to(torch.int32), frame=state.frame + 1,
+    )
+    return new, n_live.sum()
+
+
+def _f32_div(a: float, b: float) -> float:
+    """a / b rounded as float32 division of float32 scalars, as the kernels
+    compute their per-prim reciprocals."""
+    return float(torch.tensor(a, dtype=torch.float32)
+                 / torch.tensor(b, dtype=torch.float32))
+
+
+def _f32_add(a: float, b: float) -> float:
+    return float(torch.tensor(a, dtype=torch.float32)
+                 + torch.tensor(b, dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrapper
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _kernel():
+    """The bound C entry point of csrc/persistent.cu (built on first use)."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    fn = lib.tpt_persistent_step
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [
+        ctypes.POINTER(p),  # state planes, STATE_FIELDS order (host array)
+        p, ip, i,  # prims (device), prim flags (host), n_prims
+        p, ip, i,  # lights (device), light structure (host), n_lights
+        p, p, p,  # camera (device), uniforms (device or NULL), nrays
+        i, i, i, i, i,  # rows_total, tile_rows, budget, width, n_lanes
+        i, i, i, i, i,  # max_bounces, rr_start, use_nee, strat_k, tile_off
+        u, u, u,  # seed, salt, frame
+        p,  # cudaStream_t
+    ]
+    fn.restype = ctypes.c_int
+    lib.tpt_error_string.argtypes = [ctypes.c_int]
+    lib.tpt_error_string.restype = ctypes.c_char_p
+    return fn, lib.tpt_error_string
+
+
+def _check(t: Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want a contiguous {dtype} tensor of shape {shape} on "
+            f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
+                          height, max_bounces, rr_start, tile_rows, use_nee,
+                          strat_k, tile_offset, uniforms):
+    global launches
+    dev = state.lr.device
+    rows_total = state.lr.shape[0]
+    shape = (rows_total, LANES)
+    if rows_total % tile_rows:
+        raise ValueError(f"{rows_total} state rows are not whole tiles of "
+                         f"{tile_rows} rows")
+    n_tiles = rows_total // tile_rows
+    for f in STATE_FIELDS:
+        _check(getattr(state, f), f,
+               torch.int32 if f in I32_FIELDS else torch.float32, shape, dev)
+    n_prims = int(scene.num_prims)
+    n_lights = len(scene.light_structure)
+    if n_prims > MAX_PRIMS or n_lights > MAX_LIGHTS:
+        raise ValueError(f"the kernel takes at most {MAX_PRIMS} prims and "
+                         f"{MAX_LIGHTS} lights, got {n_prims} and {n_lights}")
+    prims = pack_prims(scene).contiguous()
+    lights = pack_lights(scene).contiguous()
+    _check(prims, "prims", torch.float32, (n_prims, 12), dev)
+    _check(lights, "lights", torch.float32, (max(n_lights, 1), 8), dev)
+    _check(cam_packed, "cam_packed", torch.float32, (24,), dev)
+    if uniforms is not None:
+        _check(uniforms, "uniforms", torch.float32,
+               (n_tiles * budget * n_draws(use_nee) * tile_rows, LANES), dev)
+    if strat_k < 1 or budget < 0:
+        raise ValueError("strat_k must be >= 1 and budget >= 0")
+
+    # per-prim flags: bit 0 emissive, bits 1-2 the BSDF type
+    emissive = set(scene.emissive_prims)
+    pflags = (ctypes.c_int * max(n_prims, 1))(*[
+        (1 if p in emissive else 0) | (int(t) << 1)
+        for p, t in enumerate(scene.prim_mtypes)])
+    lstruct = (ctypes.c_int * max(2 * n_lights, 1))(
+        *[int(v) for pair in scene.light_structure for v in pair])
+    planes = (ctypes.c_void_p * len(STATE_FIELDS))(
+        *[getattr(state, f).data_ptr() for f in STATE_FIELDS])
+    nrays = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+
+    fn, error_string = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(planes, prims.data_ptr(), pflags, n_prims,
+                 lights.data_ptr(), lstruct, n_lights,
+                 cam_packed.data_ptr(),
+                 uniforms.data_ptr() if uniforms is not None else None,
+                 nrays.data_ptr(),
+                 rows_total, tile_rows, budget, width, width * height,
+                 max_bounces, rr_start, int(use_nee), strat_k,
+                 int(tile_offset),
+                 int(seed[0]) & _MASK, int(seed[1]) & _MASK,
+                 state.frame & _MASK, stream)
+    if err != 0:
+        msg = error_string(err).decode()
+        raise RuntimeError(f"persistent kernel launch failed: {msg} ({err})")
+    launches += 1
+    # the planes were updated in place; prims/lights/nrays stay referenced
+    # until here, and the kernel is ordered before any later use of them on
+    # this stream
+    return dataclasses.replace(state, frame=state.frame + 1), nrays.sum()
+
+
+def persistent_step(
+    scene: Scene,
+    cam_packed: Tensor,
+    seed: Sequence[int],
+    state: PathState,
+    *,
+    budget: int,
+    width: int,
+    height: int,
+    max_bounces: int = 10,
+    rr_start: int = 3,
+    tile_rows: int = 32,
+    use_nee: bool = False,
+    strat_k: int = 2,
+    tile_offset: int = 0,
+    uniforms: Tensor | None = None,
+) -> tuple[PathState, Tensor]:
+    """Advance every lane by ``budget`` wavefront iterations.
+
+    ``seed`` is ``(seed, salt)`` as host integers. Returns (new_state,
+    live_rays_traced) with the ray count as a 0-d device tensor. For state on
+    a CUDA device this launches the CUDA kernel on the current stream and
+    UPDATES THE STATE PLANES IN PLACE (the JAX version donates its state): the
+    returned state shares them, and the input state must not be reused. For
+    state on the CPU it runs ``persistent_step_ref``, which returns new
+    tensors. Any other device raises.
+    """
+    kw = dict(budget=budget, width=width, height=height,
+              max_bounces=max_bounces, rr_start=rr_start,
+              tile_rows=tile_rows, use_nee=use_nee, strat_k=strat_k,
+              tile_offset=tile_offset, uniforms=uniforms)
+    dev = state.lr.device
+    if dev.type == "cuda":
+        return _persistent_step_cuda(scene, cam_packed, seed, state, **kw)
+    if dev.type == "cpu":
+        return persistent_step_ref(scene, cam_packed, seed, state, **kw)
+    raise ValueError(f"persistent_step: unsupported device {dev}")

@@ -1,0 +1,90 @@
+"""Render metrics: rays/sec and spp/sec counters, and lane agreement.
+
+Structured replacement for the reference's window-title FPS readout
+(reference main.cpp:366-380): per-iteration wall time, rays traced, and a
+one-line status string. The counters are host-side, around a step that
+waits for the device when it reads its ray count, matching how the
+reference's 1-second FPS window measured wall clock across its
+cudaThreadSynchronize calls (pathtracer.cu:233,241).
+
+``lane_agreement`` compares two runs of the persistent step lane for lane;
+the tests and ``chip_smoke.py`` hold the kernel, its plain version and the
+JAX kernel to ``AGREE`` with it.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+# The JAX package's own kernel-vs-replica bar (tests/test_persistent.py):
+# >= 98% of lanes agree on the sample count and within L_TOL * max(1, |L|)
+# on radiance.
+AGREE = 0.98
+L_TOL = 1e-4
+
+
+@dataclass
+class RenderMeter:
+    lanes_per_iteration: int
+    total_time: float = 0.0
+    total_rays: int = 0
+    iterations: int = 0
+    window: list = field(default_factory=list)
+
+    def update(self, seconds: float, rays: int | None) -> None:
+        self.total_time += seconds
+        self.iterations += 1
+        if rays is not None:
+            self.total_rays += rays
+        self.window.append((seconds, rays))
+        if len(self.window) > 10:
+            self.window.pop(0)
+
+    @property
+    def ips(self) -> float:
+        """Iterations (progressive frames) per second, recent window."""
+        t = sum(w[0] for w in self.window)
+        return len(self.window) / t if t > 0 else 0.0
+
+    @property
+    def rays_per_sec(self) -> float:
+        t = sum(w[0] for w in self.window)
+        r = sum(w[1] or 0 for w in self.window)
+        return r / t if t > 0 else 0.0
+
+    def status(self, iteration: int) -> str:
+        """One-line progress string (the reference's title-bar format was
+        'Pathtracer (%.4f sps : %u)', main.cpp:377)."""
+        parts = [f"iter {iteration}", f"{self.ips:.2f} it/s"]
+        if self.total_rays:
+            parts.append(f"{self.rays_per_sec / 1e6:.0f} Mrays/s")
+        parts.append(f"{self.lanes_per_iteration * self.ips / 1e6:.1f} Mspp-px/s")
+        return "  ".join(parts)
+
+
+def lane_agreement(a, b, width: int, height: int
+                   ) -> tuple[float, float, float]:
+    """How closely two PathStates of the same lanes agree: (fraction of real
+    lanes with equal sample counts, fraction whose radiance sums differ by
+    less than ``L_TOL * max(1, |L|)``, largest radiance difference).
+
+    Two implementations of the step cannot agree bit for bit: the 1e5-radius
+    walls make f32 closest hits chaotic, and rsqrt/sqrt and FMA contraction
+    round differently on each backend, so a few lanes take different but
+    equally valid paths. The tolerance is relative on lanes brighter than 1,
+    where a one-ulp change of a hit point already moves a bright NEE sample
+    by more than 1e-4.
+    """
+    n = width * height
+
+    def lanes(st):
+        L = torch.stack([st.lr, st.lg, st.lb], -1).reshape(-1, 3)[:n]
+        return L.double().cpu(), st.n_samp.reshape(-1)[:n].cpu()
+
+    La, na = lanes(a)
+    Lb, nb = lanes(b)
+    d = (La - Lb).abs().amax(-1)
+    ok = d < L_TOL * torch.clamp_min(La.abs().amax(-1), 1.0)
+    return ((na == nb).double().mean().item(), ok.double().mean().item(),
+            d.max().item())
