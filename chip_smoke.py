@@ -4,7 +4,9 @@ Drives the port's main path on the card and checks it, in phases that each
 print one line; any failure exits non-zero:
 
 1. environment: versions, the card, its power limit, nvcc, triton;
-2. build: compiles csrc/*.cu for sm_90a into build/tpu_pathtracer_torch/;
+2. build: compiles csrc/*.cu for sm_90a, one nvcc per source started
+   together, and links both kernels into one library under
+   build/tpu_pathtracer_torch/;
 3. kernel vs plain PyTorch version on the card, with the same injected
    uniforms (cornell 160x120 brute force and NEE, the point-light scene with
    NEE) and with the production Philox draws; >= 98% of lanes must agree on
@@ -27,14 +29,45 @@ print one line; any failure exits non-zero:
    share of that same window, and the device kernels that take the most
    time per step. The profiler slows the host, so that window is longer
    than the unprofiled step. The trace is kept under
-   build/tpu_pathtracer_torch/.
+   build/tpu_pathtracer_torch/;
+7. gradient kernel vs plain PyTorch version on the card: cornell 160x120,
+   spp 4, 10 bounces, budget 10, brute force and NEE, on injected uniforms
+   and on the production Philox draws. Phase "adjoint": >= 98% of lanes
+   agree on n_samp, radiance and every per-lane GA/GI plane (or, where the
+   f32 chaos is larger, no fewer than the plain version on the CPU agrees
+   with itself on the card), ray counts within 1%; phase "both" equals the
+   cotangent fold over the kernel's own lanes (rtol 1e-4), and the fold over
+   the agreeing lanes equals the plain version's (loss rtol 1e-4, gradients
+   2e-3);
+8. trainer main path, BASELINE config 5 at full width: cornell 640x480,
+   spp 4, 10 bounces, budget default_budget(4, 10) = 26, brute force then
+   NEE. The target comes from render_target_kernel; then 6 same-seed Adam
+   steps (lr 5e-2, fixed_iteration 0) from the perturbed parameters; the
+   loss after 5 updates is below the loss at step 0, everything is finite,
+   and the gradient kernel launched 1 + steps times. The last step's launch
+   is replayed (bit for bit) and checked against the plain version on the
+   card by phase 7's bars;
+9. CLI: ``python -m tpu_pathtracer_torch.cli invert`` at its defaults;
+10. times at config 5: ms per gradient and fwd+bwd rays/s by the slope
+   between 1 and K gradients (CUDA events, median of REPS), the plain
+   version's time per gradient, and from one torch.profiler trace the
+   gradient kernel's device time per launch and the device's idle share.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``.
-Run it with no arguments from the repository root: ``python3 chip_smoke.py``.
+Each kernel's bound (the least time the card could take for the same work)
+is the larger of its f32 operations over 67 TFLOP/s and its bytes over
+3.35 TB/s. The operations are counted from the kernels' source per unit of
+work (see ``OPS``) and multiplied by the work this run's launches did; the
+bytes are each input read once and each output written once.
+
+The line before the last prints one JSON object {"kernels": [...]} and the
+card's name and power limit precede it. The last line of standard output
+is ``{"ok": true, "device": {...}}``. Run it with no arguments from the
+repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,6 +79,25 @@ MEAN_TOL = 0.03
 RAY_TOL = 0.01
 REPS = 5
 W, H, TR = 640, 480, 32
+SPP, MB = 4, 10  # BASELINE config 5 and bench.py's workload
+LOSS_RTOL, GRAD_RTOL, FOLD_RTOL = 1e-4, 2e-3, 1e-4
+TRAIN_STEPS, LR = 6, 5e-2
+F32_PEAK = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
+HBM_RATE = 3.35e12  # bytes/s
+# f32 operations per unit of work, counted from csrc/*.cu (pt_common.cuh):
+# add, sub, mul, div, min, max, sqrt, rsqrt, sin and cos count 1, an FMA 2;
+# compares, selects, integer Philox and addressing are left out, so the
+# bound is a lower bound.
+OPS = {
+    "quadratic": 21,  # per prim per closest-hit test
+    "segment": 80,  # hit point, normal, lobe sampling, throughput, RR
+    "path": 33,  # camera ray of a regenerated path, flush of L
+    "shadow": 133,  # light sample, support, MIS and contribution
+    "shadow_prim": 20,  # per prim of the shadow sweep (light skipped)
+    "adjoint_segment": 7,  # nA, cA at the vertex
+    "adjoint_flush_slot": 9,  # GA at completion, per material slot
+    "adjoint_flush_light": 3,  # GI at completion, per light
+}
 
 
 def fail(msg: str) -> None:
@@ -374,46 +426,93 @@ def _busy_us(intervals) -> float:
 
 
 def _profile_steps(scene, cp, use_nee, k=10):
-    """One torch.profiler trace (device activity only) of k steps. Returns
-    the persistent kernel's device ms per launch, the device's busy ms per
-    step (union of kernel, memcpy and memset intervals), the window's ms per
-    step (CUDA events around the same k steps), and the device ms per step
-    of each kernel or copy name."""
+    """One torch.profiler trace of k steps from a fresh state (``_profile``'s
+    numbers), and the work per launch: rays, paths started and lanes."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+
+    st = pk.init_state(W, H, TR, device="cuda")
+    rays = []
+
+    def run(i):
+        nonlocal st
+        st, nr = pk.persistent_step(scene, cp, (400, i), st, budget=16,
+                                    width=W, height=H, max_bounces=10,
+                                    rr_start=3, tile_rows=TR,
+                                    use_nee=use_nee)
+        rays.append(nr)
+
+    kernel_ms, busy, window, by_name = _profile(
+        run, k, "persistent_kernel", "nee" if use_nee else "brute")
+    # paths started over the k launches: completed plus still in flight
+    work = dict(rays=int(torch.stack(rays).sum()) / k,
+                paths=int(st.n_samp.sum() + st.alive.sum()) / k,
+                lanes=st.lr.numel())
+    return kernel_ms, busy, window, by_name, work
+
+
+def _profile(run, k, kernel_name, tag):
+    """One torch.profiler trace (device activity only) of run(0..k-1).
+    Returns the named kernel's device ms per launch, the device's busy ms
+    per call (union of kernel, memcpy and memset intervals), the window's ms
+    per call (CUDA events around the same k calls), and the device ms per
+    call of each kernel or copy name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_pathtracer_torch.ops.kernels import _build
-    from tpu_pathtracer_torch.ops.kernels import persistent as pk
 
-    st = pk.init_state(W, H, TR, device="cuda")
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         start.record()
         for i in range(k):
-            st, _ = pk.persistent_step(scene, cp, (400, i), st, budget=16,
-                                       width=W, height=H, max_bounces=10,
-                                       rr_start=3, tile_rows=TR,
-                                       use_nee=use_nee)
+            run(i)
         end.record()
         torch.cuda.synchronize()
     window = start.elapsed_time(end)
-    trace = (_build.build_dir()
-             / f"chip_smoke_trace_{'nee' if use_nee else 'brute'}.json")
+    trace = _build.build_dir() / f"chip_smoke_trace_{tag}.json"
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("ph") == "X"
               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    kern = [e for e in events if "persistent_kernel" in e["name"]]
+    kern = [e for e in events if kernel_name in e["name"]]
     if len(kern) != k:
-        fail(f"the trace holds {len(kern)} persistent_kernel launches for "
-             f"{k} steps")
+        fail(f"the trace holds {len(kern)} {kernel_name} launches for {k} "
+             "calls")
     by_name: dict[str, float] = {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / k / 1e3
     busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in events)
     return (sum(e["dur"] for e in kern) / k / 1e3, busy / k / 1e3,
             window / k, by_name)
+
+
+def _bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of operations over the f32 peak and
+    bytes over the memory rate."""
+    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _walk_ops(n_prims, segments, paths, shadows) -> float:
+    """f32 operations of a persistent walk: closest hit and shading per
+    segment, a camera ray per path, a light sample and the shadow sweep per
+    shadow segment."""
+    return (segments * (OPS["quadratic"] * n_prims + OPS["segment"])
+            + paths * OPS["path"]
+            + shadows * (OPS["shadow"] + OPS["shadow_prim"] * (n_prims - 1)))
+
+
+def forward_bound(n_prims, work_brute, work):
+    """Bound of one forward launch. The NEE walk traces the brute-force
+    walk's path segments on the same Philox draws (NEE never changes a
+    path's throughput or direction), so its shadow segments are its rays
+    less the brute-force run's."""
+    shadows = work["rays"] - work_brute["rays"]
+    ops = _walk_ops(n_prims, work_brute["rays"], work["paths"], shadows)
+    return _bound(ops, 20 * 4 * 2 * work["lanes"])
 
 
 def phase_times(smi):
@@ -444,7 +543,7 @@ def phase_times(smi):
                          rays_per_s=statistics.median(rates), reps=rates,
                          plain_ms=t2 / 2)
     for mode, o in out.items():
-        o["kernel_ms"], busy, window, by_name = _profile_steps(
+        o["kernel_ms"], busy, window, by_name, o["work"] = _profile_steps(
             scene, cp, mode == "nee")
         o["busy_ms"], o["window_ms"] = busy, window
         o["idle_share"] = 1.0 - busy / window
@@ -453,16 +552,352 @@ def phase_times(smi):
                  f"window's {window} ms")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
         o["top"] = "; ".join(f"{n[:48]} {ms:.4f}" for n, ms in top)
+    for o in out.values():
+        o["bound_ms"], o["bound_by"] = forward_bound(
+            int(scene.num_prims), out["brute"]["work"], o["work"])
     parts = [
         f"{mode}: step {o['step_ms']:.4f} ms, {o['rays_per_s']:.6g} rays/s "
         f"(median of {REPS}: {', '.join(f'{r:.6g}' for r in o['reps'])}), "
         f"plain {o['plain_ms']:.3f} ms/step; profiled window "
         f"{o['window_ms']:.4f} ms/step, device busy {o['busy_ms']:.4f} ms, "
         f"idle share {o['idle_share']:.3f}, kernel {o['kernel_ms']:.4f} "
-        f"ms/launch; top device ms/step: {o['top']}"
+        f"ms/launch (bound {o['bound_ms']:.5f} ms by {o['bound_by']}: "
+        f"{o['work']['rays']:.0f} rays, {o['work']['paths']:.0f} paths per "
+        f"launch); top device ms/step: {o['top']}"
         for mode, o in out.items()]
     print(f"[6 times] {W}x{H} budget 16 tile_rows {TR} on {smi}: "
           + " | ".join(parts), flush=True)
+    return out
+
+
+def _close(a, b, rtol, atol=0.0) -> bool:
+    """|a - b| <= atol + rtol * |b| everywhere (b is the reference)."""
+    import torch
+
+    return bool(torch.all((a - b).abs() <= atol + rtol * b.abs()))
+
+
+def _grad_floor(args, kw, ref_adj, w, h):
+    """The plain version on the CPU against itself on the card: the lowest
+    of its agreement fractions on one launch."""
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import grad_lane_agreement
+
+    scene, cp, seed, it, tgt = args
+    kw_cpu = dict(kw, uniforms=None if kw.get("uniforms") is None
+                  else kw["uniforms"].cpu())
+    cpu = rp.persistent_replay_ref(scene.to("cpu"), cp.cpu(), seed, it,
+                                   tgt.cpu(), phase="adjoint", **kw_cpu)
+    fl = grad_lane_agreement(ref_adj[:4], cpu[:4], w, h)
+    return min(fl["n_samp"], fl["L"], min(fl["planes"].values()))
+
+
+def _check_grad_launch(label, args, kw, w, h, main_loss=None):
+    """Check one gradient-kernel launch against the plain version on the
+    card, from the same inputs: phase "adjoint" lane for lane, phase "both"
+    against the cotangent fold over the kernel's own lanes, and the fold
+    over the agreeing lanes against the plain version's. ``main_loss``, if
+    given, is the loss the main path's launch returned from these inputs,
+    which the replayed launch must equal bit for bit."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import AGREE, grad_lane_agreement
+
+    tgt = args[4]
+    k_adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
+    k_both = rp.persistent_replay_call(*args, **kw)
+    r_adj = rp.persistent_replay_ref(*args, phase="adjoint", **kw)
+    torch.cuda.synchronize()
+    if main_loss is not None and not torch.equal(k_both[2], main_loss):
+        fail(f"{label}: the replayed launch's loss {float(k_both[2])} is not "
+             f"the main path's {float(main_loss)}")
+    outs = (*k_adj[:4], *k_both[2:5], *r_adj[:4])
+    if not all(bool(torch.isfinite(x.float()).all()) for x in outs):
+        fail(f"{label}: non-finite outputs")
+    ag = grad_lane_agreement(r_adj[:4], k_adj[:4], w, h)
+    worst = min(ag["n_samp"], ag["L"], min(ag["planes"].values()))
+    floor = _grad_floor(args, kw, r_adj, w, h) if worst < AGREE else None
+    if worst < AGREE and worst < floor:
+        fail(f"{label}: kernel vs plain agreement {worst} is below both "
+             f"{AGREE} and the plain version's CPU-vs-card floor {floor}")
+    rays_k, rays_r = int(k_adj[4]), int(r_adj[4])
+    if abs(rays_k - rays_r) > RAY_TOL * max(rays_r, 1):
+        fail(f"{label}: rays {rays_k} vs plain {rays_r}")
+    f_loss, f_ga, f_gi = rp.mse_fold(*k_adj[:4], tgt, w, h)
+    scale = float(k_both[3].abs().max())
+    if not (_close(k_both[2], f_loss, FOLD_RTOL)
+            and _close(k_both[3], f_ga, FOLD_RTOL, 1e-6 * scale)
+            and _close(k_both[4], f_gi, FOLD_RTOL, 1e-6 * scale)):
+        fail(f"{label}: phase both {k_both[2:5]} is not the fold of its "
+             f"adjoint lanes {(f_loss, f_ga, f_gi)}")
+    mask = ag["mask"].to(tgt.device)
+    t_fold = rp.mse_fold(*k_adj[:4], tgt, w, h, mask)
+    r_fold = rp.mse_fold(*r_adj[:4], tgt, w, h, mask)
+    if not (_close(t_fold[0], r_fold[0], LOSS_RTOL)
+            and _close(t_fold[1], r_fold[1], GRAD_RTOL, 1e-6 * scale)
+            and _close(t_fold[2], r_fold[2], GRAD_RTOL, 1e-6 * scale)):
+        fail(f"{label}: fold over agreeing lanes {t_fold} vs plain {r_fold}")
+    return dict(n_agree=ag["n_samp"], l_agree=ag["L"],
+                plane_agree=min(ag["planes"].values()), all_agree=ag["all"],
+                floor=floor, max_abs_err=ag["max_abs_err"],
+                rays=(rays_k, rays_r), loss=float(k_both[2]))
+
+
+def _fmt_check(c) -> str:
+    floor = "" if c["floor"] is None else f" (cpu floor {c['floor']:.4f})"
+    return (f"n {c['n_agree']:.4f} L {c['l_agree']:.4f} GA/GI "
+            f"{c['plane_agree']:.4f} all {c['all_agree']:.4f}{floor} "
+            f"max|d| {c['max_abs_err']:.3g} rays {c['rays'][0]}/"
+            f"{c['rays'][1]}")
+
+
+def phase_grad_compare():
+    """Gradient kernel vs plain version on the card at 160x120."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    w, h, budget = 160, 120, 10
+    scene, _, cp = _cornell(w, h, "cuda")
+    rows, _ = rp.pixel_lanes_layout(w, h, TR)
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    tgt = rp.target_to_lanes(
+        torch.rand((h, w, 3), generator=gen, device="cuda"), rows)
+    parts, checks = [], []
+    for use_nee in (False, True):
+        for injected in (True, False):
+            label = (f"{'nee' if use_nee else 'brute'}-"
+                     f"{'injected' if injected else 'philox'}")
+            u = (torch.rand((rows * budget * pk.n_draws(use_nee), pk.LANES),
+                            generator=gen, device="cuda")
+                 if injected else None)
+            kw = dict(spp=SPP, budget=budget, width=w, height=h,
+                      max_bounces=MB, rr_start=3, tile_rows=TR,
+                      use_nee=use_nee, uniforms=u)
+            c = _check_grad_launch(label, (scene, cp, (5, 2), 3, tgt), kw,
+                                   w, h)
+            checks.append(c)
+            parts.append(f"{label}: {_fmt_check(c)}")
+    print("[7 gradient kernel vs plain] cornell 160x120 spp 4, 10 bounces, "
+          "budget 10: " + " | ".join(parts), flush=True)
+    return dict(n_agree=min(c["n_agree"] for c in checks),
+                l_agree=min(c["l_agree"] for c in checks),
+                plane_agree=min(c["plane_agree"] for c in checks),
+                max_abs_err=max(c["max_abs_err"] for c in checks))
+
+
+def phase_trainer():
+    """BASELINE config 5 through the trainer's entry points."""
+    import torch
+
+    from tpu_pathtracer_torch.diff import inverse
+    from tpu_pathtracer_torch.models.integrator import RenderConfig
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    scene, cam, cp = _cornell(W, H, "cuda")
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    budget = rp.default_budget(SPP, MB)
+    seed = (17, 0)
+    parts, launches, checks = [], {}, []
+    for use_nee in (False, True):
+        mode = "nee" if use_nee else "brute"
+        config = RenderConfig(spp=SPP, max_bounces=MB, rr_start=3,
+                              use_nee=use_nee)
+        p0 = inverse.params_of(scene)
+        p0["mat_color"][3] = 0.3
+        p0["light_intensity"] *= 0.5
+        state = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
+        step = inverse.make_kernel_train_step(scene, cam, config,
+                                              fixed_iteration=0)
+        pk.launches = rp.launches = 0
+        target = inverse.render_target_kernel(scene, cam, seed, config,
+                                              iteration=0)
+        losses = []
+        for i in range(TRAIN_STEPS):
+            last_params = {k: v.detach().clone()
+                           for k, v in state.params.items()}
+            state, loss = step(state, target, seed)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launches[mode] = rp.launches
+        if rp.launches != 1 + TRAIN_STEPS or pk.launches:
+            fail(f"trainer ({mode}): {rp.launches} gradient-kernel and "
+                 f"{pk.launches} forward-kernel launches for 1 target and "
+                 f"{TRAIN_STEPS} steps")
+        vals = [float(x) for x in losses]
+        finite = (bool(torch.isfinite(target).all())
+                  and all(bool(torch.isfinite(v.detach()).all())
+                          for v in state.params.values())
+                  and all(map(math.isfinite, vals)))
+        if tuple(target.shape) != (W * H, 3) or not finite:
+            fail(f"trainer ({mode}): non-finite or misshapen results")
+        if not vals[-1] < vals[0]:
+            fail(f"trainer ({mode}): loss {vals[0]} -> {vals[-1]} did not "
+                 "fall")
+        tgt_lanes = rp.target_to_lanes(target.reshape(H, W, 3), rows)
+        kw = dict(spp=SPP, budget=budget, width=W, height=H, max_bounces=MB,
+                  rr_start=3, tile_rows=TR, use_nee=use_nee)
+        c = _check_grad_launch(
+            f"trainer ({mode}) last launch",
+            (inverse.apply_params(scene, last_params), cp, seed, 0,
+             tgt_lanes), kw, W, H, main_loss=losses[-1])
+        checks.append(c)
+        alb = state.params["mat_color"][3].detach().cpu().tolist()
+        inten = state.params["light_intensity"][0].detach().cpu().tolist()
+        parts.append(
+            f"{mode}: loss {' '.join(f'{v:.6g}' for v in vals)}; grey "
+            f"albedo {[round(a, 4) for a in alb]} (true 0.75), intensity "
+            f"{[round(a, 3) for a in inten]} (true 12); launches "
+            f"{launches[mode]} = 1 + {TRAIN_STEPS}; last launch vs plain: "
+            f"{_fmt_check(c)}")
+    print(f"[8 trainer main path] cornell {W}x{H} spp {SPP}, {MB} bounces, "
+          f"budget {budget}, lr {LR}: " + " | ".join(parts), flush=True)
+    return launches, dict(
+        n_agree=min(c["n_agree"] for c in checks),
+        l_agree=min(c["l_agree"] for c in checks),
+        plane_agree=min(c["plane_agree"] for c in checks),
+        floor=min((c["floor"] for c in checks if c["floor"] is not None),
+                  default=None),
+        max_abs_err=max(c["max_abs_err"] for c in checks))
+
+
+def phase_cli_invert():
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_pathtracer_torch.cli", "invert"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "recovered albedo" not in proc.stdout:
+        fail(f"cli invert failed ({proc.returncode}): {proc.stdout[-1000:]}"
+             f"{proc.stderr[-2000:]}")
+    tail = " / ".join(proc.stdout.strip().splitlines()[-3:])
+    print(f"[9 cli invert] defaults (32x32, spp 4, 30 steps) in "
+          f"{time.perf_counter() - t0:.1f} s: {tail}", flush=True)
+
+
+def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False):
+    """CUDA-event time of k gradients at config 5 (host wrapper included)
+    and the live rays they traced. ``plain`` times the plain version."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    kw = dict(spp=SPP, budget=rp.default_budget(SPP, MB), max_bounces=MB,
+              rr_start=3, tile_rows=TR, use_nee=use_nee)
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    rays = []
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(k):
+        if plain:
+            out = rp.persistent_replay_ref(
+                scene, cp, (salt, i), 0,
+                rp.target_to_lanes(target, rows), width=W, height=H, **kw)
+            rays.append(out[5])
+        else:
+            rays.append(rp.persistent_mse_value_and_grad(
+                scene, cam, (salt, i), 0, target, **kw)[2])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), int(torch.stack(rays).sum())
+
+
+def grad_bound(scene, cp, target, use_nee):
+    """Bound of one gradient launch at config 5, from the work of one
+    counted launch: its path segments, completed paths and shadow
+    segments."""
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    counts = {}
+    out = rp.persistent_replay_call(
+        scene, cp, (500, 0), 0,
+        rp.target_to_lanes(target, rows), spp=SPP,
+        budget=rp.default_budget(SPP, MB), width=W, height=H,
+        max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=use_nee,
+        counts=counts)
+    n_prims = int(scene.num_prims)
+    n_slots = len(rp.material_slots(scene)[0])
+    n_l = len(scene.light_structure)
+    segments, shadows = int(counts["segments"]), int(counts["shadow"])
+    paths = int(out[1].sum())
+    ops = (_walk_ops(n_prims, segments, paths, shadows)
+           + segments * OPS["adjoint_segment"]
+           + paths * (OPS["adjoint_flush_slot"] * n_slots
+                      + OPS["adjoint_flush_light"] * n_l))
+    lanes = rows * 128
+    k = 3 * n_slots + 3 * n_l + 1
+    nbytes = lanes * (12 + 12 + 4) + rows * (4 * k + 8)
+    bound_ms, by = _bound(ops, nbytes)
+    return dict(bound_ms=bound_ms, bound_by=by, segments=segments,
+                shadows=shadows, paths=paths)
+
+
+def phase_grad_times(smi):
+    """Config 5: ms per gradient and fwd+bwd rays/s by the CUDA-event slope
+    between 1 and K gradients (median of REPS), the plain version's time per
+    gradient, the bound, then one profiled window for the kernel's device
+    time and the device's idle share (last, so its tracing touches no other
+    number)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    scene, cam, cp = _cornell(W, H, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    target = torch.rand((H, W, 3), generator=gen, device="cuda")
+    K = 24
+    out = {}
+    for use_nee in (False, True):
+        mode = "nee" if use_nee else "brute"
+        _time_grads(scene, cam, cp, target, use_nee, 2, 90)  # warm
+        ms, rates = [], []
+        for rep in range(REPS):
+            t1, r1 = _time_grads(scene, cam, cp, target, use_nee, 1,
+                                 100 + rep)
+            tk, rk = _time_grads(scene, cam, cp, target, use_nee, K,
+                                 200 + rep)
+            ms.append((tk - t1) / (K - 1))
+            rates.append((rk - r1) / (tk - t1) * 1e3)
+        t_plain, _ = _time_grads(scene, cam, cp, target, use_nee, 1, 300,
+                                 plain=True)
+        out[mode] = dict(grad_ms=statistics.median(ms),
+                         rays_per_s=statistics.median(rates), reps=ms,
+                         plain_ms=t_plain,
+                         **grad_bound(scene, cp, target, use_nee))
+    for mode, o in out.items():
+        def run(i, use_nee=(mode == "nee")):
+            rp.persistent_mse_value_and_grad(
+                scene, cam, (400, i), 0, target, spp=SPP,
+                budget=rp.default_budget(SPP, MB), max_bounces=MB,
+                rr_start=3, tile_rows=TR, use_nee=use_nee)
+
+        o["kernel_ms"], busy, window, by_name = _profile(
+            run, 10, "replay_persistent_kernel", f"grad_{mode}")
+        o["busy_ms"], o["window_ms"] = busy, window
+        o["idle_share"] = 1.0 - busy / window
+        if o["idle_share"] < 0.0:
+            fail(f"gradient {mode}: device busy {busy} ms per gradient "
+                 f"exceeds the window's {window} ms")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        o["top"] = "; ".join(f"{n[:40]} {v:.4f}" for n, v in top)
+    parts = [
+        f"{mode}: {o['grad_ms']:.4f} ms per gradient, "
+        f"{o['rays_per_s']:.6g} fwd+bwd rays/s (median of {REPS}; ms "
+        f"{', '.join(f'{v:.4f}' for v in o['reps'])}), plain "
+        f"{o['plain_ms']:.2f} ms; kernel {o['kernel_ms']:.4f} ms/launch, "
+        f"bound {o['bound_ms']:.5f} ms by {o['bound_by']} ({o['segments']} "
+        f"segments, {o['paths']} paths, {o['shadows']} shadow segments); "
+        f"profiled window {o['window_ms']:.4f} ms, device busy "
+        f"{o['busy_ms']:.4f} ms, idle share {o['idle_share']:.3f}; top "
+        f"device ms/gradient: {o['top']}"
+        for mode, o in out.items()]
+    print(f"[10 gradient times] {W}x{H} spp {SPP}, {MB} bounces, budget "
+          f"{rp.default_budget(SPP, MB)} on {smi}: " + " | ".join(parts),
+          flush=True)
     return out
 
 
@@ -488,24 +923,33 @@ def main() -> int:
     launches, worst_main = phase_main_path()
     phase_cli()
     times = phase_times(smi)
+    worst_grad = phase_grad_compare()
+    grad_launches, worst_train = phase_trainer()
+    phase_cli_invert()
+    gtimes = phase_grad_times(smi)
 
-    kernel = {
+    forward = {
         "name": "persistent_step",
         "route": "cuda",
         "source": "tpu_pathtracer_torch/csrc/persistent.cu",
         "replaces": "tpu_pathtracer/ops/pallas/persistent.py:154",
         "launches": launches,
         "max_abs_err": max(worst["max_abs_err"], worst_main["max_abs_err"]),
+        "ms": times["brute"]["kernel_ms"],
+        "plain_ms": times["brute"]["plain_ms"],
+        "bound_ms": times["brute"]["bound_ms"],
+        "bound_by": times["brute"]["bound_by"],
+        "library_ms": None,
         "tolerance": f">= {AGREE} of lanes: equal n_samp and "
                      f"|dL| < {L_TOL} * max(1, |L|)",
         "n_agree": min(worst["n_agree"], worst_main["n_agree"]),
         "l_agree": min(worst["l_agree"], worst_main["l_agree"]),
         "n_floor_main": worst_main["n_floor"],
         "l_floor_main": worst_main["l_floor"],
-        "ms": times["brute"]["kernel_ms"],
-        "plain_ms": times["brute"]["plain_ms"],
         "ms_nee": times["nee"]["kernel_ms"],
         "plain_ms_nee": times["nee"]["plain_ms"],
+        "bound_ms_nee": times["nee"]["bound_ms"],
+        "bound_by_nee": times["nee"]["bound_by"],
         "step_ms_brute": times["brute"]["step_ms"],
         "step_ms_nee": times["nee"]["step_ms"],
         "idle_share_brute": times["brute"]["idle_share"],
@@ -513,7 +957,40 @@ def main() -> int:
         "rays_per_s_brute": times["brute"]["rays_per_s"],
         "rays_per_s_nee": times["nee"]["rays_per_s"],
     }
-    print(json.dumps({"kernels": [kernel]}))
+    gradient = {
+        "name": "persistent_replay_call",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/replay_persistent.cu",
+        "replaces": "tpu_pathtracer/ops/pallas/replay_persistent.py:97",
+        "launches": sum(grad_launches.values()),
+        "max_abs_err": max(worst_grad["max_abs_err"],
+                           worst_train["max_abs_err"]),
+        "ms": gtimes["brute"]["kernel_ms"],
+        "plain_ms": gtimes["brute"]["plain_ms"],
+        "bound_ms": gtimes["brute"]["bound_ms"],
+        "bound_by": gtimes["brute"]["bound_by"],
+        "library_ms": None,
+        "tolerance": f">= {AGREE} of lanes: equal n_samp, |dx| < {L_TOL} * "
+                     f"max(1, |x|) on L and every GA/GI plane; fold over "
+                     f"agreeing lanes: loss rtol {LOSS_RTOL}, gradients "
+                     f"rtol {GRAD_RTOL}",
+        "n_agree": min(worst_grad["n_agree"], worst_train["n_agree"]),
+        "l_agree": min(worst_grad["l_agree"], worst_train["l_agree"]),
+        "plane_agree": min(worst_grad["plane_agree"],
+                           worst_train["plane_agree"]),
+        "floor_main": worst_train["floor"],
+        "ms_nee": gtimes["nee"]["kernel_ms"],
+        "plain_ms_nee": gtimes["nee"]["plain_ms"],
+        "bound_ms_nee": gtimes["nee"]["bound_ms"],
+        "bound_by_nee": gtimes["nee"]["bound_by"],
+        "grad_ms_brute": gtimes["brute"]["grad_ms"],
+        "grad_ms_nee": gtimes["nee"]["grad_ms"],
+        "rays_per_s_brute": gtimes["brute"]["rays_per_s"],
+        "rays_per_s_nee": gtimes["nee"]["rays_per_s"],
+        "idle_share_brute": gtimes["brute"]["idle_share"],
+        "idle_share_nee": gtimes["nee"]["idle_share"],
+    }
+    print(json.dumps({"kernels": [forward, gradient]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card.
 
 Needs an NVIDIA GPU and nvcc; skips without them. Imports no JAX, so it runs
 on a machine without it: ``python -m pytest --noconftest
@@ -55,3 +55,43 @@ def test_kernel_matches_plain_on_gpu(use_nee, injected):
     n_agree, l_agree, _ = lane_agreement(st_r, st_k, W, H)
     assert n_agree >= AGREE and l_agree >= AGREE, (n_agree, l_agree)
     assert abs(rays_k - rays_r) <= 0.01 * rays_r
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True])
+@pytest.mark.parametrize("injected", [True, False])
+def test_gradient_kernel_matches_plain_on_gpu(use_nee, injected):
+    """The fused value-and-grad kernel against its plain version on the same
+    uniforms: >= 98% of lanes agree on n_samp, L and every GA/GI plane; the
+    kernel's phase "both" equals the cotangent fold over its own phase
+    "adjoint" lanes; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import grad_lane_agreement
+
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda")
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tgt = rp.target_to_lanes(
+        torch.rand((H, W, 3), generator=gen, device="cuda"), rows)
+    u = (torch.rand((rows * BUDGET * pk.n_draws(use_nee), LANES),
+                    generator=gen, device="cuda") if injected else None)
+    kw = dict(spp=2, budget=BUDGET, width=W, height=H, max_bounces=MB,
+              tile_rows=TR, use_nee=use_nee, uniforms=u)
+    args = (scene, pack_camera(cam), (2, 5), 0, tgt)
+    launches = rp.launches
+    k_adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
+    k_both = rp.persistent_replay_call(*args, **kw)
+    r_adj = rp.persistent_replay_ref(*args, phase="adjoint", **kw)
+    torch.cuda.synchronize()
+    assert rp.launches == launches + 2
+    agree = grad_lane_agreement(r_adj[:4], k_adj[:4], W, H)
+    assert agree["n_samp"] >= AGREE and agree["L"] >= AGREE, agree
+    assert min(agree["planes"].values()) >= AGREE, agree
+    loss, g_a, g_i = rp.mse_fold(*k_adj[:4], tgt, W, H)
+    torch.testing.assert_close(k_both[2], loss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(k_both[3], g_a, rtol=1e-5, atol=1e-9)
+    torch.testing.assert_close(k_both[4], g_i, rtol=1e-5, atol=1e-9)

@@ -101,7 +101,7 @@ def case(request):
         jrays.append(int(nr))
 
     ts, tc = scene_to_torch(js), camera_to_torch(jc)
-    tst = tpk.init_state(w, h, tile_rows=TR)
+    tst = tpk.init_state(w, h, tile_rows=TR, device="cpu")
     n_tiles = tst.lr.shape[0] // TR
     trays = []
     for f in range(FRAMES):
@@ -140,10 +140,11 @@ def test_state_readers_match_jax(case):
 
 @pytest.fixture(scope="module")
 def cornell_torch():
-    scene, cs = tsc.cornell_spheres()
+    scene, cs = tsc.cornell_spheres(device="cpu")
     from tpu_pathtracer_torch.models import camera as tcm
 
-    cam = tcm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"])
+    cam = tcm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"],
+                          device="cpu")
     return scene, pack_camera(cam)
 
 
@@ -152,7 +153,7 @@ def test_sample_count_guarantee(cornell_torch, use_nee):
     """budget >= spp*(max_bounces+1) completes >= spp samples per pixel, and
     in brute force every lane is live every iteration."""
     scene, cp = cornell_torch
-    st = tpk.init_state(W, H, tile_rows=TR)
+    st = tpk.init_state(W, H, tile_rows=TR, device="cpu")
     st, nrays = tpk.persistent_step(
         scene, cp, (1, 2), st, budget=2 * (MB + 1), width=W, height=H,
         max_bounces=MB, tile_rows=TR, use_nee=use_nee)
@@ -166,12 +167,13 @@ def test_sample_count_guarantee(cornell_torch, use_nee):
 def test_padding_lanes_inert():
     """Lanes past width*height never activate (16x12 leaves most of the
     8-row tile as padding)."""
-    scene, cs = tsc.cornell_spheres()
+    scene, cs = tsc.cornell_spheres(device="cpu")
     from tpu_pathtracer_torch.models import camera as tcm
 
     w, h = 16, 12
-    cam = tcm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"])
-    st = tpk.init_state(w, h, tile_rows=TR)
+    cam = tcm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"],
+                          device="cpu")
+    st = tpk.init_state(w, h, tile_rows=TR, device="cpu")
     st, _ = tpk.persistent_step(scene, pack_camera(cam), (1, 2), st,
                                 budget=4, width=w, height=h, max_bounces=MB,
                                 tile_rows=TR)
@@ -186,8 +188,8 @@ def test_production_mode_emitter_only(cornell_torch):
     jitter, so the means carry a few percent of sampling noise)."""
     scene, cp = cornell_torch
     kw = dict(budget=8, width=W, height=H, max_bounces=0, tile_rows=TR)
-    st_p = tpk.init_state(W, H, tile_rows=TR)
-    st_u = tpk.init_state(W, H, tile_rows=TR)
+    st_p = tpk.init_state(W, H, tile_rows=TR, device="cpu")
+    st_u = tpk.init_state(W, H, tile_rows=TR, device="cpu")
     rng = np.random.default_rng(5)
     n_tiles = st_u.lr.shape[0] // TR
     for _ in range(8):
@@ -219,7 +221,7 @@ def test_philox_known_answers():
 
 def test_unsupported_device_is_refused():
     """A state on a non-CPU, non-CUDA device is refused, not moved."""
-    scene, cs = tsc.single_sphere()
+    scene, cs = tsc.single_sphere(device="cpu")
     st = tpk.init_state(8, 8, tile_rows=TR, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tpk.persistent_step(scene, torch.zeros(24), (0, 0), st, budget=1,

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -23,8 +24,9 @@ W, H, TR = 32, 24, 8
 
 @pytest.fixture()
 def renderer():
-    scene, cs = sc.cornell_spheres()
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"])
+    scene, cs = sc.cornell_spheres(device="cpu")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"],
+                         device="cpu")
     return PersistentRenderer(scene, cam, RenderConfig(spp=2, max_bounces=2),
                               seed=3, device="cpu", budget=6, tile_rows=TR)
 
@@ -51,8 +53,9 @@ def test_update_camera_resets(renderer):
 
 
 def test_renderer_refuses_unported_options():
-    scene, cs = sc.single_sphere()
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 8, 8, cs["fov"])
+    scene, cs = sc.single_sphere(device="cpu")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 8, 8, cs["fov"],
+                         device="cpu")
     with pytest.raises(NotImplementedError):
         PersistentRenderer(scene, cam, RenderConfig(), device="cpu",
                            mesh=object())
@@ -99,19 +102,36 @@ def test_imports_without_jax():
 
 
 def test_build_command_targets_hopper(tmp_path):
-    """The build assembles the sm_90a nvcc command and the build/ path
-    without running nvcc."""
+    """The build assembles one sm_90a nvcc compile per source, the link
+    into one library and the build/ path, without running nvcc."""
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["persistent.cu"]
-    out = tmp_path / "lib.so"
-    cmd = _build.nvcc_command("nvcc", srcs, out)
+    assert [s.name for s in srcs] == ["persistent.cu", "replay_persistent.cu"]
+    obj = tmp_path / "a.o"
+    cmd = _build.nvcc_command("nvcc", srcs[0], obj)
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
+    for flag in ("-std=c++17", "-O3", "-c", "-fPIC"):
         assert flag in cmd
-    assert cmd[cmd.index("-o") + 1] == str(out) and cmd[-1] == str(srcs[0])
+    assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(srcs[0])
+    out = tmp_path / "lib.so"
+    link = _build.link_command("nvcc", [obj, tmp_path / "b.o"], out)
+    assert "-shared" in link and link[link.index("-o") + 1] == str(out)
+    assert link[-2:] == [str(obj), str(tmp_path / "b.o")]
     lib = _build.library_path()
     assert lib.parent == REPO / "build" / "tpu_pathtracer_torch"
     assert lib.name.startswith("libtpt_kernels_") and lib.suffix == ".so"
+
+
+def test_library_hash_covers_headers(tmp_path):
+    """An edited shared header changes the library's hash, so the library
+    is rebuilt instead of a stale one loaded (on a copy of csrc/)."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert [h.name for h in _build.headers(csrc)] == ["pt_common.cuh"]
+    before = _build.source_hash(csrc)
+    assert before == _build.source_hash(_build.CSRC)
+    header = csrc / "pt_common.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert _build.source_hash(csrc) != before
 
 
 def test_launch_counter_counts_kernel_launches_only(renderer):

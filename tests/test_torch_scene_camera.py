@@ -36,13 +36,14 @@ def camera_to_torch(jc, device="cpu"):
         {f: getattr(jc, f) for f in tcm.STATIC_FIELDS}, device=device)
 
 
-def point_light_scene(mod):
+def point_light_scene(mod, **device):
     """The point-light scene of tests/test_persistent.py, from either
-    package's builders."""
+    package's builders (``device`` goes to the port's)."""
     return mod.make_scene(
         [mod.sphere([0, -1e4 - 1, 0], 1e4, 0)],
         [mod.diffuse([0.7, 0.7, 0.7])],
         [mod.point_light([0, 3, 0], [40.0, 40.0, 40.0])],
+        **device,
     )
 
 
@@ -50,9 +51,10 @@ SCENES = ["cornell", "small", "single-sphere", "point"]
 
 
 def _build(mod, name):
+    device = {"device": "cpu"} if mod is tsc else {}
     if name == "point":
-        return point_light_scene(mod)
-    return mod.BUILTIN_SCENES[name]()[0]
+        return point_light_scene(mod, **device)
+    return mod.BUILTIN_SCENES[name](**device)[0]
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -84,7 +86,7 @@ def test_builders_match_jax(name):
 def test_camera_matches_jax(name):
     _, cs = jsc.BUILTIN_SCENES[name]()
     args = (cs["eye"], cs["look_at"], cs["up"], 40, 30, cs["fov"])
-    jc, tc = jcm.make_camera(*args), tcm.make_camera(*args)
+    jc, tc = jcm.make_camera(*args), tcm.make_camera(*args, device="cpu")
     for f in tcm.ARRAY_FIELDS:
         np.testing.assert_allclose(getattr(tc, f).numpy(),
                                    np.asarray(getattr(jc, f)),
@@ -132,16 +134,16 @@ def test_make_scene_validation_matches_jax(case):
     with pytest.raises(ValueError):
         jsc.make_scene(spheres, mats, lights)
     with pytest.raises(ValueError):
-        tsc.make_scene(spheres, mats, lights)
+        tsc.make_scene(spheres, mats, lights, device="cpu")
 
 
 def test_unported_features_raise():
     mats = [tsc.diffuse([0.5, 0.5, 0.5])]
     with pytest.raises(NotImplementedError):
         tsc.make_scene([], mats, [{"type": tsc.TRI_LIGHT, "material": 0,
-                                   "intensity": [1, 1, 1]}])
+                                   "intensity": [1, 1, 1]}], device="cpu")
     with pytest.raises(NotImplementedError):
-        tsc.make_scene([], mats, mesh=object())
+        tsc.make_scene([], mats, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         tcm.make_camera([0, 0, 5], [0, 0, 0], [0, 1, 0], 8, 8,
-                        lens_radius=1.0, focal_distance=5.0)
+                        lens_radius=1.0, focal_distance=5.0, device="cpu")

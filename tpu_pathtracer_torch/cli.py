@@ -1,11 +1,14 @@
-"""Command-line interface of the PyTorch port: render a scene to a PNG.
+"""Command-line interface of the PyTorch port.
 
-Example:
+Examples:
   python -m tpu_pathtracer_torch.cli render --scene cornell --size 640x480 \\
       --spp 4 --iterations 16 -o out.png
+  python -m tpu_pathtracer_torch.cli invert --size 32x32 --steps 30
 
-``--device`` defaults to ``cuda``, which runs the CUDA kernel. ``--device
-cpu`` runs the plain PyTorch version and is only taken when asked for.
+``render`` draws a scene to a PNG; ``invert`` is the inverse-rendering demo
+(BASELINE config 5). ``--device`` defaults to ``cuda``, which runs the CUDA
+kernels. ``--device cpu`` runs the plain PyTorch versions and is only taken
+when asked for.
 """
 from __future__ import annotations
 
@@ -31,10 +34,7 @@ def cmd_render(args: argparse.Namespace) -> int:
     from tpu_pathtracer_torch.utils.metrics import RenderMeter
 
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("error: --device cuda needs an NVIDIA GPU and a CUDA build of "
-              "PyTorch, and none is available here (--device cpu runs the "
-              "plain PyTorch version)", file=sys.stderr)
+    if _no_card(device):
         return 2
     w, h = _parse_size(args.size)
     scene, cs = sc.BUILTIN_SCENES[args.scene](device=device)
@@ -62,6 +62,74 @@ def cmd_render(args: argparse.Namespace) -> int:
     return 0
 
 
+def _no_card(device) -> bool:
+    """True, after saying so, when the card was asked for and is absent."""
+    import torch
+
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda needs an NVIDIA GPU and a CUDA build of "
+              "PyTorch, and none is available here (--device cpu runs the "
+              "plain PyTorch version)", file=sys.stderr)
+        return True
+    return False
+
+
+def cmd_invert(args: argparse.Namespace) -> int:
+    """Inverse-rendering demo (BASELINE config 5): perturb the Cornell
+    grey-wall albedo and the light intensity, and recover them by same-seed
+    gradient descent through the fused gradient kernel."""
+    import numpy as np
+    import torch
+
+    from tpu_pathtracer_torch.diff import inverse
+    from tpu_pathtracer_torch.io.image import save_png
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.models.integrator import RenderConfig
+
+    if args.estimator == "replay":
+        raise NotImplementedError(
+            "the path-replay estimator (XLA wavefront) is not ported to "
+            "tpu_pathtracer_torch yet (ROADMAP Queue 1 item 14); use "
+            "--estimator kernel")
+    device = torch.device(args.device)
+    if _no_card(device):
+        return 2
+    w, h = _parse_size(args.size)
+    scene, cs = sc.cornell_spheres(device=device)
+    camera = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h,
+                            cs["fov"], device=device)
+    config = RenderConfig(spp=args.spp, max_bounces=3)
+
+    params0 = inverse.params_of(scene)
+    params0["mat_color"][3] = 0.3
+    params0["light_intensity"] *= 0.5
+    optimizer = inverse.make_optimizer(lr=args.lr)
+    state = inverse.init_state(scene, optimizer, params0)
+    seed2 = (args.seed, 0)
+    target = inverse.render_target_kernel(scene, camera, seed2, config,
+                                          iteration=0)
+    step_fn = inverse.make_kernel_train_step(scene, camera, config, optimizer,
+                                             fixed_iteration=0)
+    for i in range(args.steps):
+        state, loss = step_fn(state, target, seed2)
+        if i % 5 == 0 or i == args.steps - 1:
+            print(f"step {i:4d}  loss {float(loss):.6f}")
+    got = state.params["mat_color"][3].detach().cpu().numpy()
+    want = scene.mat_color[3].cpu().numpy()
+    print(f"recovered albedo {np.round(got, 3)}  (true {np.round(want, 3)})")
+    gi = state.params["light_intensity"][0].detach().cpu().numpy()
+    wi = scene.light_intensity[0].cpu().numpy()
+    print(f"recovered intensity {np.round(gi, 2)}  (true {np.round(wi, 2)})")
+    if args.output:
+        final = inverse.apply_params(
+            scene, {k: v.detach() for k, v in state.params.items()})
+        img = inverse.render_target_kernel(final, camera, seed2, config,
+                                           iteration=0)
+        save_png(args.output, img.reshape(h, w, 3).cpu().numpy())
+        print(f"wrote {args.output}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="tpu_pathtracer_torch",
                                 description=__doc__)
@@ -80,6 +148,21 @@ def main(argv: list[str] | None = None) -> int:
                     help="cuda (the CUDA kernel) or cpu (plain PyTorch)")
     pr.add_argument("-o", "--output", help="PNG output path")
     pr.set_defaults(fn=cmd_render)
+
+    pi = sub.add_parser("invert", help="inverse-rendering demo (config 5)")
+    pi.add_argument("--size", default="32x32")
+    pi.add_argument("--spp", type=int, default=4)
+    pi.add_argument("--steps", type=int, default=30)
+    pi.add_argument("--lr", type=float, default=5e-2)
+    pi.add_argument("--seed", type=int, default=0)
+    pi.add_argument("--estimator", choices=["kernel", "replay"],
+                    default="kernel",
+                    help="kernel = the fused value-and-grad kernel (one walk "
+                         "per step); replay is not ported yet")
+    pi.add_argument("--device", default="cuda",
+                    help="cuda (the CUDA kernel) or cpu (plain PyTorch)")
+    pi.add_argument("-o", "--output", help="render recovered scene to PNG")
+    pi.set_defaults(fn=cmd_invert)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -38,22 +38,9 @@
 //
 // C interface (loaded with ctypes): tpt_persistent_step, tpt_error_string.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pt_common.cuh"
 
 namespace {
-
-constexpr int LANES = 128;
-constexpr int MAX_PRIMS = 256;
-constexpr int MAX_LIGHTS = 64;
-constexpr float BIG = 1e30f;
-constexpr float TMIN = 3e-2f;  // EPSILON, reference globals.h:49
-constexpr float PI_F = 3.14159265358979323846f;
-constexpr float TWO_PI = 6.28318530717958647692f;
-constexpr float INV_PI = 0.318309886183790671538f;
-constexpr int SPECULAR = 1;
-constexpr int TRANSMISSIVE = 2;
-constexpr int AREA_LIGHT = 1;
 
 // prims: cx cy cz r ax ay az coef mtype ex ey ez (pack_prims layout)
 __constant__ float c_prims[MAX_PRIMS * 12];
@@ -83,51 +70,6 @@ struct Params {
   int* nrays;             // (n_tiles,) live-ray counter
 };
 
-// The 1e5-radius wall spheres make the quadratic b^2 - |op|^2 + r^2 cancel
-// badly in f32, so one ulp there changes which surface a lane hits. XLA on
-// the CPU contracts multiply-adds into FMAs, nvcc does too but in its own
-// pattern, and the plain PyTorch version rounds every step. So the
-// quadratics (closest hit, light-sphere hit, shadow test) and the hit point
-// use explicit FMAs in XLA's pattern, which the plain version reproduces;
-// elsewhere nvcc contracts as it likes.
-__device__ __forceinline__ float dot3_fma(float ax, float ay, float az,
-                                          float bx, float by, float bz) {
-  return fmaf(az, bz, fmaf(ax, bx, __fmul_rn(ay, by)));
-}
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return ax * bx + ay * by + az * bz;
-}
-
-__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
-  const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-20f));
-  x *= inv;
-  y *= inv;
-  z *= inv;
-}
-
-// Philox4x32-10 (Salmon et al., SC'11).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-// top 24 bits -> [0, 1), exact in f32
-__device__ __forceinline__ float bits_to_uniform(uint32_t x) {
-  return (float)(x >> 8) * (1.0f / 16777216.0f);
-}
-
 __global__ void __launch_bounds__(LANES)
 persistent_kernel(State s, Params p) {
   const int row = blockIdx.x;  // one block per 128-lane row
@@ -141,8 +83,6 @@ persistent_kernel(State s, Params p) {
   const float px = (float)(lane % p.width);
   const float py = (float)(lane / p.width);
   const int n_draw = p.use_nee ? 8 : 5;
-  const int kk = p.strat_k * p.strat_k;
-  const float inv_k = 1.0f / (float)p.strat_k;
 
   float Lr = s.lr[idx], Lg = s.lg[idx], Lb = s.lb[idx];
   int n_samp = s.n_samp[idx];
@@ -159,19 +99,8 @@ persistent_kernel(State s, Params p) {
   for (int it = 0; it < p.budget; ++it) {
     // ---- this iteration's uniforms: u_cam v_cam u1 u2 u3 [ul1 ul2 usel]
     float u[8];
-    if (p.uniforms) {
-      const float* ub = p.uniforms +
-                        (size_t)(tile * p.budget + it) * n_draw * tile_lanes +
-                        trow * LANES + col;
-      for (int j = 0; j < 8; ++j) u[j] = j < n_draw ? ub[j * tile_lanes] : 0.f;
-    } else {
-      const uint4 a = philox4x32_10(make_uint4(lane, p.frame, it, 0u), p.seed, p.salt);
-      const uint4 b = philox4x32_10(make_uint4(lane, p.frame, it, 1u), p.seed, p.salt);
-      u[0] = bits_to_uniform(a.x); u[1] = bits_to_uniform(a.y);
-      u[2] = bits_to_uniform(a.z); u[3] = bits_to_uniform(a.w);
-      u[4] = bits_to_uniform(b.x); u[5] = bits_to_uniform(b.y);
-      u[6] = bits_to_uniform(b.z); u[7] = bits_to_uniform(b.w);
-    }
+    draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
+                  col, lane, p.frame, p.seed, p.salt, 0u);
     const float u1 = u[2], u2 = u[3], u3 = u[4];
     const float ul1 = u[5], ul2 = u[6], usel = u[7];
 
@@ -179,20 +108,7 @@ persistent_kernel(State s, Params p) {
     // jitter over strat_k^2 cells picked by n_samp % strat_k^2; prev_delta
     // is set on regeneration (camera rays count as delta for MIS).
     if (!alive && in_domain) {
-      float jx, jy;
-      if (p.strat_k > 1) {
-        const int cell = n_samp % kk;
-        jx = ((float)(cell % p.strat_k) + u[0]) * inv_k - 0.5f;
-        jy = ((float)(cell / p.strat_k) + u[1]) * inv_k - 0.5f;
-      } else {
-        jx = u[0] - 0.5f;
-        jy = u[1] - 0.5f;
-      }
-      const float sx = px + jx, sy = py + jy;
-      dx = c_cam[0] - c_cam[6] * sy + c_cam[3] * sx;
-      dy = c_cam[1] - c_cam[7] * sy + c_cam[4] * sx;
-      dz = c_cam[2] - c_cam[8] * sy + c_cam[5] * sx;
-      normalize3(dx, dy, dz);
+      camera_dir(c_cam, px, py, n_samp, p.strat_k, u[0], u[1], dx, dy, dz);
       ox = c_cam[9];
       oy = c_cam[10];
       oz = c_cam[11];
@@ -263,15 +179,7 @@ persistent_kernel(State s, Params p) {
           const int lprim = c_lstruct[2 * li + 1];
           if (c_lstruct[2 * li] != AREA_LIGHT || lprim < 0 || lprim != best_p)
             continue;
-          const float* LP = c_prims + lprim * 12;
-          const float dlx = LP[0] - ox, dly = LP[1] - oy, dlz = LP[2] - oz;
-          const float d2l = dot3(dlx, dly, dlz, dlx, dly, dlz);
-          const float rl = LP[3];
-          const float sin2 = fminf(rl * rl / fmaxf(d2l, 1e-12f), 1.f);
-          const float ctm = sqrtf(fmaxf(1.f - sin2, 0.f));
-          float pc = 1.f / (TWO_PI * fmaxf(1.f - ctm, 1e-12f));
-          pc = d2l > rl * rl ? pc : 0.f;
-          ldp = pc * c_lights[li * 8 + 7];
+          ldp = cone_pdf(c_prims + lprim * 12, ox, oy, oz) * c_lights[li * 8 + 7];
         }
         const float pp2 = prev_pdf * prev_pdf;
         take *= prev_delta ? 1.f : pp2 / fmaxf(pp2 + ldp * ldp, 1e-20f);
@@ -292,72 +200,19 @@ persistent_kernel(State s, Params p) {
         if (!m_l) continue;
         const int ltype = c_lstruct[2 * li], lprim = c_lstruct[2 * li + 1];
         const bool area = ltype == AREA_LIGHT && lprim >= 0;
-        float wlx, wly, wlz, dist_l, pdf_l, rad_r, rad_g, rad_b;
-        bool valid;
-        if (area) {
-          // uniform cone sampling around the light sphere's centre
-          const float* LP = c_prims + lprim * 12;
-          const float wrx = LP[0] - hx, wry = LP[1] - hy, wrz = LP[2] - hz;
-          const float rl = LP[3];
-          const float d2l = dot3_fma(wrx, wry, wrz, wrx, wry, wrz);
-          const float inv_dc = rsqrtf(fmaxf(d2l, 1e-20f));
-          const float wcx = wrx * inv_dc, wcy = wry * inv_dc, wcz = wrz * inv_dc;
-          const float sin2 = fminf(rl * rl / fmaxf(d2l, 1e-12f), 1.f);
-          const float ctm = sqrtf(fmaxf(1.f - sin2, 0.f));
-          const float cth = 1.f - ul1 * (1.f - ctm);
-          const float sth = sqrtf(fmaxf(1.f - cth * cth, 0.f));
-          const float phi = TWO_PI * ul2;
-          const bool usex = fabsf(wcx) > fabsf(wcz);
-          float ax = usex ? -wcy : 0.f, ay = usex ? wcx : -wcz,
-                az = usex ? 0.f : wcy;
-          normalize3(ax, ay, az);
-          const float bx = wcy * az - wcz * ay;
-          const float by = wcz * ax - wcx * az;
-          const float bz = wcx * ay - wcy * ax;
-          const float cp = cosf(phi) * sth, sp = sinf(phi) * sth;
-          wlx = ax * cp + bx * sp + wcx * cth;
-          wly = ay * cp + by * sp + wcy * cth;
-          wlz = az * cp + bz * sp + wcz * cth;
-          const float bq = dot3_fma(wrx, wry, wrz, wlx, wly, wlz);
-          const float detq = fmaf(rl, rl, fmaf(bq, bq, -d2l));
-          const float thit = bq - sqrtf(fmaxf(detq, 0.f));
-          valid = detq >= 0.f && thit > TMIN && d2l > rl * rl;
-          const float inv_rl = 1.0f / rl;
-          const float nsx = (hx + wlx * thit - LP[0]) * inv_rl;
-          const float nsy = (hy + wly * thit - LP[1]) * inv_rl;
-          const float nsz = (hz + wlz * thit - LP[2]) * inv_rl;
-          // one-sided emitter: the sample must see the sphere's outer face
-          valid = valid && dot3(nsx, nsy, nsz, -wlx, -wly, -wlz) > 0.f;
-          pdf_l = sel / (TWO_PI * fmaxf(1.f - ctm, 1e-12f));
-          dist_l = thit;
-          rad_r = LT[3];
-          rad_g = LT[4];
-          rad_b = LT[5];
-        } else {
-          // point light: a delta light, MIS weight 1, 1/d^2 falloff
-          const float wrx = LT[0] - hx, wry = LT[1] - hy, wrz = LT[2] - hz;
-          const float d2l = dot3(wrx, wry, wrz, wrx, wry, wrz);
-          const float inv_dl = rsqrtf(fmaxf(d2l, 1e-20f));
-          dist_l = d2l * inv_dl;
-          wlx = wrx * inv_dl;
-          wly = wry * inv_dl;
-          wlz = wrz * inv_dl;
-          const float inv_d2 = inv_dl * inv_dl;
-          rad_r = LT[3] * inv_d2;
-          rad_g = LT[4] * inv_d2;
-          rad_b = LT[5] * inv_d2;
-          pdf_l = sel;
-          valid = dist_l > TMIN;
-        }
+        const LightSample ls = sample_light(
+            LT, area ? c_prims + lprim * 12 : nullptr, hx, hy, hz, ul1, ul2);
+        const float wlx = ls.wlx, wly = ls.wly, wlz = ls.wlz;
+        const float pdf_l = ls.pdf;
         const float cos_l = dot3(wlx, wly, wlz, nx, ny, nz);
         const bool support = cos_l > 0.f && dot3(wox, woy, woz, wlx, wly, wlz) < 0.f;
-        if (!(valid && support)) continue;
+        if (!(ls.valid && support)) continue;
         ++n_live;  // every needed shadow segment is a traced ray
         // shadow any-hit, segment-ball distance form: the segment
         // [tmin, smax] hits a sphere iff its nearest point to the centre is
         // within r. The sampled light sphere is skipped: its own hit lies
         // beyond smax by construction.
-        const float smax = fmaf(dist_l, 0.999f, -TMIN);
+        const float smax = fmaf(ls.dist, 0.999f, -TMIN);
         const int skip = area ? lprim : -1;
         bool occ = false;
         for (int q = 0; q < p.n_prims && !occ; ++q) {
@@ -378,75 +233,16 @@ persistent_kernel(State s, Params p) {
             area ? (pdf_l * pdf_l) / fmaxf(pdf_l * pdf_l + pdf_b * pdf_b, 1e-20f)
                  : 1.f;
         const float scale = cos_l * w_mis / fmaxf(pdf_l, 1e-20f);
-        Cr += Tr * (ar * INV_PI) * rad_r * scale;
-        Cg += Tg * (ag * INV_PI) * rad_g * scale;
-        Cb += Tb * (ab * INV_PI) * rad_b * scale;
+        Cr += Tr * (ar * INV_PI) * ls.rad_r * scale;
+        Cg += Tg * (ag * INV_PI) * ls.rad_g * scale;
+        Cb += Tb * (ab * INV_PI) * ls.rad_b * scale;
       }
     }
 
     // ---- BSDF sampling: one lobe per lane
-    const float won = dot3(wox, woy, woz, nx, ny, nz);
-    float wix, wiy, wiz, fr, fg, fb, pdf, wgt;
-    if (is_d) {
-      // cosine hemisphere through the polar disk map, in the (u, v, n) frame
-      const float r_d = sqrtf(u1);
-      const float th = TWO_PI * u2;
-      const float ldx = r_d * cosf(th), ldy = r_d * sinf(th);
-      const float ldz = sqrtf(fmaxf(1.f - u1, 0.f));
-      const bool use_x = fabsf(nx) > fabsf(nz);
-      float ux = use_x ? -ny : 0.f, uy = use_x ? nx : -nz, uz = use_x ? 0.f : ny;
-      normalize3(ux, uy, uz);
-      const float vx = ny * uz - nz * uy;
-      const float vy = nz * ux - nx * uz;
-      const float vz = nx * uy - ny * ux;
-      wix = ux * ldx + vx * ldy + nx * ldz;
-      wiy = uy * ldx + vy * ldy + ny * ldz;
-      wiz = uz * ldx + vz * ldy + nz * ldz;
-      pdf = dot3(wox, woy, woz, wix, wiy, wiz) < 0.f ? ldz * INV_PI : 0.f;
-      fr = ar * INV_PI;
-      fg = ag * INV_PI;
-      fb = ab * INV_PI;
-      wgt = PI_F;  // cos/pdf is exactly pi
-    } else {
-      // mirror reflection, shared by the specular lobe and the dielectric
-      const float wsx = wox - 2.f * won * nx;
-      const float wsy = woy - 2.f * won * ny;
-      const float wsz = woz - 2.f * won * nz;
-      if (is_s) {
-        wix = wsx; wiy = wsy; wiz = wsz;
-        fr = coef * ar;
-        fg = coef * ag;
-        fb = coef * ab;
-      } else {
-        // Fresnel dielectric; the reflection choice reuses u1
-        const bool entering = won < 0.f;
-        const float ior = fmaxf(coef, 1.f);
-        const float n1 = entering ? 1.f : ior, n2 = entering ? ior : 1.f;
-        const float sgn = entering ? 1.f : -1.f;
-        const float nnx = nx * sgn, nny = ny * sgn, nnz = nz * sgn;
-        const float cos_i = -(wox * nnx + woy * nny + woz * nnz);
-        const float eta = n1 / n2;
-        const float sin2t = eta * eta * (1.f - cos_i * cos_i);
-        const float cos_t = sqrtf(fmaxf(1.f - sin2t, 0.f));
-        const float r_orth = (n1 * cos_i - n2 * cos_t) / (n1 * cos_i + n2 * cos_t);
-        const float r_par = (n2 * cos_i - n1 * cos_t) / (n2 * cos_i + n1 * cos_t);
-        const float refl =
-            sin2t > 1.f ? 1.f : 0.5f * (r_orth * r_orth + r_par * r_par);
-        if (u1 < refl) {
-          wix = wsx; wiy = wsy; wiz = wsz;
-        } else {
-          const float k = eta * (-cos_i) + cos_t;
-          wix = wox * eta - k * nnx;
-          wiy = woy * eta - k * nny;
-          wiz = woz * eta - k * nnz;
-        }
-        fr = ar;
-        fg = ag;
-        fb = ab;
-      }
-      pdf = 1.f;
-      wgt = fabsf(dot3(wix, wiy, wiz, nx, ny, nz));
-    }
+    const Lobe lb = sample_lobe(is_s, is_t, nx, ny, nz, wox, woy, woz, ar, ag,
+                                ab, coef, u1, u2);
+    const float fr = lb.fr, fg = lb.fg, fb = lb.fb, pdf = lb.pdf, wgt = lb.wgt;
     const bool f_black = fr <= 0.f && fg <= 0.f && fb <= 0.f;
     const bool step_ok = !f_black && pdf > 0.f;
     if (step_ok) {
@@ -476,7 +272,7 @@ persistent_kernel(State s, Params p) {
     }
     // ---- pending ray for the next iteration (MIS previous vertex = hit)
     ox = hx; oy = hy; oz = hz;
-    dx = wix; dy = wiy; dz = wiz;
+    dx = lb.wix; dy = lb.wiy; dz = lb.wiz;
     prev_pdf = pdf;
     prev_delta = !is_d;
     ++bounce;

@@ -67,7 +67,7 @@ def _image_plane(view: Tensor, dist: Tensor, hfov: Tensor, vfov: Tensor,
 
 def make_camera(eye: Any, look_at: Any, up: Any, width: int, height: int,
                 fov: float = 60.0, lens_radius: float = 0.0,
-                focal_distance: float = 0.0, *, device="cpu") -> Camera:
+                focal_distance: float = 0.0, *, device="cuda") -> Camera:
     """Build a camera; fov is the horizontal field of view in degrees and the
     vertical one follows from the aspect ratio (camera.h:31-57)."""
     _no_dof(lens_radius)
@@ -97,7 +97,7 @@ def make_camera(eye: Any, look_at: Any, up: Any, width: int, height: int,
 
 
 def camera_from_numpy(arrays: Mapping[str, np.ndarray],
-                      static: Mapping[str, Any], *, device="cpu") -> Camera:
+                      static: Mapping[str, Any], *, device="cuda") -> Camera:
     """Build a Camera from the array fields (numpy) and static fields of a
     JAX ``Camera``."""
     _no_dof(float(np.asarray(arrays["lens_radius"])))

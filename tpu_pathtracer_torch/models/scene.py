@@ -143,7 +143,7 @@ def make_scene(
     textures: Any = None,
     mat_texture: Sequence[int] | None = None,
     *,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """Build a padded SoA sphere Scene from declarative Python data, with the
     JAX package's host-side validation and padding."""
@@ -230,7 +230,7 @@ def make_scene(
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray],
-                     static: Mapping[str, Any], *, device="cpu") -> Scene:
+                     static: Mapping[str, Any], *, device="cuda") -> Scene:
     """Build a Scene from the array fields (numpy) and the static fields of a
     JAX ``Scene``, so both packages compute on identical tables."""
     ints = {"material_id", "light_prim"}
@@ -261,7 +261,7 @@ def reference_materials() -> list[dict]:
     ]
 
 
-def cornell_spheres(device="cpu") -> tuple[Scene, dict]:
+def cornell_spheres(device="cuda") -> tuple[Scene, dict]:
     """The reference's "scene 2" (main.cpp:152-164): a Cornell box of giant
     spheres with a mirror ball, a glass ball and a huge emissive sphere.
     Returns (scene, camera_spec)."""
@@ -283,7 +283,7 @@ def cornell_spheres(device="cpu") -> tuple[Scene, dict]:
                       device=device), cam
 
 
-def small_spheres(device="cpu") -> tuple[Scene, dict]:
+def small_spheres(device="cuda") -> tuple[Scene, dict]:
     """The reference's commented-out "scene 1" (main.cpp:142-150)."""
     e5 = 1e5
     spheres = [
@@ -303,7 +303,7 @@ def small_spheres(device="cpu") -> tuple[Scene, dict]:
                       device=device), cam
 
 
-def single_sphere(device="cpu") -> tuple[Scene, dict]:
+def single_sphere(device="cuda") -> tuple[Scene, dict]:
     """Single diffuse sphere under a sphere area light."""
     spheres = [
         sphere([0, 0, 0], 1.0, 0),

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``tpu_pathtracer_torch/csrc/*.cu`` into one shared
-library with a plain C interface, for ``sm_90a`` (Hopper), at first use. The
-library lands in ``build/tpu_pathtracer_torch/`` beside the package, named by
-a hash of the sources, so an edited source rebuilds and an unchanged one
-loads at once. It is loaded with ``ctypes``; no PyTorch header is compiled,
-so a build takes seconds, not minutes.
+``nvcc`` compiles every ``tpu_pathtracer_torch/csrc/*.cu`` for ``sm_90a``
+(Hopper), one process per source, all started together, and links the
+objects into one shared library with a plain C interface, at first use. The
+library lands in ``build/tpu_pathtracer_torch/`` beside the package, named
+by a hash of the sources and their shared headers (``csrc/*.cuh``), so an
+edited source or header rebuilds and an unchanged tree loads at once. It is
+loaded with ``ctypes``; no PyTorch header is compiled, so a build takes
+seconds, not minutes.
 """
 from __future__ import annotations
 
@@ -23,20 +25,29 @@ CSRC = _PKG / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
+
+
+def headers(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cuh"))
 
 
 def build_dir() -> Path:
     return _PKG.parent / "build" / "tpu_pathtracer_torch"
 
 
-def library_path() -> Path:
+def source_hash(csrc: Path = CSRC) -> str:
+    """Hash of every source and header, by name and content."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(sources(csrc) + headers(csrc)):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return build_dir() / f"libtpt_kernels_{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return build_dir() / f"libtpt_kernels_{source_hash()}.so"
 
 
 def find_nvcc() -> str:
@@ -54,32 +65,55 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def nvcc_command(nvcc: str, srcs: list[Path], output: Path) -> list[str]:
-    """Route (b) of a kernel build: a shared library with a C interface."""
-    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+def nvcc_command(nvcc: str, src: Path, output: Path) -> list[str]:
+    """Compile one source into a position-independent object (route (b) of
+    a kernel build: a shared library with a C interface)."""
+    return [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(output),
-            *(str(s) for s in srcs)]
+            str(src)]
+
+
+def link_command(nvcc: str, objects: list[Path], output: Path) -> list[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(output),
+            *(str(o) for o in objects)]
 
 
 def build() -> tuple[Path, float]:
     """Compile the library if this source hash has not been built yet.
-    Returns (library path, seconds spent compiling). The compiler's output
-    (including ptxas register counts) is kept next to the library as
-    ``<name>.log``."""
+    Returns (library path, seconds spent compiling and linking). The
+    compiler's output (including ptxas register counts) is kept next to the
+    library as ``<name>.log``."""
     out = library_path()
     if out.is_file():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = find_nvcc()
+    srcs = sources()
+    objs = [out.parent / f"{tag}.{s.stem}.o" for s in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.so.tmp")
-    cmd = nvcc_command(find_nvcc(), sources(), tmp)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in (nvcc_command(nvcc, s, o) for s, o in zip(srcs, objs))]
+    log, failed = [], False
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        failed |= proc.returncode != 0
+    if not failed:
+        cmd = link_command(nvcc, objs, tmp)
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        failed = proc.returncode != 0
     seconds = time.perf_counter() - t0
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    text = "\n".join(log)
+    out.with_suffix(".log").write_text(text)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, out)
     return out, seconds
 

@@ -99,7 +99,7 @@ class PathState:
 
 
 def init_state(width: int, height: int, tile_rows: int = 32, *,
-               device="cpu") -> PathState:
+               device="cuda") -> PathState:
     """Fresh all-dead state: whole tiles of tile_rows x 128 lanes."""
     n_tiles = -(-(width * height) // (tile_rows * LANES))
     shape = (n_tiles * tile_rows, LANES)
@@ -171,12 +171,16 @@ def bits_to_uniform(x: Tensor) -> Tensor:
 
 
 def philox_uniforms(lane: Tensor, seed: int, salt: int, frame: int,
-                    iteration: int, n_draw: int) -> list[Tensor]:
-    """The production draws of one iteration, in the kernel's order."""
+                    iteration: int, n_draw: int, stream: int = 0
+                    ) -> list[Tensor]:
+    """The production draws of one iteration, in the kernel's order. The
+    counter's last word is ``stream | draw group``; each kernel draws under
+    its own stream tag."""
     out = []
     for group in range(-(-n_draw // 4)):
         out += [bits_to_uniform(w) for w in
-                philox4x32(lane, frame, iteration, group, seed, salt)]
+                philox4x32(lane, frame, iteration, stream | group, seed,
+                           salt)]
     return out[:n_draw]
 
 
@@ -202,6 +206,180 @@ def fma(a, b, c) -> Tensor:
 
 def dot3_fma(ax, ay, az, bx, by, bz) -> Tensor:
     return fma(az, bz, fma(ax, bx, ay * by))
+
+
+# The plain versions of the math that the two persistent kernels share
+# (csrc/pt_common.cuh): the camera ray of a regenerated path, the cone pdf
+# of an emitter hit for MIS, the NEE light sample and the BSDF lobes. ``P``
+# and ``Lt`` are host lists of the pack_prims / pack_lights rows.
+
+def camera_dirs(cam, px, py, n_samp, strat_k, u_cam, v_cam):
+    """Primary ray directions of regenerated paths: stratified jitter over
+    strat_k^2 cells picked by n_samp % strat_k^2 (persistent.py:551)."""
+    if strat_k > 1:
+        cell = n_samp % (strat_k * strat_k)
+        ccx = (cell % strat_k).to(torch.float32)
+        ccy = (cell // strat_k).to(torch.float32)
+        jx = (ccx + u_cam) * (1.0 / strat_k) - 0.5
+        jy = (ccy + v_cam) * (1.0 / strat_k) - 0.5
+    else:
+        jx = u_cam - 0.5
+        jy = v_cam - 0.5
+    sx = px + jx
+    sy = py + jy
+    return normalize3(cam[0] - cam[6] * sy + cam[3] * sx,
+                      cam[1] - cam[7] * sy + cam[4] * sx,
+                      cam[2] - cam[8] * sy + cam[5] * sx)
+
+
+def emitter_light_pdf(P, Lt, lights_static, is_ps, ox, oy, oz, fzeros):
+    """Light-sampling pdf of the sphere light a lane hit, seen from the
+    previous vertex o (cone pdf times selection pdf), 0 elsewhere."""
+    ldp = fzeros
+    for li, (ltype, lprim) in enumerate(lights_static):
+        if ltype != AREA_LIGHT or lprim < 0:
+            continue
+        dlx = P[lprim][0] - ox
+        dly = P[lprim][1] - oy
+        dlz = P[lprim][2] - oz
+        d2l = dot3(dlx, dly, dlz, dlx, dly, dlz)
+        rl = P[lprim][3]
+        sin2 = torch.clamp_max(rl * rl / torch.clamp_min(d2l, 1e-12), 1.0)
+        ctm = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+        pc = 1.0 / (2.0 * math.pi * torch.clamp_min(1.0 - ctm, 1e-12))
+        pc = torch.where(d2l > rl * rl, pc, 0.0)
+        ldp = torch.where(is_ps[lprim], pc * Lt[li][7], ldp)
+    return ldp
+
+
+def sample_light(P, Lt, li, ltype, lprim, hx, hy, hz, ul1, ul2, fzeros):
+    """NEE sample of light ``li`` from the hit points: cone sampling around
+    a sphere light's centre (one-sided: only its outer face lights), or a
+    point light, a delta light with 1/d^2 falloff. Returns (wlx, wly, wlz,
+    dist, pdf, (rad_r, rad_g, rad_b), valid, is_delta)."""
+    tmin = EPSILON
+    where = torch.where
+    sel = Lt[li][7]
+    if ltype == AREA_LIGHT and lprim >= 0:
+        wrx = P[lprim][0] - hx
+        wry = P[lprim][1] - hy
+        wrz = P[lprim][2] - hz
+        rl = P[lprim][3]
+        d2l = dot3_fma(wrx, wry, wrz, wrx, wry, wrz)
+        inv_dc = torch.rsqrt(torch.clamp_min(d2l, 1e-20))
+        wcx, wcy, wcz = wrx * inv_dc, wry * inv_dc, wrz * inv_dc
+        sin2 = torch.clamp_max(rl * rl / torch.clamp_min(d2l, 1e-12), 1.0)
+        ctm = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
+        cth = 1.0 - ul1 * (1.0 - ctm)
+        sth = torch.sqrt(torch.clamp_min(1.0 - cth * cth, 0.0))
+        phi = (2.0 * math.pi) * ul2
+        usex = torch.abs(wcx) > torch.abs(wcz)
+        ax, ay, az = normalize3(where(usex, -wcy, 0.0),
+                                where(usex, wcx, -wcz),
+                                where(usex, 0.0, wcy))
+        bx = wcy * az - wcz * ay
+        by = wcz * ax - wcx * az
+        bz = wcx * ay - wcy * ax
+        cp = torch.cos(phi) * sth
+        sp = torch.sin(phi) * sth
+        wlx = ax * cp + bx * sp + wcx * cth
+        wly = ay * cp + by * sp + wcy * cth
+        wlz = az * cp + bz * sp + wcz * cth
+        bq = dot3_fma(wrx, wry, wrz, wlx, wly, wlz)
+        detq = fma(rl, rl, fma(bq, bq, -d2l))
+        thit = bq - torch.sqrt(torch.clamp_min(detq, 0.0))
+        valid = (detq >= 0.0) & (thit > tmin) & (d2l > rl * rl)
+        inv_rl = _f32_div(1.0, rl)
+        nsx = (hx + wlx * thit - P[lprim][0]) * inv_rl
+        nsy = (hy + wly * thit - P[lprim][1]) * inv_rl
+        nsz = (hz + wlz * thit - P[lprim][2]) * inv_rl
+        valid = valid & (dot3(nsx, nsy, nsz, -wlx, -wly, -wlz) > 0.0)
+        pdf_l = sel / (2.0 * math.pi * torch.clamp_min(1.0 - ctm, 1e-12))
+        return (wlx, wly, wlz, thit, pdf_l, tuple(Lt[li][3:6]), valid,
+                False)
+    wrx = Lt[li][0] - hx
+    wry = Lt[li][1] - hy
+    wrz = Lt[li][2] - hz
+    d2l = dot3(wrx, wry, wrz, wrx, wry, wrz)
+    inv_dl = torch.rsqrt(torch.clamp_min(d2l, 1e-20))
+    dist_l = d2l * inv_dl
+    inv_d2 = inv_dl * inv_dl
+    rad = tuple(Lt[li][3 + c] * inv_d2 for c in range(3))
+    return (wrx * inv_dl, wry * inv_dl, wrz * inv_dl, dist_l, sel + fzeros,
+            rad, dist_l > tmin, True)
+
+
+def sample_lobe(nx, ny, nz, wox, woy, woz, ar, ag, ab, coef, is_s, is_t,
+                is_d, u1, u2, any_spec, any_trans):
+    """One BSDF lobe per lane under masks: cosine hemisphere through the
+    polar disk map, mirror reflection, or the Fresnel dielectric (whose
+    reflection choice reuses u1). Returns (wix, wiy, wiz, fr, fg, fb, pdf,
+    wgt), wgt = |cos| / pdf without the vector divide."""
+    where = torch.where
+    r_d = torch.sqrt(u1)
+    th = (2.0 * math.pi) * u2
+    ldx = r_d * torch.cos(th)
+    ldy = r_d * torch.sin(th)
+    ldz = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
+    use_x = torch.abs(nx) > torch.abs(nz)
+    ux, uy, uz = normalize3(where(use_x, -ny, 0.0), where(use_x, nx, -nz),
+                            where(use_x, 0.0, ny))
+    vx = ny * uz - nz * uy
+    vy = nz * ux - nx * uz
+    vz = nx * uy - ny * ux
+    wdx = ux * ldx + vx * ldy + nx * ldz
+    wdy = uy * ldx + vy * ldy + ny * ldz
+    wdz = uz * ldx + vz * ldy + nz * ldz
+    pdf_d = where(dot3(wox, woy, woz, wdx, wdy, wdz) < 0.0, ldz * INV_PI,
+                  0.0)
+    won = dot3(wox, woy, woz, nx, ny, nz)
+    if any_spec or any_trans:
+        wsx = wox - 2.0 * won * nx
+        wsy = woy - 2.0 * won * ny
+        wsz = woz - 2.0 * won * nz
+    if any_trans:
+        entering = won < 0.0
+        ior = torch.clamp_min(coef, 1.0)
+        n1 = where(entering, 1.0, ior)
+        n2 = where(entering, ior, 1.0)
+        sgn = where(entering, 1.0, -1.0)
+        nnx, nny, nnz = nx * sgn, ny * sgn, nz * sgn
+        cos_i = -(wox * nnx + woy * nny + woz * nnz)
+        eta = n1 / n2
+        sin2t = eta * eta * (1.0 - cos_i * cos_i)
+        cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2t, 0.0))
+        r_orth = (n1 * cos_i - n2 * cos_t) / (n1 * cos_i + n2 * cos_t)
+        r_par = (n2 * cos_i - n1 * cos_t) / (n2 * cos_i + n1 * cos_t)
+        refl = where(sin2t > 1.0, 1.0,
+                     0.5 * (r_orth * r_orth + r_par * r_par))
+        do_reflect = u1 < refl
+        txx = wox * eta - (eta * (-cos_i) + cos_t) * nnx
+        txy = woy * eta - (eta * (-cos_i) + cos_t) * nny
+        txz = woz * eta - (eta * (-cos_i) + cos_t) * nnz
+        wtx = where(do_reflect, wsx, txx)
+        wty = where(do_reflect, wsy, txy)
+        wtz = where(do_reflect, wsz, txz)
+    wix, wiy, wiz = wdx, wdy, wdz
+    fr, fg, fb = ar * INV_PI, ag * INV_PI, ab * INV_PI
+    pdf = pdf_d
+    if any_spec:
+        wix, wiy, wiz = (where(is_s, wsx, wix), where(is_s, wsy, wiy),
+                         where(is_s, wsz, wiz))
+        fr, fg, fb = (where(is_s, coef * ar, fr), where(is_s, coef * ag, fg),
+                      where(is_s, coef * ab, fb))
+    if any_trans:
+        wix, wiy, wiz = (where(is_t, wtx, wix), where(is_t, wty, wiy),
+                         where(is_t, wtz, wiz))
+        fr, fg, fb = (where(is_t, ar, fr), where(is_t, ag, fg),
+                      where(is_t, ab, fb))
+    if any_spec or any_trans:
+        pdf = where(is_d, pdf_d, 1.0)
+        # cos/pdf is exactly pi on diffuse lanes, |cos| on delta lanes
+        wgt = where(is_d, math.pi,
+                    torch.abs(dot3(wix, wiy, wiz, nx, ny, nz)))
+    else:
+        wgt = math.pi
+    return wix, wiy, wiz, fr, fg, fb, pdf, wgt
 
 
 def persistent_step_ref(
@@ -268,7 +446,6 @@ def persistent_step_ref(
     prev_pdf = state.prev_pdf
     prev_delta = state.prev_delta != 0
     n_live = torch.zeros(n_tiles, dtype=torch.int64, device=dev)
-    kk = strat_k * strat_k
 
     def per_tile(mask):
         return mask.reshape(n_tiles, -1).sum(1)
@@ -285,20 +462,8 @@ def persistent_step_ref(
         # ---- regenerate: dead lanes start the next sample of their pixel
         # (stratified jitter: cell = n_samp % strat_k^2, persistent.py:551)
         regen = (~alive) & in_domain
-        if strat_k > 1:
-            cell = n_samp % kk
-            ccx = (cell % strat_k).to(torch.float32)
-            ccy = (cell // strat_k).to(torch.float32)
-            jx = (ccx + u_cam) * (1.0 / strat_k) - 0.5
-            jy = (ccy + v_cam) * (1.0 / strat_k) - 0.5
-        else:
-            jx = u_cam - 0.5
-            jy = v_cam - 0.5
-        sx = px + jx
-        sy = py + jy
-        gdx, gdy, gdz = normalize3(cam[0] - cam[6] * sy + cam[3] * sx,
-                                   cam[1] - cam[7] * sy + cam[4] * sx,
-                                   cam[2] - cam[8] * sy + cam[5] * sx)
+        gdx, gdy, gdz = camera_dirs(cam, px, py, n_samp, strat_k, u_cam,
+                                    v_cam)
         ox = where(regen, cam[9], ox)
         oy = where(regen, cam[10], oy)
         oz = where(regen, cam[11], oz)
@@ -382,21 +547,8 @@ def persistent_step_ref(
         one_sided = dot3(nx, ny, nz, -wox, -woy, -woz) > 0.0
         take = (act & one_sided).to(torch.float32)
         if use_nee:
-            ldp = fzeros
-            for li, (ltype, lprim) in enumerate(lights_static):
-                if ltype != AREA_LIGHT or lprim < 0:
-                    continue
-                dlx = P[lprim][0] - ox
-                dly = P[lprim][1] - oy
-                dlz = P[lprim][2] - oz
-                d2l = dot3(dlx, dly, dlz, dlx, dly, dlz)
-                rl = P[lprim][3]
-                sin2 = torch.clamp_max(
-                    rl * rl / torch.clamp_min(d2l, 1e-12), 1.0)
-                ctm = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
-                pc = 1.0 / (2.0 * math.pi * torch.clamp_min(1.0 - ctm, 1e-12))
-                pc = where(d2l > rl * rl, pc, 0.0)
-                ldp = where(is_ps[lprim], pc * Lt[li][7], ldp)
+            ldp = emitter_light_pdf(P, Lt, lights_static, is_ps, ox, oy, oz,
+                                    fzeros)
             pp2 = prev_pdf * prev_pdf
             w_emit = where(prev_delta, 1.0,
                            pp2 / torch.clamp_min(pp2 + ldp * ldp, 1e-20))
@@ -416,65 +568,9 @@ def persistent_step_ref(
                     m_l = usel >= lo
                 else:
                     m_l = (usel >= lo) & (usel < _f32_add(lo, sel))
-                ir_l, ig_l, ib_l = Lt[li][3], Lt[li][4], Lt[li][5]
-                if ltype == AREA_LIGHT and lprim >= 0:
-                    # cone sampling around the light sphere's centre
-                    wrx = P[lprim][0] - hx
-                    wry = P[lprim][1] - hy
-                    wrz = P[lprim][2] - hz
-                    rl = P[lprim][3]
-                    d2l = dot3_fma(wrx, wry, wrz, wrx, wry, wrz)
-                    inv_dc = torch.rsqrt(torch.clamp_min(d2l, 1e-20))
-                    wcx, wcy, wcz = wrx * inv_dc, wry * inv_dc, wrz * inv_dc
-                    sin2 = torch.clamp_max(
-                        rl * rl / torch.clamp_min(d2l, 1e-12), 1.0)
-                    ctm = torch.sqrt(torch.clamp_min(1.0 - sin2, 0.0))
-                    cth = 1.0 - ul1 * (1.0 - ctm)
-                    sth = torch.sqrt(torch.clamp_min(1.0 - cth * cth, 0.0))
-                    phi = (2.0 * math.pi) * ul2
-                    usex = torch.abs(wcx) > torch.abs(wcz)
-                    ax, ay, az = normalize3(where(usex, -wcy, 0.0),
-                                            where(usex, wcx, -wcz),
-                                            where(usex, 0.0, wcy))
-                    bx = wcy * az - wcz * ay
-                    by = wcz * ax - wcx * az
-                    bz = wcx * ay - wcy * ax
-                    cp = torch.cos(phi) * sth
-                    sp = torch.sin(phi) * sth
-                    wlx = ax * cp + bx * sp + wcx * cth
-                    wly = ay * cp + by * sp + wcy * cth
-                    wlz = az * cp + bz * sp + wcz * cth
-                    bq = dot3_fma(wrx, wry, wrz, wlx, wly, wlz)
-                    detq = fma(rl, rl, fma(bq, bq, -d2l))
-                    thit = bq - torch.sqrt(torch.clamp_min(detq, 0.0))
-                    valid = (detq >= 0.0) & (thit > tmin) & (d2l > rl * rl)
-                    inv_rl = _f32_div(1.0, rl)
-                    nsx = (hx + wlx * thit - P[lprim][0]) * inv_rl
-                    nsy = (hy + wly * thit - P[lprim][1]) * inv_rl
-                    nsz = (hz + wlz * thit - P[lprim][2]) * inv_rl
-                    # one-sided emitter: only its outer face lights
-                    front = dot3(nsx, nsy, nsz, -wlx, -wly, -wlz) > 0.0
-                    valid = valid & front
-                    pdf_l = sel / (2.0 * math.pi
-                                   * torch.clamp_min(1.0 - ctm, 1e-12))
-                    dist_l = thit
-                    rad_r, rad_g, rad_b = ir_l, ig_l, ib_l
-                    is_delta = False
-                else:
-                    # point light: a delta light with 1/d^2 falloff
-                    wrx = Lt[li][0] - hx
-                    wry = Lt[li][1] - hy
-                    wrz = Lt[li][2] - hz
-                    d2l = dot3(wrx, wry, wrz, wrx, wry, wrz)
-                    inv_dl = torch.rsqrt(torch.clamp_min(d2l, 1e-20))
-                    dist_l = d2l * inv_dl
-                    wlx, wly, wlz = wrx * inv_dl, wry * inv_dl, wrz * inv_dl
-                    inv_d2 = inv_dl * inv_dl
-                    rad_r, rad_g, rad_b = (ir_l * inv_d2, ig_l * inv_d2,
-                                           ib_l * inv_d2)
-                    pdf_l = sel + fzeros
-                    valid = dist_l > tmin
-                    is_delta = True
+                (wlx, wly, wlz, dist_l, pdf_l, (rad_r, rad_g, rad_b), valid,
+                 is_delta) = sample_light(P, Lt, li, ltype, lprim, hx, hy, hz,
+                                          ul1, ul2, fzeros)
                 # shadow any-hit: segment-ball distance form over all prims
                 # but the sampled light sphere (which cannot occlude its own
                 # cone sample: its hit lies beyond smax by construction)
@@ -510,75 +606,12 @@ def persistent_step_ref(
                 Cg = Cg + Tg * (ag * INV_PI) * rad_g * scale
                 Cb = Cb + Tb * (ab * INV_PI) * rad_b * scale
 
-        # ---- BSDF sampling: cosine hemisphere through the polar disk map
-        r_d = torch.sqrt(u1)
-        th = (2.0 * math.pi) * u2
-        ldx = r_d * torch.cos(th)
-        ldy = r_d * torch.sin(th)
-        ldz = torch.sqrt(torch.clamp_min(1.0 - u1, 0.0))
-        use_x = torch.abs(nx) > torch.abs(nz)
-        ux, uy, uz = normalize3(where(use_x, -ny, 0.0), where(use_x, nx, -nz),
-                                where(use_x, 0.0, ny))
-        vx = ny * uz - nz * uy
-        vy = nz * ux - nx * uz
-        vz = nx * uy - ny * ux
-        wdx = ux * ldx + vx * ldy + nx * ldz
-        wdy = uy * ldx + vy * ldy + ny * ldz
-        wdz = uz * ldx + vz * ldy + nz * ldz
-        pdf_d = where(dot3(wox, woy, woz, wdx, wdy, wdz) < 0.0,
-                      ldz * INV_PI, 0.0)
-        won = dot3(wox, woy, woz, nx, ny, nz)
-        if any_spec or any_trans:
-            wsx = wox - 2.0 * won * nx
-            wsy = woy - 2.0 * won * ny
-            wsz = woz - 2.0 * won * nz
-        if any_trans:
-            entering = won < 0.0
-            ior = torch.clamp_min(coef, 1.0)
-            n1 = where(entering, 1.0, ior)
-            n2 = where(entering, ior, 1.0)
-            sgn = where(entering, 1.0, -1.0)
-            nnx, nny, nnz = nx * sgn, ny * sgn, nz * sgn
-            cos_i = -(wox * nnx + woy * nny + woz * nnz)
-            eta = n1 / n2
-            sin2t = eta * eta * (1.0 - cos_i * cos_i)
-            cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2t, 0.0))
-            r_orth = (n1 * cos_i - n2 * cos_t) / (n1 * cos_i + n2 * cos_t)
-            r_par = (n2 * cos_i - n1 * cos_t) / (n2 * cos_i + n1 * cos_t)
-            refl = where(sin2t > 1.0, 1.0,
-                         0.5 * (r_orth * r_orth + r_par * r_par))
-            # the reflection choice reuses u1, the diffuse polar draw
-            do_reflect = u1 < refl
-            txx = wox * eta - (eta * (-cos_i) + cos_t) * nnx
-            txy = woy * eta - (eta * (-cos_i) + cos_t) * nny
-            txz = woz * eta - (eta * (-cos_i) + cos_t) * nnz
-            wtx = where(do_reflect, wsx, txx)
-            wty = where(do_reflect, wsy, txy)
-            wtz = where(do_reflect, wsz, txz)
-        wix, wiy, wiz = wdx, wdy, wdz
-        fr, fg, fb = ar * INV_PI, ag * INV_PI, ab * INV_PI
-        pdf = pdf_d
-        if any_spec:
-            wix, wiy, wiz = (where(is_s, wsx, wix), where(is_s, wsy, wiy),
-                             where(is_s, wsz, wiz))
-            fr, fg, fb = (where(is_s, coef * ar, fr),
-                          where(is_s, coef * ag, fg),
-                          where(is_s, coef * ab, fb))
-        if any_trans:
-            wix, wiy, wiz = (where(is_t, wtx, wix), where(is_t, wty, wiy),
-                             where(is_t, wtz, wiz))
-            fr, fg, fb = (where(is_t, ar, fr), where(is_t, ag, fg),
-                          where(is_t, ab, fb))
-        if any_spec or any_trans:
-            pdf = where(is_d, pdf_d, 1.0)
+        # ---- BSDF sampling: one lobe per lane under masks
+        wix, wiy, wiz, fr, fg, fb, pdf, wgt = sample_lobe(
+            nx, ny, nz, wox, woy, woz, ar, ag, ab, coef, is_s, is_t, is_d,
+            u1, u2, any_spec, any_trans)
         f_black = (fr <= 0.0) & (fg <= 0.0) & (fb <= 0.0)
         contrib_ok = ~f_black & (pdf > 0.0)
-        # cos/pdf is exactly pi on diffuse lanes, |cos| on delta lanes
-        if any_spec or any_trans:
-            cos_wi = torch.abs(dot3(wix, wiy, wiz, nx, ny, nz))
-            wgt = where(is_d, math.pi, cos_wi)
-        else:
-            wgt = math.pi
         step_ok = act & contrib_ok
         Tr = where(step_ok, Tr * fr * wgt, Tr)
         Tg = where(step_ok, Tg * fg * wgt, Tg)

@@ -88,3 +88,41 @@ def lane_agreement(a, b, width: int, height: int
     ok = d < L_TOL * torch.clamp_min(La.abs().amax(-1), 1.0)
     return ((na == nb).double().mean().item(), ok.double().mean().item(),
             d.max().item())
+
+
+def _close(x, y):
+    """Elementwise |x - y| < L_TOL * max(1, |x|) (x is the reference)."""
+    return (x - y).abs() < L_TOL * torch.clamp_min(x.abs(), 1.0)
+
+
+def grad_lane_agreement(a, b, width: int, height: int) -> dict:
+    """How closely two phase-"adjoint" outputs of the gradient walk agree
+    lane for lane. ``a`` and ``b`` are (L_lanes (rows, 128, 3), n_samp
+    (rows, 128), ga_lanes (M, 3, rows, 128), gi_lanes (NL, 3, rows, 128));
+    ``a`` is the reference. Returns the fractions of real lanes that agree
+    on the sample count (``"n_samp"``), on radiance (``"L"``) and on each
+    GA/GI plane (``"planes"``, by name), the largest radiance and plane
+    differences (``"max_abs_err"``), and ``"mask"``, the (rows, 128) lanes
+    on which all of them agree, on the CPU (the bar is
+    ``lane_agreement``'s)."""
+    n = width * height
+    La, na, gaa, gia = (x.double().cpu() for x in a)
+    Lb, nb, gab, gib = (x.double().cpu() for x in b)
+    mask = (na == nb) & _close(La, Lb).all(-1)
+    planes = {}
+    diff = (La - Lb).abs().max()
+    for name, xa, xb in (("GA", gaa, gab), ("GI", gia, gib)):
+        for k in range(xa.shape[0]):
+            for c in range(3):
+                ok = _close(xa[k, c], xb[k, c])
+                planes[f"{name}[{k}][{'rgb'[c]}]"] = \
+                    ok.reshape(-1)[:n].double().mean().item()
+                mask &= ok
+                diff = max(diff, (xa[k, c] - xb[k, c]).abs().max())
+
+    def frac(m):
+        return m.reshape(-1)[:n].double().mean().item()
+
+    return {"n_samp": frac(na == nb), "L": frac(_close(La, Lb).all(-1)),
+            "planes": planes, "all": frac(mask), "max_abs_err": float(diff),
+            "mask": mask}
