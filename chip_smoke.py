@@ -36,9 +36,11 @@ print one line; any failure exits non-zero:
    agree on n_samp, radiance and every per-lane GA/GI plane (or, where the
    f32 chaos is larger, no fewer than the plain version on the CPU agrees
    with itself on the card), ray counts within 1%; phase "both" equals the
-   cotangent fold over the kernel's own lanes (rtol 1e-4), and the fold over
+   cotangent fold over the kernel's own lanes (rtol 1e-4), the fold over
    the agreeing lanes equals the plain version's (loss rtol 1e-4, gradients
-   2e-3);
+   2e-3); the lanes that differ on an output may not lean one way
+   (``IMAGE_Z``), and the whole-image relative gaps of loss, gradient and
+   radiance are printed;
 8. trainer main path, BASELINE config 5 at full width: cornell 640x480,
    spp 4, 10 bounces, budget default_budget(4, 10) = 26, brute force then
    NEE. The target comes from render_target_kernel; then 6 same-seed Adam
@@ -81,6 +83,14 @@ REPS = 5
 W, H, TR = 640, 480, 32
 SPP, MB = 4, 10  # BASELINE config 5 and bench.py's workload
 LOSS_RTOL, GRAD_RTOL, FOLD_RTOL = 1e-4, 2e-3, 1e-4
+# Sums over all lanes, kernel against plain. On a lane whose f32 walk
+# diverged, the two sides take exchangeable paths, so the sign of their
+# difference is a fair coin; a fault in one branch moves every lane it
+# touches the same way. Of the n lanes that differ on an output beyond the
+# per-lane bar, the excess of one sign over the other may be at most
+# IMAGE_Z * sqrt(n) (P < 3e-8 for a fair coin, by Hoeffding's bound), so a
+# one-sided fault fails once it touches more than ~36 lanes.
+IMAGE_Z = 6.0
 TRAIN_STEPS, LR = 6, 5e-2
 F32_PEAK = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # bytes/s
@@ -592,11 +602,56 @@ def _grad_floor(args, kw, ref_adj, w, h):
     return min(fl["n_samp"], fl["L"], min(fl["planes"].values()))
 
 
+def _image_gap(k_adj, r_adj, tgt, w, h):
+    """Kernel against plain over all lanes. For each per-lane output of
+    phase "adjoint" (radiance per channel, each GA/GI plane), the lanes
+    that differ beyond the per-lane bar and the excess of one sign of
+    difference over the other, in units of its null spread sqrt(n). Returns
+    (worst excess / (IMAGE_Z * sqrt(n)), the number of lanes behind it, and
+    the relative gaps of the whole-image loss, worst gradient entry (to the
+    largest plain entry) and radiance sum)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import L_TOL
+
+    n_lanes = w * h
+    outs = [(k_adj[0].permute(2, 0, 1), r_adj[0].permute(2, 0, 1)),
+            (k_adj[2], r_adj[2]), (k_adj[3], r_adj[3])]
+    worst, worst_n = 0.0, 0
+    for a, b in outs:
+        a = a.double().reshape(-1, a.shape[-2] * a.shape[-1])[:, :n_lanes]
+        b = b.double().reshape(-1, b.shape[-2] * b.shape[-1])[:, :n_lanes]
+        d = a - b
+        off = d.abs() >= L_TOL * b.abs().clamp_min(1.0)
+        n = off.sum(-1).double()
+        excess = ((d > 0) & off).sum(-1) - ((d < 0) & off).sum(-1)
+        for e, m in zip(excess.abs().tolist(), n.tolist()):
+            r = e / (IMAGE_Z * math.sqrt(m)) if m else 0.0
+            if r > worst:
+                worst, worst_n = r, int(m)
+
+    def sums(x):
+        return x.double().sum((-2, -1))
+
+    fk = [sums(t) for t in rp.mse_lane_terms(*k_adj[:4], tgt, w, h)]
+    fr = [sums(t) for t in rp.mse_lane_terms(*r_adj[:4], tgt, w, h)]
+    loss_gap = float((fk[0] - fr[0]).abs() / fr[0].abs().clamp_min(1e-300))
+    g_k = torch.cat([x.reshape(-1) for x in fk[1:]])
+    g_r = torch.cat([x.reshape(-1) for x in fr[1:]])
+    grad_gap = float((g_k - g_r).abs().max()
+                     / g_r.abs().max().clamp_min(1e-300))
+    l_k, l_r = sums(k_adj[0].permute(2, 0, 1)), sums(r_adj[0].permute(2, 0, 1))
+    l_gap = float(((l_k - l_r).abs() / l_r.abs().clamp_min(1e-300)).max())
+    return worst, worst_n, loss_gap, grad_gap, l_gap
+
+
 def _check_grad_launch(label, args, kw, w, h, main_loss=None):
     """Check one gradient-kernel launch against the plain version on the
     card, from the same inputs: phase "adjoint" lane for lane, phase "both"
-    against the cotangent fold over the kernel's own lanes, and the fold
-    over the agreeing lanes against the plain version's. ``main_loss``, if
+    against the cotangent fold over the kernel's own lanes, the fold over
+    the agreeing lanes against the plain version's, and the sign balance of
+    the lanes that differ from it (``_image_gap``). ``main_loss``, if
     given, is the loss the main path's launch returned from these inputs,
     which the replayed launch must equal bit for bit."""
     import torch
@@ -638,18 +693,28 @@ def _check_grad_launch(label, args, kw, w, h, main_loss=None):
             and _close(t_fold[1], r_fold[1], GRAD_RTOL, 1e-6 * scale)
             and _close(t_fold[2], r_fold[2], GRAD_RTOL, 1e-6 * scale)):
         fail(f"{label}: fold over agreeing lanes {t_fold} vs plain {r_fold}")
+    image = _image_gap(k_adj, r_adj, tgt, w, h)
+    if not image[0] <= 1.0:
+        fail(f"{label}: the lanes that differ from the plain version lean "
+             f"one way, {image[0]} times the bar ({image[1]} lanes; "
+             f"whole-image relative gaps: loss {image[2]}, gradient "
+             f"{image[3]}, radiance {image[4]})")
     return dict(n_agree=ag["n_samp"], l_agree=ag["L"],
                 plane_agree=min(ag["planes"].values()), all_agree=ag["all"],
                 floor=floor, max_abs_err=ag["max_abs_err"],
-                rays=(rays_k, rays_r), loss=float(k_both[2]))
+                rays=(rays_k, rays_r), loss=float(k_both[2]),
+                image=image)
 
 
 def _fmt_check(c) -> str:
     floor = "" if c["floor"] is None else f" (cpu floor {c['floor']:.4f})"
+    ratio, n_off, loss_gap, grad_gap, l_gap = c["image"]
     return (f"n {c['n_agree']:.4f} L {c['l_agree']:.4f} GA/GI "
             f"{c['plane_agree']:.4f} all {c['all_agree']:.4f}{floor} "
             f"max|d| {c['max_abs_err']:.3g} rays {c['rays'][0]}/"
-            f"{c['rays'][1]}")
+            f"{c['rays'][1]}; whole image, relative gaps: loss "
+            f"{loss_gap:.3g}, gradient {grad_gap:.3g}, radiance {l_gap:.3g}; "
+            f"sign balance {ratio:.3f} of its bar ({n_off} lanes)")
 
 
 def phase_grad_compare():
@@ -685,7 +750,8 @@ def phase_grad_compare():
     return dict(n_agree=min(c["n_agree"] for c in checks),
                 l_agree=min(c["l_agree"] for c in checks),
                 plane_agree=min(c["plane_agree"] for c in checks),
-                max_abs_err=max(c["max_abs_err"] for c in checks))
+                max_abs_err=max(c["max_abs_err"] for c in checks),
+                sign_balance=max(c["image"][0] for c in checks))
 
 
 def phase_trainer():
@@ -761,7 +827,8 @@ def phase_trainer():
         plane_agree=min(c["plane_agree"] for c in checks),
         floor=min((c["floor"] for c in checks if c["floor"] is not None),
                   default=None),
-        max_abs_err=max(c["max_abs_err"] for c in checks))
+        max_abs_err=max(c["max_abs_err"] for c in checks),
+        sign_balance=max(c["image"][0] for c in checks))
 
 
 def phase_cli_invert():
@@ -777,9 +844,11 @@ def phase_cli_invert():
           f"{time.perf_counter() - t0:.1f} s: {tail}", flush=True)
 
 
-def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False):
+def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False,
+                counts=None):
     """CUDA-event time of k gradients at config 5 (host wrapper included)
-    and the live rays they traced. ``plain`` times the plain version."""
+    and the live rays they traced, on seeds (salt, 0) .. (salt, k - 1).
+    ``plain`` times the plain version, which fills ``counts``."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
@@ -795,7 +864,8 @@ def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False):
         if plain:
             out = rp.persistent_replay_ref(
                 scene, cp, (salt, i), 0,
-                rp.target_to_lanes(target, rows), width=W, height=H, **kw)
+                rp.target_to_lanes(target, rows), width=W, height=H,
+                counts=counts, **kw)
             rays.append(out[5])
         else:
             rays.append(rp.persistent_mse_value_and_grad(
@@ -805,32 +875,30 @@ def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False):
     return start.elapsed_time(end), int(torch.stack(rays).sum())
 
 
-def grad_bound(scene, cp, target, use_nee):
-    """Bound of one gradient launch at config 5, from the work of one
-    counted launch: its path segments, completed paths and shadow
-    segments."""
+def grad_bound(scene, cp, target, use_nee, seed, shadows):
+    """Bound of one gradient launch at config 5, from the work of the
+    kernel's launch on ``seed``: its path segments and completed paths, and
+    ``shadows``, the NEE shadow segments the plain version traced on the
+    same seed (the kernel does not count them; the two walks differ only on
+    the lanes that f32 chaos flips)."""
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
 
     rows, _ = rp.pixel_lanes_layout(W, H, TR)
-    counts = {}
     out = rp.persistent_replay_call(
-        scene, cp, (500, 0), 0,
-        rp.target_to_lanes(target, rows), spp=SPP,
+        scene, cp, seed, 0, rp.target_to_lanes(target, rows), spp=SPP,
         budget=rp.default_budget(SPP, MB), width=W, height=H,
-        max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=use_nee,
-        counts=counts)
+        max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=use_nee)
     n_prims = int(scene.num_prims)
     n_slots = len(rp.material_slots(scene)[0])
     n_l = len(scene.light_structure)
-    segments, shadows = int(counts["segments"]), int(counts["shadow"])
-    paths = int(out[1].sum())
+    segments, paths = int(out[5]), int(out[1].sum())
     ops = (_walk_ops(n_prims, segments, paths, shadows)
            + segments * OPS["adjoint_segment"]
            + paths * (OPS["adjoint_flush_slot"] * n_slots
                       + OPS["adjoint_flush_light"] * n_l))
     lanes = rows * 128
     k = 3 * n_slots + 3 * n_l + 1
-    nbytes = lanes * (12 + 12 + 4) + rows * (4 * k + 8)
+    nbytes = lanes * (12 + 12 + 4) + rows * (4 * k + 4)
     bound_ms, by = _bound(ops, nbytes)
     return dict(bound_ms=bound_ms, bound_by=by, segments=segments,
                 shadows=shadows, paths=paths)
@@ -862,12 +930,14 @@ def phase_grad_times(smi):
                                  200 + rep)
             ms.append((tk - t1) / (K - 1))
             rates.append((rk - r1) / (tk - t1) * 1e3)
+        counts = {}
         t_plain, _ = _time_grads(scene, cam, cp, target, use_nee, 1, 300,
-                                 plain=True)
+                                 plain=True, counts=counts)
         out[mode] = dict(grad_ms=statistics.median(ms),
                          rays_per_s=statistics.median(rates), reps=ms,
                          plain_ms=t_plain,
-                         **grad_bound(scene, cp, target, use_nee))
+                         **grad_bound(scene, cp, target, use_nee, (300, 0),
+                                      int(counts["shadow"])))
     for mode, o in out.items():
         def run(i, use_nee=(mode == "nee")):
             rp.persistent_mse_value_and_grad(
@@ -973,12 +1043,16 @@ def main() -> int:
         "tolerance": f">= {AGREE} of lanes: equal n_samp, |dx| < {L_TOL} * "
                      f"max(1, |x|) on L and every GA/GI plane; fold over "
                      f"agreeing lanes: loss rtol {LOSS_RTOL}, gradients "
-                     f"rtol {GRAD_RTOL}",
+                     f"rtol {GRAD_RTOL}; of the n lanes that differ on an "
+                     f"output, one sign in excess by <= {IMAGE_Z} * "
+                     f"sqrt(n)",
         "n_agree": min(worst_grad["n_agree"], worst_train["n_agree"]),
         "l_agree": min(worst_grad["l_agree"], worst_train["l_agree"]),
         "plane_agree": min(worst_grad["plane_agree"],
                            worst_train["plane_agree"]),
         "floor_main": worst_train["floor"],
+        "sign_balance": max(worst_grad["sign_balance"],
+                            worst_train["sign_balance"]),
         "ms_nee": gtimes["nee"]["kernel_ms"],
         "plain_ms_nee": gtimes["nee"]["plain_ms"],
         "bound_ms_nee": gtimes["nee"]["bound_ms"],

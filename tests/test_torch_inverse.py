@@ -41,17 +41,18 @@ from tpu_pathtracer_torch.models.integrator import RenderConfig  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 W, H, TR = 16, 12, 8
 SPP, MB, BUDGET = 2, 3, 6
-SEED = (13, 0)
+RRS = 0  # Russian roulette from the second vertex on, inside the 3 bounces
+# On this seed every lane takes the same path in both implementations, so
+# the step is held to 1e-5. (Seed (13, 0) has a lane that makes
+# a grazing hit on the glass ball, det = 1.37 against terms of ~1e3, and
+# refracts onto the near-tie between the emitter and the ceiling; that f32
+# chaos is what the lane tests' 98% bars are for.)
+SEED = (13, 1)
 LR = 5e-2
-STEP_TOL = 1e-5  # parameters after one train step
-# The loss of that step: 1 of the 192 lanes takes another path in the two
-# implementations (a grazing hit on the glass ball, det = 1.37 against
-# terms of ~1e3, refracts onto the near-tie between the emitter and the
-# ceiling, t = 73.116 vs 73.172), which moves the loss by 6.7e-5 relative.
-LOSS_TOL = 1e-4
-# Adam's first moment after that step is 0.1 * the gradient; the flipped
-# lane moves one of its components by 2.4e-3 relative.
-GRAD_TOL = 1e-2
+STEP_TOL = 1e-5  # parameters and loss after one train step
+# Adam's first moment after that step is 0.1 * the gradient: the same lanes
+# summed in another order.
+GRAD_TOL = 1e-4
 # Adam: the same update in f32 in another order of operations; relative
 # above 1, where 1e-6 is below one ulp (ulp(12) = 9.5e-7).
 ADAM_TOL = 1e-6
@@ -74,7 +75,7 @@ def jax_step():
     """One JAX train step from perturbed parameters, and its inputs."""
     js, cs = jsc.cornell_spheres()
     jc = jcm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"])
-    config = JRenderConfig(spp=SPP, max_bounces=MB)
+    config = JRenderConfig(spp=SPP, max_bounces=MB, rr_start=RRS)
     target = np.random.default_rng(11).random((H, W, 3), np.float32)
     perturbed = js.replace(
         mat_color=jnp.clip(js.mat_color * 0.6 + 0.1, 0.0, 1.0),
@@ -92,7 +93,8 @@ def jax_step():
 
 def test_train_step_matches_jax(jax_step):
     """The port's step from the carried-across state equals JAX's: the
-    parameters after the step to 1e-5, the loss to LOSS_TOL."""
+    parameters and the loss after the step to 1e-5, Adam's moment to
+    GRAD_TOL."""
     js, jc = jax_step["js"], jax_step["jc"]
     s0 = jax_step["state0"]
     ts, tc = scene_to_torch(js), camera_to_torch(jc)
@@ -102,11 +104,11 @@ def test_train_step_matches_jax(jax_step):
     rows, _ = pixel_lanes_layout(W, H, TR)
     u = torch.tensor(jax_uniforms(SEED, 0, rows // TR, BUDGET, False))
     step = tinv.make_kernel_train_step(
-        ts, tc, RenderConfig(spp=SPP, max_bounces=MB), fixed_iteration=0,
-        tile_rows=TR, budget=BUDGET, uniforms=u)
+        ts, tc, RenderConfig(spp=SPP, max_bounces=MB, rr_start=RRS),
+        fixed_iteration=0, tile_rows=TR, budget=BUDGET, uniforms=u)
     state, loss = step(state, torch.tensor(jax_step["target"]), SEED)
     assert state.step == 1
-    np.testing.assert_allclose(float(loss), jax_step["loss"], rtol=LOSS_TOL)
+    np.testing.assert_allclose(float(loss), jax_step["loss"], rtol=STEP_TOL)
     params, adam, n = tinv.train_state_to_numpy(state)
     want = _adam_np(jax_step["state1"].opt_state)
     assert n == 1 and adam["count"] == want["count"] == 1

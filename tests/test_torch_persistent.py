@@ -43,7 +43,10 @@ from tpu_pathtracer_torch.utils.metrics import (  # noqa: E402
 )
 
 W, H, TR = 32, 24, 8
-MB, BUDGET, FRAMES = 2, 6, 2
+# Russian roulette runs once bounce > RRS: with RRS 0 it decides whether a
+# path goes on after its second and third vertices and boosts the
+# throughput of the next.
+MB, RRS, BUDGET, FRAMES = 3, 0, 6, 2
 
 def jax_uniforms(seed, frame, n_tiles, budget, use_nee, tile_offset=0):
     """The external uniform block interpret mode feeds the JAX kernel."""
@@ -90,8 +93,8 @@ def case(request):
     port's plain version on the same uniforms."""
     scene_name, (w, h), seed, use_nee = CASES[request.param]
     js, jc = _scene_and_camera(scene_name, w, h)
-    kw = dict(budget=BUDGET, width=w, height=h, max_bounces=MB, tile_rows=TR,
-              use_nee=use_nee)
+    kw = dict(budget=BUDGET, width=w, height=h, max_bounces=MB, rr_start=RRS,
+              tile_rows=TR, use_nee=use_nee)
     jst = jpk.init_state(w, h, tile_rows=TR)
     jrays = []
     for _ in range(FRAMES):

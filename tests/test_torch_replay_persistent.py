@@ -46,7 +46,11 @@ from tpu_pathtracer_torch.utils.metrics import (  # noqa: E402
 )
 
 W, H, TR = 16, 12, 8
-SPP, MB, RRS, BUDGET = 2, 3, 3, 6
+# Russian roulette runs once bounce > RRS; with RRS 0 it decides whether a
+# path goes on after its second and third vertices and boosts the throughput
+# of the next, so the roulette branch feeds L, cA and GA in every comparison
+# below.
+SPP, MB, RRS, BUDGET = 2, 3, 0, 6
 FOLD_RTOL = 1e-5  # the same lanes summed in another order
 LOSS_RTOL, GRAD_RTOL = 1e-4, 2e-3  # tests/test_replay_persistent.py's bars
 
@@ -116,8 +120,9 @@ def test_plain_lanes_match_jax_kernel(case):
 def test_ray_counts_match_jax_kernel(case):
     """Equal live-ray counts, up to one segment per thousand: a path whose
     length flips on an f32 tie traces one segment more or less. Measured:
-    brute force equal; NEE 1058 vs 1059 while every lane's completed-path
-    outputs agree, so the flipped segment belongs to a path that added
+    equal in both modes here (846 brute force, 883 NEE); with roulette from
+    bounce 3, NEE gave 1058 vs 1059 while every lane's completed-path
+    outputs agreed, so the flipped segment belonged to a path that added
     nothing, or was still in flight at the end of the launch."""
     for rays in (int(case["adj"][4]), int(case["both"][5])):
         assert abs(rays - case["jrays"]) <= max(1, case["jrays"] // 1000)

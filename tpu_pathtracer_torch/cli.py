@@ -103,12 +103,12 @@ def cmd_invert(args: argparse.Namespace) -> int:
     params0 = inverse.params_of(scene)
     params0["mat_color"][3] = 0.3
     params0["light_intensity"] *= 0.5
-    optimizer = inverse.make_optimizer(lr=args.lr)
-    state = inverse.init_state(scene, optimizer, params0)
+    state = inverse.init_state(scene, inverse.make_optimizer(lr=args.lr),
+                               params0)
     seed2 = (args.seed, 0)
     target = inverse.render_target_kernel(scene, camera, seed2, config,
                                           iteration=0)
-    step_fn = inverse.make_kernel_train_step(scene, camera, config, optimizer,
+    step_fn = inverse.make_kernel_train_step(scene, camera, config,
                                              fixed_iteration=0)
     for i in range(args.steps):
         state, loss = step_fn(state, target, seed2)

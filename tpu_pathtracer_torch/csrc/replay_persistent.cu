@@ -47,7 +47,7 @@
 // test is the sphere quadratic (not the segment-ball distance form), and
 // regeneration stops at spp completed paths per pixel. The ray count is the
 // TPU kernel's: lanes alive after regeneration, once per iteration; shadow
-// segments are counted apart.
+// segments are not counted.
 //
 // Randomness: test mode reads the TPU kernel's external uniform block;
 // production mode draws Philox4x32-10 under stream tag 0x10000 in the
@@ -80,7 +80,6 @@ struct Params {
   float *lr, *lg, *lb;    // per-lane completed-path sums
   int* n_samp;
   int* nrays;             // (rows_total,) live lanes summed over iterations
-  int* nshadow;           // (rows_total,) shadow segments traced
   float* partials;        // phase "both": (rows_total, 3*slots+3*lights+1)
   float* gl;              // phase "adjoint": ((slots+lights)*3, rows, 128)
 };
@@ -123,7 +122,7 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
   float GA[MAX_SLOTS * 3], GI[MAX_GRAD_LIGHTS * 3];
   for (int k = 0; k < 3 * S; ++k) GA[k] = 0.f;
   for (int k = 0; k < 3 * NL; ++k) GI[k] = 0.f;
-  int n_live = 0, n_shadow = 0;
+  int n_live = 0;
 
   for (int it = 0; it < p.budget; ++it) {
     float u[8];
@@ -230,7 +229,6 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
           const bool support =
               cos_l > 0.f && dot3(wox, woy, woz, ls.wlx, ls.wly, ls.wlz) < 0.f;
           if (!(ls.valid && support)) continue;
-          ++n_shadow;
           // shadow any-hit: the sphere quadratic's root in (tmin, smax),
           // skipping the sampled light sphere (its hit lies beyond smax)
           const float smax = fmaf(ls.dist, 0.999f, -TMIN);
@@ -333,11 +331,7 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
   p.lb[idx] = Lb * dom;
   p.n_samp[idx] = n_samp;
   const int rays = block_sum_int(n_live, iscratch);
-  const int shadows = block_sum_int(n_shadow, iscratch);
-  if (col == 0) {
-    p.nrays[row] = rays;
-    p.nshadow[row] = shadows;
-  }
+  if (col == 0) p.nrays[row] = rays;
 
   if (p.gl) {
     // phase "adjoint": raw per-lane accumulators, cotangent applied outside
@@ -387,10 +381,10 @@ int tpt_replay_persistent(
     const float* prims, const int* pflags, const int* pslot, int n_prims,
     const float* lights, const int* lstruct, int n_lights, int n_slots,
     const float* cam, const float* uniforms, const float* target, float* lr,
-    float* lg, float* lb, int* n_samp, int* nrays, int* nshadow,
-    float* partials, float* gl, int rows_total, int tile_rows, int budget,
-    int spp, int width, int n_lanes, int max_bounces, int rr_start,
-    int use_nee, int strat_k, int tile_offset, float inv_loss_n,
+    float* lg, float* lb, int* n_samp, int* nrays, float* partials,
+    float* gl, int rows_total, int tile_rows, int budget, int spp, int width,
+    int n_lanes, int max_bounces, int rr_start, int use_nee, int strat_k,
+    int tile_offset, float inv_loss_n,
     uint32_t seed, uint32_t salt, uint32_t iteration, void* stream) {
   if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lights < 0 ||
       n_lights > MAX_GRAD_LIGHTS || n_slots < 0 || n_slots > MAX_SLOTS ||
@@ -448,7 +442,6 @@ int tpt_replay_persistent(
   p.lb = lb;
   p.n_samp = n_samp;
   p.nrays = nrays;
-  p.nshadow = nshadow;
   p.partials = partials;
   p.gl = gl;
 

@@ -218,7 +218,6 @@ def make_kernel_train_step(
     scene: Scene,
     camera: Camera,
     config: RenderConfig,
-    optimizer=None,
     *,
     mesh=None,
     fixed_iteration: int | None = None,
@@ -233,8 +232,8 @@ def make_kernel_train_step(
     parameters it started from. The RNG frame is the step counter, or
     ``fixed_iteration`` for same-seed optimization (pass the iteration the
     target was rendered with: the loss is then exactly zero at the true
-    parameters). ``optimizer`` is accepted for the JAX signature; the state
-    carries its own."""
+    parameters). The optimizer is the one ``state`` carries (JAX's
+    ``optimizer`` argument has no counterpart here)."""
     _check_route(mesh, engine)
     kw = _kernel_kw(config.spp, config.max_bounces, config.rr_start,
                     tile_rows, config.use_nee, 2, budget, uniforms)

@@ -141,14 +141,10 @@ def _epilogue(Lr, Lg, Lb, n_samp, GA, GI, target_lanes, in_domain,
     return sse.sum(0), rows_sum(g * GA), rows_sum(g * GI)
 
 
-def _finish(scene, slot_mats, phase, L_lanes, n_samp, nrays, nshadow,
-            counts, grads):
+def _finish(scene, slot_mats, phase, L_lanes, n_samp, nrays, grads):
     """persistent_replay_call's return tuple. ``grads`` holds per-slot and
     per-light rows: (ga (S, 3, rows, 128), gi (NL, 3, rows, 128)) for phase
     "adjoint", (loss, gA (S, 3), gI (NL, 3)) for phase "both"."""
-    if counts is not None:
-        counts["segments"] = nrays
-        counts["shadow"] = nshadow
     n_mats = scene.mat_color.shape[0]
     if phase == "adjoint":
         ga, gi = grads
@@ -188,7 +184,9 @@ def persistent_replay_ref(
     """Plain PyTorch version of ``persistent_replay_call``: the JAX kernel's
     lane math, vectorized over all lanes with masked selects, with the
     explicit-FMA quadratics of ``persistent_step_ref``. Same arguments and
-    returns."""
+    returns; if ``counts`` is a dict it also receives ``"shadow"``, the NEE
+    shadow segments traced (for the kernel's bound, which the kernel does
+    not count)."""
     _check_route(use_dof, phase)
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
@@ -473,8 +471,9 @@ def persistent_replay_ref(
     else:
         grads = _epilogue(Lr, Lg, Lb, n_samp, GA, GI, target_lanes, in_domain,
                           inv_loss_n, rows_total)
-    return _finish(scene, slot_mats, phase, L_lanes, n_samp, n_live,
-                   n_shadow, counts, grads)
+    if counts is not None:
+        counts["shadow"] = n_shadow
+    return _finish(scene, slot_mats, phase, L_lanes, n_samp, n_live, grads)
 
 
 # ---------------------------------------------------------------------------
@@ -495,7 +494,7 @@ def _kernel():
         p, ip, ip, i,  # prims (device), prim flags, prim slots (host), n
         p, ip, i, i,  # lights (device), light structure (host), n, n_slots
         p, p, p,  # camera, uniforms (or NULL), target (device)
-        p, p, p, p, p, p,  # lr lg lb n_samp nrays nshadow (device)
+        p, p, p, p, p,  # lr lg lb n_samp nrays (device)
         p, p,  # partials ("both") or gl ("adjoint"), the other NULL
         i, i, i, i, i, i,  # rows_total tile_rows budget spp width n_lanes
         i, i, i, i, i,  # max_bounces rr_start use_nee strat_k tile_offset
@@ -510,7 +509,7 @@ def _kernel():
 
 def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
                  budget, width, height, max_bounces, rr_start, tile_rows,
-                 use_nee, strat_k, tile_offset, phase, uniforms, counts):
+                 use_nee, strat_k, tile_offset, phase, uniforms):
     global launches
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
@@ -554,7 +553,6 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
                   for _ in range(3))
     n_samp = torch.empty(shape, dtype=torch.int32, device=dev)
     nrays = torch.empty(rows_total, dtype=torch.int32, device=dev)
-    nshadow = torch.empty(rows_total, dtype=torch.int32, device=dev)
     n_k = 3 * n_slots + 3 * n_lights + 1
     partials = gl = None
     if phase == "both":
@@ -573,7 +571,7 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
                  uniforms.data_ptr() if uniforms is not None else None,
                  target_lanes.data_ptr(),
                  lr.data_ptr(), lg.data_ptr(), lb.data_ptr(),
-                 n_samp.data_ptr(), nrays.data_ptr(), nshadow.data_ptr(),
+                 n_samp.data_ptr(), nrays.data_ptr(),
                  partials.data_ptr() if partials is not None else None,
                  gl.data_ptr() if gl is not None else None,
                  rows_total, tile_rows, budget, spp, width, width * height,
@@ -594,7 +592,7 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
         grads = (part[n_k - 1], part[:3 * n_slots].reshape(n_slots, 3),
                  part[3 * n_slots:n_k - 1].reshape(n_lights, 3))
     return _finish(scene, slot_mats, phase, L_lanes, n_samp, nrays.sum(),
-                   nshadow.sum(), counts, grads)
+                   grads)
 
 
 def persistent_replay_call(
@@ -617,7 +615,6 @@ def persistent_replay_call(
     tile_offset: int = 0,
     phase: str = "both",
     uniforms: Tensor | None = None,
-    counts: dict | None = None,
 ):
     """One fused fwd+bwd launch over the (rows_total, 128) lane layout.
 
@@ -633,9 +630,7 @@ def persistent_replay_call(
 
     Callers divide the raw gradients by clamp(mat_color, 1e-8) and
     clamp(light_intensity, 1e-8). ``live_rays`` counts the lanes alive after
-    regeneration, once per iteration (the JAX kernel's count). If ``counts``
-    is a dict it receives ``"segments"`` (that count) and ``"shadow"`` (the
-    NEE shadow segments traced). For tensors on a CUDA device this launches
+    regeneration, once per iteration (the JAX kernel's count). For tensors on a CUDA device this launches
     the CUDA kernel on the current stream; on the CPU it runs
     ``persistent_replay_ref``; any other device raises.
     """
@@ -643,8 +638,7 @@ def persistent_replay_call(
     kw = dict(spp=spp, budget=budget, width=width, height=height,
               max_bounces=max_bounces, rr_start=rr_start,
               tile_rows=tile_rows, use_nee=use_nee, strat_k=strat_k,
-              tile_offset=tile_offset, phase=phase, uniforms=uniforms,
-              counts=counts)
+              tile_offset=tile_offset, phase=phase, uniforms=uniforms)
     dev = target_lanes.device
     if dev.type == "cuda":
         return _replay_cuda(scene, cam_packed, seed, iteration, target_lanes,
@@ -655,34 +649,34 @@ def persistent_replay_call(
     raise ValueError(f"persistent_replay_call: unsupported device {dev}")
 
 
-def mse_fold(L_lanes: Tensor, n_samp: Tensor, ga_lanes: Tensor,
-             gi_lanes: Tensor, target_lanes: Tensor, width: int, height: int,
-             mask: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor]:
-    """(loss, gA_raw, gI_raw) from the per-lane outputs of phase
-    "adjoint": the JAX package's pooled-mean cotangent
-    (``replay_persistent.py:1656-1676``), over the lanes of ``mask`` if
-    given (all lanes otherwise)."""
-    n_lanes = width * height
+def mse_lane_terms(L_lanes: Tensor, n_samp: Tensor, ga_lanes: Tensor,
+                   gi_lanes: Tensor, target_lanes: Tensor, width: int,
+                   height: int) -> tuple[Tensor, Tensor, Tensor]:
+    """Each lane's share of (loss, gA_raw, gI_raw), from the per-lane outputs
+    of phase "adjoint": the JAX package's pooled-mean cotangent
+    (``replay_persistent.py:1656-1676``) before its sum over lanes. Shapes
+    (rows, 128), (M, 3, rows, 128) and (NL, 3, rows, 128)."""
     n_pix3 = width * height * 3
     lane = torch.arange(n_samp.numel(), device=n_samp.device).reshape(
         n_samp.shape)
-    have = (n_samp > 0) & (lane < n_lanes)
-    if mask is not None:
-        have = have & mask
-    havef = have.to(torch.float32)
+    havef = ((n_samp > 0) & (lane < width * height)).to(torch.float32)
     inv_n = havef / torch.clamp_min(n_samp.to(torch.float32), 1.0)
-    d = [(L_lanes[..., c] * inv_n - target_lanes[..., c]) * havef
-         for c in range(3)]
-    loss = sum(torch.sum(dc * dc) for dc in d) / n_pix3
-    g = [dc * (2.0 / n_pix3) * inv_n for dc in d]
-    gA = torch.stack([torch.stack([torch.sum(g[c] * ga_lanes[m, c])
-                                   for c in range(3)])
-                      for m in range(ga_lanes.shape[0])])
-    gI = (torch.stack([torch.stack([torch.sum(g[c] * gi_lanes[li, c])
-                                    for c in range(3)])
-                       for li in range(gi_lanes.shape[0])])
-          if gi_lanes.shape[0] else torch.zeros((0, 3), device=n_samp.device))
-    return loss, gA, gI
+    d = (L_lanes.permute(2, 0, 1) * inv_n - target_lanes.permute(2, 0, 1)) \
+        * havef
+    g = d * (2.0 / n_pix3) * inv_n  # (3, rows, 128)
+    return (d * d).sum(0) / n_pix3, g * ga_lanes, g * gi_lanes
+
+
+def mse_fold(L_lanes: Tensor, n_samp: Tensor, ga_lanes: Tensor,
+             gi_lanes: Tensor, target_lanes: Tensor, width: int, height: int,
+             mask: Tensor | None = None) -> tuple[Tensor, Tensor, Tensor]:
+    """(loss, gA_raw, gI_raw): ``mse_lane_terms`` summed over the lanes of
+    ``mask`` if given (all lanes otherwise)."""
+    terms = mse_lane_terms(L_lanes, n_samp, ga_lanes, gi_lanes, target_lanes,
+                           width, height)
+    if mask is not None:
+        terms = tuple(t * mask for t in terms)
+    return tuple(t.sum((-2, -1)) for t in terms)
 
 
 def persistent_mse_value_and_grad(
@@ -700,7 +694,6 @@ def persistent_mse_value_and_grad(
     use_nee: bool = False,
     strat_k: int = 2,
     uniforms: Tensor | None = None,
-    counts: dict | None = None,
 ) -> tuple[Tensor, dict, Tensor]:
     """Loss and gradients w.r.t. ``mat_color`` and ``light_intensity`` of
     mean((render - target)^2), ``target`` (H, W, 3), from one fused launch.
@@ -714,7 +707,7 @@ def persistent_mse_value_and_grad(
         scene, pack_camera(camera), seed, iteration, aux, spp=spp,
         budget=budget, width=w, height=h, max_bounces=max_bounces,
         rr_start=rr_start, tile_rows=tile_rows, use_nee=use_nee,
-        strat_k=strat_k, uniforms=uniforms, counts=counts)
+        strat_k=strat_k, uniforms=uniforms)
     gI_full = torch.zeros_like(scene.light_intensity)
     gI_full[: gI_raw.shape[0]] = gI_raw
     grads = {
