@@ -53,7 +53,21 @@ print one line; any failure exits non-zero:
 10. times at config 5: ms per gradient and fwd+bwd rays/s by the slope
    between 1 and K gradients (CUDA events, median of REPS), the plain
    version's time per gradient, and from one torch.profiler trace the
-   gradient kernel's device time per launch and the device's idle share.
+   gradient kernel's device time per launch and the device's idle share;
+11. mesh forward kernel vs plain version at 160x120 (the kernel walks the
+   BVH per thread, the plain version per tile as the TPU kernel does):
+   cornell_boxes brute force and NEE, cornell_glass NEE and cornell_quad
+   NEE (a TRI_LIGHT, no spheres), on injected uniforms and on Philox;
+   phase 3's bars plus the sign test of phases 7-8 on the radiance;
+12. mesh main path: ``cli render --scene cornell-boxes`` writes a 640x480
+   PNG; PersistentRenderer on cornell_quad (NEE) at 640x480, budget 16,
+   until 4 spp, every launch checked from its own input state as in phase
+   4; then phase 6's times for cornell_boxes and cornell_quad;
+13. mesh gradient: phase 7's checks at 160x120 on cornell_boxes and
+   cornell_quad with NEE; the trainer on cornell_boxes (640x480, spp 4, 10
+   bounces, NEE; target + 5 Adam steps, the loss falls, the last launch
+   replayed and checked); phase 10's times on that workload, the JAX
+   package's mesh fwd+bwd workload.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -107,6 +121,9 @@ OPS = {
     "adjoint_segment": 7,  # nA, cA at the vertex
     "adjoint_flush_slot": 9,  # GA at completion, per material slot
     "adjoint_flush_light": 3,  # GI at completion, per light
+    "walk": 6,  # reciprocal direction of a ray's BVH walk
+    "slab": 22,  # slab test per node entered
+    "tri": 45,  # Moller-Trumbore per triangle tested
 }
 
 
@@ -159,14 +176,19 @@ def phase_build():
           f"ptxas: {' | '.join(regs) or 'no register report'}", flush=True)
 
 
-def _cornell(w, h, device):
+def _scene(name, w, h, device):
+    """A built-in scene (its mesh packed), its camera and packed camera."""
     from tpu_pathtracer_torch.models import camera as cm, scene as sc
     from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
 
-    scene, cs = sc.cornell_spheres(device=device)
+    scene, cs = sc.BUILTIN_SCENES[name](device=device)
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"],
                          device=device)
-    return scene, cam, pack_camera(cam)
+    return sc.with_packet_mesh(scene), cam, pack_camera(cam)
+
+
+def _cornell(w, h, device):
+    return _scene("cornell", w, h, device)
 
 
 def _point(w, h, device):
@@ -182,23 +204,34 @@ def _point(w, h, device):
     return scene, cam, pack_camera(cam)
 
 
-def phase_compare():
-    """Kernel vs plain version on the card; returns the worst numbers."""
+SPHERE_CASES = [
+    # (name, scene builder, w, h, tile_rows, budget, use_nee, injected)
+    ("cornell-brute", _cornell, 160, 120, 32, 8, False, True),
+    ("cornell-nee", _cornell, 160, 120, 32, 8, True, True),
+    ("point-nee", _point, 16, 12, 8, 8, True, True),
+    ("cornell-nee-philox", _cornell, 160, 120, 32, 8, True, False),
+]
+MESH_CASES = [
+    (f"{name}-{'nee' if nee else 'brute'}-{'injected' if inj else 'philox'}",
+     lambda w, h, dev, name=name: _scene(name, w, h, dev), 160, 120, 32, 8,
+     nee, inj)
+    for name, nee in (("cornell-boxes", False), ("cornell-boxes", True),
+                      ("cornell-glass", True), ("cornell-quad", True))
+    for inj in (True, False)
+]
+
+
+def phase_compare(cases=SPHERE_CASES, label="3 kernel vs plain"):
+    """Kernel vs plain version on the card, and the sign test of phases 7-8
+    on the radiance of the lanes that differ; returns the worst numbers."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.utils.metrics import AGREE, lane_agreement
 
     dev = "cuda"
-    cases = [
-        # (name, scene builder, w, h, tile_rows, budget, use_nee, injected)
-        ("cornell-brute", _cornell, 160, 120, 32, 8, False, True),
-        ("cornell-nee", _cornell, 160, 120, 32, 8, True, True),
-        ("point-nee", _point, 16, 12, 8, 8, True, True),
-        ("cornell-nee-philox", _cornell, 160, 120, 32, 8, True, False),
-    ]
     gen = torch.Generator(device=dev).manual_seed(1234)
-    worst = dict(n_agree=1.0, l_agree=1.0, max_abs_err=0.0)
+    worst = dict(n_agree=1.0, l_agree=1.0, max_abs_err=0.0, sign_balance=0.0)
     parts = []
     for name, build, w, h, tr, budget, use_nee, injected in cases:
         scene, _, cp = build(w, h, dev)
@@ -224,15 +257,21 @@ def phase_compare():
             fail(f"{name}: non-finite radiance")
         n_ok, l_ok, dmax = lane_agreement(st_r, st_k, w, h)
         ray_err = abs(rays_k - rays_r) / max(rays_r, 1)
+        sign, n_off = _sign_balance(
+            [(torch.stack([st_k.lr, st_k.lg, st_k.lb]),
+              torch.stack([st_r.lr, st_r.lg, st_r.lb]))], w * h)
         parts.append(f"{name}: n {n_ok:.4f} L {l_ok:.4f} max|dL| {dmax:.3g} "
-                     f"rays {rays_k}/{rays_r}")
-        if n_ok < AGREE or l_ok < AGREE or ray_err > RAY_TOL:
+                     f"rays {rays_k}/{rays_r} sign balance {sign:.3f} of its "
+                     f"bar ({n_off} lanes)")
+        if n_ok < AGREE or l_ok < AGREE or ray_err > RAY_TOL or sign > 1.0:
             fail(f"kernel vs plain {name}: n_agree {n_ok}, l_agree {l_ok}, "
-                 f"rays {rays_k} vs {rays_r}")
+                 f"rays {rays_k} vs {rays_r}, sign balance {sign} of its bar "
+                 f"({n_off} lanes)")
         worst["n_agree"] = min(worst["n_agree"], n_ok)
         worst["l_agree"] = min(worst["l_agree"], l_ok)
         worst["max_abs_err"] = max(worst["max_abs_err"], dmax)
-    print("[3 kernel vs plain] " + " | ".join(parts), flush=True)
+        worst["sign_balance"] = max(worst["sign_balance"], sign)
+    print(f"[{label}] " + " | ".join(parts), flush=True)
     return worst
 
 
@@ -252,7 +291,7 @@ def _render_plain(scene, cp, seed, steps, use_nee, budget):
     return st, rays
 
 
-def _replay_per_step(scene, cam, cp, use_nee, main):
+def _replay_per_step(scene, cam, cp, use_nee, main, floor_always=True):
     """Replay the main path's launches one at a time and check each: a second
     renderer with the same seed takes the same steps, and before each step
     the plain version runs from a copy of the kernel's input state, on the
@@ -266,32 +305,37 @@ def _replay_per_step(scene, cam, cp, use_nee, main):
     a whole run the share of diverged lanes grows with the iterations run.
     The plain version on the CPU against itself on the card is the floor of
     that chaos for one launch: the same code, rounded by two math
-    libraries."""
+    libraries. Unless ``floor_always``, that floor is computed only for a
+    launch below the 98% bar (it is reported as 1.0 otherwise)."""
     import dataclasses
 
     import torch
 
     from tpu_pathtracer_torch import PersistentRenderer
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
-    from tpu_pathtracer_torch.utils.metrics import lane_agreement
+    from tpu_pathtracer_torch.utils.metrics import AGREE, lane_agreement
 
+    w, h = cam.width, cam.height
     r = PersistentRenderer(scene, cam, main.config, seed=main.seed,
-                           device="cuda")
+                           device="cuda", budget=main.budget)
     scene_cpu, cp_cpu = scene.to("cpu"), cp.cpu()
-    kw = dict(budget=r.budget, width=W, height=H, max_bounces=10,
+    kw = dict(budget=r.budget, width=w, height=h, max_bounces=10,
               rr_start=3, tile_rows=TR, use_nee=use_nee)
     out = []
     for _ in range(main.state.frame):
         before = r.state.clone()
-        before_cpu = dataclasses.replace(
-            before, **{f: getattr(before, f).cpu() for f in pk.STATE_FIELDS})
         rays_k = r.step()
         ref, rays_r = pk.persistent_step_ref(scene, cp, (r.seed, 0), before,
                                              **kw)
-        ref_cpu, _ = pk.persistent_step_ref(scene_cpu, cp_cpu, (r.seed, 0),
-                                            before_cpu, **kw)
-        n_ok, l_ok, dmax = lane_agreement(ref, r.state, W, H)
-        n_fl, l_fl, _ = lane_agreement(ref, ref_cpu, W, H)
+        n_ok, l_ok, dmax = lane_agreement(ref, r.state, w, h)
+        n_fl = l_fl = 1.0
+        if floor_always or min(n_ok, l_ok) < AGREE:
+            before_cpu = dataclasses.replace(
+                before,
+                **{f: getattr(before, f).cpu() for f in pk.STATE_FIELDS})
+            ref_cpu, _ = pk.persistent_step_ref(scene_cpu, cp_cpu,
+                                                (r.seed, 0), before_cpu, **kw)
+            n_fl, l_fl, _ = lane_agreement(ref, ref_cpu, w, h)
         out.append(dict(n_agree=n_ok, l_agree=l_ok, max_abs_err=dmax,
                         n_floor=n_fl, l_floor=l_fl,
                         ray_err=abs(rays_k - int(rays_r))
@@ -302,7 +346,13 @@ def _replay_per_step(scene, cam, cp, use_nee, main):
     return out
 
 
-def phase_main_path():
+def phase_main_path(name="cornell", modes=(False, True), budget=32,
+                    target=16, floor_always=True, label="4 main path"):
+    """PersistentRenderer on ``name`` until ``target`` spp in each mode,
+    every launch replayed and checked (``_replay_per_step``), the whole run
+    against the plain version's, and update_camera. Returns the kernel's
+    launches in the rendering runs, those on a mesh scene, and the worst
+    agreement numbers."""
     import torch
 
     from tpu_pathtracer_torch import PersistentRenderer, RenderConfig
@@ -310,17 +360,17 @@ def phase_main_path():
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.utils.metrics import AGREE, lane_agreement
 
-    scene, cam, cp = _cornell(W, H, "cuda")
+    scene, cam, cp = _scene(name, W, H, "cuda")
     renderers, rays = {}, {}
-    pk.launches = 0
-    for use_nee in (False, True):
+    pk.launches = pk.mesh_launches = 0
+    for use_nee in modes:
         r = PersistentRenderer(scene, cam,
                                RenderConfig(spp=4, max_bounces=10,
                                             rr_start=3, use_nee=use_nee),
-                               seed=7, device="cuda")
-        rays[use_nee] = r.render_to(16)
+                               seed=7, device="cuda", budget=budget)
+        rays[use_nee] = r.render_to(target)
         renderers[use_nee] = r
-    launches = pk.launches
+    launches, mesh_launches = pk.launches, pk.mesh_launches
     steps = sum(r.state.frame for r in renderers.values())
     if launches != steps or steps == 0:
         fail(f"main path: {launches} kernel launches for {steps} steps")
@@ -332,9 +382,10 @@ def phase_main_path():
         img = r.image()
         if tuple(img.shape) != (H, W, 3) or not torch.isfinite(img).all():
             fail(f"main path ({mode}): bad image {tuple(img.shape)}")
-        if r.min_samples < 16:
+        if r.min_samples < target:
             fail(f"main path ({mode}): min samples {r.min_samples}")
-        launches_checked = _replay_per_step(scene, cam, cp, use_nee, r)
+        launches_checked = _replay_per_step(scene, cam, cp, use_nee, r,
+                                            floor_always)
         for i, c in enumerate(launches_checked):
             # the reference's 98% bar, lowered only as far as the plain
             # version's own CPU-vs-card floor on this launch
@@ -376,22 +427,24 @@ def phase_main_path():
     r.step()
     if torch.equal(before, r.image()):
         fail("the image did not change after update_camera")
-    print(f"[4 main path] cornell {W}x{H} spp 4, 10 bounces, budget "
+    print(f"[{label}] {name} {W}x{H} spp 4, 10 bounces, budget "
           f"{r.budget}: " + " | ".join(parts) + f" | kernel launches "
-          f"{launches} = steps {steps} | update_camera resets", flush=True)
-    return launches, worst
+          f"{launches} = steps {steps} ({mesh_launches} on a mesh) | "
+          f"update_camera resets", flush=True)
+    return launches, mesh_launches, worst
 
 
-def phase_cli():
+def phase_cli(scene="cornell", label="5 cli"):
     from tpu_pathtracer_torch.io.image import read_png
     from tpu_pathtracer_torch.ops.kernels import _build
 
-    out = _build.build_dir() / "chip_smoke_cli.png"
+    suffix = "" if scene == "cornell" else f"_{scene.replace('-', '_')}"
+    out = _build.build_dir() / f"chip_smoke_cli{suffix}.png"
     out.unlink(missing_ok=True)
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "tpu_pathtracer_torch.cli", "render",
-         "--scene", "cornell", "--size", f"{W}x{H}", "--spp", "4",
+         "--scene", scene, "--size", f"{W}x{H}", "--spp", "4",
          "--iterations", "4", "-o", str(out)],
         cwd=ROOT, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0 or not out.is_file():
@@ -399,8 +452,9 @@ def phase_cli():
     img = read_png(str(out))
     if img.shape != (H, W, 3) or img.max() == 0:
         fail(f"cli wrote a bad PNG {img.shape}")
-    print(f"[5 cli] wrote {out.relative_to(ROOT)} {img.shape} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[{label}] {scene}: wrote {out.relative_to(ROOT)} {img.shape} "
+          f"(mean {img.mean():.4f}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def _time_steps(scene, cp, use_nee, k, salt, step_fn, budget=16):
@@ -435,7 +489,7 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _profile_steps(scene, cp, use_nee, k=10):
+def _profile_steps(scene, cp, use_nee, k=10, tag=""):
     """One torch.profiler trace of k steps from a fresh state (``_profile``'s
     numbers), and the work per launch: rays, paths started and lanes."""
     import torch
@@ -454,7 +508,7 @@ def _profile_steps(scene, cp, use_nee, k=10):
         rays.append(nr)
 
     kernel_ms, busy, window, by_name = _profile(
-        run, k, "persistent_kernel", "nee" if use_nee else "brute")
+        run, k, "persistent_kernel", tag + ("nee" if use_nee else "brute"))
     # paths started over the k launches: completed plus still in flight
     work = dict(rays=int(torch.stack(rays).sum()) / k,
                 paths=int(st.n_samp.sum() + st.alive.sum()) / k,
@@ -506,33 +560,46 @@ def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _walk_ops(n_prims, segments, paths, shadows) -> float:
+def _walk_ops(scene, segments, paths, shadows) -> float:
     """f32 operations of a persistent walk: closest hit and shading per
     segment, a camera ray per path, a light sample and the shadow sweep per
-    shadow segment."""
-    return (segments * (OPS["quadratic"] * n_prims + OPS["segment"])
-            + paths * OPS["path"]
-            + shadows * (OPS["shadow"] + OPS["shadow_prim"] * (n_prims - 1)))
+    shadow segment. With a mesh, every segment also walks the BVH: a packed
+    tree of one leaf (the mesh scenes here) is one slab test and all T
+    triangles per segment; a deeper tree counts its root alone (a lower
+    bound). A shadow walk stops at its first occluder, so it counts its
+    root's slab test only (a lower bound too)."""
+    n_prims = int(scene.num_prims)
+    ops = (segments * (OPS["quadratic"] * n_prims + OPS["segment"])
+           + paths * OPS["path"]
+           + shadows * (OPS["shadow"]
+                        + OPS["shadow_prim"] * max(n_prims - 1, 0)))
+    pm = scene.mesh_packed
+    if pm is not None:
+        tris = pm.leaf_size if pm.num_nodes == 1 else 0
+        ops += (segments * (OPS["walk"] + OPS["slab"] + OPS["tri"] * tris)
+                + shadows * (OPS["walk"] + OPS["slab"]))
+    return ops
 
 
-def forward_bound(n_prims, work_brute, work):
+def forward_bound(scene, work_brute, work):
     """Bound of one forward launch. The NEE walk traces the brute-force
     walk's path segments on the same Philox draws (NEE never changes a
     path's throughput or direction), so its shadow segments are its rays
     less the brute-force run's."""
     shadows = work["rays"] - work_brute["rays"]
-    ops = _walk_ops(n_prims, work_brute["rays"], work["paths"], shadows)
+    ops = _walk_ops(scene, work_brute["rays"], work["paths"], shadows)
     return _bound(ops, 20 * 4 * 2 * work["lanes"])
 
 
-def phase_times(smi):
+def phase_times(smi, name="cornell", label="6 times"):
     """End-to-end step time and rays/s (CUDA events, slope between 1 and K
     steps, median of REPS), the plain version's step time, then one profiled
     window for the kernel's device time and the device's idle share (last,
     so its tracing touches no other number)."""
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
 
-    scene, _, cp = _cornell(W, H, "cuda")
+    scene, _, cp = _scene(name, W, H, "cuda")
+    tag = "" if name == "cornell" else f"{name}_"
     K = 24
     out = {}
     for use_nee in (False, True):
@@ -554,7 +621,7 @@ def phase_times(smi):
                          plain_ms=t2 / 2)
     for mode, o in out.items():
         o["kernel_ms"], busy, window, by_name, o["work"] = _profile_steps(
-            scene, cp, mode == "nee")
+            scene, cp, mode == "nee", tag=tag)
         o["busy_ms"], o["window_ms"] = busy, window
         o["idle_share"] = 1.0 - busy / window
         if o["idle_share"] < 0.0:
@@ -564,7 +631,7 @@ def phase_times(smi):
         o["top"] = "; ".join(f"{n[:48]} {ms:.4f}" for n, ms in top)
     for o in out.values():
         o["bound_ms"], o["bound_by"] = forward_bound(
-            int(scene.num_prims), out["brute"]["work"], o["work"])
+            scene, out["brute"]["work"], o["work"])
     parts = [
         f"{mode}: step {o['step_ms']:.4f} ms, {o['rays_per_s']:.6g} rays/s "
         f"(median of {REPS}: {', '.join(f'{r:.6g}' for r in o['reps'])}), "
@@ -575,7 +642,7 @@ def phase_times(smi):
         f"{o['work']['rays']:.0f} rays, {o['work']['paths']:.0f} paths per "
         f"launch); top device ms/step: {o['top']}"
         for mode, o in out.items()]
-    print(f"[6 times] {W}x{H} budget 16 tile_rows {TR} on {smi}: "
+    print(f"[{label}] {name} {W}x{H} budget 16 tile_rows {TR} on {smi}: "
           + " | ".join(parts), flush=True)
     return out
 
@@ -602,6 +669,29 @@ def _grad_floor(args, kw, ref_adj, w, h):
     return min(fl["n_samp"], fl["L"], min(fl["planes"].values()))
 
 
+def _sign_balance(pairs, n_lanes):
+    """For (kernel, plain) pairs of per-lane outputs shaped (..., rows,
+    128), each leading index one output, the plain version the reference:
+    of the n real lanes where an output differs beyond the per-lane bar,
+    the excess of one sign of difference over the other in units of
+    IMAGE_Z * sqrt(n). Returns (the worst such ratio, its n)."""
+    from tpu_pathtracer_torch.utils.metrics import L_TOL
+
+    worst, worst_n = 0.0, 0
+    for a, b in pairs:
+        a = a.double().reshape(-1, a.shape[-2] * a.shape[-1])[:, :n_lanes]
+        b = b.double().reshape(-1, b.shape[-2] * b.shape[-1])[:, :n_lanes]
+        d = a - b
+        off = d.abs() >= L_TOL * b.abs().clamp_min(1.0)
+        n = off.sum(-1).double()
+        excess = ((d > 0) & off).sum(-1) - ((d < 0) & off).sum(-1)
+        for e, m in zip(excess.abs().tolist(), n.tolist()):
+            r = e / (IMAGE_Z * math.sqrt(m)) if m else 0.0
+            if r > worst:
+                worst, worst_n = r, int(m)
+    return worst, worst_n
+
+
 def _image_gap(k_adj, r_adj, tgt, w, h):
     """Kernel against plain over all lanes. For each per-lane output of
     phase "adjoint" (radiance per channel, each GA/GI plane), the lanes
@@ -613,23 +703,10 @@ def _image_gap(k_adj, r_adj, tgt, w, h):
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
-    from tpu_pathtracer_torch.utils.metrics import L_TOL
 
-    n_lanes = w * h
-    outs = [(k_adj[0].permute(2, 0, 1), r_adj[0].permute(2, 0, 1)),
-            (k_adj[2], r_adj[2]), (k_adj[3], r_adj[3])]
-    worst, worst_n = 0.0, 0
-    for a, b in outs:
-        a = a.double().reshape(-1, a.shape[-2] * a.shape[-1])[:, :n_lanes]
-        b = b.double().reshape(-1, b.shape[-2] * b.shape[-1])[:, :n_lanes]
-        d = a - b
-        off = d.abs() >= L_TOL * b.abs().clamp_min(1.0)
-        n = off.sum(-1).double()
-        excess = ((d > 0) & off).sum(-1) - ((d < 0) & off).sum(-1)
-        for e, m in zip(excess.abs().tolist(), n.tolist()):
-            r = e / (IMAGE_Z * math.sqrt(m)) if m else 0.0
-            if r > worst:
-                worst, worst_n = r, int(m)
+    worst, worst_n = _sign_balance(
+        [(k_adj[0].permute(2, 0, 1), r_adj[0].permute(2, 0, 1)),
+         (k_adj[2], r_adj[2]), (k_adj[3], r_adj[3])], w * h)
 
     def sums(x):
         return x.double().sum((-2, -1))
@@ -717,36 +794,38 @@ def _fmt_check(c) -> str:
             f"sign balance {ratio:.3f} of its bar ({n_off} lanes)")
 
 
-def phase_grad_compare():
-    """Gradient kernel vs plain version on the card at 160x120."""
+def phase_grad_compare(cases=(("cornell", False), ("cornell", True)),
+                       label="7 gradient kernel vs plain"):
+    """Gradient kernel vs plain version on the card at 160x120, for each
+    (scene, use_nee) case on injected uniforms and on Philox."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
 
     w, h, budget = 160, 120, 10
-    scene, _, cp = _cornell(w, h, "cuda")
     rows, _ = rp.pixel_lanes_layout(w, h, TR)
     gen = torch.Generator(device="cuda").manual_seed(77)
     tgt = rp.target_to_lanes(
         torch.rand((h, w, 3), generator=gen, device="cuda"), rows)
     parts, checks = [], []
-    for use_nee in (False, True):
+    for name, use_nee in cases:
+        scene, _, cp = _scene(name, w, h, "cuda")
         for injected in (True, False):
-            label = (f"{'nee' if use_nee else 'brute'}-"
-                     f"{'injected' if injected else 'philox'}")
+            case = (f"{name}-{'nee' if use_nee else 'brute'}-"
+                    f"{'injected' if injected else 'philox'}")
             u = (torch.rand((rows * budget * pk.n_draws(use_nee), pk.LANES),
                             generator=gen, device="cuda")
                  if injected else None)
             kw = dict(spp=SPP, budget=budget, width=w, height=h,
                       max_bounces=MB, rr_start=3, tile_rows=TR,
                       use_nee=use_nee, uniforms=u)
-            c = _check_grad_launch(label, (scene, cp, (5, 2), 3, tgt), kw,
+            c = _check_grad_launch(case, (scene, cp, (5, 2), 3, tgt), kw,
                                    w, h)
             checks.append(c)
-            parts.append(f"{label}: {_fmt_check(c)}")
-    print("[7 gradient kernel vs plain] cornell 160x120 spp 4, 10 bounces, "
-          "budget 10: " + " | ".join(parts), flush=True)
+            parts.append(f"{case}: {_fmt_check(c)}")
+    print(f"[{label}] 160x120 spp 4, 10 bounces, budget 10: "
+          + " | ".join(parts), flush=True)
     return dict(n_agree=min(c["n_agree"] for c in checks),
                 l_agree=min(c["l_agree"] for c in checks),
                 plane_agree=min(c["plane_agree"] for c in checks),
@@ -754,8 +833,11 @@ def phase_grad_compare():
                 sign_balance=max(c["image"][0] for c in checks))
 
 
-def phase_trainer():
-    """BASELINE config 5 through the trainer's entry points."""
+def phase_trainer(name="cornell", modes=(False, True), mat=3,
+                  steps=TRAIN_STEPS, label="8 trainer main path"):
+    """BASELINE config 5 (or its workload on another scene) through the
+    trainer's entry points: material ``mat`` and the light start perturbed;
+    the target, then ``steps`` same-seed Adam steps."""
     import torch
 
     from tpu_pathtracer_torch.diff import inverse
@@ -763,36 +845,39 @@ def phase_trainer():
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
 
-    scene, cam, cp = _cornell(W, H, "cuda")
+    scene, cam, cp = _scene(name, W, H, "cuda")
     rows, _ = rp.pixel_lanes_layout(W, H, TR)
     budget = rp.default_budget(SPP, MB)
     seed = (17, 0)
-    parts, launches, checks = [], {}, []
-    for use_nee in (False, True):
+    parts, launches, mesh_launches, checks = [], {}, {}, []
+    true_albedo = scene.mat_color[mat].tolist()
+    true_inten = scene.light_intensity[0].tolist()
+    for use_nee in modes:
         mode = "nee" if use_nee else "brute"
         config = RenderConfig(spp=SPP, max_bounces=MB, rr_start=3,
                               use_nee=use_nee)
         p0 = inverse.params_of(scene)
-        p0["mat_color"][3] = 0.3
+        p0["mat_color"][mat] = 0.3
         p0["light_intensity"] *= 0.5
         state = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
         step = inverse.make_kernel_train_step(scene, cam, config,
                                               fixed_iteration=0)
-        pk.launches = rp.launches = 0
+        pk.launches = rp.launches = rp.mesh_launches = 0
         target = inverse.render_target_kernel(scene, cam, seed, config,
                                               iteration=0)
         losses = []
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             last_params = {k: v.detach().clone()
                            for k, v in state.params.items()}
             state, loss = step(state, target, seed)
             losses.append(loss)
         torch.cuda.synchronize()
         launches[mode] = rp.launches
-        if rp.launches != 1 + TRAIN_STEPS or pk.launches:
+        mesh_launches[mode] = rp.mesh_launches
+        if rp.launches != 1 + steps or pk.launches:
             fail(f"trainer ({mode}): {rp.launches} gradient-kernel and "
                  f"{pk.launches} forward-kernel launches for 1 target and "
-                 f"{TRAIN_STEPS} steps")
+                 f"{steps} steps")
         vals = [float(x) for x in losses]
         finite = (bool(torch.isfinite(target).all())
                   and all(bool(torch.isfinite(v.detach()).all())
@@ -811,17 +896,19 @@ def phase_trainer():
             (inverse.apply_params(scene, last_params), cp, seed, 0,
              tgt_lanes), kw, W, H, main_loss=losses[-1])
         checks.append(c)
-        alb = state.params["mat_color"][3].detach().cpu().tolist()
+        alb = state.params["mat_color"][mat].detach().cpu().tolist()
         inten = state.params["light_intensity"][0].detach().cpu().tolist()
         parts.append(
-            f"{mode}: loss {' '.join(f'{v:.6g}' for v in vals)}; grey "
-            f"albedo {[round(a, 4) for a in alb]} (true 0.75), intensity "
-            f"{[round(a, 3) for a in inten]} (true 12); launches "
-            f"{launches[mode]} = 1 + {TRAIN_STEPS}; last launch vs plain: "
-            f"{_fmt_check(c)}")
-    print(f"[8 trainer main path] cornell {W}x{H} spp {SPP}, {MB} bounces, "
-          f"budget {budget}, lr {LR}: " + " | ".join(parts), flush=True)
-    return launches, dict(
+            f"{mode}: loss {' '.join(f'{v:.6g}' for v in vals)}; albedo "
+            f"{mat} {[round(a, 4) for a in alb]} (true "
+            f"{[round(a, 4) for a in true_albedo]}), intensity "
+            f"{[round(a, 3) for a in inten]} (true "
+            f"{[round(a, 3) for a in true_inten]}); launches "
+            f"{launches[mode]} = 1 + {steps} ({mesh_launches[mode]} on a "
+            f"mesh); last launch vs plain: {_fmt_check(c)}")
+    print(f"[{label}] {name} {W}x{H} spp {SPP}, {MB} bounces, budget "
+          f"{budget}, lr {LR}: " + " | ".join(parts), flush=True)
+    return launches, sum(mesh_launches.values()), dict(
         n_agree=min(c["n_agree"] for c in checks),
         l_agree=min(c["l_agree"] for c in checks),
         plane_agree=min(c["plane_agree"] for c in checks),
@@ -888,11 +975,10 @@ def grad_bound(scene, cp, target, use_nee, seed, shadows):
         scene, cp, seed, 0, rp.target_to_lanes(target, rows), spp=SPP,
         budget=rp.default_budget(SPP, MB), width=W, height=H,
         max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=use_nee)
-    n_prims = int(scene.num_prims)
     n_slots = len(rp.material_slots(scene)[0])
     n_l = len(scene.light_structure)
     segments, paths = int(out[5]), int(out[1].sum())
-    ops = (_walk_ops(n_prims, segments, paths, shadows)
+    ops = (_walk_ops(scene, segments, paths, shadows)
            + segments * OPS["adjoint_segment"]
            + paths * (OPS["adjoint_flush_slot"] * n_slots
                       + OPS["adjoint_flush_light"] * n_l))
@@ -904,22 +990,24 @@ def grad_bound(scene, cp, target, use_nee, seed, shadows):
                 shadows=shadows, paths=paths)
 
 
-def phase_grad_times(smi):
-    """Config 5: ms per gradient and fwd+bwd rays/s by the CUDA-event slope
-    between 1 and K gradients (median of REPS), the plain version's time per
-    gradient, the bound, then one profiled window for the kernel's device
-    time and the device's idle share (last, so its tracing touches no other
-    number)."""
+def phase_grad_times(smi, name="cornell", modes=(False, True),
+                     label="10 gradient times"):
+    """Config 5 (or the same workload on another scene): ms per gradient
+    and fwd+bwd rays/s by the CUDA-event slope between 1 and K gradients
+    (median of REPS), the plain version's time per gradient, the bound, then
+    one profiled window for the kernel's device time and the device's idle
+    share (last, so its tracing touches no other number)."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
 
-    scene, cam, cp = _cornell(W, H, "cuda")
+    scene, cam, cp = _scene(name, W, H, "cuda")
+    tag = "" if name == "cornell" else f"{name}_"
     gen = torch.Generator(device="cuda").manual_seed(5)
     target = torch.rand((H, W, 3), generator=gen, device="cuda")
     K = 24
     out = {}
-    for use_nee in (False, True):
+    for use_nee in modes:
         mode = "nee" if use_nee else "brute"
         _time_grads(scene, cam, cp, target, use_nee, 2, 90)  # warm
         ms, rates = [], []
@@ -946,7 +1034,7 @@ def phase_grad_times(smi):
                 rr_start=3, tile_rows=TR, use_nee=use_nee)
 
         o["kernel_ms"], busy, window, by_name = _profile(
-            run, 10, "replay_persistent_kernel", f"grad_{mode}")
+            run, 10, "replay_persistent_kernel", f"grad_{tag}{mode}")
         o["busy_ms"], o["window_ms"] = busy, window
         o["idle_share"] = 1.0 - busy / window
         if o["idle_share"] < 0.0:
@@ -965,7 +1053,7 @@ def phase_grad_times(smi):
         f"{o['busy_ms']:.4f} ms, idle share {o['idle_share']:.3f}; top "
         f"device ms/gradient: {o['top']}"
         for mode, o in out.items()]
-    print(f"[10 gradient times] {W}x{H} spp {SPP}, {MB} bounces, budget "
+    print(f"[{label}] {name} {W}x{H} spp {SPP}, {MB} bounces, budget "
           f"{rp.default_budget(SPP, MB)} on {smi}: " + " | ".join(parts),
           flush=True)
     return out
@@ -990,13 +1078,35 @@ def main() -> int:
     smi = phase_environment()
     phase_build()
     worst = phase_compare()
-    launches, worst_main = phase_main_path()
+    launches, _, worst_main = phase_main_path()
     phase_cli()
     times = phase_times(smi)
     worst_grad = phase_grad_compare()
-    grad_launches, worst_train = phase_trainer()
+    grad_launches, _, worst_train = phase_trainer()
     phase_cli_invert()
     gtimes = phase_grad_times(smi)
+    # the mesh slice: cornell_boxes, cornell_glass and cornell_quad
+    m_worst = phase_compare(MESH_CASES, "11 mesh kernel vs plain")
+    phase_cli("cornell-boxes", "12 mesh cli")
+    m_launches, m_walks, m_worst_main = phase_main_path(
+        "cornell-quad", (True,), budget=16, target=4, floor_always=False,
+        label="12 mesh main path")
+    if m_walks != m_launches:
+        fail(f"mesh main path: {m_walks} of {m_launches} launches walked a "
+             "mesh")
+    m_times = {name: phase_times(smi, name, "12 mesh times")
+               for name in ("cornell-boxes", "cornell-quad")}
+    m_worst_grad = phase_grad_compare(
+        (("cornell-boxes", True), ("cornell-quad", True)),
+        "13 mesh gradient kernel vs plain")
+    m_grad_launches, m_grad_walks, m_worst_train = phase_trainer(
+        "cornell-boxes", (True,), mat=0, steps=5,
+        label="13 mesh trainer main path")
+    if m_grad_walks != sum(m_grad_launches.values()):
+        fail(f"mesh trainer: {m_grad_walks} of "
+             f"{sum(m_grad_launches.values())} launches walked a mesh")
+    m_gtimes = phase_grad_times(smi, "cornell-boxes", (True,),
+                                "13 mesh gradient times")
 
     forward = {
         "name": "persistent_step",
@@ -1064,7 +1174,71 @@ def main() -> int:
         "idle_share_brute": gtimes["brute"]["idle_share"],
         "idle_share_nee": gtimes["nee"]["idle_share"],
     }
-    print(json.dumps({"kernels": [forward, gradient]}))
+    # the mesh slice, per kernel: both main paths' launches, the mesh
+    # checks' worst numbers, and the times per mesh scene and mode
+    forward.update(
+        launches=launches + m_launches, launches_sphere_path=launches,
+        launches_mesh_path=m_launches,
+        n_agree_mesh=min(m_worst["n_agree"], m_worst_main["n_agree"]),
+        l_agree_mesh=min(m_worst["l_agree"], m_worst_main["l_agree"]),
+        n_floor_mesh_main=m_worst_main["n_floor"],
+        l_floor_mesh_main=m_worst_main["l_floor"],
+        max_abs_err_mesh=max(m_worst["max_abs_err"],
+                             m_worst_main["max_abs_err"]),
+        sign_balance_mesh=m_worst["sign_balance"])
+    for name, t in m_times.items():
+        for mode, o in t.items():
+            key = f"{name.replace('-', '_')}_{mode}"
+            forward.update({
+                f"ms_{key}": o["kernel_ms"], f"plain_ms_{key}": o["plain_ms"],
+                f"bound_ms_{key}": o["bound_ms"],
+                f"bound_by_{key}": o["bound_by"],
+                f"step_ms_{key}": o["step_ms"],
+                f"idle_share_{key}": o["idle_share"],
+                f"rays_per_s_{key}": o["rays_per_s"]})
+    mg = m_gtimes["nee"]
+    gradient.update(
+        launches=sum(grad_launches.values()) + sum(m_grad_launches.values()),
+        launches_sphere_path=sum(grad_launches.values()),
+        launches_mesh_path=sum(m_grad_launches.values()),
+        n_agree_mesh=min(m_worst_grad["n_agree"], m_worst_train["n_agree"]),
+        l_agree_mesh=min(m_worst_grad["l_agree"], m_worst_train["l_agree"]),
+        plane_agree_mesh=min(m_worst_grad["plane_agree"],
+                             m_worst_train["plane_agree"]),
+        max_abs_err_mesh=max(m_worst_grad["max_abs_err"],
+                             m_worst_train["max_abs_err"]),
+        sign_balance_mesh=max(m_worst_grad["sign_balance"],
+                              m_worst_train["sign_balance"]),
+        ms_cornell_boxes_nee=mg["kernel_ms"],
+        plain_ms_cornell_boxes_nee=mg["plain_ms"],
+        bound_ms_cornell_boxes_nee=mg["bound_ms"],
+        bound_by_cornell_boxes_nee=mg["bound_by"],
+        grad_ms_cornell_boxes_nee=mg["grad_ms"],
+        rays_per_s_cornell_boxes_nee=mg["rays_per_s"],
+        idle_share_cornell_boxes_nee=mg["idle_share"])
+    boxes = m_times["cornell-boxes"]["brute"]
+    walk = {
+        "name": "mesh_walk",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/pt_common.cuh",
+        "replaces": "tpu_pathtracer/ops/pallas/_walk.py:22",
+        "launches": m_walks + m_grad_walks,
+        "max_abs_err": max(forward["max_abs_err_mesh"],
+                           gradient["max_abs_err_mesh"]),
+        "ms": boxes["kernel_ms"],
+        "plain_ms": boxes["plain_ms"],
+        "bound_ms": boxes["bound_ms"],
+        "bound_by": boxes["bound_by"],
+        "library_ms": None,
+        "note": "a __device__ function inside persistent_step and "
+                "persistent_replay_call, with no launch of its own: "
+                "launches are those of the two kernels on mesh scenes in "
+                "the mesh main paths; ms, plain_ms and bound_ms are those "
+                "of the cornell_boxes brute-force forward launch that runs "
+                "it; held against mesh_walk_ref through both kernels' "
+                "mesh checks",
+    }
+    print(json.dumps({"kernels": [forward, gradient, walk]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

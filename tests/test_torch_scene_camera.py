@@ -16,6 +16,7 @@ import jax.numpy as jnp  # noqa: E402
 from tpu_pathtracer.models import camera as jcm, scene as jsc  # noqa: E402
 from tpu_pathtracer.ops.pallas import trace_kernel as jtk  # noqa: E402
 from tpu_pathtracer_torch.models import camera as tcm, scene as tsc  # noqa: E402
+from tpu_pathtracer_torch.models import mesh as tmesh  # noqa: E402
 from tpu_pathtracer_torch.ops.kernels import trace_kernel as ttk  # noqa: E402
 
 RTOL = 1e-6  # packers: the same f32 arithmetic on the same tables
@@ -23,10 +24,21 @@ CAM_ATOL = 1e-5  # camera: f32 transcendentals and normalizations
 
 
 def scene_to_torch(js, device="cpu"):
-    """Carry a JAX Scene across to the port."""
-    return tsc.scene_from_numpy(
-        {f: np.asarray(getattr(js, f)) for f in tsc.ARRAY_FIELDS},
-        {f: getattr(js, f) for f in tsc.STATIC_FIELDS}, device=device)
+    """Carry a JAX Scene across to the port, with its mesh (the JAX build,
+    triangle order included) and TRI_LIGHT tables; a packed JAX mesh is
+    packed again by the port's own pack_mesh."""
+    mesh = None
+    if js.mesh is not None:
+        mesh = tmesh.mesh_from_numpy(
+            {f: np.asarray(getattr(js.mesh, f)) for f in tmesh.ARRAY_FIELDS},
+            leaf_size=js.mesh.leaf_size, device=device)
+    arrays = {f: np.asarray(getattr(js, f))
+              for f in tsc.ARRAY_FIELDS + tsc.TRI_FIELDS
+              if getattr(js, f) is not None}
+    ts = tsc.scene_from_numpy(
+        arrays, {f: getattr(js, f) for f in tsc.STATIC_FIELDS}, mesh=mesh,
+        device=device)
+    return tsc.with_packet_mesh(ts) if js.mesh_packed is not None else ts
 
 
 def camera_to_torch(jc, device="cpu"):
@@ -124,6 +136,8 @@ BAD_SCENES = {
                                         "intensity": [1, 1, 1]}]),
     "sphere light id": ([{"center": [0, 0, 0], "radius": 1.0, "material": 0,
                           "light": 2}], 1, []),
+    "tri light without a mesh": ([], 1, [{"type": 2, "material": 0,
+                                          "intensity": [1, 1, 1]}]),
 }
 
 
@@ -138,12 +152,17 @@ def test_make_scene_validation_matches_jax(case):
 
 
 def test_unported_features_raise():
+    """Textures, the thin lens and the coarse two-pass tree still raise;
+    meshes and triangle lights are ported (tests/test_torch_mesh.py)."""
     mats = [tsc.diffuse([0.5, 0.5, 0.5])]
-    with pytest.raises(NotImplementedError):
-        tsc.make_scene([], mats, [{"type": tsc.TRI_LIGHT, "material": 0,
-                                   "intensity": [1, 1, 1]}], device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsc.make_scene([], mats, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tsc.make_scene([], mats, textures=np.zeros((1, 4, 4, 3)),
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tsc.make_scene([], mats, mat_texture=[0], device="cpu")
     with pytest.raises(NotImplementedError):
         tcm.make_camera([0, 0, 5], [0, 0, 0], [0, 1, 0], 8, 8,
                         lens_radius=1.0, focal_distance=5.0, device="cpu")
+    scene, _ = tsc.cornell_glass(device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tsc.with_packet_mesh(scene, two_pass=True)

@@ -136,7 +136,8 @@ def main(argv: list[str] | None = None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="render a scene to an image")
     pr.add_argument("--scene", default="cornell",
-                    choices=["cornell", "small", "single-sphere"])
+                    choices=["cornell", "cornell-glass", "cornell-boxes",
+                             "cornell-quad", "small", "single-sphere"])
     pr.add_argument("--size", default="640x480")
     pr.add_argument("--spp", type=int, default=4)
     pr.add_argument("--iterations", type=int, default=8)

@@ -1,9 +1,10 @@
-// Persistent path-regeneration kernel for Hopper (sm_90a), sphere scenes.
+// Persistent path-regeneration kernel for Hopper (sm_90a).
 //
 // Replaces: tpu_pathtracer/ops/pallas/persistent.py::_persistent_kernel
-// (launched by persistent_step) in its sphere build: brute force, and NEE+MIS
-// with point and sphere-area lights. Thin-lens DOF, the mesh walk, TRI_LIGHT
-// and textures are not ported yet.
+// (launched by persistent_step) for sphere and triangle-mesh scenes: brute
+// force, and NEE+MIS with point, sphere-area and triangle (TRI_LIGHT) lights;
+// the in-kernel BVH walk of ops/pallas/_walk.py is pt_common.cuh's
+// mesh_walk. Thin-lens DOF and textures are not ported yet.
 //
 // What bounds it on this card: it is a long, divergent, register-heavy ALU
 // state machine. Each lane does per-prim quadratics, transcendentals and
@@ -22,6 +23,12 @@
 //    unrolled them over static tuples);
 //  * lanes branch per lobe and per light instead of evaluating every lobe
 //    under masks: a lane pays only for the lobe it took;
+//  * a mesh is walked per thread after the sphere pass, from the sphere t,
+//    so boxes behind the sphere hit are never entered; the packed node and
+//    triangle tables are read from global memory through the read-only
+//    cache (every lane of a warp mostly reads the same node). The kernel is
+//    built twice, with and without the mesh code (MESH), so that a sphere
+//    scene does not carry the walk's registers and spills;
 //  * the live-ray count is reduced per warp and added to the per-tile
 //    counter with one atomicAdd per warp.
 //
@@ -48,8 +55,8 @@ __constant__ float c_prims[MAX_PRIMS * 12];
 __constant__ int c_pflags[MAX_PRIMS];
 // lights: px py pz ir ig ib cdf_lo sel (pack_lights layout)
 __constant__ float c_lights[MAX_LIGHTS * 8];
-// (light type, prim index or -1) per light
-__constant__ int c_lstruct[MAX_LIGHTS * 2];
+// light structure, LS ints per light (pt_common.cuh)
+__constant__ int c_lstruct[MAX_LIGHTS * LS];
 __constant__ float c_cam[24];  // pack_camera layout
 
 struct State {  // STATE_FIELDS order
@@ -68,8 +75,10 @@ struct Params {
   uint32_t seed, salt, frame;
   const float* uniforms;  // NULL: production Philox
   int* nrays;             // (n_tiles,) live-ray counter
+  MeshView mesh;          // n_nodes 0: no mesh
 };
 
+template <bool MESH>
 __global__ void __launch_bounds__(LANES)
 persistent_kernel(State s, Params p) {
   const int row = blockIdx.x;  // one block per 128-lane row
@@ -143,7 +152,15 @@ persistent_kernel(State s, Params p) {
         best_p = q;
       }
     }
-    if (!(best_t < 0.5f * BIG)) {
+    // ---- the mesh, pruned from the sphere t; a triangle wins only if
+    // strictly closer (persistent.py:358-397)
+    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f;
+    int mmat = -1;
+    if (MESH)
+      tm = mesh_walk<false>(p.mesh, ox, oy, oz, dx, dy, dz, best_t, gnx, gny,
+                            gnz, mmat);
+    const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
+    if (!mesh_hit && !(best_t < 0.5f * BIG)) {
       // miss: the path ends here and flushes into the pixel sum
       Lr += Cr;
       Lg += Cg;
@@ -155,38 +172,82 @@ persistent_kernel(State s, Params p) {
     // Only acting lanes get here: lanes that do not act never compute a hit
     // point (the TPU kernel parks them on the origin instead, so that
     // o + d*1e30 cannot overflow into NaN in the NEE distance math).
-    const float* HP = c_prims + best_p * 12;
-    const int pflag = c_pflags[best_p];
-    const int mtype = (pflag >> 1) & 3;
+    const float t_hit = mesh_hit ? tm : best_t;
+    const float hx = fmaf(dx, t_hit, ox), hy = fmaf(dy, t_hit, oy),
+                hz = fmaf(dz, t_hit, oz);
+    float nx, ny, nz, ar, ag, ab, coef, er = 0.f, eg = 0.f, eb = 0.f;
+    int mtype;
+    bool emissive = false;
+    if (mesh_hit) {
+      const float inv_len = rsqrtf(fmaxf(gnx * gnx + gny * gny + gnz * gnz,
+                                         1e-20f));
+      nx = gnx * inv_len;
+      ny = gny * inv_len;
+      nz = gnz * inv_len;
+      const float* MT = p.mesh.mats + mmat * MAT_STRIDE;
+      ar = __ldg(MT);
+      ag = __ldg(MT + 1);
+      ab = __ldg(MT + 2);
+      mtype = (int)__ldg(MT + 4);
+      coef = __ldg(MT + 3);
+      // triangles of a TRI_LIGHT's material emit its intensity (the last
+      // such light wins, as in the TPU kernel's select chain)
+      for (int li = 0; li < p.n_lights; ++li) {
+        const int* S = c_lstruct + li * LS;
+        if (S[0] != TRI_LIGHT || S[2] != mmat) continue;
+        const float* LT = c_lights + li * 8;
+        emissive = true;
+        er = LT[3];
+        eg = LT[4];
+        eb = LT[5];
+      }
+    } else {
+      const float* HP = c_prims + best_p * 12;
+      const int pflag = c_pflags[best_p];
+      mtype = (pflag >> 1) & 3;
+      const float inv_r = 1.0f / HP[3];
+      nx = (hx - HP[0]) * inv_r;
+      ny = (hy - HP[1]) * inv_r;
+      nz = (hz - HP[2]) * inv_r;
+      ar = HP[4];
+      ag = HP[5];
+      ab = HP[6];
+      coef = HP[7];
+      if (pflag & 1) {
+        emissive = true;
+        er = HP[9];
+        eg = HP[10];
+        eb = HP[11];
+      }
+    }
     const bool is_s = mtype == SPECULAR, is_t = mtype == TRANSMISSIVE;
     const bool is_d = !(is_s || is_t);
-    const float hx = fmaf(dx, best_t, ox), hy = fmaf(dy, best_t, oy),
-                hz = fmaf(dz, best_t, oz);
-    const float inv_r = 1.0f / HP[3];
-    const float nx = (hx - HP[0]) * inv_r, ny = (hy - HP[1]) * inv_r,
-                nz = (hz - HP[2]) * inv_r;
-    const float ar = HP[4], ag = HP[5], ab = HP[6];
-    const float coef = is_d ? 0.f : HP[7];
+    if (is_d) coef = 0.f;
     const float wox = dx, woy = dy, woz = dz;
 
     // ---- emitter hit (pathtracer.cu:134-137), MIS-weighted under NEE with
-    // the squared power heuristic against the light's cone pdf
-    if (pflag & 1) {
+    // the squared power heuristic against the light's pdf
+    if (emissive) {
       float take = dot3(nx, ny, nz, -wox, -woy, -woz) > 0.f ? 1.f : 0.f;
       if (p.use_nee) {
+        // the light-sampling pdf of this emitter hit
         float ldp = 0.f;
         for (int li = 0; li < p.n_lights; ++li) {
-          const int lprim = c_lstruct[2 * li + 1];
-          if (c_lstruct[2 * li] != AREA_LIGHT || lprim < 0 || lprim != best_p)
-            continue;
-          ldp = cone_pdf(c_prims + lprim * 12, ox, oy, oz) * c_lights[li * 8 + 7];
+          const int* S = c_lstruct + li * LS;
+          if (mesh_hit && S[0] == TRI_LIGHT && S[2] == mmat)
+            ldp = tri_light_pdf(tm, dot3(nx, ny, nz, dx, dy, dz),
+                                c_lights[li * 8 + 7],
+                                __ldg(p.mesh.tl + S[3] * TL_STRIDE + 13));
+          else if (!mesh_hit && S[0] == AREA_LIGHT && S[1] == best_p)
+            ldp = cone_pdf(c_prims + best_p * 12, ox, oy, oz) *
+                  c_lights[li * 8 + 7];
         }
         const float pp2 = prev_pdf * prev_pdf;
         take *= prev_delta ? 1.f : pp2 / fmaxf(pp2 + ldp * ldp, 1e-20f);
       }
-      Cr += Tr * HP[9] * take;
-      Cg += Tg * HP[10] * take;
-      Cb += Tb * HP[11] * take;
+      Cr += Tr * er * take;
+      Cg += Tg * eg * take;
+      Cb += Tb * eb * take;
     }
 
     // ---- next-event estimation: one light chosen by usel against cdf_lo,
@@ -198,10 +259,14 @@ persistent_kernel(State s, Params p) {
         const bool m_l = li == p.n_lights - 1 ? usel >= lo
                                               : (usel >= lo && usel < lo + sel);
         if (!m_l) continue;
-        const int ltype = c_lstruct[2 * li], lprim = c_lstruct[2 * li + 1];
-        const bool area = ltype == AREA_LIGHT && lprim >= 0;
-        const LightSample ls = sample_light(
-            LT, area ? c_prims + lprim * 12 : nullptr, hx, hy, hz, ul1, ul2);
+        const int* S = c_lstruct + li * LS;
+        const bool area = S[0] == AREA_LIGHT && S[1] >= 0;
+        const bool tri = MESH && S[0] == TRI_LIGHT;
+        const LightSample ls =
+            tri ? sample_tri_light(p.mesh.tl + S[3] * TL_STRIDE, S[4], LT, hx,
+                                   hy, hz, ul1, ul2)
+                : sample_light(LT, area ? c_prims + S[1] * 12 : nullptr, hx,
+                               hy, hz, ul1, ul2);
         const float wlx = ls.wlx, wly = ls.wly, wlz = ls.wlz;
         const float pdf_l = ls.pdf;
         const float cos_l = dot3(wlx, wly, wlz, nx, ny, nz);
@@ -211,9 +276,9 @@ persistent_kernel(State s, Params p) {
         // shadow any-hit, segment-ball distance form: the segment
         // [tmin, smax] hits a sphere iff its nearest point to the centre is
         // within r. The sampled light sphere is skipped: its own hit lies
-        // beyond smax by construction.
+        // beyond smax by construction. Then the mesh, in occlusion mode.
         const float smax = fmaf(ls.dist, 0.999f, -TMIN);
-        const int skip = area ? lprim : -1;
+        const int skip = area ? S[1] : -1;
         bool occ = false;
         for (int q = 0; q < p.n_prims && !occ; ++q) {
           if (q == skip) continue;
@@ -225,13 +290,20 @@ persistent_kernel(State s, Params p) {
                                  dot3_fma(sx2, sy2, sz2, sx2, sy2, sz2));
           occ = d2s < __fmul_rn(P[3], P[3]);
         }
+        if (MESH && !occ && smax > 0.f) {
+          float sx, sy, sz;
+          int sm;
+          occ = mesh_walk<true>(p.mesh, hx, hy, hz, wlx, wly, wlz, smax, sx,
+                                sy, sz, sm) == 0.f;
+        }
         if (occ) continue;
         // squared power heuristic against BSDF sampling; a point light is a
         // delta light with weight 1
         const float pdf_b = cos_l * INV_PI;
         const float w_mis =
-            area ? (pdf_l * pdf_l) / fmaxf(pdf_l * pdf_l + pdf_b * pdf_b, 1e-20f)
-                 : 1.f;
+            (area || tri)
+                ? (pdf_l * pdf_l) / fmaxf(pdf_l * pdf_l + pdf_b * pdf_b, 1e-20f)
+                : 1.f;
         const float scale = cos_l * w_mis / fmaxf(pdf_l, 1e-20f);
         Cr += Tr * (ar * INV_PI) * ls.rad_r * scale;
         Cg += Tg * (ag * INV_PI) * ls.rad_g * scale;
@@ -301,21 +373,29 @@ extern "C" {
 
 // Launch one persistent step on `stream`. `state` is a host array of the 20
 // device plane pointers in STATE_FIELDS order, each rows_total x 128 and
-// updated in place. prims/lights/cam/uniforms/nrays are device pointers;
-// pflags/lstruct are host arrays. The tables are copied into __constant__
-// memory on the same stream, so launches must stay on one stream. Returns
-// the first CUDA error (0 on success).
+// updated in place. prims/lights/cam/uniforms/nrays and the mesh tables are
+// device pointers; pflags/lstruct (LS ints per light) are host arrays. The
+// prim, light and camera tables are copied into __constant__ memory on the
+// same stream, so launches must stay on one stream. n_nodes == 0 means no
+// mesh (its pointers are then not read). Returns the first CUDA error (0 on
+// success).
 int tpt_persistent_step(void* const* state, const float* prims,
                         const int* pflags, int n_prims, const float* lights,
                         const int* lstruct, int n_lights, const float* cam,
-                        const float* uniforms, int* nrays, int rows_total,
+                        const float* uniforms, int* nrays,
+                        const float* mesh_boxes, const int* mesh_meta,
+                        const float* mesh_tris, const float* mesh_mats,
+                        const float* tri_lights, int n_nodes, int rows_total,
                         int tile_rows, int budget, int width, int n_lanes,
                         int max_bounces, int rr_start, int use_nee,
                         int strat_k, int tile_offset, uint32_t seed,
                         uint32_t salt, uint32_t frame, void* stream) {
   if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 0 ||
       n_lights > MAX_LIGHTS || rows_total <= 0 || tile_rows <= 0 ||
-      rows_total % tile_rows != 0 || width <= 0 || strat_k < 1)
+      rows_total % tile_rows != 0 || width <= 0 || strat_k < 1 ||
+      n_nodes < 0 ||
+      (n_nodes > 0 && !(mesh_boxes && mesh_meta && mesh_tris && mesh_mats &&
+                        tri_lights)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaSuccess;
@@ -332,7 +412,7 @@ int tpt_persistent_step(void* const* state, const float* prims,
                                   cudaMemcpyDeviceToDevice, st);
     if (err == cudaSuccess)
       err = cudaMemcpyToSymbolAsync(c_lstruct, lstruct,
-                                    sizeof(int) * 2 * n_lights, 0,
+                                    sizeof(int) * LS * n_lights, 0,
                                     cudaMemcpyHostToDevice, st);
   }
   if (err == cudaSuccess)
@@ -379,8 +459,17 @@ int tpt_persistent_step(void* const* state, const float* prims,
   p.frame = frame;
   p.uniforms = uniforms;
   p.nrays = nrays;
+  p.mesh.boxes = mesh_boxes;
+  p.mesh.meta = mesh_meta;
+  p.mesh.tris = mesh_tris;
+  p.mesh.mats = mesh_mats;
+  p.mesh.tl = tri_lights;
+  p.mesh.n_nodes = n_nodes;
 
-  persistent_kernel<<<rows_total, LANES, 0, st>>>(s, p);
+  if (n_nodes > 0)
+    persistent_kernel<true><<<rows_total, LANES, 0, st>>>(s, p);
+  else
+    persistent_kernel<false><<<rows_total, LANES, 0, st>>>(s, p);
   return (int)cudaGetLastError();
 }
 

@@ -3,10 +3,12 @@
 //
 // Only code that is the same math in both TPU kernels lives here: the
 // uniforms of one wavefront iteration, the camera ray of a regenerated path,
-// the three BSDF lobes, the NEE light sample (point light, or cone sampling
-// of a sphere light) and the cone pdf of a sphere emitter for MIS. The
-// closest-hit loops and the shadow tests differ between the two TPU kernels
-// (tie rule, segment-ball vs quadratic occlusion) and stay in each kernel.
+// the three BSDF lobes, the NEE light samples (point light, cone sampling of
+// a sphere light, area sampling of a triangle light), the MIS pdfs of sphere
+// and triangle emitter hits, and the BVH walk over a packed mesh. The
+// sphere closest-hit loops and the sphere shadow tests differ between the
+// two TPU kernels (tie rule, segment-ball vs quadratic occlusion) and stay
+// in each kernel.
 //
 // Everything is in an anonymous namespace: each translation unit gets its
 // own copy and no symbol of this header reaches the library's interface.
@@ -29,6 +31,14 @@ constexpr float INV_PI = 0.318309886183790671538f;
 constexpr int SPECULAR = 1;
 constexpr int TRANSMISSIVE = 2;
 constexpr int AREA_LIGHT = 1;
+constexpr int TRI_LIGHT = 2;
+// Ints per light of the light structure: type, prim (sphere light, else -1),
+// material (triangle light, else -1), first row and row count of its
+// triangles in the triangle-light table.
+constexpr int LS = 5;
+constexpr int TRI_STRIDE = 16;  // floats per packed triangle slot
+constexpr int TL_STRIDE = 14;   // floats per triangle-light row
+constexpr int MAT_STRIDE = 5;   // floats per mesh material: r g b coef type
 
 // The 1e5-radius wall spheres make the quadratic b^2 - |op|^2 + r^2 cancel
 // badly in f32, so one ulp there changes which surface a lane hits. XLA on
@@ -200,6 +210,149 @@ __device__ __forceinline__ LightSample sample_light(const float* LT,
     s.valid = s.dist > TMIN;
   }
   return s;
+}
+
+// Area sampling of a triangle light (TL: its first row of the
+// triangle-light table, K rows of v0 e1 e2 n cdf_hi area; LT its pack_lights
+// row). The triangle is picked by the area cdf, the first k with
+// ul1 <= cdf[k] (the TPU kernel's cdf-hi chain), and ul1's position inside
+// [cdf[k-1], cdf[k]) is reused with ul2 for a uniform point on it; only the
+// front (normal) side emits. TPU kernel: persistent.py:720-767.
+__device__ __forceinline__ LightSample sample_tri_light(const float* TL,
+                                                       int K, const float* LT,
+                                                       float hx, float hy,
+                                                       float hz, float ul1,
+                                                       float ul2) {
+  int k = 0;
+  for (int q = 1; q < K; ++q)
+    if (ul1 > __ldg(TL + (q - 1) * TL_STRIDE + 12)) k = q;
+  const float* R = TL + k * TL_STRIDE;
+  const float c_lo = k ? __ldg(R - TL_STRIDE + 12) : 0.f;
+  const float c_hi = __ldg(R + 12);
+  const float u0r =
+      fminf(fmaxf((ul1 - c_lo) / fmaxf(c_hi - c_lo, 1e-12f), 0.f), 1.f);
+  const float su = sqrtf(u0r);
+  const float b1 = 1.f - su, b2 = ul2 * su;
+  LightSample s;
+  const float wrx = __ldg(R) + b1 * __ldg(R + 3) + b2 * __ldg(R + 6) - hx;
+  const float wry = __ldg(R + 1) + b1 * __ldg(R + 4) + b2 * __ldg(R + 7) - hy;
+  const float wrz = __ldg(R + 2) + b1 * __ldg(R + 5) + b2 * __ldg(R + 8) - hz;
+  const float d2l = dot3(wrx, wry, wrz, wrx, wry, wrz);
+  const float inv_dl = rsqrtf(fmaxf(d2l, 1e-20f));
+  s.dist = d2l * inv_dl;
+  s.wlx = wrx * inv_dl;
+  s.wly = wry * inv_dl;
+  s.wlz = wrz * inv_dl;
+  const float cos_at =
+      -dot3(__ldg(R + 9), __ldg(R + 10), __ldg(R + 11), s.wlx, s.wly, s.wlz);
+  s.pdf = LT[7] * d2l / fmaxf(fabsf(cos_at) * fmaxf(__ldg(R + 13), 1e-20f),
+                              1e-12f);
+  s.valid = cos_at > 0.f && s.dist > TMIN;
+  s.rad_r = LT[3];
+  s.rad_g = LT[4];
+  s.rad_b = LT[5];
+  return s;
+}
+
+// Solid-angle pdf with which the triangle light (selection pdf `sel`, total
+// area `area`) samples a point that a ray reached at distance t with cosine
+// cos_l against the triangle: t^2 / |cos| * sel / area. TPU kernel:
+// persistent.py:644-653.
+__device__ __forceinline__ float tri_light_pdf(float t, float cos_l,
+                                               float sel, float area) {
+  const float tc = fminf(t, 1e6f);
+  return tc * tc / fmaxf(fabsf(cos_l), 1e-9f) * (sel / fmaxf(area, 1e-20f));
+}
+
+// A mesh packed by ops/kernels/mesh_kernel.py::pack_mesh, with the tables
+// the kernels read at mesh hits. n_nodes == 0: the scene has no mesh.
+struct MeshView {
+  const float* boxes;  // (n_nodes, 6) node AABBs: min3 max3
+  const int* meta;     // (n_nodes, 3): skip, first slot, triangle count
+  const float* tris;   // packed triangle slots: v0 e1 e2 mat uv0 uv_e1 uv_e2
+  const float* mats;   // (n_mats, MAT_STRIDE): r g b coef type
+  const float* tl;     // triangle-light rows (TL_STRIDE floats each)
+  int n_nodes;
+};
+
+__device__ __forceinline__ float safe_inv(float a) {
+  return 1.f / (fabsf(a) > 1e-12f ? a : (a >= 0.f ? 1e-12f : -1e-12f));
+}
+
+// Threaded-DFS BVH walk of ONE ray (replaces the TPU kernels' shared
+// make_mesh_walk, ops/pallas/_walk.py:22). From t (> 0), a box is entered
+// only if this ray's slab test hits it closer than t; a leaf tests its
+// triangles in order (Moller-Trumbore, strictly closer wins); then the walk
+// follows the skip link. The TPU walk instead moves a whole tile of lanes
+// through one node sequence, entering a box when ANY lane hits it, and tests
+// a leaf's triangles on every lane of the tile. The results differ only
+// where this ray's slab test misses a box whose triangle the ray hits, an
+// f32 edge case; the lane-agreement bars measure it. The walk keeps no
+// stack. Closest mode (OCCLUSION false) returns the closest t (t itself if
+// none is closer) with the unnormalized normal cross(e1, e2) and the
+// material of the winner; occlusion mode returns 0 at the first triangle in
+// (TMIN, t).
+template <bool OCCLUSION>
+__device__ __forceinline__ float mesh_walk(const MeshView& m, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float t,
+                                           float& gnx, float& gny, float& gnz,
+                                           int& mat) {
+  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
+  int node = 0;
+  while (node < m.n_nodes) {
+    const float* B = m.boxes + node * 6;
+    const float tx0 = (__ldg(B) - ox) * ix, tx1 = (__ldg(B + 3) - ox) * ix;
+    const float ty0 = (__ldg(B + 1) - oy) * iy, ty1 = (__ldg(B + 4) - oy) * iy;
+    const float tz0 = (__ldg(B + 2) - oz) * iz, tz1 = (__ldg(B + 5) - oz) * iz;
+    const float tn =
+        fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+    const float tf =
+        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+    const int* N = m.meta + node * 3;
+    const int skip = __ldg(N);
+    if (!(tn <= tf && tf > TMIN && tn < t)) {
+      node = skip;
+      continue;
+    }
+    const int count = __ldg(N + 2);
+    if (count == 0) {  // inner node: descend
+      ++node;
+      continue;
+    }
+    const float4* S =
+        reinterpret_cast<const float4*>(m.tris + (size_t)__ldg(N + 1) * TRI_STRIDE);
+    for (int j = 0; j < count; ++j, S += TRI_STRIDE / 4) {
+      const float4 a = __ldg(S), b = __ldg(S + 1), c = __ldg(S + 2);
+      // slot: v0 = a.xyz, e1 = (a.w, b.x, b.y), e2 = (b.z, b.w, c.x), mat c.y
+      const float e1x = a.w, e1y = b.x, e1z = b.y;
+      const float e2x = b.z, e2y = b.w, e2z = c.x;
+      const float px = dy * e2z - dz * e2y;
+      const float py = dz * e2x - dx * e2z;
+      const float pz = dx * e2y - dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      const bool ok = fabsf(det) > 1e-12f;
+      const float inv_det = 1.f / (ok ? det : 1.f);
+      const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
+      const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
+      const float qx = tvy * e1z - tvz * e1y;
+      const float qy = tvz * e1x - tvx * e1z;
+      const float qz = tvx * e1y - tvy * e1x;
+      const float vv = (dx * qx + dy * qy + dz * qz) * inv_det;
+      const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+      if (!(ok && uu >= 0.f && vv >= 0.f && uu + vv <= 1.f && tt > TMIN &&
+            tt < t))
+        continue;
+      if (OCCLUSION) return 0.f;
+      t = tt;
+      gnx = e1y * e2z - e1z * e2y;
+      gny = e1z * e2x - e1x * e2z;
+      gnz = e1x * e2y - e1y * e2x;
+      mat = (int)c.y;
+    }
+    node = skip;
+  }
+  return t;
 }
 
 struct Lobe {

@@ -1,10 +1,12 @@
-// Persistent fused value-and-grad kernel for Hopper (sm_90a), sphere scenes.
+// Persistent fused value-and-grad kernel for Hopper (sm_90a).
 //
 // Replaces: tpu_pathtracer/ops/pallas/replay_persistent.py::_preplay_kernel
-// (launched by persistent_replay_call) in its sphere build (mesh=False,
-// tex=False), phases "both" and "adjoint": brute force, and NEE+MIS with
-// point and sphere-area lights. Thin-lens DOF, the mesh walk, TRI_LIGHT,
-// textures and the scatter launch are not ported yet.
+// (launched by persistent_replay_call) for sphere and triangle-mesh scenes
+// (tex=False), phases "both" and "adjoint": brute force, and NEE+MIS with
+// point, sphere-area and triangle (TRI_LIGHT) lights; a mesh vertex routes
+// its adjoint to its material like a sphere vertex, and a triangle light's
+// emission and NEE credit its intensity adjoint. Thin-lens DOF, textures and
+// the scatter launch are not ported yet.
 //
 // What it computes: one launch walks `budget` wavefront iterations of the
 // persistent regeneration schedule (one lane per pixel; a dead lane starts
@@ -32,11 +34,14 @@
 //  * one thread per lane, one 128-thread block per 128-lane row of the
 //    layout, the whole walk in registers, as in persistent.cu; the scene
 //    tables sit in __constant__ memory;
-//  * the adjoint is kept only for the materials that carry prims ("slots":
-//    5 of cornell's 8 padded materials) and the lights. These per-path and
-//    per-lane arrays are indexed by the hit's runtime slot, so they live in
-//    local memory (L1-cached); each vertex touches one slot, and only path
-//    regeneration and completion touch all of them;
+//  * the adjoint is kept only for the materials that carry prims or mesh
+//    triangles ("slots": 5 of cornell's 8 padded materials) and the lights.
+//    These per-path and per-lane arrays are indexed by the hit's runtime
+//    slot, so they live in local memory (L1-cached); each vertex touches one
+//    slot, and only path regeneration and completion touch all of them;
+//  * a mesh is walked per thread as in persistent.cu, and the kernel is
+//    built twice, with and without the mesh code (MESH), so that a sphere
+//    scene does not carry the walk's registers and spills;
 //  * the reduction across lanes is deterministic and uses no atomics: each
 //    block writes one row of partials (3 per slot, 3 per light, the loss),
 //    summed by a fixed shuffle tree, and the wrapper sums the rows, as the
@@ -59,15 +64,17 @@
 
 namespace {
 
-constexpr int MAX_SLOTS = 16;        // materials that carry prims
+constexpr int MAX_SLOTS = 16;        // materials on a surface
 constexpr int MAX_GRAD_LIGHTS = 16;  // lights with an intensity adjoint
+constexpr int MAX_MATS = 256;        // materials a mesh triangle may use
 constexpr uint32_t STREAM = 0x10000u;
 
 __constant__ float c_prims[MAX_PRIMS * 12];  // pack_prims layout
 __constant__ int c_pflags[MAX_PRIMS];        // bit 0 emissive, bits 1-2 type
-__constant__ int c_pslot[MAX_PRIMS];         // adjoint slot of the material
+// adjoint slot of each prim's material, then of each material (-1: none)
+__constant__ int c_slot[MAX_PRIMS + MAX_MATS];
 __constant__ float c_lights[MAX_LIGHTS * 8];  // pack_lights layout
-__constant__ int c_lstruct[MAX_LIGHTS * 2];  // (type, prim or -1) per light
+__constant__ int c_lstruct[MAX_LIGHTS * LS];  // light structure (pt_common)
 __constant__ float c_cam[24];                // pack_camera layout
 
 struct Params {
@@ -82,6 +89,7 @@ struct Params {
   int* nrays;             // (rows_total,) live lanes summed over iterations
   float* partials;        // phase "both": (rows_total, 3*slots+3*lights+1)
   float* gl;              // phase "adjoint": ((slots+lights)*3, rows, 128)
+  MeshView mesh;          // n_nodes 0: no mesh
 };
 
 __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
@@ -93,7 +101,13 @@ __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
                           : 0;
 }
 
-__global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
+// Blocks per SM: 7 for the sphere build (at most 73 registers; at the 80
+// nvcc picks by itself, 6 blocks fit and its NEE walk ran ~9% slower), 6 for
+// the mesh build (at most 85; asked for 1 block, nvcc takes 103 registers
+// and the walk runs ~7% slower).
+template <bool MESH>
+__global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
+    replay_persistent_kernel(Params p) {
   __shared__ float fscratch[4];
   __shared__ int iscratch[4];
   const int row = blockIdx.x;  // one block per 128-lane row
@@ -168,43 +182,99 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
         best_p = q;
       }
     }
+    // ---- the mesh, pruned from the sphere t; a strictly closer triangle
+    // wins (replay_persistent.py:302-339)
+    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f;
+    int mmat = -1;
+    if (MESH)
+      tm = mesh_walk<false>(p.mesh, ox, oy, oz, dx, dy, dz, best_t, gnx, gny,
+                            gnz, mmat);
+    const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
     bool alive_next = false;
-    if (best_p >= 0) {
-      const float* HP = c_prims + best_p * 12;
-      const int pflag = c_pflags[best_p];
-      const int mtype = (pflag >> 1) & 3;
+    if (mesh_hit || best_p >= 0) {
+      const float t_hit = mesh_hit ? tm : best_t;
+      const float hx = fmaf(dx, t_hit, ox), hy = fmaf(dy, t_hit, oy),
+                  hz = fmaf(dz, t_hit, oz);
+      float nx, ny, nz, ar, ag, ab, coef, er = 0.f, eg = 0.f, eb = 0.f;
+      int mtype, sl;
+      bool emissive = false;
+      if (mesh_hit) {
+        const float inv_len =
+            rsqrtf(fmaxf(gnx * gnx + gny * gny + gnz * gnz, 1e-20f));
+        nx = gnx * inv_len;
+        ny = gny * inv_len;
+        nz = gnz * inv_len;
+        const float* MT = p.mesh.mats + mmat * MAT_STRIDE;
+        ar = __ldg(MT);
+        ag = __ldg(MT + 1);
+        ab = __ldg(MT + 2);
+        coef = __ldg(MT + 3);
+        mtype = (int)__ldg(MT + 4);
+        sl = c_slot[p.n_prims + mmat];
+        for (int li = 0; li < NL; ++li) {  // the last matching light wins
+          const int* S = c_lstruct + li * LS;
+          if (S[0] != TRI_LIGHT || S[2] != mmat) continue;
+          const float* LT = c_lights + li * 8;
+          emissive = true;
+          er = LT[3];
+          eg = LT[4];
+          eb = LT[5];
+        }
+      } else {
+        const float* HP = c_prims + best_p * 12;
+        const int pflag = c_pflags[best_p];
+        mtype = (pflag >> 1) & 3;
+        const float inv_r = 1.0f / HP[3];
+        nx = (hx - HP[0]) * inv_r;
+        ny = (hy - HP[1]) * inv_r;
+        nz = (hz - HP[2]) * inv_r;
+        ar = HP[4];
+        ag = HP[5];
+        ab = HP[6];
+        coef = HP[7];
+        sl = c_slot[best_p];
+        if (pflag & 1) {
+          emissive = true;
+          er = HP[9];
+          eg = HP[10];
+          eb = HP[11];
+        }
+      }
       const bool is_s = mtype == SPECULAR, is_t = mtype == TRANSMISSIVE;
       const bool is_d = !(is_s || is_t);
-      const float hx = fmaf(dx, best_t, ox), hy = fmaf(dy, best_t, oy),
-                  hz = fmaf(dz, best_t, oz);
-      const float inv_r = 1.0f / HP[3];
-      const float nx = (hx - HP[0]) * inv_r, ny = (hy - HP[1]) * inv_r,
-                  nz = (hz - HP[2]) * inv_r;
-      const float ar = HP[4], ag = HP[5], ab = HP[6];
-      const float coef = is_d ? 0.f : HP[7];
+      if (is_d) coef = 0.f;
       const float wox = dx, woy = dy, woz = dz;
 
       // ---- emitter hit, MIS-weighted under NEE; credits the intensity
-      // adjoint of every sphere light on this prim
-      if (pflag & 1) {
+      // adjoint of its light(s): every sphere light on this prim, or the
+      // triangle light of this material
+      if (emissive) {
         float take = dot3(nx, ny, nz, -wox, -woy, -woz) > 0.f ? 1.f : 0.f;
         if (p.use_nee) {
+          // the light-sampling pdf of this emitter hit
           float ldp = 0.f;
           for (int li = 0; li < NL; ++li) {
-            const int lprim = c_lstruct[2 * li + 1];
-            if (c_lstruct[2 * li] != AREA_LIGHT || lprim != best_p) continue;
-            ldp = cone_pdf(HP, ox, oy, oz) * c_lights[li * 8 + 7];
+            const int* S = c_lstruct + li * LS;
+            if (mesh_hit && S[0] == TRI_LIGHT && S[2] == mmat)
+              ldp = tri_light_pdf(tm, dot3(nx, ny, nz, dx, dy, dz),
+                                  c_lights[li * 8 + 7],
+                                  __ldg(p.mesh.tl + S[3] * TL_STRIDE + 13));
+            else if (!mesh_hit && S[0] == AREA_LIGHT && S[1] == best_p)
+              ldp = cone_pdf(c_prims + best_p * 12, ox, oy, oz) *
+                    c_lights[li * 8 + 7];
           }
           const float pp2 = prev_pdf * prev_pdf;
           take *= prev_delta ? 1.f : pp2 / fmaxf(pp2 + ldp * ldp, 1e-20f);
         }
-        const float e_r = Tr * HP[9] * take, e_g = Tg * HP[10] * take,
-                    e_b = Tb * HP[11] * take;
+        const float e_r = Tr * er * take, e_g = Tg * eg * take,
+                    e_b = Tb * eb * take;
         Cr += e_r;
         Cg += e_g;
         Cb += e_b;
         for (int li = 0; li < NL; ++li) {
-          if (c_lstruct[2 * li] != AREA_LIGHT || c_lstruct[2 * li + 1] != best_p)
+          const int* S = c_lstruct + li * LS;
+          if (mesh_hit ? !(S[0] == TRI_LIGHT && S[2] == mmat)
+                       : !(S[0] == AREA_LIGHT && S[1] == best_p))
             continue;
           cI[3 * li] += e_r;
           cI[3 * li + 1] += e_g;
@@ -221,18 +291,23 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
           const bool m_l = li == NL - 1 ? usel >= lo
                                         : (usel >= lo && usel < lo + sel);
           if (!m_l) continue;
-          const int lprim = c_lstruct[2 * li + 1];
-          const bool area = c_lstruct[2 * li] == AREA_LIGHT && lprim >= 0;
-          const LightSample ls = sample_light(
-              LT, area ? c_prims + lprim * 12 : nullptr, hx, hy, hz, ul1, ul2);
+          const int* S = c_lstruct + li * LS;
+          const bool area = S[0] == AREA_LIGHT && S[1] >= 0;
+          const bool tri = MESH && S[0] == TRI_LIGHT;
+          const LightSample ls =
+              tri ? sample_tri_light(p.mesh.tl + S[3] * TL_STRIDE, S[4], LT,
+                                     hx, hy, hz, ul1, ul2)
+                  : sample_light(LT, area ? c_prims + S[1] * 12 : nullptr, hx,
+                                 hy, hz, ul1, ul2);
           const float cos_l = dot3(ls.wlx, ls.wly, ls.wlz, nx, ny, nz);
           const bool support =
               cos_l > 0.f && dot3(wox, woy, woz, ls.wlx, ls.wly, ls.wlz) < 0.f;
           if (!(ls.valid && support)) continue;
           // shadow any-hit: the sphere quadratic's root in (tmin, smax),
-          // skipping the sampled light sphere (its hit lies beyond smax)
+          // skipping the sampled light sphere (its hit lies beyond smax),
+          // then the mesh in occlusion mode
           const float smax = fmaf(ls.dist, 0.999f, -TMIN);
-          const int skip = area ? lprim : -1;
+          const int skip = area ? S[1] : -1;
           bool occ = false;
           for (int q = 0; q < p.n_prims && !occ; ++q) {
             if (q == skip) continue;
@@ -246,12 +321,18 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
             const float rt = rb - rsq > TMIN ? rb - rsq : rb + rsq;
             occ = rdet >= 0.f && rt > TMIN && rt < smax;
           }
+          if (MESH && !occ && smax > 0.f) {
+            float sx, sy, sz;
+            int sm;
+            occ = mesh_walk<true>(p.mesh, hx, hy, hz, ls.wlx, ls.wly, ls.wlz,
+                                  smax, sx, sy, sz, sm) == 0.f;
+          }
           if (occ) continue;
           const float pdf_b = cos_l * INV_PI;
           const float w_mis =
-              area ? (ls.pdf * ls.pdf) /
-                         fmaxf(ls.pdf * ls.pdf + pdf_b * pdf_b, 1e-20f)
-                   : 1.f;
+              (area || tri) ? (ls.pdf * ls.pdf) /
+                                  fmaxf(ls.pdf * ls.pdf + pdf_b * pdf_b, 1e-20f)
+                            : 1.f;
           const float scale = cos_l * w_mis / fmaxf(ls.pdf, 1e-20f);
           const float t_r = Tr * (ar * INV_PI) * ls.rad_r * scale;
           const float t_g = Tg * (ag * INV_PI) * ls.rad_g * scale;
@@ -275,7 +356,6 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
       const bool step_ok = !f_black && lb.pdf > 0.f;
 
       // ---- streaming adjoint at this vertex's material
-      const int sl = c_pslot[best_p];
       if (step_ok) {
         nA[sl] += 1.f;
         cA[3 * sl] += Cr - nee_r;
@@ -372,36 +452,48 @@ __global__ void __launch_bounds__(LANES) replay_persistent_kernel(Params p) {
 extern "C" {
 
 // Launch one fused value-and-grad walk on `stream`. prims/lights/cam/
-// uniforms/target and every output are device pointers; pflags/pslot/
-// lstruct are host arrays, copied with the tables into __constant__ memory
-// on the same stream. Exactly one of `partials` (phase "both") and `gl`
-// (phase "adjoint") is non-NULL. Returns the first CUDA error (0 on
-// success).
+// uniforms/target, the mesh tables and every output are device pointers;
+// pflags/slots/lstruct are host arrays, copied with the tables into
+// __constant__ memory on the same stream. `slots` holds the adjoint slot of
+// each prim's material, then of each of the n_mats materials (-1 for a
+// material on no surface). Exactly one of `partials` (phase "both") and `gl`
+// (phase "adjoint") is non-NULL; n_nodes == 0 means no mesh. Returns the
+// first CUDA error (0 on success).
 int tpt_replay_persistent(
-    const float* prims, const int* pflags, const int* pslot, int n_prims,
-    const float* lights, const int* lstruct, int n_lights, int n_slots,
-    const float* cam, const float* uniforms, const float* target, float* lr,
-    float* lg, float* lb, int* n_samp, int* nrays, float* partials,
-    float* gl, int rows_total, int tile_rows, int budget, int spp, int width,
-    int n_lanes, int max_bounces, int rr_start, int use_nee, int strat_k,
-    int tile_offset, float inv_loss_n,
-    uint32_t seed, uint32_t salt, uint32_t iteration, void* stream) {
-  if (n_prims <= 0 || n_prims > MAX_PRIMS || n_lights < 0 ||
-      n_lights > MAX_GRAD_LIGHTS || n_slots < 0 || n_slots > MAX_SLOTS ||
-      rows_total <= 0 || tile_rows <= 0 || rows_total % tile_rows != 0 ||
-      width <= 0 || strat_k < 1 || (partials == nullptr) == (gl == nullptr))
+    const float* prims, const int* pflags, const int* slots, int n_prims,
+    int n_mats, const float* lights, const int* lstruct, int n_lights,
+    int n_slots, const float* cam, const float* uniforms, const float* target,
+    float* lr, float* lg, float* lb, int* n_samp, int* nrays, float* partials,
+    float* gl, const float* mesh_boxes, const int* mesh_meta,
+    const float* mesh_tris, const float* mesh_mats, const float* tri_lights,
+    int n_nodes, int rows_total, int tile_rows, int budget, int spp,
+    int width, int n_lanes, int max_bounces, int rr_start, int use_nee,
+    int strat_k, int tile_offset, float inv_loss_n, uint32_t seed,
+    uint32_t salt, uint32_t iteration, void* stream) {
+  if (n_prims < 0 || n_prims > MAX_PRIMS || n_mats < 0 ||
+      n_mats > MAX_MATS || n_lights < 0 || n_lights > MAX_GRAD_LIGHTS ||
+      n_slots < 0 || n_slots > MAX_SLOTS || rows_total <= 0 ||
+      tile_rows <= 0 || rows_total % tile_rows != 0 || width <= 0 ||
+      strat_k < 1 || (partials == nullptr) == (gl == nullptr) ||
+      n_nodes < 0 ||
+      (n_nodes > 0 && !(mesh_boxes && mesh_meta && mesh_tris && mesh_mats &&
+                        tri_lights)))
     return (int)cudaErrorInvalidValue;
-  for (int q = 0; q < n_prims; ++q)
-    if (pslot[q] < 0 || pslot[q] >= n_slots) return (int)cudaErrorInvalidValue;
+  for (int q = 0; q < n_prims + n_mats; ++q)
+    if (slots[q] < (q < n_prims ? 0 : -1) || slots[q] >= n_slots)
+      return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemcpyToSymbolAsync(
-      c_prims, prims, sizeof(float) * 12 * n_prims, 0,
-      cudaMemcpyDeviceToDevice, st);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_pflags, pflags, sizeof(int) * n_prims, 0,
-                                  cudaMemcpyHostToDevice, st);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(c_pslot, pslot, sizeof(int) * n_prims, 0,
+  cudaError_t err = cudaSuccess;
+  if (n_prims > 0) {
+    err = cudaMemcpyToSymbolAsync(c_prims, prims, sizeof(float) * 12 * n_prims,
+                                  0, cudaMemcpyDeviceToDevice, st);
+    if (err == cudaSuccess)
+      err = cudaMemcpyToSymbolAsync(c_pflags, pflags, sizeof(int) * n_prims,
+                                    0, cudaMemcpyHostToDevice, st);
+  }
+  if (err == cudaSuccess && n_prims + n_mats > 0)
+    err = cudaMemcpyToSymbolAsync(c_slot, slots,
+                                  sizeof(int) * (n_prims + n_mats), 0,
                                   cudaMemcpyHostToDevice, st);
   if (err == cudaSuccess && n_lights > 0) {
     err = cudaMemcpyToSymbolAsync(c_lights, lights,
@@ -409,7 +501,7 @@ int tpt_replay_persistent(
                                   cudaMemcpyDeviceToDevice, st);
     if (err == cudaSuccess)
       err = cudaMemcpyToSymbolAsync(c_lstruct, lstruct,
-                                    sizeof(int) * 2 * n_lights, 0,
+                                    sizeof(int) * LS * n_lights, 0,
                                     cudaMemcpyHostToDevice, st);
   }
   if (err == cudaSuccess)
@@ -444,8 +536,17 @@ int tpt_replay_persistent(
   p.nrays = nrays;
   p.partials = partials;
   p.gl = gl;
+  p.mesh.boxes = mesh_boxes;
+  p.mesh.meta = mesh_meta;
+  p.mesh.tris = mesh_tris;
+  p.mesh.mats = mesh_mats;
+  p.mesh.tl = tri_lights;
+  p.mesh.n_nodes = n_nodes;
 
-  replay_persistent_kernel<<<rows_total, LANES, 0, st>>>(p);
+  if (n_nodes > 0)
+    replay_persistent_kernel<true><<<rows_total, LANES, 0, st>>>(p);
+  else
+    replay_persistent_kernel<false><<<rows_total, LANES, 0, st>>>(p);
   return (int)cudaGetLastError();
 }
 

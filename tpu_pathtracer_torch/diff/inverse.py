@@ -2,8 +2,9 @@
 
 Counterpart of the single-device persistent route of
 ``tpu_pathtracer/diff/inverse.py`` (BASELINE config 5): optimize the
-material colours and light intensities of a sphere scene to match a target
-image. Each step is ONE launch of the fused value-and-grad kernel
+material colours and light intensities of a sphere or mesh scene to match a
+target image. A mesh scene must come packed
+(``models.scene.with_packet_mesh``), as in the JAX package. Each step is ONE launch of the fused value-and-grad kernel
 (``ops/kernels/replay_persistent.py``), which returns the loss and both
 gradients from a single path walk, then one Adam update. ``torch.optim.Adam``
 has optax's ``adam`` update (bias-corrected moments, eps outside the square
@@ -15,9 +16,9 @@ cotangent. A train step is ``loss.backward()``, ``optimizer.step()`` and the
 physical clamps under ``no_grad``.
 
 Not ported yet: ``engine="sample"`` (ROADMAP Queue 1 item 18), device meshes
-(item 15), mesh scenes (item 9), IOR (``mat_coef``) gradients (item 13),
-texture gradients (items 10 and 12) and the XLA-side estimators
-(``sharded_loss``, ``make_train_step``, ``render_target``; item 14).
+(item 15), IOR (``mat_coef``) gradients (item 13), texture gradients (items
+10 and 12) and the XLA-side estimators (``sharded_loss``,
+``make_train_step``, ``render_target``; item 14).
 """
 from __future__ import annotations
 
@@ -137,7 +138,7 @@ def train_state_to_numpy(state: TrainState
     return params, adam, state.step
 
 
-def _check_route(mesh, engine: str) -> None:
+def _check_route(scene: Scene, mesh, engine: str) -> None:
     if engine == "sample":
         raise _not_ported('engine="sample" (the per-sample fused kernel)',
                           "18")
@@ -146,6 +147,10 @@ def _check_route(mesh, engine: str) -> None:
     if mesh is not None:
         raise _not_ported("gradients sharded over a device mesh (mesh=)",
                           "15")
+    if scene.mesh is not None and scene.mesh_packed is None:
+        raise ValueError(
+            "engine='persistent' walks the packed mesh in-kernel: pack it "
+            "first with models.scene.with_packet_mesh(scene)")
 
 
 class PersistentMSE(torch.autograd.Function):
@@ -205,7 +210,7 @@ def kernel_loss_and_grads(
     """MSE loss and gradients w.r.t. ``params`` from one fused launch.
     ``seed`` is ``(seed, salt)``; ``uniforms`` (test mode) is the JAX
     kernel's external uniform block."""
-    _check_route(mesh, engine)
+    _check_route(scene, mesh, engine)
     scene_p = apply_params(scene, params)
     loss, grads, _ = persistent_mse_value_and_grad(
         scene_p, camera, seed, iteration, target,
@@ -234,7 +239,7 @@ def make_kernel_train_step(
     target was rendered with: the loss is then exactly zero at the true
     parameters). The optimizer is the one ``state`` carries (JAX's
     ``optimizer`` argument has no counterpart here)."""
-    _check_route(mesh, engine)
+    _check_route(scene, mesh, engine)
     kw = _kernel_kw(config.spp, config.max_bounces, config.rr_start,
                     tile_rows, config.use_nee, 2, budget, uniforms)
     h, w = camera.height, camera.width
@@ -266,7 +271,7 @@ def render_target_kernel(
     """(H*W, 3) target rendered by the fused kernel's own forward walk, for
     same-seed inverse rendering with ``make_kernel_train_step`` at the same
     fixed iteration."""
-    _check_route(None, engine)
+    _check_route(scene, None, engine)
     w, h = camera.width, camera.height
     tr = 32 if tile_rows is None else tile_rows
     rows_total, n_lanes = pixel_lanes_layout(w, h, tr)

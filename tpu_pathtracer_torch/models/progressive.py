@@ -4,7 +4,8 @@ Counterpart of ``PersistentRenderer`` in
 ``tpu_pathtracer/models/progressive.py``: step / render_to / image /
 min_samples / iteration / reset / update_camera. The kernel's PathState is
 the progressive accumulator: per-pixel radiance sums and completed-sample
-counts stay on the device across steps.
+counts stay on the device across steps. A mesh scene is packed here for the
+kernel's in-kernel walk unless it comes packed.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 
 from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.models.integrator import RenderConfig
-from tpu_pathtracer_torch.models.scene import Scene
+from tpu_pathtracer_torch.models.scene import Scene, with_packet_mesh
 from tpu_pathtracer_torch.ops.kernels import persistent as pk
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
 
@@ -31,8 +32,11 @@ class PersistentRenderer:
                  tile_rows: int = 32, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
-                "sharded rendering (mesh=) is not ported yet")
+                "sharded rendering (mesh=) is not ported yet (ROADMAP Queue 1 "
+                "item 15)")
         self.device = torch.device(device)
+        if scene.mesh is not None and scene.mesh_packed is None:
+            scene = with_packet_mesh(scene)
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
         self.config = config

@@ -1,11 +1,13 @@
-"""Scene data model for spheres: padded SoA tensors plus static structure.
+"""Scene data model: padded SoA tensors plus static structure.
 
-Counterpart of the sphere part of ``tpu_pathtracer/models/scene.py``. The
-array fields keep the JAX layouts and paddings; the static structure
-(``emissive_prims``, ``prim_mtypes``, ``light_structure``, ...) stays as
-Python tuples so the kernel wrapper can read it without a device sync.
-Meshes, textures and triangle lights are not ported yet: ``make_scene``
-raises ``NotImplementedError`` for them.
+Counterpart of ``tpu_pathtracer/models/scene.py`` for sphere and
+triangle-mesh scenes with point, sphere-area and triangle (TRI_LIGHT)
+lights. The array fields keep the JAX layouts and paddings; the static
+structure (``emissive_prims``, ``prim_mtypes``, ``light_structure``, ...)
+stays as Python tuples so the kernel wrappers can read it without a device
+sync. A mesh is a ``models/mesh.py::MeshData``; ``with_packet_mesh`` packs
+it for the kernels' in-kernel walk. Textures are not ported yet:
+``make_scene`` raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ DIFFUSE = 0
 SPECULAR = 1
 TRANSMISSIVE = 2
 
-# Light types (reference light.h:34); TRI_LIGHT exists in the JAX package only
+# Light types (reference light.h:34); TRI_LIGHT, a mesh-triangle area light,
+# goes beyond the reference's light model
 POINT_LIGHT = 0
 AREA_LIGHT = 1
 TRI_LIGHT = 2
@@ -34,11 +37,15 @@ ARRAY_FIELDS = (
     "centers", "radii", "material_id", "light_id", "prim_valid",
     "mat_color", "mat_coef", "mat_type",
     "light_type", "light_pos", "light_prim", "light_intensity", "light_valid",
+    "light_mat",
 )
 STATIC_FIELDS = (
     "num_prims", "num_lights", "emissive_prims", "prim_mtypes",
     "prim_material_ids", "light_structure", "mat_types",
+    "light_mats", "tri_light_counts", "mesh_mats_static", "has_tri_lights",
 )
+# Triangle-light sampling tables: None in scenes without a TRI_LIGHT.
+TRI_FIELDS = ("tl_v0", "tl_e1", "tl_e2", "tl_n", "tl_cdf", "tl_area")
 
 
 def _pad_to(n: int, m: int = 8) -> int:
@@ -63,6 +70,7 @@ class Scene:
     light_prim: Tensor  # (L,) int64 index, area lights only
     light_intensity: Tensor  # (L, 3)
     light_valid: Tensor  # (L,) bool
+    light_mat: Tensor  # (L,) int32 emissive material of a TRI_LIGHT, else -1
     # Static structure
     num_prims: int = 0
     num_lights: int = 0
@@ -71,14 +79,55 @@ class Scene:
     prim_material_ids: tuple = ()
     light_structure: tuple = ()  # ((light_type, prim_index_or_-1), ...)
     mat_types: tuple = ()
+    light_mats: tuple = ()  # per light: TRI_LIGHT material id, else -1
+    tri_light_counts: tuple = ()  # per light: its triangle count, else 0
+    mesh_mats_static: tuple = ()  # material ids used by mesh triangles
+    has_tri_lights: bool = False
+    # Triangle mesh + BVH (models/mesh.py), None in sphere-only scenes, and
+    # its packed layout for the in-kernel walk (with_packet_mesh).
+    mesh: Any = None
+    mesh_packed: Any = None
+    # TRI_LIGHT sampling tables (L, K, ...) over the post-BVH triangle
+    # order, K the padded largest triangle count (_build_tri_light_tables)
+    tl_v0: Tensor | None = None  # (L, K, 3)
+    tl_e1: Tensor | None = None  # (L, K, 3)
+    tl_e2: Tensor | None = None  # (L, K, 3)
+    tl_n: Tensor | None = None  # (L, K, 3) unit front normal
+    tl_cdf: Tensor | None = None  # (L, K) area-weighted selection CDF
+    tl_area: Tensor | None = None  # (L,) total emissive area
 
     @property
     def device(self) -> torch.device:
         return self.centers.device
 
     def to(self, device) -> "Scene":
-        return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in ARRAY_FIELDS})
+        moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
+        moved.update({f: getattr(self, f).to(device) for f in TRI_FIELDS
+                      if getattr(self, f) is not None})
+        for f in ("mesh", "mesh_packed"):
+            if getattr(self, f) is not None:
+                moved[f] = getattr(self, f).to(device)
+        return dataclasses.replace(self, **moved)
+
+
+def with_packet_mesh(scene: Scene, two_pass: bool = False) -> Scene:
+    """Pack the scene's mesh for the persistent kernels' in-kernel walk
+    (``pack_mesh`` with 64-triangle leaves). ``two_pass`` would also build
+    the coarse tree of the JAX package's binned wavefront traversal, whose
+    bin kernel is not ported yet, so it raises (the JAX default is True;
+    the persistent kernels never read that tree)."""
+    if scene.mesh is None:
+        return scene
+    from tpu_pathtracer_torch.ops.kernels.mesh_kernel import pack_mesh
+
+    if two_pass:
+        raise NotImplementedError(
+            "the coarse tree of the two-pass traversal feeds the bin kernel, "
+            "which is not ported to tpu_pathtracer_torch yet (ROADMAP "
+            "Queue 2 item 6); the persistent kernels need two_pass=False")
+    return dataclasses.replace(scene,
+                               mesh_packed=pack_mesh(scene.mesh,
+                                                     collapse_leaf=64))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +184,13 @@ def area_light(prim: int, intensity: Sequence[float]) -> dict:
     return {"type": AREA_LIGHT, "prim": prim, "intensity": list(intensity)}
 
 
+def tri_light(material: int, intensity: Sequence[float]) -> dict:
+    """Triangle-mesh area light: every mesh triangle of ``material`` emits
+    ``intensity`` from its front (geometric-normal) side."""
+    return {"type": TRI_LIGHT, "material": material,
+            "intensity": list(intensity)}
+
+
 def make_scene(
     spheres: Sequence[dict],
     materials: Sequence[dict],
@@ -145,31 +201,49 @@ def make_scene(
     *,
     device="cuda",
 ) -> Scene:
-    """Build a padded SoA sphere Scene from declarative Python data, with the
-    JAX package's host-side validation and padding."""
-    if mesh is not None or textures is not None or mat_texture is not None:
+    """Build a padded SoA Scene from declarative Python data, with the JAX
+    package's host-side validation and padding. ``mesh`` is a MeshData
+    (``models/mesh.py::build_bvh``); a TRI_LIGHT's tables are built from it
+    here."""
+    if textures is not None or mat_texture is not None:
         raise NotImplementedError(
-            "meshes and textures are not ported to tpu_pathtracer_torch yet")
+            "textures are not ported to tpu_pathtracer_torch yet (ROADMAP "
+            "Queue 1 item 10)")
     n_p, n_m, n_l = len(spheres), len(materials), len(lights)
+    mesh_mids = None if mesh is None else mesh.material_id.cpu().numpy()
     for i, s in enumerate(spheres):
         if not 0 <= s["material"] < n_m:
             raise ValueError(
                 f"sphere {i}: material id {s['material']} out of range "
                 f"(have {n_m} materials)")
     for i, l in enumerate(lights):
-        if l["type"] == TRI_LIGHT:
-            raise NotImplementedError(
-                f"light {i}: TRI_LIGHT is not ported to tpu_pathtracer_torch "
-                "yet")
         if l["type"] == AREA_LIGHT and not 0 <= l["prim"] < n_p:
             raise ValueError(
                 f"light {i}: area-light prim {l['prim']} out of range "
                 f"(have {n_p} primitives)")
+        if l["type"] == TRI_LIGHT:
+            if mesh is None:
+                raise ValueError(f"light {i}: TRI_LIGHT requires a mesh")
+            if not 0 <= l["material"] < n_m:
+                raise ValueError(
+                    f"light {i}: tri-light material {l['material']} out of "
+                    f"range (have {n_m} materials)")
+            if not bool(np.any(mesh_mids == l["material"])):
+                raise ValueError(
+                    f"light {i}: no mesh triangle uses material "
+                    f"{l['material']}")
     for i, s in enumerate(spheres):
         li = s.get("light", -1)
         if li >= n_l:
             raise ValueError(
                 f"sphere {i}: light id {li} out of range (have {n_l} lights)")
+    if mesh_mids is not None and mesh_mids.size and (
+            mesh_mids.min() < 0 or mesh_mids.max() >= n_m):
+        bad = int(mesh_mids.min()) if mesh_mids.min() < 0 \
+            else int(mesh_mids.max())
+        raise ValueError(
+            f"mesh: triangle material id {bad} out of range "
+            f"(have {n_m} materials)")
     P, M, L = _pad_to(n_p), _pad_to(n_m), _pad_to(max(n_l, 1))
 
     centers = np.zeros((P, 3), np.float32)
@@ -199,12 +273,15 @@ def make_scene(
     l_prim = np.full((L,), P - 1, np.int64)
     l_int = np.zeros((L, 3), np.float32)
     l_valid = np.zeros((L,), bool)
+    l_mat = np.full((L,), -1, np.int32)
     for i, l in enumerate(lights):
         l_type[i] = l["type"]
         l_valid[i] = True
         l_int[i] = l["intensity"]
         if l["type"] == POINT_LIGHT:
             l_pos[i] = l["pos"]
+        elif l["type"] == TRI_LIGHT:
+            l_mat[i] = l["material"]
         else:
             l_prim[i] = l["prim"]
 
@@ -213,7 +290,10 @@ def make_scene(
         prim_valid=valid, mat_color=mat_color, mat_coef=mat_coef,
         mat_type=mat_type, light_type=l_type, light_pos=l_pos,
         light_prim=l_prim, light_intensity=l_int, light_valid=l_valid,
+        light_mat=l_mat,
     )
+    tri_tabs = _build_tri_light_tables(mesh, l_type, l_mat, l_valid, L)
+    arrays.update({f: v for f, v in tri_tabs.items() if v is not None})
     static = dict(
         num_prims=n_p,
         num_lights=n_l,
@@ -225,14 +305,66 @@ def make_scene(
         light_structure=tuple(
             (int(l["type"]), int(l.get("prim", -1))) for l in lights),
         mat_types=tuple(int(m["type"]) for m in materials),
+        light_mats=tuple(int(l["material"]) if l["type"] == TRI_LIGHT else -1
+                         for l in lights),
+        tri_light_counts=tuple(
+            int(np.sum(mesh_mids == l["material"]))
+            if l["type"] == TRI_LIGHT else 0 for l in lights),
+        mesh_mats_static=(tuple(sorted(int(m) for m in np.unique(mesh_mids)))
+                          if mesh is not None else ()),
+        has_tri_lights=tri_tabs["tl_area"] is not None,
     )
-    return scene_from_numpy(arrays, static, device=device)
+    return scene_from_numpy(arrays, static, mesh=mesh, device=device)
+
+
+def _build_tri_light_tables(mesh, l_type, l_mat, l_valid, L: int) -> dict:
+    """Per-light triangle sampling tables for TRI_LIGHT lights: the mesh
+    triangles of each light's material (post-BVH order), their unit front
+    normals and an area-weighted selection CDF, padded to a common K."""
+    is_tri = (l_type == TRI_LIGHT) & l_valid
+    if mesh is None or not bool(is_tri.any()):
+        return {f: None for f in TRI_FIELDS}
+    v0, e1, e2 = (getattr(mesh, f).cpu().numpy().astype(np.float64)
+                  for f in ("v0", "e1", "e2"))
+    mat = mesh.material_id.cpu().numpy()
+    per_light = [np.nonzero(mat == l_mat[i])[0] if is_tri[i]
+                 else np.zeros((0,), np.int64) for i in range(L)]
+    K = max(1, max(len(ids) for ids in per_light))
+    tv0 = np.zeros((L, K, 3), np.float32)
+    te1 = np.zeros((L, K, 3), np.float32)
+    te2 = np.zeros((L, K, 3), np.float32)
+    tn = np.zeros((L, K, 3), np.float32)
+    tcdf = np.ones((L, K), np.float32)  # padding: cdf saturated at 1
+    tarea = np.zeros((L,), np.float32)
+    for i, ids in enumerate(per_light):
+        k = len(ids)
+        if k == 0:
+            continue
+        cr = np.cross(e1[ids], e2[ids])
+        a = 0.5 * np.linalg.norm(cr, axis=-1)
+        total = float(a.sum())
+        if total <= 0.0:
+            raise ValueError(f"tri light {i}: degenerate emissive triangles")
+        tv0[i, :k] = v0[ids]
+        te1[i, :k] = e1[ids]
+        te2[i, :k] = e2[ids]
+        tn[i, :k] = cr / np.maximum(
+            np.linalg.norm(cr, axis=-1, keepdims=True), 1e-20)
+        tcdf[i, :k] = np.cumsum(a) / total
+        tcdf[i, k - 1:] = 1.0
+        tarea[i] = total
+    return dict(tl_v0=tv0, tl_e1=te1, tl_e2=te2, tl_n=tn, tl_cdf=tcdf,
+                tl_area=tarea)
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray],
-                     static: Mapping[str, Any], *, device="cuda") -> Scene:
+                     static: Mapping[str, Any], *, mesh=None,
+                     device="cuda") -> Scene:
     """Build a Scene from the array fields (numpy) and the static fields of a
-    JAX ``Scene``, so both packages compute on identical tables."""
+    JAX ``Scene``, so both packages compute on identical tables. ``mesh`` is
+    a MeshData (``models/mesh.py::mesh_from_numpy`` carries a JAX mesh
+    across); the TRI_LIGHT tables are read from ``arrays`` when the scene
+    has triangle lights."""
     ints = {"material_id", "light_prim"}
     tensors = {}
     for f in ARRAY_FIELDS:
@@ -240,9 +372,15 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray],
         if f in ints:
             a = a.astype(np.int64)  # torch indexes with int64
         tensors[f] = torch.tensor(a, device=device)
-    if any(ltype == TRI_LIGHT for ltype, _ in static["light_structure"]):
-        raise NotImplementedError("TRI_LIGHT is not ported yet")
-    return Scene(**tensors, **{f: static[f] for f in STATIC_FIELDS})
+    if static["has_tri_lights"]:
+        if mesh is None:
+            raise ValueError("a scene with triangle lights needs its mesh")
+        tensors.update({f: torch.tensor(np.asarray(arrays[f], np.float32),
+                                        device=device) for f in TRI_FIELDS})
+    if mesh is not None:
+        mesh = mesh.to(device)
+    return Scene(**tensors, **{f: static[f] for f in STATIC_FIELDS},
+                 mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -315,8 +453,118 @@ def single_sphere(device="cuda") -> tuple[Scene, dict]:
     return make_scene(spheres, mats, lights, device=device), cam
 
 
+def cornell_glass(device="cuda") -> tuple[Scene, dict]:
+    """BASELINE config 3: Cornell box of triangle-quad walls with a mirror
+    sphere and a glass sphere inside, under a sphere area emitter."""
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    grey, red, blue = 3, 1, 2
+    walls = [
+        (*meshes.quad([-50, 0, 80], [50, 0, 80], [50, 0, -80],
+                      [-50, 0, -80]), grey),             # floor (+y)
+        (*meshes.quad([-50, 80, -80], [50, 80, -80], [50, 80, 80],
+                      [-50, 80, 80]), grey),             # ceiling (-y)
+        (*meshes.quad([50, 0, -80], [50, 80, -80], [-50, 80, -80],
+                      [-50, 0, -80]), grey),             # back (+z)
+        (*meshes.quad([-50, 0, 80], [-50, 80, 80], [50, 80, 80],
+                      [50, 0, 80]), grey),               # front (-z)
+        (*meshes.quad([-50, 0, -80], [-50, 80, -80], [-50, 80, 80],
+                      [-50, 0, 80]), red),               # left (+x)
+        (*meshes.quad([50, 0, 80], [50, 80, 80], [50, 80, -80],
+                      [50, 0, -80]), blue),              # right (-x)
+    ]
+    v, f, uv, m = meshes.merge(*walls)
+    mesh = build_bvh(v, f, uv, m, device=device)
+    spheres = [
+        sphere([-25, 16.5, -50], 16.5, 4),   # mirror ball
+        sphere([25, 16.5, -25], 16.5, 5),    # glass ball
+        sphere([0, 86, -20], 10.0, 1, 0),    # emitter pokes below ceiling
+    ]
+    lights = [area_light(2, [60.0, 60.0, 60.0])]
+    cam = dict(eye=[0, 45, 79.0], look_at=[0, 35, 0], up=[0, 1, 0], fov=60.0)
+    return make_scene(spheres, reference_materials(), lights, mesh=mesh,
+                      device=device), cam
+
+
+def _cornell_mesh_walls(white, red, blue):
+    from tpu_pathtracer_torch.models import meshes
+
+    return [
+        (*meshes.quad([-50, 0, 80], [50, 0, 80], [50, 0, -80],
+                      [-50, 0, -80]), white),            # floor (+y)
+        (*meshes.quad([-50, 80, -80], [50, 80, -80], [50, 80, 80],
+                      [-50, 80, 80]), white),            # ceiling (-y)
+        (*meshes.quad([50, 0, -80], [50, 80, -80], [-50, 80, -80],
+                      [-50, 0, -80]), white),            # back (+z)
+        (*meshes.quad([-50, 0, 80], [-50, 80, 80], [50, 80, 80],
+                      [50, 0, 80]), white),              # front (-z)
+        (*meshes.quad([-50, 0, -80], [-50, 80, -80], [-50, 80, 80],
+                      [-50, 0, 80]), red),               # left (+x)
+        (*meshes.quad([50, 0, 80], [50, 80, 80], [50, 80, -80],
+                      [50, 0, -80]), blue),              # right (-x)
+    ]
+
+
+def _cornell_mesh_boxes(white):
+    from tpu_pathtracer_torch.models import meshes
+
+    return [
+        (*meshes.box([-18, 30, -35], [30, 60, 30], rotation_y=0.3), white),
+        (*meshes.box([20, 14, -5], [28, 28, 28], rotation_y=-0.25), white),
+    ]
+
+
+def cornell_boxes(device="cuda") -> tuple[Scene, dict]:
+    """BASELINE config 2: Cornell box with diffuse triangle walls and two
+    boxes, lit by a sphere emitter poking below the ceiling."""
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    white, red, blue = 0, 1, 2
+    v, f, uv, m = meshes.merge(*_cornell_mesh_walls(white, red, blue),
+                               *_cornell_mesh_boxes(white))
+    mesh = build_bvh(v, f, uv, m, device=device)
+    spheres = [sphere([0, 86, -20], 10.0, 3, 0)]
+    mats = [
+        diffuse([0.75, 0.75, 0.75]),
+        diffuse([0.75, 0.25, 0.25]),
+        diffuse([0.25, 0.25, 0.75]),
+        diffuse([1.0, 1.0, 1.0]),
+    ]
+    lights = [area_light(0, [60.0, 60.0, 60.0])]
+    cam = dict(eye=[0, 45, 79.0], look_at=[0, 35, 0], up=[0, 1, 0], fov=60.0)
+    return make_scene(spheres, mats, lights, mesh=mesh, device=device), cam
+
+
+def cornell_quad(device="cuda") -> tuple[Scene, dict]:
+    """Cornell box lit by an emissive ceiling quad (TRI_LIGHT): a pure mesh
+    scene, no spheres; NEE samples the quad by area."""
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    white, red, blue, emit = 0, 1, 2, 3
+    light_quad = (*meshes.quad([-15, 79.5, -35], [15, 79.5, -35],
+                               [15, 79.5, -5], [-15, 79.5, -5]), emit)
+    v, f, uv, m = meshes.merge(*_cornell_mesh_walls(white, red, blue),
+                               light_quad, *_cornell_mesh_boxes(white))
+    mesh = build_bvh(v, f, uv, m, device=device)
+    mats = [
+        diffuse([0.75, 0.75, 0.75]),
+        diffuse([0.75, 0.25, 0.25]),
+        diffuse([0.25, 0.25, 0.75]),
+        diffuse([0.0, 0.0, 0.0]),  # emitter surface: pure emitter, no BSDF
+    ]
+    lights = [tri_light(emit, [34.0, 34.0, 34.0])]
+    cam = dict(eye=[0, 45, 79.0], look_at=[0, 35, 0], up=[0, 1, 0], fov=60.0)
+    return make_scene([], mats, lights, mesh=mesh, device=device), cam
+
+
 BUILTIN_SCENES = {
     "cornell": cornell_spheres,
+    "cornell-glass": cornell_glass,
     "small": small_spheres,
     "single-sphere": single_sphere,
+    "cornell-boxes": cornell_boxes,
+    "cornell-quad": cornell_quad,
 }

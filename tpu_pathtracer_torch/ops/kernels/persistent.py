@@ -24,7 +24,11 @@ Randomness comes in two modes:
   version computes the same Philox in int64 tensor arithmetic, so kernel and
   plain version see identical uniforms in both modes.
 
-Not ported yet: thin-lens DOF, meshes, TRI_LIGHT and textures.
+Scenes may hold a triangle mesh, packed by ``models/scene.py::
+with_packet_mesh``: the closest hit merges the in-kernel BVH walk into the
+sphere pass, triangles of a TRI_LIGHT's material emit, NEE samples triangle
+lights by area, and shadow rays walk the mesh in occlusion mode. Not ported
+yet: thin-lens DOF and textures.
 """
 from __future__ import annotations
 
@@ -38,8 +42,9 @@ import torch
 from torch import Tensor
 
 from tpu_pathtracer_torch.models.scene import (
-    AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, Scene,
+    AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, TRI_LIGHT, Scene,
 )
+from tpu_pathtracer_torch.ops.kernels._walk import mesh_walk_ref
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
     BIG, INV_PI, LANES, pack_lights, pack_prims,
 )
@@ -57,9 +62,12 @@ STATE_FIELDS = (
 )
 MAX_PRIMS = 256  # sizes of the kernel's __constant__ tables
 MAX_LIGHTS = 64
+MAX_NODES = 1 << 24  # node ids travel as exact f32 integers in pack_mesh
 
-# Kernel launches by persistent_step (plain-version calls are not counted).
+# Kernel launches by persistent_step (plain-version calls are not counted),
+# and those of them on a mesh scene (each walks the mesh in-kernel).
 launches = 0
+mesh_launches = 0
 
 
 @dataclasses.dataclass
@@ -252,14 +260,20 @@ def emitter_light_pdf(P, Lt, lights_static, is_ps, ox, oy, oz, fzeros):
     return ldp
 
 
-def sample_light(P, Lt, li, ltype, lprim, hx, hy, hz, ul1, ul2, fzeros):
+def sample_light(P, Lt, li, ltype, lprim, hx, hy, hz, ul1, ul2, fzeros,
+                 tri=None):
     """NEE sample of light ``li`` from the hit points: cone sampling around
-    a sphere light's centre (one-sided: only its outer face lights), or a
-    point light, a delta light with 1/d^2 falloff. Returns (wlx, wly, wlz,
-    dist, pdf, (rad_r, rad_g, rad_b), valid, is_delta)."""
+    a sphere light's centre (one-sided: only its outer face lights), a
+    triangle light by area (``tri`` = (pack_tri_lights rows, first row,
+    K)), or a point light, a delta light with 1/d^2 falloff. Returns (wlx,
+    wly, wlz, dist, pdf, (rad_r, rad_g, rad_b), valid, is_delta)."""
     tmin = EPSILON
     where = torch.where
     sel = Lt[li][7]
+    if ltype == TRI_LIGHT:
+        wlx, wly, wlz, dist, pdf, valid = sample_tri_light(
+            *tri, sel, hx, hy, hz, ul1, ul2)
+        return wlx, wly, wlz, dist, pdf, tuple(Lt[li][3:6]), valid, False
     if ltype == AREA_LIGHT and lprim >= 0:
         wrx = P[lprim][0] - hx
         wry = P[lprim][1] - hy
@@ -382,6 +396,155 @@ def sample_lobe(nx, ny, nz, wox, woy, woz, ar, ag, ab, coef, is_s, is_t,
     return wix, wiy, wiz, fr, fg, fb, pdf, wgt
 
 
+# ---------------------------------------------------------------------------
+# Mesh tables and the mesh half of the plain versions
+# ---------------------------------------------------------------------------
+
+def packed_mesh(scene: Scene):
+    """The scene's packed mesh, None for a sphere-only scene; an unpacked
+    mesh is refused (the kernels walk the packed layout only)."""
+    if scene.mesh is None:
+        return None
+    if scene.mesh_packed is None:
+        raise ValueError(
+            "the persistent kernels walk the packed mesh in-kernel: pack it "
+            "first with models.scene.with_packet_mesh(scene)")
+    return scene.mesh_packed
+
+
+def pack_materials(scene: Scene) -> Tensor:
+    """(M, 5) material table for mesh hits: r g b coef type (f32), built on
+    the scene's device from its material tables."""
+    return torch.cat([scene.mat_color, scene.mat_coef[:, None],
+                      scene.mat_type[:, None].to(torch.float32)],
+                     dim=1).contiguous()
+
+
+def pack_tri_lights(scene: Scene) -> tuple[Tensor, tuple]:
+    """Triangle-light sampling rows and their static index.
+
+    Rows (sum K, 14) f32: v0(3) e1(3) e2(3) n(3) cdf_hi area, one per real
+    triangle of each TRI_LIGHT, in light order; the index holds
+    (light, material, first row, K) per triangle light
+    (``persistent.py:1091-1112`` of the JAX package)."""
+    rows, index, off = [], [], 0
+    for li, (ltype, _) in enumerate(scene.light_structure):
+        K = scene.tri_light_counts[li] if ltype == TRI_LIGHT else 0
+        if K <= 0:
+            continue
+        index.append((li, int(scene.light_mats[li]), off, K))
+        rows.append(torch.cat([
+            scene.tl_v0[li, :K], scene.tl_e1[li, :K], scene.tl_e2[li, :K],
+            scene.tl_n[li, :K], scene.tl_cdf[li, :K, None],
+            scene.tl_area[li].expand(K)[:, None]], dim=1))
+        off += K
+    if not rows:
+        return torch.zeros((1, 14), dtype=torch.float32,
+                           device=scene.device), ()
+    return torch.cat(rows).to(torch.float32).contiguous(), tuple(index)
+
+
+def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
+               best_t, h: dict, MT, tris, Lt):
+    """Merge the mesh walk into a sphere hit record (``persistent.py:358-
+    397, 498-507``): the walk starts from the sphere t on live lanes; where
+    a triangle is strictly closer it wins the hit point (FMA, as the
+    kernels), the unit geometric normal, the material's albedo, coefficient
+    and BSDF type, and the emission of a TRI_LIGHT on its material. ``h``
+    holds hit, hx hy hz, nx ny nz, ar ag ab, coef, is_s, is_t, er eg eb and
+    is updated in place; ``MT`` is pack_materials as host rows, ``tris``
+    pack_tri_lights' index. Returns (mesh_closer, t_mesh, material)."""
+    where = torch.where
+    tm, mnx, mny, mnz, mmat = mesh_walk_ref(
+        scene.mesh_packed, ox, oy, oz, dx, dy, dz,
+        where(alive, best_t, 0.0), tile_rows=tile_rows)
+    mc = alive & (tm < best_t) & (tm < 0.5 * BIG)
+    inv_len = torch.rsqrt(torch.clamp_min(mnx * mnx + mny * mny + mnz * mnz,
+                                          1e-20))
+    h["hit"] = h["hit"] | mc
+    for k, o, d in (("hx", ox, dx), ("hy", oy, dy), ("hz", oz, dz)):
+        h[k] = where(mc, fma(d, tm, o), h[k])
+    for k, mn in (("nx", mnx), ("ny", mny), ("nz", mnz)):
+        h[k] = where(mc, mn * inv_len, h[k])
+    ms = mt_b = torch.zeros_like(mc)
+    for mi, mt in enumerate(scene.mat_types):
+        m_mask = mc & (mmat == mi)
+        for c, k in enumerate(("ar", "ag", "ab")):
+            h[k] = where(m_mask, MT[mi][c], h[k])
+        if mt in (SPECULAR, TRANSMISSIVE):
+            h["coef"] = where(m_mask, MT[mi][3], h["coef"])
+        if mt == SPECULAR:
+            ms = ms | (mmat == mi)
+        elif mt == TRANSMISSIVE:
+            mt_b = mt_b | (mmat == mi)
+    h["is_s"] = (h["is_s"] & ~mc) | (mc & ms)
+    h["is_t"] = (h["is_t"] & ~mc) | (mc & mt_b)
+    for k in ("er", "eg", "eb"):
+        h[k] = where(mc, 0.0, h[k])
+    for li, lmat, _, _ in tris:
+        m_mask = mc & (mmat == lmat)
+        for c, k in enumerate(("er", "eg", "eb")):
+            h[k] = where(m_mask, Lt[li][3 + c], h[k])
+    return mc, tm, mmat
+
+
+def tri_emitter_pdf(ldp, mc, tm, mmat, nx, ny, nz, wox, woy, woz, Lt, TL,
+                    tris):
+    """MIS pdf of a TRI_LIGHT hit as the light sampler sees it, t^2 / |cos|
+    times selection over area (``persistent.py:644-653``)."""
+    for li, lmat, off, _ in tris:
+        m = mc & (mmat == lmat)
+        cos_l = torch.abs(dot3(nx, ny, nz, wox, woy, woz))
+        tt_c = torch.clamp_max(tm, 1e6)
+        pc = (tt_c * tt_c / torch.clamp_min(cos_l, 1e-9)
+              * _f32_div(Lt[li][7], max(TL[off][13], 1e-20)))
+        ldp = torch.where(m, pc, ldp)
+    return ldp
+
+
+def sample_tri_light(TL, off, K, sel, hx, hy, hz, ul1, ul2):
+    """NEE sample of a triangle light (``persistent.py:720-767``): the
+    triangle by the area cdf through the cdf-hi chain (ul1 reused for the
+    position within it), a uniform point on it, one-sided emission.
+    Returns (wlx, wly, wlz, dist, pdf, valid)."""
+    where = torch.where
+    fz = torch.zeros_like(hx)
+    attrs = [fz + TL[off][k] for k in range(12)]
+    c_lo, c_hi = fz, fz + TL[off][12]
+    for k in range(1, K):
+        m_k = ul1 > TL[off + k - 1][12]
+        attrs = [where(m_k, TL[off + k][c], a) for c, a in enumerate(attrs)]
+        c_lo = where(m_k, TL[off + k - 1][12], c_lo)
+        c_hi = where(m_k, TL[off + k][12], c_hi)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, nlx, nly, nlz = attrs
+    u0r = torch.clamp((ul1 - c_lo) / torch.clamp_min(c_hi - c_lo, 1e-12),
+                      0.0, 1.0)
+    su = torch.sqrt(u0r)
+    b1s = 1.0 - su
+    b2s = ul2 * su
+    wrx = v0x + b1s * e1x + b2s * e2x - hx
+    wry = v0y + b1s * e1y + b2s * e2y - hy
+    wrz = v0z + b1s * e1z + b2s * e2z - hz
+    d2l = dot3(wrx, wry, wrz, wrx, wry, wrz)
+    inv_dl = torch.rsqrt(torch.clamp_min(d2l, 1e-20))
+    dist = d2l * inv_dl
+    wlx, wly, wlz = wrx * inv_dl, wry * inv_dl, wrz * inv_dl
+    cos_at = -dot3(nlx, nly, nlz, wlx, wly, wlz)
+    pdf = sel * d2l / torch.clamp_min(
+        torch.abs(cos_at) * max(TL[off][13], 1e-20), 1e-12)
+    return wlx, wly, wlz, dist, pdf, (cos_at > 0.0) & (dist > EPSILON)
+
+
+def mesh_occluded(scene: Scene, tile_rows: int, started, smax, hx, hy, hz,
+                  wlx, wly, wlz):
+    """Shadow any-hit over the mesh (``persistent.py:816-824``): lanes that
+    start walk from smax and are occluded once a triangle zeroes their t."""
+    t = mesh_walk_ref(scene.mesh_packed, hx, hy, hz, wlx, wly, wlz,
+                      torch.where(started, smax, 0.0), tile_rows=tile_rows,
+                      occlusion=True)
+    return started & (t == 0.0)
+
+
 def persistent_step_ref(
     scene: Scene,
     cam_packed: Tensor,
@@ -422,7 +585,14 @@ def persistent_step_ref(
     trans_prims = tuple(i for i, t in enumerate(scene.prim_mtypes)
                         if t == TRANSMISSIVE)
     lights_static = tuple(scene.light_structure)
-    any_spec, any_trans = bool(spec_prims), bool(trans_prims)
+    mesh = packed_mesh(scene) is not None
+    # mesh materials can be specular or transmissive without such a sphere
+    any_spec = bool(spec_prims) or (mesh and SPECULAR in scene.mat_types)
+    any_trans = bool(trans_prims) or (mesh and TRANSMISSIVE in scene.mat_types)
+    MT = pack_materials(scene).cpu().tolist()
+    TL, tris = pack_tri_lights(scene)
+    TL = TL.cpu().tolist()
+    tri_of = {li: (off, K) for li, _, off, K in tris}
 
     lane = (torch.arange(rows_total * LANES, device=dev, dtype=torch.int64)
             .reshape(shape) + tile_offset * tile_rows * LANES)
@@ -434,6 +604,7 @@ def persistent_step_ref(
     fzeros = torch.zeros(shape, dtype=torch.float32, device=dev)
     bzeros = torch.zeros(shape, dtype=torch.bool, device=dev)
     where = torch.where
+    mc = bzeros
 
     Lr, Lg, Lb = state.lr, state.lg, state.lb
     n_samp = state.n_samp
@@ -533,6 +704,16 @@ def persistent_step_ref(
         is_t = bzeros
         for p in trans_prims:
             is_t = is_t | is_ps[p]
+        if mesh:
+            h = dict(hit=hit, hx=hx, hy=hy, hz=hz, nx=nx, ny=ny, nz=nz,
+                     ar=ar, ag=ag, ab=ab, coef=coef, is_s=is_s, is_t=is_t,
+                     er=er, eg=eg, eb=eb)
+            mc, tm, mmat = mesh_merge(scene, tile_rows, alive, ox, oy, oz,
+                                      dx, dy, dz, best_t, h, MT, tris, Lt)
+            (hit, hx, hy, hz, nx, ny, nz, ar, ag, ab, coef, is_s, is_t,
+             er, eg, eb) = h.values()
+            # sphere winner masks must not fire on mesh-won lanes
+            is_ps = [m & ~mc for m in is_ps]
 
         act = alive & hit
         # Lanes that do not act sit on the origin: a miss lane's o + d*1e30
@@ -549,6 +730,9 @@ def persistent_step_ref(
         if use_nee:
             ldp = emitter_light_pdf(P, Lt, lights_static, is_ps, ox, oy, oz,
                                     fzeros)
+            if mesh:
+                ldp = tri_emitter_pdf(ldp, mc, tm, mmat, nx, ny, nz, wox,
+                                      woy, woz, Lt, TL, tris)
             pp2 = prev_pdf * prev_pdf
             w_emit = where(prev_delta, 1.0,
                            pp2 / torch.clamp_min(pp2 + ldp * ldp, 1e-20))
@@ -570,7 +754,8 @@ def persistent_step_ref(
                     m_l = (usel >= lo) & (usel < _f32_add(lo, sel))
                 (wlx, wly, wlz, dist_l, pdf_l, (rad_r, rad_g, rad_b), valid,
                  is_delta) = sample_light(P, Lt, li, ltype, lprim, hx, hy, hz,
-                                          ul1, ul2, fzeros)
+                                          ul1, ul2, fzeros,
+                                          tri=(TL, *tri_of.get(li, (0, 0))))
                 # shadow any-hit: segment-ball distance form over all prims
                 # but the sampled light sphere (which cannot occlude its own
                 # cone sample: its hit lies beyond smax by construction)
@@ -588,6 +773,10 @@ def persistent_step_ref(
                     d2s = fma(-ts_, 2.0 * rb - ts_,
                               dot3_fma(sx2, sy2, sz2, sx2, sy2, sz2))
                     occ = occ | (d2s < P[pp][3] * P[pp][3])
+                if mesh:
+                    occ = occ | mesh_occluded(
+                        scene, tile_rows, act & m_l & valid & ~occ
+                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz)
                 cos_l = dot3(wlx, wly, wlz, nx, ny, nz)
                 support = ((cos_l > 0.0)
                            & (dot3(wox, woy, woz, wlx, wly, wlz) < 0.0)
@@ -688,6 +877,7 @@ def _kernel():
         p, ip, i,  # prims (device), prim flags (host), n_prims
         p, ip, i,  # lights (device), light structure (host), n_lights
         p, p, p,  # camera (device), uniforms (device or NULL), nrays
+        p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
         i, i, i, i, i,  # rows_total, tile_rows, budget, width, n_lanes
         i, i, i, i, i,  # max_bounces, rr_start, use_nee, strat_k, tile_off
         u, u, u,  # seed, salt, frame
@@ -708,10 +898,49 @@ def _check(t: Tensor, name: str, dtype, shape, device) -> None:
             f"(contiguous={t.is_contiguous()})")
 
 
+def light_structure(scene: Scene, tris) -> list[int]:
+    """The kernels' light structure, LS = 5 ints per light: type, sphere
+    prim (or -1), TRI_LIGHT material (or -1), first row and row count of
+    its triangles in pack_tri_lights' table."""
+    rows = {li: (off, K) for li, _, off, K in tris}
+    out = []
+    for li, (ltype, lprim) in enumerate(scene.light_structure):
+        off, K = rows.get(li, (0, 0))
+        out += [int(ltype), int(lprim), int(scene.light_mats[li]), off, K]
+    return out
+
+
+def mesh_arguments(scene: Scene, dev) -> tuple[list, list, list]:
+    """(pointers, tensors to keep alive, light structure) for a kernel
+    launch: the packed mesh's node boxes, node meta and triangle rows (built
+    once by with_packet_mesh), the material and triangle-light tables (built
+    on the device from the scene's tables), and the node count; NULL
+    pointers and 0 nodes for a sphere-only scene. Raises ValueError past
+    the kernels' limits."""
+    pm = packed_mesh(scene)
+    tl, tris = pack_tri_lights(scene)
+    lstruct = light_structure(scene, tris)
+    if pm is None:
+        return [None] * 5 + [0], [], lstruct
+    if pm.num_nodes >= MAX_NODES or pm.tri_rows.numel() >= 2 ** 31:
+        raise ValueError(
+            f"the kernels' mesh walk takes fewer than {MAX_NODES} nodes and "
+            f"2^31 floats of triangle rows, got {pm.num_nodes} and "
+            f"{pm.tri_rows.numel()}")
+    mats = pack_materials(scene)
+    keep = [pm.boxes, pm.meta, pm.tri_rows, mats, tl]
+    for t, name, dtype in zip(keep, ("boxes", "meta", "tri_rows", "mats",
+                                     "tri_lights"),
+                              (torch.float32, torch.int32, torch.float32,
+                               torch.float32, torch.float32)):
+        _check(t, name, dtype, tuple(t.shape), dev)
+    return [t.data_ptr() for t in keep] + [pm.num_nodes], keep, lstruct
+
+
 def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
                           height, max_bounces, rr_start, tile_rows, use_nee,
                           strat_k, tile_offset, uniforms):
-    global launches
+    global launches, mesh_launches
     dev = state.lr.device
     rows_total = state.lr.shape[0]
     shape = (rows_total, LANES)
@@ -738,13 +967,13 @@ def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
     if strat_k < 1 or budget < 0:
         raise ValueError("strat_k must be >= 1 and budget >= 0")
 
+    mesh_ptrs, _keep, ls = mesh_arguments(scene, dev)
     # per-prim flags: bit 0 emissive, bits 1-2 the BSDF type
     emissive = set(scene.emissive_prims)
     pflags = (ctypes.c_int * max(n_prims, 1))(*[
         (1 if p in emissive else 0) | (int(t) << 1)
         for p, t in enumerate(scene.prim_mtypes)])
-    lstruct = (ctypes.c_int * max(2 * n_lights, 1))(
-        *[int(v) for pair in scene.light_structure for v in pair])
+    lstruct = (ctypes.c_int * max(len(ls), 1))(*ls)
     planes = (ctypes.c_void_p * len(STATE_FIELDS))(
         *[getattr(state, f).data_ptr() for f in STATE_FIELDS])
     nrays = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
@@ -756,7 +985,7 @@ def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
                  lights.data_ptr(), lstruct, n_lights,
                  cam_packed.data_ptr(),
                  uniforms.data_ptr() if uniforms is not None else None,
-                 nrays.data_ptr(),
+                 nrays.data_ptr(), *mesh_ptrs,
                  rows_total, tile_rows, budget, width, width * height,
                  max_bounces, rr_start, int(use_nee), strat_k,
                  int(tile_offset),
@@ -766,9 +995,10 @@ def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
         msg = error_string(err).decode()
         raise RuntimeError(f"persistent kernel launch failed: {msg} ({err})")
     launches += 1
-    # the planes were updated in place; prims/lights/nrays stay referenced
-    # until here, and the kernel is ordered before any later use of them on
-    # this stream
+    mesh_launches += scene.mesh is not None
+    # the planes were updated in place; prims/lights/nrays and the mesh
+    # tables stay referenced until here, and the kernel is ordered before
+    # any later use of them on this stream
     return dataclasses.replace(state, frame=state.frame + 1), nrays.sum()
 
 

@@ -26,9 +26,11 @@ mode draws Philox4x32-10 keyed on (seed, salt), countered on (global lane,
 iteration, wavefront step, ``STREAM | draw group``). The stream tag keeps a
 gradient walk from replaying a forward render's paths.
 
-Not ported yet: thin-lens DOF (ROADMAP Queue 1 item 7), meshes and TRI_LIGHT
-(item 9), textures, the ``"scatter"`` phase and the chunked textured driver
-(items 10 and 12).
+Mesh scenes (packed by ``models/scene.py::with_packet_mesh``) walk the mesh
+in-kernel as the forward step does; a mesh vertex routes its adjoint to its
+material's slot, and a TRI_LIGHT's emission and NEE credit its intensity
+adjoint. Not ported yet: thin-lens DOF (ROADMAP Queue 1 item 7), textures,
+the ``"scatter"`` phase and the chunked textured driver (items 10 and 12).
 """
 from __future__ import annotations
 
@@ -44,8 +46,9 @@ from tpu_pathtracer_torch.models.scene import (
 )
 from tpu_pathtracer_torch.ops.kernels.persistent import (
     _MASK, _check, _f32_add, _f32_div, camera_dirs, dot3_fma,
-    emitter_light_pdf, fma, n_draws, philox_uniforms, sample_light,
-    sample_lobe,
+    emitter_light_pdf, fma, mesh_arguments, mesh_merge, mesh_occluded,
+    n_draws, packed_mesh, pack_materials, pack_tri_lights, philox_uniforms,
+    sample_light, sample_lobe, tri_emitter_pdf,
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
     BIG, INV_PI, LANES, pack_camera, pack_lights, pack_prims,
@@ -54,12 +57,14 @@ from tpu_pathtracer_torch.ops.vecmath import dot3
 
 STREAM = 0x10000  # Philox stream tag of this kernel's draws
 MAX_PRIMS = 256  # sizes of the kernel's __constant__ tables
-MAX_SLOTS = 16  # materials that carry prims
+MAX_SLOTS = 16  # materials on a surface (prims or mesh triangles)
 MAX_GRAD_LIGHTS = 16
+MAX_MATS = 256
 
 # Kernel launches by persistent_replay_call (plain-version calls are not
-# counted).
+# counted), and those of them on a mesh scene.
 launches = 0
+mesh_launches = 0
 
 
 def _not_ported(what: str, item: str):
@@ -95,11 +100,11 @@ def default_budget(spp: int, max_bounces: int) -> int:
 
 
 def material_slots(scene: Scene) -> tuple[tuple[int, ...], tuple[int, ...]]:
-    """(slot_mats, prim_slot): the materials that carry prims, in id order,
-    and each prim's index among them. Only these get an adjoint: a material
-    without prims has GA == 0."""
+    """(slot_mats, prim_slot): the materials that carry prims or mesh
+    triangles, in id order, and each prim's index among them. Only these
+    get an adjoint: a material on no surface has GA == 0."""
     mids = tuple(scene.prim_material_ids)
-    slot_mats = tuple(sorted(set(mids)))
+    slot_mats = tuple(sorted(set(mids) | set(scene.mesh_mats_static)))
     return slot_mats, tuple(slot_mats.index(m) for m in mids)
 
 
@@ -211,7 +216,14 @@ def persistent_replay_ref(
     n_l = len(lights_static)
     slot_mats, prim_slot = material_slots(scene)
     n_slots = len(slot_mats)
-    any_spec, any_trans = bool(spec_prims), bool(trans_prims)
+    mesh = packed_mesh(scene) is not None
+    # mesh materials can be specular or transmissive without such a sphere
+    any_spec = bool(spec_prims) or (mesh and SPECULAR in scene.mat_types)
+    any_trans = bool(trans_prims) or (mesh and TRANSMISSIVE in scene.mat_types)
+    MT = pack_materials(scene).cpu().tolist()
+    TL, tris = pack_tri_lights(scene)
+    TL = TL.cpu().tolist()
+    tri_of = {li: (off, K) for li, _, off, K in tris}
 
     lane = (torch.arange(rows_total * LANES, device=dev, dtype=torch.int64)
             .reshape(shape) + tile_offset * tile_rows * LANES)
@@ -326,6 +338,20 @@ def persistent_replay_ref(
         is_t = bzeros
         for p in trans_prims:
             is_t = is_t | is_ps[p]
+        mc = bzeros
+        if mesh:
+            h = dict(hit=hit, hx=hx, hy=hy, hz=hz, nx=nx, ny=ny, nz=nz,
+                     ar=ar, ag=ag, ab=ab, coef=coef, is_s=is_s, is_t=is_t,
+                     er=er, eg=eg, eb=eb)
+            mc, tm, mmat = mesh_merge(scene, tile_rows, alive, ox, oy, oz,
+                                      dx, dy, dz, best_t, h, MT, tris, Lt)
+            (hit, hx, hy, hz, nx, ny, nz, ar, ag, ab, coef, is_s, is_t,
+             er, eg, eb) = h.values()
+            # the sphere winner fires on no mesh-won lane (emitter pdfs, cI
+            # routing and the material adjoint masks key on it)
+            is_ps = [m & ~mc for m in is_ps]
+            act = alive & hit
+            hx, hy, hz = hx * act, hy * act, hz * act
         is_d = ~(is_s | is_t)
         wox, woy, woz = dx, dy, dz
 
@@ -335,6 +361,9 @@ def persistent_replay_ref(
         if use_nee:
             ldp = emitter_light_pdf(P, Lt, lights_static, is_ps, ox, oy, oz,
                                     fzeros)
+            if mesh:
+                ldp = tri_emitter_pdf(ldp, mc, tm, mmat, nx, ny, nz, wox,
+                                      woy, woz, Lt, TL, tris)
             pp2 = prev_pdf * prev_pdf
             w_emit = where(prev_delta, 1.0,
                            pp2 / torch.clamp_min(pp2 + ldp * ldp, 1e-20))
@@ -345,6 +374,10 @@ def persistent_replay_ref(
             if ltype != AREA_LIGHT or lprim < 0:
                 continue
             m = is_ps[lprim].to(torch.float32)
+            cI[li] = [cI[li][0] + e_r * m, cI[li][1] + e_g * m,
+                      cI[li][2] + e_b * m]
+        for li, lmat, _, _ in tris:  # a triangle light's own emission
+            m = (mc & (mmat == lmat)).to(torch.float32)
             cI[li] = [cI[li][0] + e_r * m, cI[li][1] + e_g * m,
                       cI[li][2] + e_b * m]
 
@@ -359,7 +392,8 @@ def persistent_replay_ref(
                     m_l = (usel >= lo) & (usel < _f32_add(lo, sel))
                 (wlx, wly, wlz, dist_l, pdf_l, rad, valid,
                  is_delta) = sample_light(P, Lt, li, ltype, lprim, hx, hy, hz,
-                                          ul1, ul2, fzeros)
+                                          ul1, ul2, fzeros,
+                                          tri=(TL, *tri_of.get(li, (0, 0))))
                 # shadow any-hit: the sphere quadratic's root in
                 # (tmin, smax), skipping the sampled light sphere
                 smax = fma(dist_l, 1.0 - 1e-3, -tmin)
@@ -378,6 +412,10 @@ def persistent_replay_ref(
                     rsq = torch.sqrt(torch.clamp_min(rdet, 0.0))
                     rt = where(rb - rsq > tmin, rb - rsq, rb + rsq)
                     occ = occ | ((rdet >= 0.0) & (rt > tmin) & (rt < smax))
+                if mesh:
+                    occ = occ | mesh_occluded(
+                        scene, tile_rows, act & m_l & valid & ~occ
+                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz)
                 cos_l = dot3(wlx, wly, wlz, nx, ny, nz)
                 support = ((cos_l > 0.0)
                            & (dot3(wox, woy, woz, wlx, wly, wlz) < 0.0)
@@ -412,6 +450,8 @@ def persistent_replay_ref(
             for p in range(n_prims):
                 if prim_slot[p] == s:
                     mm = mm | is_ps[p]
+            if mesh and slot_mats[s] in scene.mesh_mats_static:
+                mm = mm | (mc & (mmat == slot_mats[s]))
             mm = mm & act
             nA[s] = where(mm, nA[s] + okf, nA[s])
             cA[s] = [where(mm, x + (C * okf - nee), x)
@@ -491,11 +531,12 @@ def _kernel():
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     fn.argtypes = [
-        p, ip, ip, i,  # prims (device), prim flags, prim slots (host), n
+        p, ip, ip, i, i,  # prims (device), flags, slots (host), n, n_mats
         p, ip, i, i,  # lights (device), light structure (host), n, n_slots
         p, p, p,  # camera, uniforms (or NULL), target (device)
         p, p, p, p, p,  # lr lg lb n_samp nrays (device)
         p, p,  # partials ("both") or gl ("adjoint"), the other NULL
+        p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
         i, i, i, i, i, i,  # rows_total tile_rows budget spp width n_lanes
         i, i, i, i, i,  # max_bounces rr_start use_nee strat_k tile_offset
         f, u, u, u,  # inv_loss_n seed salt iteration
@@ -510,7 +551,7 @@ def _kernel():
 def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
                  budget, width, height, max_bounces, rr_start, tile_rows,
                  use_nee, strat_k, tile_offset, phase, uniforms):
-    global launches
+    global launches, mesh_launches
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
     if rows_total % tile_rows:
@@ -524,12 +565,14 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
     n_lights = len(lights_static)
     slot_mats, prim_slot = material_slots(scene)
     n_slots = len(slot_mats)
-    if not 0 < n_prims <= MAX_PRIMS or n_lights > MAX_GRAD_LIGHTS \
-            or n_slots > MAX_SLOTS:
+    n_mats = scene.mat_color.shape[0]
+    if n_prims > MAX_PRIMS or n_lights > MAX_GRAD_LIGHTS \
+            or n_slots > MAX_SLOTS or n_mats > MAX_MATS:
         raise ValueError(
-            f"the gradient kernel takes 1 to {MAX_PRIMS} prims, at most "
-            f"{MAX_GRAD_LIGHTS} lights and {MAX_SLOTS} materials with prims; "
-            f"got {n_prims}, {n_lights} and {n_slots}")
+            f"the gradient kernel takes at most {MAX_PRIMS} prims, "
+            f"{MAX_GRAD_LIGHTS} lights, {MAX_MATS} materials and "
+            f"{MAX_SLOTS} materials on a surface; got {n_prims}, {n_lights}, "
+            f"{n_mats} and {n_slots}")
     prims = pack_prims(scene).contiguous()
     lights = pack_lights(scene).contiguous()
     _check(prims, "prims", torch.float32, (n_prims, 12), dev)
@@ -541,13 +584,16 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
     if strat_k < 1 or budget < 0 or spp < 0:
         raise ValueError("strat_k must be >= 1, budget and spp >= 0")
 
+    mesh_ptrs, _keep, ls = mesh_arguments(scene, dev)
     emissive = set(scene.emissive_prims)
-    pflags = (ctypes.c_int * n_prims)(*[
+    pflags = (ctypes.c_int * max(n_prims, 1))(*[
         (1 if q in emissive else 0) | (int(t) << 1)
         for q, t in enumerate(scene.prim_mtypes)])
-    pslot = (ctypes.c_int * n_prims)(*prim_slot)
-    lstruct = (ctypes.c_int * max(2 * n_lights, 1))(
-        *[int(v) for pair in lights_static for v in pair])
+    # adjoint slots of the prims' materials, then of every material
+    slots = (ctypes.c_int * max(n_prims + n_mats, 1))(
+        *prim_slot, *[slot_mats.index(m) if m in slot_mats else -1
+                      for m in range(n_mats)])
+    lstruct = (ctypes.c_int * max(len(ls), 1))(*ls)
     shape = (rows_total, LANES)
     lr, lg, lb = (torch.empty(shape, dtype=torch.float32, device=dev)
                   for _ in range(3))
@@ -565,7 +611,7 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
     fn, error_string = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(prims.data_ptr(), pflags, pslot, n_prims,
+        err = fn(prims.data_ptr(), pflags, slots, n_prims, n_mats,
                  lights.data_ptr(), lstruct, n_lights, n_slots,
                  cam_packed.data_ptr(),
                  uniforms.data_ptr() if uniforms is not None else None,
@@ -573,7 +619,7 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
                  lr.data_ptr(), lg.data_ptr(), lb.data_ptr(),
                  n_samp.data_ptr(), nrays.data_ptr(),
                  partials.data_ptr() if partials is not None else None,
-                 gl.data_ptr() if gl is not None else None,
+                 gl.data_ptr() if gl is not None else None, *mesh_ptrs,
                  rows_total, tile_rows, budget, spp, width, width * height,
                  max_bounces, rr_start, int(use_nee), strat_k,
                  int(tile_offset), 1.0 / (width * height * 3),
@@ -583,6 +629,7 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
         msg = error_string(err).decode()
         raise RuntimeError(f"gradient kernel launch failed: {msg} ({err})")
     launches += 1
+    mesh_launches += scene.mesh is not None
     L_lanes = torch.stack([lr, lg, lb], dim=-1)
     if phase == "adjoint":
         planes = gl.reshape(n_slots + n_lights, 3, *shape)

@@ -11,7 +11,9 @@ import math
 import torch
 from torch import Tensor
 
-from tpu_pathtracer_torch.models.scene import AREA_LIGHT, Scene, prim_attrs
+from tpu_pathtracer_torch.models.scene import (
+    AREA_LIGHT, TRI_LIGHT, Scene, prim_attrs,
+)
 
 LANES = 128  # lanes per row of every state plane
 BIG = 1e30
@@ -46,8 +48,9 @@ def pack_prims(scene: Scene) -> Tensor:
 
 def pack_lights(scene: Scene) -> Tensor:
     """(L, 8) light table for NEE: pos3 intensity3 cdf_lo sel_pdf, with
-    power-proportional selection probabilities (luminance times the
-    sphere's area for sphere lights)."""
+    power-proportional selection probabilities: luminance times the
+    sphere's area for sphere lights, times the total emissive area for
+    triangle lights, luminance alone for point lights."""
     lights_static = tuple(scene.light_structure)
     dev = scene.device
     if not lights_static:
@@ -61,6 +64,9 @@ def pack_lights(scene: Scene) -> Tensor:
             r = scene.radii[lprim]
             powers.append(lum * 4.0 * math.pi * r * r)
             pos = scene.centers[lprim]
+        elif ltype == TRI_LIGHT:
+            powers.append(lum * scene.tl_area[li])
+            pos = scene.light_pos[li]
         else:
             powers.append(lum)
             pos = scene.light_pos[li]
