@@ -67,7 +67,34 @@ print one line; any failure exits non-zero:
    cornell_quad with NEE; the trainer on cornell_boxes (640x480, spp 4, 10
    bounces, NEE; target + 5 Adam steps, the loss falls, the last launch
    replayed and checked); phase 10's times on that workload, the JAX
-   package's mesh fwd+bwd workload.
+   package's mesh fwd+bwd workload;
+14. tangent kernel vs plain version at 160x120, spp 4, 10 bounces, budget
+   10, on injected uniforms and on Philox: cornell_spheres brute force and
+   NEE (the camera position's three tangents plus the glass ball's IOR),
+   cornell_glass NEE (position and IOR), cornell_quad NEE and the
+   point-light scene NEE (position); phase 7's bars on n_samp, L and every
+   dL plane, the sign test on every plane, ray counts within 1%; tangents
+   split over launches (4 in one launch, 2 + 2, and 4 + 2 through the
+   wrapper) give identical outputs;
+15. the JAX suite's finite-difference checks that need a real device: the
+   camera position's gradient against per-seed central differences of the
+   kernel's own primal on the edge-free floor and quad fixtures
+   (``tests/test_camera_jvp.py``'s bars), and the IOR gradient on the
+   glass-ball fixture (8x8, spp 32, budget 134, 16 iterations, brute force
+   and NEE) within rtol 0.25 of the paired central difference (h 0.02) in
+   expectation, and above 0.5;
+16. the IOR trainer main path: cornell_spheres NEE at config 5 (640x480,
+   spp 4, 10 bounces, budget 26) from ``params_of(scene, ior=True)`` with
+   the glass IOR at 1.3 and phase 8's perturbed albedo and intensity; the
+   target, then 5 same-seed Adam steps: the loss falls, everything is
+   finite, the tangent kernel launches once per step; the last step's
+   mat_coef gradient is replayed bit for bit and its launch checked against
+   the plain version by phase 14's bars. Then times for the camera
+   position's gradient (cornell_spheres brute force and NEE, cornell_quad
+   NEE) and the full mat_coef gradient (cornell_spheres NEE) at config 5:
+   end-to-end ms per gradient (slope, median of REPS), the kernel's ms per
+   launch and the device's idle share (one trace), the bound and the plain
+   version's ms.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -124,7 +151,15 @@ OPS = {
     "walk": 6,  # reciprocal direction of a ray's BVH walk
     "slab": 22,  # slab test per node entered
     "tri": 45,  # Moller-Trumbore per triangle tested
+    # the tangent kernel (camera_jvp.cu), per tangent; where lanes take
+    # different branches the cheaper one is counted
+    "tangent_path": 29,  # primary-ray tangents, dL flush
+    "tangent_segment": 81,  # IFT hit tangent, mirror JVP, throughput
+    "tangent_shadow": 73,  # point-light tangents, cos, MIS, dC (lit only)
+    "score": 71,  # Fresnel score and cS, per IOR-tangent vertex
 }
+JVP_W, JVP_H, JVP_BUDGET = 160, 120, 10
+IOR_START = 1.3  # the trainer's starting glass IOR (true: 1.5)
 
 
 def fail(msg: str) -> None:
@@ -1059,6 +1094,495 @@ def phase_grad_times(smi, name="cornell", modes=(False, True),
     return out
 
 
+def _position_rows(device):
+    """d pack_camera / d pos: the camera position's three tangent rows."""
+    import torch
+
+    rows = torch.zeros((3, 24), device=device)
+    rows[0, 9] = rows[1, 10] = rows[2, 11] = 1.0
+    return rows
+
+
+JVP_CASES = [
+    # (name, scene builder, use_nee); every transmissive material adds its
+    # IOR tangent to the position's three
+    ("cornell-brute", _cornell, False),
+    ("cornell-nee", _cornell, True),
+    ("cornell-glass-nee",
+     lambda w, h, dev: _scene("cornell-glass", w, h, dev), True),
+    ("cornell-quad-nee",
+     lambda w, h, dev: _scene("cornell-quad", w, h, dev), True),
+    ("point-nee", _point, True),
+]
+
+
+def _jvp_floor(args, kw, ref, w, h):
+    """The plain tangent walk on the CPU against itself on the card: the
+    lowest of its agreement fractions on one launch."""
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.utils.metrics import tangent_lane_agreement
+
+    scene, cp, dcam, seed, it = args
+    kw_cpu = dict(kw, uniforms=None if kw.get("uniforms") is None
+                  else kw["uniforms"].cpu())
+    cpu = cj.camera_jvp_ref(scene.to("cpu"), cp.cpu(), dcam.cpu(), seed, it,
+                            **kw_cpu)
+    fl = tangent_lane_agreement(ref[:3], cpu[:3], w, h)
+    return min(fl["n_samp"], fl["L"], min(fl["planes"].values()))
+
+
+def _check_jvp_launch(label, args, kw, w, h):
+    """Check one tangent-kernel launch against the plain version on the
+    card, from the same inputs: >= AGREE of lanes on n_samp, L and every dL
+    plane (or no fewer than the plain version on the CPU agrees with itself
+    on the card), ray counts within RAY_TOL, and the sign test on L and
+    every dL plane. Also returns the whole-image relative gap of each dL
+    plane's sum, worst plane."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.utils.metrics import (
+        AGREE, tangent_lane_agreement,
+    )
+
+    k = cj.camera_jvp_call(*args, **kw)
+    r = cj.camera_jvp_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(x).all()) for x in (*k[:2], *r[:2])):
+        fail(f"{label}: non-finite outputs")
+    ag = tangent_lane_agreement(r[:3], k[:3], w, h)
+    worst = min(ag["n_samp"], ag["L"], min(ag["planes"].values()))
+    floor = _jvp_floor(args, kw, r, w, h) if worst < AGREE else None
+    if worst < AGREE and worst < floor:
+        fail(f"{label}: kernel vs plain agreement {worst} (n_samp "
+             f"{ag['n_samp']}, L {ag['L']}, dL {ag['planes']}) is below "
+             f"both {AGREE} and the plain version's CPU-vs-card floor "
+             f"{floor}")
+    rays_k, rays_r = int(k[3]), int(r[3])
+    if abs(rays_k - rays_r) > RAY_TOL * max(rays_r, 1):
+        fail(f"{label}: rays {rays_k} vs plain {rays_r}")
+    sign, n_off = _sign_balance(
+        [(k[0].permute(2, 0, 1), r[0].permute(2, 0, 1)),
+         (k[1].permute(0, 3, 1, 2), r[1].permute(0, 3, 1, 2))], w * h)
+    if not sign <= 1.0:
+        fail(f"{label}: the lanes that differ from the plain version lean "
+             f"one way, {sign} times the bar ({n_off} lanes)")
+    s_k, s_r = k[1].double().sum((1, 2)), r[1].double().sum((1, 2))
+    gap = float(((s_k - s_r).abs() / r[1].double().abs().sum((1, 2))
+                 .clamp_min(1e-300)).max())
+    return dict(n_agree=ag["n_samp"], l_agree=ag["L"],
+                plane_agree=min(ag["planes"].values()), floor=floor,
+                max_abs_err=ag["max_abs_err"], rays=(rays_k, rays_r),
+                sign=sign, n_off=n_off, gap=gap, n_tan=int(k[1].shape[0]))
+
+
+def _fmt_jvp(c) -> str:
+    floor = "" if c["floor"] is None else f" (cpu floor {c['floor']:.4f})"
+    return (f"T {c['n_tan']}: n {c['n_agree']:.4f} L {c['l_agree']:.4f} dL "
+            f"{c['plane_agree']:.4f}{floor} max|d| {c['max_abs_err']:.3g} "
+            f"rays {c['rays'][0]}/{c['rays'][1]}; dL sums' relative gap "
+            f"{c['gap']:.3g}; sign balance {c['sign']:.3f} of its bar "
+            f"({c['n_off']} lanes)")
+
+
+def _worst(checks) -> dict:
+    return dict(n_agree=min(c["n_agree"] for c in checks),
+                l_agree=min(c["l_agree"] for c in checks),
+                plane_agree=min(c["plane_agree"] for c in checks),
+                floor=min((c["floor"] for c in checks
+                           if c["floor"] is not None), default=None),
+                max_abs_err=max(c["max_abs_err"] for c in checks),
+                sign_balance=max(c["sign"] for c in checks))
+
+
+def _check_jvp_chunks(scene, cp, kw):
+    """Tangents split over launches walk the same paths: four camera rows in
+    one launch equal two launches of two, and five rows with the IOR
+    tangents through the wrapper (a launch of the first four, then the
+    rest) equal the four and a call with the rest, bit for bit."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    rows = torch.cat([_position_rows("cuda"),
+                      torch.randn((2, 24), generator=gen, device="cuda")])
+    rows[3:, 12:] = 0.0  # the lens and view rows feed no pinhole ray
+    coef = kw["coef_mats"]
+    kw = dict(kw, coef_mats=())
+    args = ((5, 2), 3)
+    before = cj.launches
+    four = cj.camera_jvp_call(scene, cp, rows[:4], *args, **kw)
+    halves = [cj.camera_jvp_call(scene, cp, rows[i:i + 2], *args, **kw)
+              for i in (0, 2)]
+    every = cj.camera_jvp_call(scene, cp, rows, *args,
+                               **dict(kw, coef_mats=coef))
+    rest = cj.camera_jvp_call(scene, cp, rows[4:], *args,
+                              **dict(kw, coef_mats=coef))
+    torch.cuda.synchronize()
+    n_launch = cj.launches - before
+    want = 1 + 2 + -(-(5 + len(coef)) // 4) + -(-(1 + len(coef)) // 4)
+    same = all(torch.equal(o[0], four[0]) and torch.equal(o[2], four[2])
+               and int(o[3]) == int(four[3]) for o in (*halves, every, rest))
+    if not (same and n_launch == want
+            and torch.equal(torch.cat([halves[0][1], halves[1][1]]), four[1])
+            and torch.equal(every[1][:4], four[1])
+            and torch.equal(every[1][4:], rest[1])):
+        fail(f"tangent chunks differ ({n_launch} launches)")
+    return n_launch
+
+
+def phase_jvp_compare():
+    """Phase 14: the tangent kernel against the plain version at 160x120
+    for each JVP_CASES entry, on injected uniforms and on Philox, and the
+    tangent chunks."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    w, h, budget = JVP_W, JVP_H, JVP_BUDGET
+    rows, _ = rp.pixel_lanes_layout(w, h, TR)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    parts, checks, n_chunk = [], [], 0
+    for name, build, use_nee in JVP_CASES:
+        scene, _, cp = build(w, h, "cuda")
+        coef = cj.transmissive_mats(scene)
+        for injected in (True, False):
+            case = f"{name}-{'injected' if injected else 'philox'}"
+            u = (torch.rand((rows * budget * pk.n_draws(use_nee), pk.LANES),
+                            generator=gen, device="cuda")
+                 if injected else None)
+            kw = dict(spp=SPP, budget=budget, width=w, height=h,
+                      max_bounces=MB, rr_start=3, tile_rows=TR,
+                      use_nee=use_nee, coef_mats=coef, uniforms=u)
+            c = _check_jvp_launch(
+                case, (scene, cp, _position_rows("cuda"), (5, 2), 3), kw,
+                w, h)
+            checks.append(c)
+            parts.append(f"{case}: {_fmt_jvp(c)}")
+            if name == "cornell-nee" and not injected:
+                n_chunk = _check_jvp_chunks(scene, cp, kw)
+    print(f"[14 tangent kernel vs plain] {w}x{h} spp {SPP}, {MB} bounces, "
+          f"budget {budget}: " + " | ".join(parts) + f" | tangent chunks "
+          f"identical over {n_chunk} launches", flush=True)
+    return _worst(checks)
+
+
+def _glass_scene(device):
+    """tests/test_ior_kernel.py's edge-free glass ball (IOR 1.5, material
+    0): refraction never bends a ray across a silhouette; two emitters, one
+    behind it and one ahead."""
+    from tpu_pathtracer_torch.models import scene as sc
+
+    return sc.make_scene(
+        [sc.sphere([0, 0, 0], 5.0, 0), sc.sphere([0, 0, -80], 40.0, 1, 0),
+         sc.sphere([0, 0, 140], 70.0, 1, 1)],
+        [sc.transmissive([1, 1, 1], ior=1.5), sc.diffuse([0, 0, 0])],
+        [sc.area_light(1, [4, 4, 4]), sc.area_light(2, [9, 9, 9])],
+        device=device)
+
+
+def phase_jvp_fd():
+    """Phase 15: gradients against central differences of the kernel's own
+    primal on the same seeds."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpu_pathtracer_torch.models import camera as cm, meshes
+    from tpu_pathtracer_torch.models import scene as sc
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+
+    dev = "cuda"
+    parts, out = [], {}
+
+    def mean_of(scene, cam, w, h, seed, it, kw):
+        """The walk's own primal: the (H, W, 3) completed-path mean."""
+        L, _, ns, _ = cj.camera_jvp_call(
+            scene, pack_camera(cam), torch.zeros(24, device=dev), seed, it,
+            width=w, height=h, **kw)
+        mean, _ = cj._pixel_means(L, L[None], ns, w, h)
+        return mean
+
+    # the camera position, per seed (tests/test_camera_jvp.py)
+    w, h = 16, 12
+    kw = dict(spp=2, max_bounces=1, budget=5, tile_rows=8, use_nee=True)
+    cam = cm.make_camera([0, 3, 6], [0, 0, 0], [0, 1, 0], w, h, 45.0,
+                         device=dev)
+    light = sc.point_light([2, 4, 1], [30, 30, 30])
+    grey = sc.diffuse([0.8, 0.8, 0.8])
+    floor = sc.make_scene([sc.sphere([0, -1e4, 0], 1e4, 0)], [grey], [light],
+                          device=dev)
+    v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
+                           [10, 0, -10])
+    quad = sc.with_packet_mesh(sc.make_scene(
+        [], [grey], [light], mesh=build_bvh(v, f, uv, 0, device=dev),
+        device=dev))
+    for name, scene, w_seed, seed in (("floor", floor, 1, (5, 2)),
+                                      ("quad", quad, 3, (9, 4))):
+        wts = torch.tensor(np.random.default_rng(w_seed).random(
+            (h, w, 3), np.float32), device=dev)
+        _, g = cj.camera_weighted_grad(scene, cam, seed, wts, **kw)
+        g = g["pos"].cpu().numpy().astype(np.float64)
+        if not (np.isfinite(g).all() and np.abs(g).max() > 1.0):
+            fail(f"camera gradient on {name}: {g}")
+
+        def value(pos, scene=scene, seed=seed, wts=wts):
+            c = dataclasses.replace(
+                cam, pos=torch.tensor(pos, dtype=torch.float32, device=dev))
+            return float(torch.sum(wts * mean_of(scene, c, w, h, seed, 0,
+                                                 kw)))
+
+        p0 = cam.pos.cpu().numpy().astype(np.float64)
+        fds = []
+        for i, eps, rtol, atol in ((0, 8e-3, 2e-2, 1e-2),
+                                   (1, 8e-3, 2e-2, 1e-2), (2, 3e-2, 0.2, 0.5)):
+            dp = np.zeros(3)
+            dp[i] = eps
+            fd = (value(p0 + dp) - value(p0 - dp)) / (2 * eps)
+            fds.append(fd)
+            if not abs(g[i] - fd) <= atol + rtol * abs(fd):
+                fail(f"camera gradient on {name}, axis {i}: kernel {g[i]} vs "
+                     f"central difference {fd} (rtol {rtol}, atol {atol})")
+        out[f"pos_{name}"] = (g.tolist(), fds)
+        parts.append(f"pos on {name} seed {seed}: kernel "
+                     f"{[f'{x:.5g}' for x in g]} vs central difference "
+                     f"{[f'{x:.5g}' for x in fds]}")
+
+    # the IOR in expectation (tests/test_ior_kernel.py)
+    w = h = 8
+    n_it, step = 16, 0.02
+    cam = cm.make_camera([0, 0, 30], [0, 0, 0], [0, 1, 0], w, h, 0.5,
+                         device=dev)
+    scene = _glass_scene(dev)
+    wts = torch.full((h, w, 3), 1.0 / (h * w * 3), device=dev)
+    kw = dict(spp=32, max_bounces=6, budget=134, tile_rows=8)
+
+    def shifted(d):
+        coef = scene.mat_coef.clone()
+        coef[0] = 1.5 + d
+        return dataclasses.replace(scene, mat_coef=coef)
+
+    s_plus, s_minus = shifted(step), shifted(-step)
+    for use_nee in (False, True):
+        gs, fds = [], []
+        for it in range(n_it):
+            _, g = cj.ior_weighted_grad(scene, cam, (5, 2), wts,
+                                        use_nee=use_nee, iteration=it, **kw)
+            gs.append(float(g[0]))
+            vp, vm = (float(torch.sum(wts * mean_of(
+                s, cam, w, h, (5, 2), it, dict(kw, use_nee=use_nee))))
+                for s in (s_plus, s_minus))
+            fds.append((vp - vm) / (2 * step))
+        gs, fds = np.asarray(gs), np.asarray(fds)
+        grad, fd = gs.mean(), fds.mean()
+        se_g, se_fd = (x.std(ddof=1) / math.sqrt(n_it) for x in (gs, fds))
+        mode = "nee" if use_nee else "brute"
+        out[f"ior_{mode}"] = dict(grad=grad, grad_se=se_g, fd=fd, fd_se=se_fd)
+        parts.append(f"IOR {mode}: kernel {grad:.5f} +- {se_g:.5f}, paired "
+                     f"central difference {fd:.5f} +- {se_fd:.5f}")
+        if not (np.isfinite(gs).all() and grad > 0.5
+                and abs(grad - fd) <= 0.25 * abs(fd)):
+            fail(f"IOR gradient ({mode}): kernel {grad} vs central "
+                 f"difference {fd} (rtol 0.25, and above 0.5)")
+    print("[15 finite differences] " + " | ".join(parts), flush=True)
+    return out
+
+
+def phase_ior_trainer(steps=5):
+    """Phase 16's main path: the IOR trainer through ``params_of(scene,
+    ior=True)`` and ``make_kernel_train_step`` on cornell_spheres NEE at
+    config 5. Returns the tangent kernel's launches and the worst numbers
+    of the last launch's check."""
+    import torch
+
+    from tpu_pathtracer_torch.diff import inverse
+    from tpu_pathtracer_torch.models.integrator import RenderConfig
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    scene, cam, cp = _scene("cornell", W, H, "cuda")
+    glass = cj.transmissive_mats(scene)
+    budget = rp.default_budget(SPP, MB)
+    seed, mat = (17, 0), 3
+    config = RenderConfig(spp=SPP, max_bounces=MB, rr_start=3, use_nee=True)
+    p0 = inverse.params_of(scene, ior=True)
+    p0["mat_color"][mat] = 0.3
+    p0["light_intensity"] *= 0.5
+    p0["mat_coef"][list(glass)] = IOR_START
+    state = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
+    step = inverse.make_kernel_train_step(scene, cam, config,
+                                          fixed_iteration=0)
+    pk.launches = rp.launches = rp.mesh_launches = 0
+    cj.launches = cj.mesh_launches = 0
+    target = inverse.render_target_kernel(scene, cam, seed, config,
+                                          iteration=0)
+    losses, coefs = [], []
+    for _ in range(steps):
+        last_params = {k: v.detach().clone() for k, v in state.params.items()}
+        state, loss = step(state, target, seed)
+        losses.append(loss)
+        coefs.append(state.params["mat_coef"][glass[0]].detach().clone())
+    torch.cuda.synchronize()
+    launches = cj.launches
+    if launches != steps or rp.launches != 1 + steps or pk.launches:
+        fail(f"IOR trainer: {launches} tangent-kernel, {rp.launches} "
+             f"gradient-kernel and {pk.launches} forward-kernel launches for "
+             f"1 target and {steps} steps")
+    vals = [float(x) for x in losses]
+    finite = (bool(torch.isfinite(target).all())
+              and all(bool(torch.isfinite(v.detach()).all())
+                      for v in state.params.values())
+              and all(map(math.isfinite, vals)))
+    if tuple(target.shape) != (W * H, 3) or not finite:
+        fail("IOR trainer: non-finite or misshapen results")
+    if not vals[-1] < vals[0]:
+        fail(f"IOR trainer: loss {vals[0]} -> {vals[-1]} did not fall")
+    # the last step's tangent launch, replayed: its mat_coef gradient is the
+    # one the main path used, bit for bit, and it agrees with the plain
+    # version
+    g_main = state.params["mat_coef"].grad.detach().clone()
+    scene_last = inverse.apply_params(scene, last_params)
+    kw = dict(spp=SPP, budget=budget, max_bounces=MB, rr_start=3,
+              tile_rows=TR, use_nee=True)
+    g_replay = cj.ior_mse_grad(scene_last, cam, seed, target.reshape(H, W, 3),
+                               iteration=0, **kw)
+    if not torch.equal(g_replay, g_main):
+        fail(f"IOR trainer: the replayed mat_coef gradient {g_replay} is not "
+             f"the main path's {g_main}")
+    c = _check_jvp_launch("IOR trainer last tangent launch",
+                          (scene_last, cp, cp.new_zeros((0, 24)), seed, 0),
+                          dict(kw, width=W, height=H, coef_mats=glass), W, H)
+    print(f"[16 IOR trainer main path] cornell {W}x{H} spp {SPP}, {MB} "
+          f"bounces, budget {budget}, NEE, lr {LR}: loss "
+          f"{' '.join(f'{v:.6g}' for v in vals)}; mat_coef[{glass[0]}] "
+          f"{IOR_START} -> {' '.join(f'{float(x):.5f}' for x in coefs)} "
+          f"(true 1.5); albedo {mat} "
+          f"{[round(a, 4) for a in state.params['mat_color'][mat].tolist()]}"
+          f"; last mat_coef gradient {g_main[glass[0]].item():.6g}, replayed "
+          f"bit for bit; tangent-kernel launches {launches} = {steps} steps; "
+          f"last launch vs plain: {_fmt_jvp(c)}", flush=True)
+    return launches, _worst([c])
+
+
+def _jvp_bound(scene, counts, n_tan, rows):
+    """Bound of one tangent launch from the plain version's work on the same
+    seed (the kernel does not count it): the primal walk (``_walk_ops``)
+    plus, per tangent, its path, segment and lit-shadow tangents, plus the
+    score vertices; bytes are the 3 + 3T output planes, n_samp and the row
+    counts written once."""
+    ops = (_walk_ops(scene, counts["segments"], counts["paths"],
+                     counts["shadow"])
+           + n_tan * (counts["paths"] * OPS["tangent_path"]
+                      + counts["segments"] * OPS["tangent_segment"]
+                      + counts["lit"] * OPS["tangent_shadow"])
+           + counts["score"] * OPS["score"])
+    return _bound(ops, rows * 128 * 4 * (4 + 3 * n_tan) + rows * 4)
+
+
+JVP_TIMES = [
+    # (key, scene, use_nee, gradient): the JAX package's recorded
+    # workloads for this kernel at config 5 (BASELINE.md:40,44)
+    ("pos_cornell_brute", "cornell", False, "pos"),
+    ("pos_cornell_nee", "cornell", True, "pos"),
+    ("pos_cornell_quad_nee", "cornell-quad", True, "pos"),
+    ("ior_cornell_nee", "cornell", True, "ior"),
+]
+
+
+def phase_jvp_times(smi):
+    """Phase 16's times: ms per gradient end to end through
+    camera_weighted_grad (the position) or ior_mse_grad (every
+    transmissive material's IOR) by the CUDA-event slope between 1 and K
+    gradients (median of REPS), the plain version's ms for one walk (which
+    also counts the work for the bound), then one profiled window for the
+    kernel's device time and the device's idle share."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    budget = rp.default_budget(SPP, MB)
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    weights = torch.rand((H, W, 3), generator=gen, device="cuda")
+    kw = dict(spp=SPP, budget=budget, max_bounces=MB, rr_start=3,
+              tile_rows=TR)
+    K = 24
+    out = {}
+    for key, name, use_nee, kind in JVP_TIMES:
+        scene, cam, cp = _scene(name, W, H, "cuda")
+        glass = cj.transmissive_mats(scene) if kind == "ior" else ()
+
+        def grad(salt, i, scene=scene, cam=cam, use_nee=use_nee, kind=kind):
+            if kind == "pos":
+                cj.camera_weighted_grad(scene, cam, (salt, i), weights,
+                                        use_nee=use_nee, **kw)
+            else:
+                cj.ior_mse_grad(scene, cam, (salt, i), weights,
+                                use_nee=use_nee, **kw)
+
+        def timed(k, salt, grad=grad):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for i in range(k):
+                grad(salt, i)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+
+        timed(2, 90)  # warm
+        ms = []
+        for rep in range(REPS):
+            t1, tk = timed(1, 100 + rep), timed(K, 200 + rep)
+            ms.append((tk - t1) / (K - 1))
+        dcam = _position_rows("cuda") if kind == "pos" else cp.new_zeros(
+            (0, 24))
+        counts = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cj.camera_jvp_ref(scene, cp, dcam, (300, 0), 0, width=W, height=H,
+                          use_nee=use_nee, coef_mats=glass, counts=counts,
+                          **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        n_tan = dcam.shape[0] + len(glass)
+        bound_ms, by = _jvp_bound(scene, counts, n_tan, rows)
+        kernel_ms, busy, window, by_name = _profile(
+            lambda i, grad=grad: grad(400, i), 10, "camera_jvp_kernel",
+            f"jvp_{key}")
+        if busy > window:
+            fail(f"{key}: device busy {busy} ms per gradient exceeds the "
+                 f"window's {window} ms")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        out[key] = dict(grad_ms=statistics.median(ms), reps=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                        kernel_ms=kernel_ms, busy_ms=busy, window_ms=window,
+                        idle_share=1.0 - busy / window, n_tan=n_tan,
+                        work=counts,
+                        top="; ".join(f"{n[:40]} {v:.4f}" for n, v in top))
+    parts = [
+        f"{key} (T {o['n_tan']}): {o['grad_ms']:.4f} ms per gradient (median "
+        f"of {REPS}; ms {', '.join(f'{v:.4f}' for v in o['reps'])}), plain "
+        f"{o['plain_ms']:.2f} ms; kernel {o['kernel_ms']:.4f} ms/launch, "
+        f"bound {o['bound_ms']:.5f} ms by {o['bound_by']} (work {o['work']}); "
+        f"profiled window {o['window_ms']:.4f} ms, device busy "
+        f"{o['busy_ms']:.4f} ms, idle share {o['idle_share']:.3f}; top device "
+        f"ms/gradient: {o['top']}"
+        for key, o in out.items()]
+    print(f"[16 tangent times] {W}x{H} spp {SPP}, {MB} bounces, budget "
+          f"{budget} on {smi}: " + " | ".join(parts), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1107,6 +1631,11 @@ def main() -> int:
              f"{sum(m_grad_launches.values())} launches walked a mesh")
     m_gtimes = phase_grad_times(smi, "cornell-boxes", (True,),
                                 "13 mesh gradient times")
+    # the tangent kernel: camera-pose and IOR gradients
+    j_worst = phase_jvp_compare()
+    fd = phase_jvp_fd()
+    j_launches, j_worst_main = phase_ior_trainer()
+    j_times = phase_jvp_times(smi)
 
     forward = {
         "name": "persistent_step",
@@ -1238,7 +1767,46 @@ def main() -> int:
                 "it; held against mesh_walk_ref through both kernels' "
                 "mesh checks",
     }
-    print(json.dumps({"kernels": [forward, gradient, walk]}))
+    main_t = j_times["ior_cornell_nee"]
+    jvp = {
+        "name": "camera_jvp_call",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/camera_jvp.cu",
+        "replaces": "tpu_pathtracer/ops/pallas/camera_jvp.py:64",
+        "launches": j_launches,
+        "max_abs_err": max(j_worst["max_abs_err"],
+                           j_worst_main["max_abs_err"]),
+        "ms": main_t["kernel_ms"],
+        "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"],
+        "bound_by": main_t["bound_by"],
+        "library_ms": None,
+        "tolerance": f">= {AGREE} of lanes: equal n_samp, |dx| < {L_TOL} * "
+                     f"max(1, |x|) on L and every dL plane; of the n lanes "
+                     f"that differ on an output, one sign in excess by <= "
+                     f"{IMAGE_Z} * sqrt(n)",
+        "n_agree": min(j_worst["n_agree"], j_worst_main["n_agree"]),
+        "l_agree": min(j_worst["l_agree"], j_worst_main["l_agree"]),
+        "plane_agree": min(j_worst["plane_agree"],
+                           j_worst_main["plane_agree"]),
+        "floor": min((x for x in (j_worst["floor"], j_worst_main["floor"])
+                      if x is not None), default=None),
+        "sign_balance": max(j_worst["sign_balance"],
+                            j_worst_main["sign_balance"]),
+        "finite_differences": fd,
+        "note": "ms, plain_ms and bound_ms are those of the main path's "
+                "workload, the full mat_coef gradient on cornell_spheres "
+                "NEE at config 5; the *_pos_* keys time the camera "
+                "position's gradient",
+    }
+    for key, o in j_times.items():
+        jvp.update({f"ms_{key}": o["kernel_ms"],
+                    f"plain_ms_{key}": o["plain_ms"],
+                    f"bound_ms_{key}": o["bound_ms"],
+                    f"bound_by_{key}": o["bound_by"],
+                    f"grad_ms_{key}": o["grad_ms"],
+                    f"idle_share_{key}": o["idle_share"]})
+    print(json.dumps({"kernels": [forward, gradient, walk, jvp]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -163,3 +163,110 @@ def test_mesh_gradient_kernel_matches_plain_on_gpu():
     torch.testing.assert_close(k_both[2], loss, rtol=1e-5, atol=0)
     torch.testing.assert_close(k_both[3], g_a, rtol=1e-5, atol=1e-9)
     torch.testing.assert_close(k_both[4], g_i, rtol=1e-5, atol=1e-9)
+
+
+def _position_rows(device):
+    """d pack_camera / d pos: the three camera-position tangents."""
+    rows = torch.zeros((3, 24), device=device)
+    rows[0, 9] = rows[1, 10] = rows[2, 11] = 1.0
+    return rows
+
+
+def _jvp_case(name, w, h, use_nee, injected, seed):
+    """Kernel and plain version of one tangent walk on the same uniforms:
+    the camera position's three tangents and every transmissive material's
+    IOR."""
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+
+    scene, cs = sc.BUILTIN_SCENES[name](device="cuda")
+    scene = sc.with_packet_mesh(scene)
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"],
+                         device="cuda")
+    rows = -(-(w * h) // (TR * LANES)) * TR
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = (torch.rand((rows * BUDGET * pk.n_draws(use_nee), LANES),
+                    generator=gen, device="cuda") if injected else None)
+    kw = dict(spp=2, budget=BUDGET, width=w, height=h, max_bounces=MB,
+              tile_rows=TR, use_nee=use_nee,
+              coef_mats=cj.transmissive_mats(scene), uniforms=u)
+    args = (scene, pack_camera(cam), _position_rows("cuda"), (seed, 3), 1)
+    launches = cj.launches
+    k = cj.camera_jvp_call(*args, **kw)
+    r = cj.camera_jvp_ref(*args, **kw)
+    torch.cuda.synchronize()
+    return k, r, cj.launches - launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True])
+@pytest.mark.parametrize("injected", [True, False])
+def test_camera_jvp_kernel_matches_plain_on_gpu(use_nee, injected):
+    """cornell_spheres at 32x24, three position tangents and the glass
+    ball's IOR in one launch: >= 98% of lanes agree on n_samp, L and every
+    dL plane, ray counts within 1%, everything finite."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.utils.metrics import tangent_lane_agreement
+
+    k, r, n = _jvp_case("cornell", W, H, use_nee, injected, 6)
+    assert n == 1
+    agree = tangent_lane_agreement((r[0], r[1], r[2]), (k[0], k[1], k[2]),
+                                   W, H)
+    assert agree["n_samp"] >= AGREE and agree["L"] >= AGREE, agree
+    assert min(agree["planes"].values()) >= AGREE, agree
+    assert abs(int(k[3]) - int(r[3])) <= 0.01 * int(r[3])
+    assert all(bool(torch.isfinite(x).all()) for x in k[:2])
+    if use_nee:  # brute force seldom reaches the light through the glass
+        assert float(k[1][3].abs().max()) > 1e-3  # the IOR tangent
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["cornell-glass", "cornell-quad"])
+def test_camera_jvp_mesh_kernel_matches_plain_on_gpu(name):
+    """Mesh scenes with NEE at 64x48: the glass ball inside mesh walls
+    (position and IOR tangents), and the TRI_LIGHT quad scene."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.utils.metrics import tangent_lane_agreement
+
+    k, r, n = _jvp_case(name, 64, 48, True, False, 8)
+    agree = tangent_lane_agreement((r[0], r[1], r[2]), (k[0], k[1], k[2]),
+                                   64, 48)
+    assert agree["n_samp"] >= AGREE and agree["L"] >= AGREE, agree
+    assert min(agree["planes"].values()) >= AGREE, agree
+    assert abs(int(k[3]) - int(r[3])) <= 0.01 * int(r[3])
+
+
+@pytest.mark.gpu
+def test_camera_jvp_chunks_on_gpu():
+    """Tangents beyond four go to further launches on the same seed: four
+    in one launch equal two launches of two, and the fifth of five equals
+    its own launch, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"],
+                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = torch.randn((4, 24), generator=gen, device="cuda")
+    kw = dict(spp=2, budget=BUDGET, width=W, height=H, max_bounces=MB,
+              tile_rows=TR, use_nee=True)
+    args = (scene, pack_camera(cam))
+    launches = cj.launches
+    four = cj.camera_jvp_call(*args, rows, (2, 2), 0, **kw)
+    halves = [cj.camera_jvp_call(*args, rows[i:i + 2], (2, 2), 0, **kw)
+              for i in (0, 2)]
+    five = cj.camera_jvp_call(*args, rows, (2, 2), 0,
+                              coef_mats=cj.transmissive_mats(scene), **kw)
+    alone = cj.camera_jvp_call(*args, rows[:0], (2, 2), 0,
+                               coef_mats=cj.transmissive_mats(scene), **kw)
+    torch.cuda.synchronize()
+    assert cj.launches == launches + 1 + 2 + 2 + 1
+    for h in halves + [five, alone]:
+        assert torch.equal(h[0], four[0]) and torch.equal(h[2], four[2])
+        assert int(h[3]) == int(four[3])
+    assert torch.equal(torch.cat([halves[0][1], halves[1][1]]), four[1])
+    assert torch.equal(five[1][:4], four[1])
+    assert torch.equal(five[1][4], alone[1][0])

@@ -228,10 +228,8 @@ def test_unported_routes_raise(cornell):
                                    spp=1, engine="sample")
     with pytest.raises(NotImplementedError, match="item 15"):
         tinv.make_kernel_train_step(scene, cam, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tinv.params_of(scene, ior=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tinv.apply_params(scene, dict(params, mat_coef=scene.mat_coef))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        tinv.apply_params(scene, dict(params, textures=torch.zeros(1)))
     with pytest.raises(NotImplementedError, match="item 10"):
         tinv.kernel_loss_and_grads(dict(params, textures=torch.zeros(1)),
                                    scene, cam, target, (0, 0), 0, spp=1)

@@ -105,13 +105,18 @@ def test_build_command_targets_hopper(tmp_path):
     """The build assembles one sm_90a nvcc compile per source, the link
     into one library and the build/ path, without running nvcc."""
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["persistent.cu", "replay_persistent.cu"]
+    assert [s.name for s in srcs] == ["camera_jvp.cu", "persistent.cu",
+                                      "replay_persistent.cu"]
     obj = tmp_path / "a.o"
-    cmd = _build.nvcc_command("nvcc", srcs[0], obj)
+    cmd = _build.nvcc_command("nvcc", srcs[1], obj)
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
     for flag in ("-std=c++17", "-O3", "-c", "-fPIC"):
         assert flag in cmd
-    assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(srcs[0])
+    assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(srcs[1])
+    # only the tangent kernel is built without FMA contraction
+    assert [s.name for s in srcs
+            if "-fmad=false" in _build.nvcc_command("nvcc", s, obj)] == [
+                "camera_jvp.cu"]
     out = tmp_path / "lib.so"
     link = _build.link_command("nvcc", [obj, tmp_path / "b.o"], out)
     assert "-shared" in link and link[link.index("-o") + 1] == str(out)

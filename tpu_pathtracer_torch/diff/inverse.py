@@ -2,23 +2,25 @@
 
 Counterpart of the single-device persistent route of
 ``tpu_pathtracer/diff/inverse.py`` (BASELINE config 5): optimize the
-material colours and light intensities of a sphere or mesh scene to match a
-target image. A mesh scene must come packed
-(``models.scene.with_packet_mesh``), as in the JAX package. Each step is ONE launch of the fused value-and-grad kernel
-(``ops/kernels/replay_persistent.py``), which returns the loss and both
-gradients from a single path walk, then one Adam update. ``torch.optim.Adam``
-has optax's ``adam`` update (bias-corrected moments, eps outside the square
-root).
+material colours and light intensities of a sphere or mesh scene, and with
+``params_of(scene, ior=True)`` the index of refraction of its transmissive
+materials (``mat_coef``), to match a target image. A mesh scene must come
+packed (``models.scene.with_packet_mesh``), as in the JAX package. Each step
+is ONE launch of the fused value-and-grad kernel
+(``ops/kernels/replay_persistent.py``), which returns the loss and the colour
+and intensity gradients from a single path walk, plus, with ``mat_coef``,
+one tangent walk (``ops/kernels/camera_jvp.py::ior_mse_grad``), then one
+Adam update. ``torch.optim.Adam`` has optax's ``adam`` update
+(bias-corrected moments, eps outside the square root).
 
 The gradient enters autograd through ``PersistentMSE``: its forward launches
-the kernel and saves the gradients, its backward scales them by the incoming
-cotangent. A train step is ``loss.backward()``, ``optimizer.step()`` and the
-physical clamps under ``no_grad``.
+the kernels and saves the gradients, its backward scales them by the
+incoming cotangent. A train step is ``loss.backward()``,
+``optimizer.step()`` and the physical clamps under ``no_grad``.
 
 Not ported yet: ``engine="sample"`` (ROADMAP Queue 1 item 18), device meshes
-(item 15), IOR (``mat_coef``) gradients (item 13), texture gradients (items
-10 and 12) and the XLA-side estimators (``sharded_loss``,
-``make_train_step``, ``render_target``; item 14).
+(item 15), texture gradients (items 10 and 12) and the XLA-side estimators
+(``sharded_loss``, ``make_train_step``, ``render_target``; item 14).
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from torch import Tensor
 from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.models.integrator import RenderConfig
 from tpu_pathtracer_torch.models.scene import Scene
+from tpu_pathtracer_torch.ops.kernels.camera_jvp import ior_mse_grad
 from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
     _not_ported, default_budget, persistent_mse_value_and_grad,
     persistent_replay_call, pixel_lanes_layout,
@@ -40,43 +43,49 @@ from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
 
 PARAMS = ("mat_color", "light_intensity")
+IOR = "mat_coef"  # optional: the index of refraction, params_of(ior=True)
 
 
 @dataclasses.dataclass
 class TrainState:
-    params: dict  # {"mat_color": (M, 3), "light_intensity": (L, 3)} leaves
+    params: dict  # {"mat_color": (M, 3), "light_intensity": (L, 3)} leaves,
+    # and "mat_coef": (M,) when the IOR is optimized
     optimizer: torch.optim.Optimizer  # Adam over params' tensors
     step: int = 0
 
 
 def _check_params(params: Mapping[str, Any]) -> None:
-    if "mat_coef" in params:
-        raise _not_ported("mat_coef (IOR) gradients", "13")
     if "textures" in params:
         raise _not_ported("texture-atlas gradients", "10")
 
 
+def _names(params: Mapping[str, Any]) -> tuple[str, ...]:
+    """The parameter names present, in a fixed order."""
+    return PARAMS + ((IOR,) if IOR in params else ())
+
+
 def params_of(scene: Scene, *, ior: bool = False) -> dict:
     """The optimizable tables, as fresh leaf tensors (the scene's own are
-    left untouched)."""
-    if ior:
-        raise _not_ported("mat_coef (IOR) gradients", "13")
-    return {k: getattr(scene, k).detach().clone() for k in PARAMS}
+    left untouched); ``ior`` adds ``mat_coef``, whose gradient comes from
+    the tangent walk."""
+    names = PARAMS + ((IOR,) if ior else ())
+    return {k: getattr(scene, k).detach().clone() for k in names}
 
 
 def apply_params(scene: Scene, params: Mapping[str, Tensor]) -> Scene:
     """Clamp-free parameter injection into the frozen Scene."""
     _check_params(params)
-    return dataclasses.replace(scene, mat_color=params["mat_color"],
-                               light_intensity=params["light_intensity"])
+    return dataclasses.replace(scene, **{k: params[k] for k in _names(params)})
 
 
 def clamp_params(params: Mapping[str, Tensor]) -> dict:
-    """Physical clamps: albedo in [0, 1], intensity >= 0."""
+    """Physical clamps: albedo in [0, 1], intensity >= 0, ior >= 1."""
     _check_params(params)
-    return {"mat_color": torch.clamp(params["mat_color"], 0.0, 1.0),
-            "light_intensity": torch.clamp_min(params["light_intensity"],
-                                               0.0)}
+    out = {"mat_color": torch.clamp(params["mat_color"], 0.0, 1.0),
+           "light_intensity": torch.clamp_min(params["light_intensity"], 0.0)}
+    if IOR in params:
+        out[IOR] = torch.clamp_min(params[IOR], 1.0)
+    return out
 
 
 def make_optimizer(lr: float = 2e-2) -> Callable[..., torch.optim.Adam]:
@@ -90,10 +99,11 @@ def init_state(scene: Scene, optimizer: Callable[..., torch.optim.Optimizer],
     params = dict(init_params) if init_params is not None \
         else params_of(scene)
     _check_params(params)
+    names = _names(params)
     params = {k: params[k].detach().clone().requires_grad_(True)
-              for k in PARAMS}
+              for k in names}
     return TrainState(params=params,
-                      optimizer=optimizer([params[k] for k in PARAMS]),
+                      optimizer=optimizer([params[k] for k in names]),
                       step=0)
 
 
@@ -101,16 +111,18 @@ def train_state_from_numpy(params: Mapping[str, np.ndarray],
                            adam: Mapping[str, Any] | None, step: int, *,
                            lr: float, device="cuda") -> TrainState:
     """Carry the JAX trainer's state across: ``params`` holds the two
-    tables, ``adam`` optax's Adam state as {"count": int, "mu": {name:
-    array}, "nu": {name: array}} (None for a fresh optimizer), ``step`` the
-    train-step counter. The moments become torch Adam's ``exp_avg`` and
-    ``exp_avg_sq`` and ``count`` its per-parameter ``step``."""
+    tables (and ``mat_coef`` if the IOR is optimized), ``adam`` optax's Adam
+    state as {"count": int, "mu": {name: array}, "nu": {name: array}} (None
+    for a fresh optimizer), ``step`` the train-step counter. The moments
+    become torch Adam's ``exp_avg`` and ``exp_avg_sq`` and ``count`` its
+    per-parameter ``step``."""
+    names = _names(params)
     state = init_state(
         None, make_optimizer(lr),
         {k: torch.tensor(np.asarray(params[k], np.float32), device=device)
-         for k in PARAMS})
+         for k in names})
     if adam is not None:
-        for k in PARAMS:
+        for k in names:
             p = state.params[k]
             state.optimizer.state[p] = {
                 "step": torch.tensor(float(adam["count"])),
@@ -127,14 +139,15 @@ def train_state_to_numpy(state: TrainState
                          ) -> tuple[dict, dict | None, int]:
     """The inverse of ``train_state_from_numpy``: (params, adam, step) as
     numpy arrays, ``adam`` None before the first optimizer step."""
-    params = {k: state.params[k].detach().cpu().numpy() for k in PARAMS}
-    st = [state.optimizer.state.get(state.params[k]) for k in PARAMS]
+    names = _names(state.params)
+    params = {k: state.params[k].detach().cpu().numpy() for k in names}
+    st = [state.optimizer.state.get(state.params[k]) for k in names]
     if not all(st):
         return params, None, state.step
     adam = {"count": int(st[0]["step"]),
-            "mu": {k: s["exp_avg"].cpu().numpy() for k, s in zip(PARAMS, st)},
+            "mu": {k: s["exp_avg"].cpu().numpy() for k, s in zip(names, st)},
             "nu": {k: s["exp_avg_sq"].cpu().numpy()
-                   for k, s in zip(PARAMS, st)}}
+                   for k, s in zip(names, st)}}
     return params, adam, state.step
 
 
@@ -153,39 +166,61 @@ def _check_route(scene: Scene, mesh, engine: str) -> None:
             "first with models.scene.with_packet_mesh(scene)")
 
 
+def _loss_and_grads(scene_p: Scene, camera: Camera, target: Tensor,
+                    seed: Sequence[int], iteration: int, kw: dict,
+                    ior: bool) -> tuple[Tensor, dict]:
+    """The fused kernel's loss and colour and intensity gradients; with
+    ``ior``, the ``mat_coef`` gradient from one tangent walk on the same
+    seed and iteration (its own uniform block in test mode)."""
+    kw = dict(kw)
+    ior_uniforms = kw.pop("ior_uniforms", None)
+    loss, grads, _ = persistent_mse_value_and_grad(
+        scene_p, camera, seed, iteration, target, **kw)
+    if ior:
+        kw["uniforms"] = ior_uniforms
+        grads[IOR] = ior_mse_grad(scene_p, camera, seed, target,
+                                  iteration=iteration, **kw)
+    return loss, grads
+
+
 class PersistentMSE(torch.autograd.Function):
     """MSE loss of the fused kernel's render against a target, as a function
-    of (mat_color, light_intensity). The forward launches the kernel once
-    and saves the gradients, already divided by the clamped parameters; the
-    backward scales them by the cotangent."""
+    of (mat_color, light_intensity) and, if given, mat_coef. The forward
+    launches the kernels once each and saves the gradients (the colour and
+    intensity ones already divided by the clamped parameters); the backward
+    scales them by the cotangent."""
 
     @staticmethod
     def forward(ctx, mat_color: Tensor, light_intensity: Tensor,
                 scene: Scene, camera: Camera, target: Tensor,
-                seed: Sequence[int], iteration: int, kw: dict) -> Tensor:
-        scene_p = apply_params(scene, {"mat_color": mat_color.detach(),
-                                       "light_intensity":
-                                           light_intensity.detach()})
-        loss, grads, _ = persistent_mse_value_and_grad(
-            scene_p, camera, seed, iteration, target, **kw)
-        ctx.save_for_backward(grads["mat_color"], grads["light_intensity"])
+                seed: Sequence[int], iteration: int, kw: dict,
+                mat_coef: Tensor | None = None) -> Tensor:
+        params = {"mat_color": mat_color.detach(),
+                  "light_intensity": light_intensity.detach()}
+        if mat_coef is not None:
+            params[IOR] = mat_coef.detach()
+        loss, grads = _loss_and_grads(apply_params(scene, params), camera,
+                                      target, seed, iteration, kw,
+                                      mat_coef is not None)
+        ctx.save_for_backward(*(grads[k] for k in _names(grads)))
         return loss
 
     @staticmethod
     def backward(ctx, grad_output: Tensor):
-        g_a, g_i = ctx.saved_tensors
-        return (grad_output * g_a, grad_output * g_i,
-                None, None, None, None, None, None)
+        g = [grad_output * x for x in ctx.saved_tensors]
+        return (g[0], g[1], None, None, None, None, None, None,
+                g[2] if len(g) > 2 else None)
 
 
 def _kernel_kw(spp, max_bounces, rr_start, tile_rows, use_nee, strat_k,
-               budget, uniforms) -> dict:
+               budget, uniforms, ior_uniforms) -> dict:
     """persistent_mse_value_and_grad's keywords (tile_rows 32 unless
-    given)."""
+    given), and the tangent walk's own uniform block."""
     return dict(spp=spp, budget=budget, max_bounces=max_bounces,
                 rr_start=rr_start,
                 tile_rows=32 if tile_rows is None else tile_rows,
-                use_nee=use_nee, strat_k=strat_k, uniforms=uniforms)
+                use_nee=use_nee, strat_k=strat_k, uniforms=uniforms,
+                ior_uniforms=ior_uniforms)
 
 
 def kernel_loss_and_grads(
@@ -206,17 +241,19 @@ def kernel_loss_and_grads(
     engine: str = "persistent",
     budget: int | None = None,
     uniforms: Tensor | None = None,
+    ior_uniforms: Tensor | None = None,
 ) -> tuple[Tensor, dict]:
-    """MSE loss and gradients w.r.t. ``params`` from one fused launch.
-    ``seed`` is ``(seed, salt)``; ``uniforms`` (test mode) is the JAX
-    kernel's external uniform block."""
+    """MSE loss and gradients w.r.t. ``params`` from one fused launch, and
+    with ``mat_coef`` in ``params`` one tangent walk for its gradient on the
+    same seed and iteration (``ior_mse_grad``). ``seed`` is ``(seed,
+    salt)``; ``uniforms`` and ``ior_uniforms`` (test mode) are the JAX
+    kernels' external uniform blocks of the two walks."""
     _check_route(scene, mesh, engine)
     scene_p = apply_params(scene, params)
-    loss, grads, _ = persistent_mse_value_and_grad(
-        scene_p, camera, seed, iteration, target,
-        **_kernel_kw(spp, max_bounces, rr_start, tile_rows, use_nee, strat_k,
-                     budget, uniforms))
-    return loss, grads
+    return _loss_and_grads(
+        scene_p, camera, target, seed, iteration,
+        _kernel_kw(spp, max_bounces, rr_start, tile_rows, use_nee, strat_k,
+                   budget, uniforms, ior_uniforms), IOR in params)
 
 
 def make_kernel_train_step(
@@ -230,18 +267,21 @@ def make_kernel_train_step(
     engine: str = "persistent",
     budget: int | None = None,
     uniforms: Tensor | None = None,
+    ior_uniforms: Tensor | None = None,
 ) -> Callable[[TrainState, Tensor, Sequence[int]], tuple[TrainState, Tensor]]:
     """A train step over the fused kernel: one launch (loss and gradients),
-    then the Adam update and the clamps. ``train_step(state, target, seed)``
-    updates ``state`` in place and returns it with the loss of the
-    parameters it started from. The RNG frame is the step counter, or
-    ``fixed_iteration`` for same-seed optimization (pass the iteration the
-    target was rendered with: the loss is then exactly zero at the true
-    parameters). The optimizer is the one ``state`` carries (JAX's
-    ``optimizer`` argument has no counterpart here)."""
+    one tangent walk if ``mat_coef`` is a parameter, then the Adam update
+    and the clamps. ``train_step(state, target, seed)`` updates ``state`` in
+    place and returns it with the loss of the parameters it started from.
+    The RNG frame is the step counter, or ``fixed_iteration`` for same-seed
+    optimization (pass the iteration the target was rendered with: the loss
+    is then exactly zero at the true parameters). The optimizer is the one
+    ``state`` carries (JAX's ``optimizer`` argument has no counterpart
+    here)."""
     _check_route(scene, mesh, engine)
     kw = _kernel_kw(config.spp, config.max_bounces, config.rr_start,
-                    tile_rows, config.use_nee, 2, budget, uniforms)
+                    tile_rows, config.use_nee, 2, budget, uniforms,
+                    ior_uniforms)
     h, w = camera.height, camera.width
 
     def train_step(state: TrainState, target: Tensor, seed: Sequence[int]
@@ -250,7 +290,8 @@ def make_kernel_train_step(
         state.optimizer.zero_grad(set_to_none=True)
         loss = PersistentMSE.apply(
             state.params["mat_color"], state.params["light_intensity"],
-            scene, camera, target.reshape(h, w, 3), seed, it, kw)
+            scene, camera, target.reshape(h, w, 3), seed, it, kw,
+            state.params.get(IOR))
         loss.backward()
         state.optimizer.step()
         with torch.no_grad():

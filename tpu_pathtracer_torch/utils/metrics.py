@@ -90,9 +90,30 @@ def lane_agreement(a, b, width: int, height: int
             d.max().item())
 
 
-def _close(x, y):
-    """Elementwise |x - y| < L_TOL * max(1, |x|) (x is the reference)."""
-    return (x - y).abs() < L_TOL * torch.clamp_min(x.abs(), 1.0)
+def _close(x, y, tol=L_TOL):
+    """Elementwise |x - y| < tol * max(1, |x|) (x is the reference)."""
+    return (x - y).abs() < tol * torch.clamp_min(x.abs(), 1.0)
+
+
+def _plane_agreement(La, na, Lb, nb, planes, n, tol=L_TOL) -> dict:
+    """Lane agreement of two walks' (rows, 128, 3) radiance ``L*`` and
+    (rows, 128) sample counts ``n*``, and of the named (rows, 128) planes in
+    ``planes``, (name, reference, other) triples, within ``tol``."""
+    l_ok = _close(La, Lb).all(-1)
+    mask = (na == nb) & l_ok
+    fracs = {}
+    diff = float((La - Lb).abs().max())
+    for name, x, y in planes:
+        ok = _close(x, y, tol)
+        fracs[name] = ok.reshape(-1)[:n].double().mean().item()
+        mask &= ok
+        diff = max(diff, float((x - y).abs().max()))
+
+    def frac(m):
+        return m.reshape(-1)[:n].double().mean().item()
+
+    return {"n_samp": frac(na == nb), "L": frac(l_ok), "planes": fracs,
+            "all": frac(mask), "max_abs_err": diff, "mask": mask}
 
 
 def grad_lane_agreement(a, b, width: int, height: int) -> dict:
@@ -105,24 +126,23 @@ def grad_lane_agreement(a, b, width: int, height: int) -> dict:
     differences (``"max_abs_err"``), and ``"mask"``, the (rows, 128) lanes
     on which all of them agree, on the CPU (the bar is
     ``lane_agreement``'s)."""
-    n = width * height
     La, na, gaa, gia = (x.double().cpu() for x in a)
     Lb, nb, gab, gib = (x.double().cpu() for x in b)
-    mask = (na == nb) & _close(La, Lb).all(-1)
-    planes = {}
-    diff = (La - Lb).abs().max()
-    for name, xa, xb in (("GA", gaa, gab), ("GI", gia, gib)):
-        for k in range(xa.shape[0]):
-            for c in range(3):
-                ok = _close(xa[k, c], xb[k, c])
-                planes[f"{name}[{k}][{'rgb'[c]}]"] = \
-                    ok.reshape(-1)[:n].double().mean().item()
-                mask &= ok
-                diff = max(diff, (xa[k, c] - xb[k, c]).abs().max())
+    planes = [(f"{name}[{k}][{'rgb'[c]}]", xa[k, c], xb[k, c])
+              for name, xa, xb in (("GA", gaa, gab), ("GI", gia, gib))
+              for k in range(xa.shape[0]) for c in range(3)]
+    return _plane_agreement(La, na, Lb, nb, planes, width * height)
 
-    def frac(m):
-        return m.reshape(-1)[:n].double().mean().item()
 
-    return {"n_samp": frac(na == nb), "L": frac(_close(La, Lb).all(-1)),
-            "planes": planes, "all": frac(mask), "max_abs_err": float(diff),
-            "mask": mask}
+def tangent_lane_agreement(a, b, width: int, height: int,
+                           dl_tol: float = L_TOL) -> dict:
+    """How closely two tangent walks (``camera_jvp_call``) agree lane for
+    lane. ``a`` and ``b`` are (L (rows, 128, 3), dL (T, rows, 128, 3),
+    n_samp (rows, 128)); ``a`` is the reference. Returns what
+    ``grad_lane_agreement`` does, with the dL planes (by name ``dL[j][c]``)
+    held within ``dl_tol * max(1, |dL|)``."""
+    La, dLa, na = (x.double().cpu() for x in a)
+    Lb, dLb, nb = (x.double().cpu() for x in b)
+    planes = [(f"dL[{j}][{'rgb'[c]}]", dLa[j, ..., c], dLb[j, ..., c])
+              for j in range(dLa.shape[0]) for c in range(3)]
+    return _plane_agreement(La, na, Lb, nb, planes, width * height, dl_tol)
