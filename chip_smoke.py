@@ -94,7 +94,34 @@ print one line; any failure exits non-zero:
    NEE) and the full mat_coef gradient (cornell_spheres NEE) at config 5:
    end-to-end ms per gradient (slope, median of REPS), the kernel's ms per
    launch and the device's idle share (one trace), the bound and the plain
-   version's ms.
+   version's ms;
+17. the packet kernel (kernel 5) against packet_ref on the card: three
+   waves recorded from one frame of cornell_boxes (256x256, 8 spp) and of
+   the full terrain (config 4) - the primary wave, the bounce-2 closest-hit
+   wave and the bounce-1 shadow wave, each on a fixed random subset of 64k
+   lanes - as closest-hit and any-hit queries, sorted and unsorted: hit/miss
+   and slot equal on >= 99.9% of lanes, t within 1e-5 max(1, t) there,
+   normal, uv and material equal, the sign test on t;
+18. the bin kernel (kernel 6) against bin_rays_ref on the same waves (cell
+   equal on >= 99.9% of lanes, tn within 1e-6 relative), and the two-pass
+   query against the single-pass one by phase 17's bars;
+19. the wavefront main path: ProgressiveRenderer(device="cuda") on the
+   terrain at config 4 (1024x1024, 2 spp, 3 bounces, NEE, two-pass) renders
+   4 frames with one launch of each kernel per wave (8 per frame); the
+   image is finite and shows both checker tiles; one 256x256 frame agrees
+   with the same frame through the plain queries on the card on >= 98% of
+   pixels (or the plain CPU-vs-card floor); cli render --scene terrain
+   --backend auto writes a 1024x1024 PNG; config 1 renders;
+20. the wavefront against PersistentRenderer on cornell_boxes NEE at
+   256x256, 64 spp: image means within 3%;
+21. times at config 4, two-pass and single-pass: ms per frame (CUDA events,
+   slope between 1 and 3 frames, median of REPS), one profiler trace of 2
+   frames (kernels 5 and 6 per launch, sort and gather glue, other ops,
+   idle share); then every wave query of one more frame (closest-hit and
+   shadow, at its full 2M lanes, sorted as the kernels received it) runs
+   again through the plain versions on the same inputs: both kernels' answers
+   are held to phases 17 and 18's bars there, the plain versions' counts of
+   that work give both kernels' bounds, and their ms per wave is printed.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -132,6 +159,7 @@ LOSS_RTOL, GRAD_RTOL, FOLD_RTOL = 1e-4, 2e-3, 1e-4
 # IMAGE_Z * sqrt(n) (P < 3e-8 for a fair coin, by Hoeffding's bound), so a
 # one-sided fault fails once it touches more than ~36 lanes.
 IMAGE_Z = 6.0
+PROFILE_ATTEMPTS = 3  # see _traced
 TRAIN_STEPS, LR = 6, 5e-2
 F32_PEAK = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # bytes/s
@@ -151,6 +179,10 @@ OPS = {
     "walk": 6,  # reciprocal direction of a ray's BVH walk
     "slab": 22,  # slab test per node entered
     "tri": 45,  # Moller-Trumbore per triangle tested
+    # the packet kernel (packet.cu): the reciprocal direction ("walk"), slab
+    # and triangle tests as above, and the attributes of a found hit
+    "attrs": 66,  # normal, barycentrics and uv of the winning slot
+    "bin_cell": 24,  # bin.cu: slab test and the nearest-cell update per cell
     # the tangent kernel (camera_jvp.cu), per tangent; where lanes take
     # different branches the cheaper one is counted
     "tangent_path": 29,  # primary-ray tangents, dL flush
@@ -531,8 +563,11 @@ def _profile_steps(scene, cp, use_nee, k=10, tag=""):
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
 
-    st = pk.init_state(W, H, TR, device="cuda")
-    rays = []
+    st, rays = None, []
+
+    def start():
+        nonlocal st, rays
+        st, rays = pk.init_state(W, H, TR, device="cuda"), []
 
     def run(i):
         nonlocal st
@@ -543,7 +578,8 @@ def _profile_steps(scene, cp, use_nee, k=10, tag=""):
         rays.append(nr)
 
     kernel_ms, busy, window, by_name = _profile(
-        run, k, "persistent_kernel", tag + ("nee" if use_nee else "brute"))
+        run, k, "persistent_kernel", tag + ("nee" if use_nee else "brute"),
+        start=start)
     # paths started over the k launches: completed plus still in flight
     work = dict(rays=int(torch.stack(rays).sum()) / k,
                 paths=int(st.n_samp.sum() + st.alive.sum()) / k,
@@ -551,35 +587,61 @@ def _profile_steps(scene, cp, use_nee, k=10, tag=""):
     return kernel_ms, busy, window, by_name, work
 
 
-def _profile(run, k, kernel_name, tag):
-    """One torch.profiler trace (device activity only) of run(0..k-1).
-    Returns the named kernel's device ms per launch, the device's busy ms
-    per call (union of kernel, memcpy and memset intervals), the window's ms
-    per call (CUDA events around the same k calls), and the device ms per
-    call of each kernel or copy name."""
+def _traced(run, k, tag, complete, start=None):
+    """A torch.profiler trace (device activity only) of run(0..k-1): the
+    CUDA-event ms of the window and the trace's kernel, memcpy and memset
+    events. The profiler on the card sometimes drops activity records (a
+    whole first window, or one launch of ten), so a trace whose events fail
+    ``complete`` is taken again, up to PROFILE_ATTEMPTS times in all;
+    ``start`` resets the caller's state before each attempt."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpu_pathtracer_torch.ops.kernels import _build
 
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for i in range(k):
-            run(i)
-        end.record()
-        torch.cuda.synchronize()
-    window = start.elapsed_time(end)
     trace = _build.build_dir() / f"chip_smoke_trace_{tag}.json"
-    prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    for attempt in range(PROFILE_ATTEMPTS):
+        if start is not None:
+            start()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a first record for the tracer, outside the window and left out
+            # of the events below
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            a.record()
+            for i in range(k):
+                run(i)
+            b.record()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        events = [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "spin_kernel" not in e["name"]]
+        problem = complete(events)
+        if problem is None:
+            return a.elapsed_time(b), events
+        print(f"  (trace {tag}, attempt {attempt + 1}: {problem}; taken "
+              "again)", flush=True)
+    fail(f"trace {tag}: {problem} in {PROFILE_ATTEMPTS} attempts")
+
+
+def _profile(run, k, kernel_name, tag, start=None):
+    """One torch.profiler trace of run(0..k-1) (``_traced``). Returns the
+    named kernel's device ms per launch, the device's busy ms per call
+    (union of kernel, memcpy and memset intervals), the window's ms per call
+    (CUDA events around the same k calls), and the device ms per call of
+    each kernel or copy name."""
+
+    def complete(events):
+        n = sum(kernel_name in e["name"] for e in events)
+        return None if n == k else (f"{n} {kernel_name} launches for {k} "
+                                    "calls")
+
+    window, events = _traced(run, k, tag, complete, start)
     kern = [e for e in events if kernel_name in e["name"]]
-    if len(kern) != k:
-        fail(f"the trace holds {len(kern)} {kernel_name} launches for {k} "
-             "calls")
     by_name: dict[str, float] = {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / k / 1e3
@@ -1583,6 +1645,568 @@ def phase_jvp_times(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The wavefront slice: kernels 5 (packet) and 6 (bin), phases 17-21
+# ---------------------------------------------------------------------------
+
+# Config 4 (BASELINE.md): the textured terrain at 1024x1024, 2 spp, 3
+# bounces, NEE, the two-pass binned packet traversal.
+C4_W, C4_H, C4_SPP, C4_MB = 1024, 1024, 2, 3
+WAVE_LANES = 1 << 16  # lanes per kernel check (a fixed random subset)
+
+
+def _c4_config(**kw):
+    from tpu_pathtracer_torch import RenderConfig
+
+    return RenderConfig(**{**dict(spp=C4_SPP, max_bounces=C4_MB,
+                                  use_nee=True), **kw})
+
+
+class _Recorder:
+    """Record the calls of a mesh_kernel function (its tensor arguments
+    cloned) and their results while passing them through; ``top`` keeps
+    only calls with sort=True, the wavefront's wave queries (their inner
+    unsorted calls go through the same name)."""
+
+    def __init__(self, name, top=False):
+        from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+        self.mk, self.name, self.top = mk, name, top
+        self.fn = getattr(mk, name)
+        self.calls = []
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            keep = not self.top or kw.get("sort", True)
+            saved = tuple(a.clone() if hasattr(a, "clone") else a
+                          for a in args) if keep else None
+            out = self.fn(*args, **kw)
+            if keep:
+                self.calls.append((saved, dict(kw), out))
+            return out
+
+        setattr(self.mk, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mk, self.name, self.fn)
+
+
+class _PlainMeshQueries:
+    """Route the wavefront's mesh queries on CUDA tensors to the plain
+    versions (packet_ref, bin_rays_ref) for a reference run on the card."""
+
+    def __enter__(self):
+        from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+        self.mk, self.saved = mk, (mk.packet_query, mk.bin_rays)
+        mk.packet_query = mk.packet_ref
+        mk.bin_rays = mk.bin_rays_ref
+        return self
+
+    def __exit__(self, *exc):
+        self.mk.packet_query, self.mk.bin_rays = self.saved
+
+
+def _wave_scene(name, w, h, two_pass=True):
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+
+    scene, cs = sc.BUILTIN_SCENES[name](device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"],
+                         device="cuda")
+    return sc.with_packet_mesh(scene, two_pass=two_pass), cam
+
+
+def _record_waves(scene, cam, config, seed=11):
+    """The wave queries of one frame: (o, d, t_init, any_hit) per wave, in
+    the order the frame makes them (per bounce the closest-hit wave, then
+    the shadow wave)."""
+    from tpu_pathtracer_torch.models.integrator import render
+
+    with _Recorder("intersect_mesh_packet", top=True) as rec:
+        render(scene, cam, seed, config)
+    return [(a[1], a[2], kw["t_init"], kw.get("any_hit", False))
+            for a, kw, _ in rec.calls]
+
+
+def _subset(n, k=WAVE_LANES, seed=0):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    return torch.randperm(n, generator=g)[:min(k, n)].sort().values.cuda()
+
+
+def _hold_packet(k, r, t0, any_hit, what):
+    """Kernel 5's answer k against the plain version's r on the same query
+    (utils.metrics.packet_agreement's bars). Returns the numbers; fails
+    below the bars."""
+    from tpu_pathtracer_torch.utils.metrics import packet_agreement
+
+    out = packet_agreement(k, r, t0, any_hit)
+    if not out["ok"]:
+        fail(f"kernel 5 vs packet_ref ({what}): {out}")
+    return out
+
+
+def _hold_bin(k, r, what):
+    """Kernel 6's (cell, tn) against the plain version's
+    (utils.metrics.bin_agreement's bars). Returns (agreement, tn's relative
+    error, tn's absolute error on binned lanes); fails below the bars."""
+    from tpu_pathtracer_torch.utils.metrics import bin_agreement
+
+    out = bin_agreement(k, r)
+    if not out["ok"]:
+        fail(f"kernel 6 vs bin_rays_ref ({what}): {out}")
+    return out["agree"], out["tn_rel"], out["tn_abs"]
+
+
+def _packet_check(pm, o, d, t0, any_hit, sort, coarse):
+    """Kernel 5 (through intersect_mesh_packet) against the same query with
+    packet_ref (and bin_rays_ref) on the card, by _hold_packet's bars."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    kw = dict(t_init=t0, any_hit=any_hit, sort=sort, coarse=coarse)
+    p0 = mk.packet_launches
+    k = mk.intersect_mesh_packet(pm, o, d, 3e-2, **kw)
+    torch.cuda.synchronize()
+    if mk.packet_launches != p0 + 1:
+        fail("a packet query did not launch kernel 5 exactly once")
+    with _PlainMeshQueries():
+        r = mk.intersect_mesh_packet(pm, o, d, 3e-2, **kw)
+    fields = ("t", "tri", "n", "uv", "mat")
+    return _hold_packet(
+        [getattr(k, f) for f in fields], [getattr(r, f) for f in fields], t0,
+        any_hit, f"{'any' if any_hit else 'closest'}, sort {sort}, two-pass "
+                 f"{coarse is not None}")
+
+
+def phase_packet_compare(smi):
+    """17 and 18: kernels 5 and 6 against their plain versions on the card,
+    on three waves recorded from one main-path frame of cornell_boxes and of
+    the full terrain (the primary wave, the bounce-2 closest-hit wave and
+    the bounce-1 shadow wave), each on a fixed random subset of 64k lanes:
+    closest-hit and any-hit, sorted and unsorted; then kernel 6 on the same
+    waves, and the two-pass query against the single-pass one."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+    from tpu_pathtracer_torch.utils.metrics import PACKET_AGREE, PACKET_T_TOL
+
+    worst = dict(agree=1.0, max_abs_err=0.0, sign=0.0, bin_agree=1.0,
+                 bin_tn_err=0.0, bin_abs_err=0.0, two_vs_one=1.0)
+    parts, bin_parts = [], []
+    for name, w, h, spp in (("cornell-boxes", 256, 256, 8),
+                            ("terrain", C4_W, C4_H, C4_SPP)):
+        scene, cam = _wave_scene(name, w, h)
+        waves = _record_waves(scene, cam, _c4_config(spp=spp))
+        if len(waves) != 2 * (C4_MB + 1):
+            fail(f"{name}: {len(waves)} wave queries in a frame, want "
+                 f"{2 * (C4_MB + 1)}")
+        pm, coarse = scene.mesh_packed, scene.mesh_packed_coarse
+        for label, idx in (("primary", 0), ("bounce2", 4), ("shadow1", 3)):
+            o, d, t0, _ = waves[idx]
+            sel = _subset(o.shape[0])
+            o, d, t0 = o[sel].contiguous(), d[sel].contiguous(), t0[sel]
+            dead = float((t0 <= 0).double().mean())
+            cases = []
+            for any_hit in (False, True):
+                for sort in (False, True):
+                    c = _packet_check(pm, o, d, t0, any_hit, sort, None)
+                    cases.append(c)
+                    worst["agree"] = min(worst["agree"], c["agree"])
+                    worst["max_abs_err"] = max(worst["max_abs_err"],
+                                               c["max_abs_err"])
+                    worst["sign"] = max(worst["sign"], c["sign"])
+            parts.append(
+                f"{name} {label} ({o.shape[0]} lanes, dead {dead:.3f}, hits "
+                f"{cases[0]['hits']:.3f}): agree "
+                + "/".join(f"{c['agree']:.5f}" for c in cases)
+                + f" max|dt| {max(c['max_abs_err'] for c in cases):.3g}")
+            # kernel 6 on the same wave
+            b0 = mk.bin_launches
+            cell, tn = mk.bin_rays(coarse, o, d, t0, 3e-2)
+            torch.cuda.synchronize()
+            if mk.bin_launches != b0 + 1:
+                fail("bin_rays did not launch kernel 6 exactly once")
+            b_agree, tn_err, tn_abs = _hold_bin(
+                (cell, tn), mk.bin_rays_ref(coarse, o, d, t0, 3e-2),
+                f"{name} {label}")
+            worst["bin_abs_err"] = max(worst["bin_abs_err"], tn_abs)
+            two = _packet_check(pm, o, d, t0, False, True, coarse)
+            k1 = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0)
+            k2 = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0,
+                                          coarse=coarse)
+            lim = torch.where(t0 > 0, t0, 0.0)
+            s12 = ((k1.t < lim) == (k2.t < lim)) & (
+                (k1.t >= lim) | (k1.tri == k2.tri))
+            a12 = float(s12.double().mean())
+            if a12 < PACKET_AGREE:
+                fail(f"{name} {label}: two-pass vs single-pass {a12}")
+            worst["bin_agree"] = min(worst["bin_agree"], b_agree)
+            worst["bin_tn_err"] = max(worst["bin_tn_err"], tn_err)
+            worst["two_vs_one"] = min(worst["two_vs_one"], a12)
+            bin_parts.append(
+                f"{name} {label}: cells {b_agree:.5f} (binned "
+                f"{float((cell >= 0).double().mean()):.3f}) tn rel "
+                f"{tn_err:.2g}, two-pass kernel vs plain "
+                f"{two['agree']:.5f}, two-pass vs single-pass {a12:.5f}")
+    print(f"[17 packet kernel vs plain] bars: hit/miss and slot >= "
+          f"{PACKET_AGREE}, |dt| <= {PACKET_T_TOL} max(1, t), n/uv/mat "
+          f"equal, sign test; cases closest unsorted/sorted, any "
+          f"unsorted/sorted: " + " | ".join(parts), flush=True)
+    print(f"[18 bin kernel vs plain] " + " | ".join(bin_parts), flush=True)
+    return worst
+
+
+def _texture_modes(img):
+    """Shares of lit pixels whose green/red ratio is the checker's green
+    tile's (> 1.15) and its pale tile's (< 1.0)."""
+    lum = img.mean(-1)
+    lit = lum > 0.05 * float(lum.max())
+    gr = img[..., 1] / img[..., 0].clamp_min(1e-6)
+    n = max(int(lit.sum()), 1)
+    return (int(((gr > 1.15) & lit).sum()) / n,
+            int(((gr < 1.0) & lit).sum()) / n)
+
+
+def phase_wavefront_main(smi):
+    """19: the wavefront main path. ProgressiveRenderer(device="cuda") on the
+    terrain at config 4 renders 4 frames (the counts of kernels 5 and 6 set
+    to 0 just before and read just after); one frame is rendered again at
+    256x256 through the plain mesh queries on the card, on the same Philox
+    draws; cli render --scene terrain --backend auto; single-sphere at
+    128x128, 16 spp, 2 bounces."""
+    import torch
+
+    from tpu_pathtracer_torch import ProgressiveRenderer, RenderConfig
+    from tpu_pathtracer_torch.io.image import read_png
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.models.integrator import render
+    from tpu_pathtracer_torch.ops.kernels import _build
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    t0 = time.perf_counter()
+    scene, cs = sc.terrain_textured(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
+                         cs["fov"], device="cuda")
+    r = ProgressiveRenderer(scene, cam, _c4_config(), seed=3, device="cuda")
+    setup_s = time.perf_counter() - t0
+    if r.scene.mesh_packed_coarse is None:
+        fail("ProgressiveRenderer did not pack the mesh two-pass")
+    frames = 4
+    mk.packet_launches = mk.bin_launches = 0
+    for _ in range(frames):
+        r.step()
+    torch.cuda.synchronize()
+    launches = dict(packet=mk.packet_launches, bin=mk.bin_launches)
+    waves = frames * 2 * (C4_MB + 1)  # closest-hit and shadow per bounce
+    if launches["packet"] != waves or launches["bin"] != waves:
+        fail(f"main path: kernel launches {launches}, want {waves} each "
+             f"({frames} frames x {C4_MB + 1} bounces x 2 waves)")
+    img = r.image()
+    if tuple(img.shape) != (C4_H, C4_W, 3) or not torch.isfinite(img).all():
+        fail(f"main path: bad image {tuple(img.shape)}")
+    green, pale = _texture_modes(img)
+    if green < 0.05 or pale < 0.05:
+        fail(f"main path: the checker does not show (green {green}, pale "
+             f"{pale})")
+    # one frame again at 256x256, kernels against the plain queries
+    cam_s = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 256, 256,
+                           cs["fov"], device="cuda")
+    k_img = render(r.scene, cam_s, 3, _c4_config(), iteration=1)
+    with _PlainMeshQueries():
+        p_img = render(r.scene, cam_s, 3, _c4_config(), iteration=1)
+    ok = (k_img - p_img).abs() <= 1e-4 * p_img.abs().clamp_min(1.0)
+    px_agree = float(ok.all(-1).double().mean())
+    floor = None
+    if px_agree < 0.98:
+        cpu_scene = r.scene.to("cpu")
+        c_img = render(cpu_scene, cam_s.to("cpu"), 3, _c4_config(),
+                       iteration=1)
+        ok_c = (c_img.cuda() - p_img).abs() <= 1e-4 * p_img.abs().clamp_min(
+            1.0)
+        floor = float(ok_c.all(-1).double().mean())
+        if px_agree < floor:
+            fail(f"main path frame vs plain: {px_agree} of pixels, below "
+                 f"0.98 and the plain CPU-vs-card floor {floor}")
+    # the CLI
+    out = _build.build_dir() / "chip_smoke_cli_terrain.png"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_pathtracer_torch.cli", "render",
+         "--scene", "terrain", "--size", f"{C4_W}x{C4_H}", "--spp",
+         str(C4_SPP), "--bounces", str(C4_MB), "--nee", "--iterations", "1",
+         "--backend", "auto", "-o", str(out)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or not out.is_file():
+        fail(f"cli render terrain failed ({proc.returncode}): "
+             f"{proc.stderr[-2000:]}")
+    png = read_png(str(out))
+    if png.shape != (C4_H, C4_W, 3) or png.max() == 0:
+        fail(f"cli wrote a bad terrain PNG {png.shape}")
+    cli_s = time.perf_counter() - t1
+    # config 1
+    s1, cs1 = sc.single_sphere(device="cuda")
+    cam1 = cm.make_camera(cs1["eye"], cs1["look_at"], cs1["up"], 128, 128,
+                          cs1["fov"], device="cuda")
+    r1 = ProgressiveRenderer(s1, cam1, RenderConfig(spp=16, max_bounces=2),
+                             seed=42, device="cuda")
+    r1.step()
+    img1 = r1.image()
+    if not torch.isfinite(img1).all() or float(img1.mean()) <= 0.0:
+        fail("config 1 (single-sphere) did not render")
+    print(f"[19 wavefront main path] terrain {C4_W}x{C4_H} spp {C4_SPP}, "
+          f"{C4_MB} bounces, NEE, two-pass ({scene.mesh.num_tris} triangles, "
+          f"{r.scene.mesh_packed.num_nodes} fine nodes, "
+          f"{r.scene.mesh_packed_coarse.cell_ids.shape[0]} coarse cells; "
+          f"scene set-up {setup_s:.1f} s): {frames} frames, kernel 5 "
+          f"launches {launches['packet']}, kernel 6 launches "
+          f"{launches['bin']} (= {frames} frames x {C4_MB + 1} bounces x 2 "
+          f"waves), mean {float(img.mean()):.6f}, checker modes green "
+          f"{green:.3f} pale {pale:.3f} | 256x256 frame vs plain queries on "
+          f"the card: {px_agree:.5f} of pixels"
+          + (f" (plain cpu vs card floor {floor:.5f})" if floor else "")
+          + f" | cli render --scene terrain --backend auto wrote "
+          f"{out.relative_to(ROOT)} in {cli_s:.1f} s | config 1 "
+          f"single-sphere 128x128 16 spp mean {float(img1.mean()):.6f}",
+          flush=True)
+    return launches, r, dict(px_agree=px_agree, floor=floor)
+
+
+def phase_wavefront_vs_persistent():
+    """20: cornell_boxes NEE at 256x256, 64 spp: the wavefront (8 frames of
+    8 spp) against PersistentRenderer in image mean, within MEAN_TOL."""
+    import torch
+
+    from tpu_pathtracer_torch import (
+        PersistentRenderer, ProgressiveRenderer, RenderConfig,
+    )
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+
+    scene, cs = sc.cornell_boxes(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], 256, 256,
+                         cs["fov"], device="cuda")
+    cfg = RenderConfig(spp=8, max_bounces=10, use_nee=True)
+    wf = ProgressiveRenderer(scene, cam, cfg, seed=5, device="cuda")
+    for _ in range(8):
+        wf.step()
+    pr = PersistentRenderer(scene, cam, cfg, seed=5, device="cuda")
+    pr.render_to(64)
+    m_w, m_p = float(wf.image().mean()), float(pr.image().mean())
+    if not torch.isfinite(wf.image()).all() \
+            or abs(m_w - m_p) > MEAN_TOL * abs(m_p):
+        fail(f"wavefront mean {m_w} vs persistent {m_p}")
+    print(f"[20 wavefront vs persistent] cornell_boxes NEE 256x256, 64 spp, "
+          f"10 bounces: wavefront mean {m_w:.6f}, persistent mean {m_p:.6f} "
+          f"(min spp {pr.min_samples}), gap {abs(m_w - m_p) / m_p:.4f} "
+          f"(bar {MEAN_TOL})", flush=True)
+    return m_w, m_p
+
+
+def _frame_ms(r, k, reps=REPS):
+    """CUDA-event ms per frame by the slope between 1 and k frames, median
+    of reps, and the spread."""
+    import torch
+
+    def run(n):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(n):
+            r.step()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    run(1)  # warm
+    slopes = [(run(k) - run(1)) / (k - 1) for _ in range(reps)]
+    return statistics.median(slopes), slopes
+
+
+def _wavefront_profile(r, frames, tag):
+    """One torch.profiler trace of ``frames`` frames: device ms per frame
+    by kernel group, ms per launch of kernels 5 and 6, and the idle share
+    of the window."""
+    waves = 2 * (r.config.max_bounces + 1) * frames
+    bins = waves if r.scene.mesh_packed_coarse is not None else 0
+
+    def complete(events):
+        n_p = sum("packet_kernel" in e["name"] for e in events)
+        n_b = sum("bin_kernel" in e["name"] for e in events)
+        if (n_p, n_b) != (waves, bins):
+            return f"{n_p} packet and {n_b} bin launches for {frames} frames"
+        return None
+
+    window, events = _traced(lambda i: r.step(), frames,
+                             f"wavefront_{tag}", complete)
+    groups = {"packet": 0.0, "bin": 0.0, "sort": 0.0, "gather": 0.0,
+              "other": 0.0}
+    n_packet = n_bin = 0
+    for e in events:
+        nm = e["name"].lower()
+        if "packet_kernel" in nm:
+            g = "packet"
+            n_packet += 1
+        elif "bin_kernel" in nm:
+            g = "bin"
+            n_bin += 1
+        elif "sort" in nm:
+            g = "sort"
+        elif any(x in nm for x in ("index", "gather", "scatter")):
+            g = "gather"
+        else:
+            g = "other"
+        groups[g] += e["dur"] / 1e3
+    busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
+    return dict(
+        window_ms=window / frames, busy_ms=busy / frames,
+        idle_share=1.0 - busy / window,
+        packet_ms=groups["packet"] / max(n_packet, 1),
+        bin_ms=groups["bin"] / max(n_bin, 1),
+        packet_per_frame=n_packet / frames, bin_per_frame=n_bin / frames,
+        **{f"{g}_ms_per_frame": v / frames for g, v in groups.items()})
+
+
+def _timed(fn):
+    """(fn(), its CUDA-event ms)."""
+    import torch
+
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _kernel_work(r, mode):
+    """One frame's wave queries, each as the kernels received it (the sorted
+    rays and t_init of every full wave): the kernels' answers held against
+    the plain versions' on the same inputs by phases 17 and 18's bars, the
+    work the plain versions count, and their ms per wave (CUDA events)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    with _Recorder("packet_query") as pq, _Recorder("bin_rays") as br:
+        r.step()
+    torch.cuda.synchronize()
+    counts, bins, ms_p, ms_b, rays = {}, {}, [], [], 0
+    held = dict(agree=1.0, max_abs_err=0.0, sign=0.0, bin_agree=1.0,
+                bin_tn_err=0.0, bin_abs_err=0.0)
+    pm = r.scene.mesh_packed
+    for i, (args, kw, out) in enumerate(pq.calls):
+        ref, ms = _timed(lambda: mk.packet_ref(*args, **kw, counts=counts))
+        ms_p.append(ms)
+        rays += int((args[3] > 0).sum())
+        c = _hold_packet(out, ref, args[3], bool(args[5]),
+                         f"{mode} wave {i}, {args[1].shape[0]} lanes")
+        held["agree"] = min(held["agree"], c["agree"])
+        held["max_abs_err"] = max(held["max_abs_err"], c["max_abs_err"])
+        held["sign"] = max(held["sign"], c["sign"])
+    for i, (args, kw, out) in enumerate(br.calls):
+        ref, ms = _timed(lambda: mk.bin_rays_ref(*args, **kw, counts=bins))
+        ms_b.append(ms)
+        agree, rel, absolute = _hold_bin(out, ref, f"{mode} wave {i}")
+        held["bin_agree"] = min(held["bin_agree"], agree)
+        held["bin_tn_err"] = max(held["bin_tn_err"], rel)
+        held["bin_abs_err"] = max(held["bin_abs_err"], absolute)
+    n_waves = len(pq.calls)
+    lanes = sum(c[0][1].shape[0] for c in pq.calls)
+    tree_bytes = pm.boxes.numel() * 4 + pm.meta.numel() * 4 \
+        + pm.tri_rows.numel() * 4
+    # f32 operations counted from csrc/packet.cu: the reciprocal direction
+    # per live ray, a slab test per node entered, Moller-Trumbore per
+    # triangle tested, the attributes per found hit (a lower bound: no
+    # compare or select is counted)
+    ops = (rays * OPS["walk"] + counts.get("nodes", 0) * OPS["slab"]
+           + counts.get("tris", 0) * OPS["tri"]
+           + counts.get("found", 0) * OPS["attrs"])
+    nbytes = lanes * (28 + 32) + n_waves * tree_bytes
+    p_bound = _bound(ops / n_waves, nbytes / n_waves)
+    out = dict(held=held, waves=n_waves, lanes_per_wave=lanes / n_waves,
+               live_per_wave=rays / n_waves,
+               nodes_per_wave=counts.get("nodes", 0) / n_waves,
+               tris_per_wave=counts.get("tris", 0) / n_waves,
+               packet_plain_ms=statistics.median(ms_p),
+               packet_bound_ms=p_bound[0], packet_bound_by=p_bound[1])
+    if br.calls:
+        coarse = r.scene.mesh_packed_coarse
+        C = coarse.cell_ids.shape[0]
+        b_lanes = sum(c[0][1].shape[0] for c in br.calls)
+        b_live = sum(int((c[0][3] > 0).sum()) for c in br.calls)
+        b_ops = bins["cells"] * OPS["bin_cell"] + b_live * OPS["walk"]
+        b_bytes = b_lanes * (28 + 8) + len(br.calls) * C * 28
+        b_bound = _bound(b_ops / len(br.calls), b_bytes / len(br.calls))
+        out.update(bin_waves=len(br.calls), cells=C,
+                   cells_per_wave=bins["cells"] / len(br.calls),
+                   bin_plain_ms=statistics.median(ms_b),
+                   bin_bound_ms=b_bound[0], bin_bound_by=b_bound[1])
+    return out
+
+
+def phase_wavefront_times(smi, r2):
+    """21: times at config 4, two-pass (the main path's renderer) and
+    single-pass: ms per frame (CUDA events, slope between 1 and 3 frames,
+    median of REPS), one profiler trace of 2 frames (kernels 5 and 6 per
+    launch, sort and gather glue, other ops, idle share), then one more
+    frame whose every wave query is run again through the plain versions
+    on the kernels' own inputs: the kernels' answers held to phases 17 and
+    18's bars at the main path's full shapes, the bounds from the plain
+    versions' counts of that work, and their ms per wave."""
+    import dataclasses
+
+    from tpu_pathtracer_torch import ProgressiveRenderer
+
+    out = {}
+    r1 = ProgressiveRenderer(
+        dataclasses.replace(r2.scene, mesh_packed_coarse=None), r2.camera,
+        r2.config, seed=4, device="cuda")
+    for mode, r in (("two_pass", r2), ("single_pass", r1)):
+        ms, slopes = _frame_ms(r, 3)
+        o = dict(frame_ms=ms, frame_ms_reps=slopes)
+        o.update(_wavefront_profile(r, 2, mode))
+        o.update(_kernel_work(r, mode))
+        out[mode] = o
+    parts = []
+    for mode, o in out.items():
+        s = (f"{mode}: frame {o['frame_ms']:.3f} ms (median of {REPS}: "
+             f"{', '.join(f'{x:.3f}' for x in o['frame_ms_reps'])}); "
+             f"profiled window {o['window_ms']:.3f} ms/frame, device busy "
+             f"{o['busy_ms']:.3f}, idle share {o['idle_share']:.3f}; "
+             f"kernel 5 {o['packet_ms']:.4f} ms/launch x "
+             f"{o['packet_per_frame']:.0f}/frame (bound "
+             f"{o['packet_bound_ms']:.5f} ms by {o['packet_bound_by']}; "
+             f"{o['live_per_wave']:.0f} live rays, {o['nodes_per_wave']:.0f} "
+             f"nodes, {o['tris_per_wave']:.0f} triangle tests per wave; "
+             f"plain {o['packet_plain_ms']:.1f} ms/wave; every full wave "
+             f"vs plain: agree >= {o['held']['agree']:.5f}, max|dt| "
+             f"{o['held']['max_abs_err']:.3g}, sign balance "
+             f"{o['held']['sign']:.3f} of its bar)")
+        if "bin_bound_ms" in o:
+            s += (f"; kernel 6 {o['bin_ms']:.4f} ms/launch x "
+                  f"{o['bin_per_frame']:.0f}/frame (bound "
+                  f"{o['bin_bound_ms']:.5f} ms by {o['bin_bound_by']}; "
+                  f"{o['cells']} cells, {o['cells_per_wave']:.0f} cell "
+                  f"tests per wave; plain {o['bin_plain_ms']:.1f} ms/wave; "
+                  f"every full wave vs plain: cells >= "
+                  f"{o['held']['bin_agree']:.5f}, tn rel "
+                  f"{o['held']['bin_tn_err']:.2g})")
+        s += (f"; device ms/frame: packet {o['packet_ms_per_frame']:.3f}, "
+              f"bin {o['bin_ms_per_frame']:.3f}, sort "
+              f"{o['sort_ms_per_frame']:.3f}, gather/scatter "
+              f"{o['gather_ms_per_frame']:.3f}, other "
+              f"{o['other_ms_per_frame']:.3f}")
+        parts.append(s)
+    print(f"[21 wavefront times] terrain {C4_W}x{C4_H} spp {C4_SPP}, "
+          f"{C4_MB} bounces, NEE on {smi}: " + " | ".join(parts), flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1597,7 +2221,9 @@ def main() -> int:
         fail(f"tpu_pathtracer_torch is not importable here: {e}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from tpu_pathtracer_torch.utils.metrics import AGREE, L_TOL
+    from tpu_pathtracer_torch.utils.metrics import (
+        AGREE, BIN_TN_RTOL, L_TOL, PACKET_AGREE, PACKET_T_TOL, SIGN_Z,
+    )
 
     smi = phase_environment()
     phase_build()
@@ -1636,6 +2262,11 @@ def main() -> int:
     fd = phase_jvp_fd()
     j_launches, j_worst_main = phase_ior_trainer()
     j_times = phase_jvp_times(smi)
+    # the wavefront slice: the packet and bin kernels
+    p_worst = phase_packet_compare(smi)
+    wf_launches, wf_renderer, wf_main = phase_wavefront_main(smi)
+    wf_means = phase_wavefront_vs_persistent()
+    wf_times = phase_wavefront_times(smi, wf_renderer)
 
     forward = {
         "name": "persistent_step",
@@ -1806,7 +2437,78 @@ def main() -> int:
                     f"bound_by_{key}": o["bound_by"],
                     f"grad_ms_{key}": o["grad_ms"],
                     f"idle_share_{key}": o["idle_share"]})
-    print(json.dumps({"kernels": [forward, gradient, walk, jvp]}))
+    two, one = wf_times["two_pass"], wf_times["single_pass"]
+    full = [two["held"], one["held"]]  # every wave of a main-path frame
+    packet = {
+        "name": "packet_query",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/packet.cu",
+        "replaces": "tpu_pathtracer/ops/pallas/mesh_kernel.py:325",
+        "launches": wf_launches["packet"],
+        "max_abs_err": max([p_worst["max_abs_err"]]
+                           + [h["max_abs_err"] for h in full]),
+        "ms": two["packet_ms"],
+        "plain_ms": two["packet_plain_ms"],
+        "bound_ms": two["packet_bound_ms"],
+        "bound_by": two["packet_bound_by"],
+        "library_ms": None,
+        "tolerance": f">= {PACKET_AGREE} of lanes: equal hit/miss and slot "
+                     f"(any-hit: equal occlusion), |dt| <= {PACKET_T_TOL} * "
+                     f"max(1, t), n/uv/mat equal where the slots agree; of "
+                     f"the n lanes that differ, one sign of dt in excess by "
+                     f"<= {SIGN_Z} * sqrt(n)",
+        "agree": p_worst["agree"],
+        "sign_balance": p_worst["sign"],
+        "agree_full_waves": min(h["agree"] for h in full),
+        "sign_balance_full_waves": max(h["sign"] for h in full),
+        "two_pass_vs_single_pass": p_worst["two_vs_one"],
+        "main_path_frame_vs_plain_px": wf_main["px_agree"],
+        "launches_per_frame": two["packet_per_frame"],
+        "frame_ms_two_pass": two["frame_ms"],
+        "frame_ms_single_pass": one["frame_ms"],
+        "idle_share_two_pass": two["idle_share"],
+        "idle_share_single_pass": one["idle_share"],
+        "ms_single_pass": one["packet_ms"],
+        "plain_ms_single_pass": one["packet_plain_ms"],
+        "bound_ms_single_pass": one["packet_bound_ms"],
+        "bound_by_single_pass": one["packet_bound_by"],
+        "sort_ms_per_frame_two_pass": two["sort_ms_per_frame"],
+        "gather_ms_per_frame_two_pass": two["gather_ms_per_frame"],
+        "sort_ms_per_frame_single_pass": one["sort_ms_per_frame"],
+        "gather_ms_per_frame_single_pass": one["gather_ms_per_frame"],
+        "wavefront_mean": wf_means[0],
+        "persistent_mean": wf_means[1],
+        "note": "ms, plain_ms and bound_ms are per wave of the main path, "
+                "config 4 (terrain 1024x1024, 2 spp, 3 bounces, NEE) "
+                "through the two-pass traversal, averaged over a frame's "
+                "closest-hit and shadow waves; launches are the main "
+                "path's 4 frames",
+    }
+    binning = {
+        "name": "bin_rays",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/bin.cu",
+        "replaces": "tpu_pathtracer/ops/pallas/mesh_kernel.py:746",
+        "launches": wf_launches["bin"],
+        "max_abs_err": max(p_worst["bin_abs_err"], two["held"]["bin_abs_err"]),
+        "ms": two["bin_ms"],
+        "plain_ms": two["bin_plain_ms"],
+        "bound_ms": two["bin_bound_ms"],
+        "bound_by": two["bin_bound_by"],
+        "library_ms": None,
+        "tolerance": f">= {PACKET_AGREE} of lanes: equal cell, tn within "
+                     f"{BIN_TN_RTOL} relative",
+        "agree": p_worst["bin_agree"],
+        "tn_rel_err": p_worst["bin_tn_err"],
+        "agree_full_waves": two["held"]["bin_agree"],
+        "tn_rel_err_full_waves": two["held"]["bin_tn_err"],
+        "launches_per_frame": two["bin_per_frame"],
+        "cells": two["cells"],
+        "note": "per wave of the main path (config 4, two-pass); the "
+                "single-pass traversal launches no bin kernel",
+    }
+    print(json.dumps({"kernels": [forward, gradient, walk, jvp, packet,
+                                  binning]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,9 +96,15 @@ def test_pack_mesh_matches_jax(name, collapse):
 
 
 def test_coarse_tree_is_not_ported():
-    _, ts = _jax_scene("cornell-glass")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmk.pack_mesh(ts.mesh, collapse_leaf=1024, nodes_only=True)
+    """The coarse nodes-only tree is ported now (tests/test_torch_packet.py
+    holds it against JAX): it has no triangles and lists its leaf cells."""
+    js, ts = _jax_scene("cornell-glass")
+    tp = tmk.pack_mesh(ts.mesh, collapse_leaf=1024, nodes_only=True)
+    jp = jmk.pack_mesh(js.mesh, collapse_leaf=1024, nodes_only=True)
+    np.testing.assert_array_equal(tp.nodes.numpy(), np.asarray(jp.nodes))
+    np.testing.assert_array_equal(tp.cell_ids.numpy(),
+                                  np.asarray(jp.cell_ids))
+    assert tp.fine_map is None and not tp.tri_rows.any()
 
 
 @pytest.mark.parametrize("name", MESH_SCENES)

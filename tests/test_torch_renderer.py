@@ -105,7 +105,8 @@ def test_build_command_targets_hopper(tmp_path):
     """The build assembles one sm_90a nvcc compile per source, the link
     into one library and the build/ path, without running nvcc."""
     srcs = _build.sources()
-    assert [s.name for s in srcs] == ["camera_jvp.cu", "persistent.cu",
+    assert [s.name for s in srcs] == ["bin.cu", "camera_jvp.cu",
+                                      "packet.cu", "persistent.cu",
                                       "replay_persistent.cu"]
     obj = tmp_path / "a.o"
     cmd = _build.nvcc_command("nvcc", srcs[1], obj)
@@ -113,10 +114,11 @@ def test_build_command_targets_hopper(tmp_path):
     for flag in ("-std=c++17", "-O3", "-c", "-fPIC"):
         assert flag in cmd
     assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(srcs[1])
-    # only the tangent kernel is built without FMA contraction
+    # the tangent, packet and bin kernels are built without FMA
+    # contraction, the persistent kernels with it
     assert [s.name for s in srcs
             if "-fmad=false" in _build.nvcc_command("nvcc", s, obj)] == [
-                "camera_jvp.cu"]
+                "bin.cu", "camera_jvp.cu", "packet.cu"]
     out = tmp_path / "lib.so"
     link = _build.link_command("nvcc", [obj, tmp_path / "b.o"], out)
     assert "-shared" in link and link[link.index("-o") + 1] == str(out)

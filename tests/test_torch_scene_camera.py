@@ -25,20 +25,24 @@ CAM_ATOL = 1e-5  # camera: f32 transcendentals and normalizations
 
 def scene_to_torch(js, device="cpu"):
     """Carry a JAX Scene across to the port, with its mesh (the JAX build,
-    triangle order included) and TRI_LIGHT tables; a packed JAX mesh is
-    packed again by the port's own pack_mesh."""
+    triangle order included), TRI_LIGHT tables and texture atlas; a packed
+    JAX mesh is packed again by the port's own pack_mesh, with the coarse
+    tree where the JAX scene has one."""
     mesh = None
     if js.mesh is not None:
         mesh = tmesh.mesh_from_numpy(
             {f: np.asarray(getattr(js.mesh, f)) for f in tmesh.ARRAY_FIELDS},
             leaf_size=js.mesh.leaf_size, device=device)
     arrays = {f: np.asarray(getattr(js, f))
-              for f in tsc.ARRAY_FIELDS + tsc.TRI_FIELDS
+              for f in tsc.ARRAY_FIELDS + tsc.TRI_FIELDS + ("textures",)
               if getattr(js, f) is not None}
     ts = tsc.scene_from_numpy(
         arrays, {f: getattr(js, f) for f in tsc.STATIC_FIELDS}, mesh=mesh,
         device=device)
-    return tsc.with_packet_mesh(ts) if js.mesh_packed is not None else ts
+    if js.mesh_packed is None:
+        return ts
+    return tsc.with_packet_mesh(
+        ts, two_pass=js.mesh_packed_coarse is not None)
 
 
 def camera_to_torch(jc, device="cpu"):
@@ -152,17 +156,19 @@ def test_make_scene_validation_matches_jax(case):
 
 
 def test_unported_features_raise():
-    """Textures, the thin lens and the coarse two-pass tree still raise;
-    meshes and triangle lights are ported (tests/test_torch_mesh.py)."""
+    """The thin lens still raises; textures and the coarse two-pass tree are
+    ported (tests/test_torch_wavefront.py, tests/test_torch_packet.py), and
+    the persistent kernels refuse a textured scene."""
     mats = [tsc.diffuse([0.5, 0.5, 0.5])]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsc.make_scene([], mats, textures=np.zeros((1, 4, 4, 3)),
-                       device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsc.make_scene([], mats, mat_texture=[0], device="cpu")
     with pytest.raises(NotImplementedError):
         tcm.make_camera([0, 0, 5], [0, 0, 0], [0, 1, 0], 8, 8,
                         lens_radius=1.0, focal_distance=5.0, device="cpu")
+    tex = tsc.make_scene([], mats, textures=np.zeros((4, 4, 3)),
+                         mat_texture=[0], device="cpu")
+    assert tex.textured and tex.textures.shape == (1, 4, 4, 3)
+    assert not tsc.make_scene([], mats, mat_texture=[0],
+                              device="cpu").textured
     scene, _ = tsc.cornell_glass(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tsc.with_packet_mesh(scene, two_pass=True)
+    assert tsc.with_packet_mesh(scene).mesh_packed_coarse is not None
+    with pytest.raises(NotImplementedError, match="Slice A"):
+        tsc.refuse_textures(tex, "the persistent kernel")

@@ -3,9 +3,16 @@
 Examples:
   python -m tpu_pathtracer_torch.cli render --scene cornell --size 640x480 \\
       --spp 4 --iterations 16 -o out.png
+  python -m tpu_pathtracer_torch.cli render --scene terrain --size 1024x1024 \\
+      --spp 2 --bounces 3 --nee --iterations 4 -o terrain.png
   python -m tpu_pathtracer_torch.cli invert --size 32x32 --steps 30
 
-``render`` draws a scene to a PNG; ``invert`` is the inverse-rendering demo
+``render`` draws a scene to a PNG through one of two backends, named as in
+the JAX package so that commands carry over: ``xla`` is the PyTorch wavefront
+integrator, whose mesh queries run the CUDA packet and bin kernels, and
+``pallas`` is the persistent CUDA kernel; ``auto`` takes the wavefront on the
+CPU and for meshes of more than 10,000 triangles (the textured ``terrain``),
+else the persistent kernel. ``invert`` is the inverse-rendering demo
 (BASELINE config 5). ``--device`` defaults to ``cuda``, which runs the CUDA
 kernels. ``--device cpu`` runs the plain PyTorch versions and is only taken
 when asked for.
@@ -29,8 +36,8 @@ def cmd_render(args: argparse.Namespace) -> int:
 
     from tpu_pathtracer_torch.io.image import save_png
     from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.models import progressive as prog
     from tpu_pathtracer_torch.models.integrator import RenderConfig
-    from tpu_pathtracer_torch.models.progressive import PersistentRenderer
     from tpu_pathtracer_torch.utils.metrics import RenderMeter
 
     device = torch.device(args.device)
@@ -42,15 +49,30 @@ def cmd_render(args: argparse.Namespace) -> int:
                             cs["fov"], device=device)
     config = RenderConfig(spp=args.spp, max_bounces=args.bounces,
                           use_nee=args.nee)
-    r = PersistentRenderer(scene, camera, config, seed=args.seed,
-                           device=device)
+    backend = args.backend
+    if backend == "auto":
+        backend = prog.auto_backend(scene, device)
     meter = RenderMeter(w * h * args.spp)
-    target_spp = args.spp * args.iterations
-    while r.min_samples < target_spp:
-        t0 = time.perf_counter()
-        nrays = r.step()
-        meter.update(time.perf_counter() - t0, nrays)
-        print(f"\r{meter.status(r.min_samples)}", end="", file=sys.stderr)
+    if backend == "pallas":
+        r = prog.PersistentRenderer(scene, camera, config, seed=args.seed,
+                                    device=device)
+        target_spp = args.spp * args.iterations
+        while r.min_samples < target_spp:
+            t0 = time.perf_counter()
+            nrays = r.step()
+            meter.update(time.perf_counter() - t0, nrays)
+            print(f"\r{meter.status(r.min_samples)}", end="",
+                  file=sys.stderr)
+    else:
+        r = prog.ProgressiveRenderer(scene, camera, config, seed=args.seed,
+                                     device=device)
+        while r.iteration < args.iterations:
+            t0 = time.perf_counter()
+            r.step()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            meter.update(time.perf_counter() - t0, None)
+            print(f"\r{meter.status(r.iteration)}", end="", file=sys.stderr)
     print(file=sys.stderr)
     hdr = r.image().cpu().numpy()
     if args.output:
@@ -137,7 +159,8 @@ def main(argv: list[str] | None = None) -> int:
     pr = sub.add_parser("render", help="render a scene to an image")
     pr.add_argument("--scene", default="cornell",
                     choices=["cornell", "cornell-glass", "cornell-boxes",
-                             "cornell-quad", "small", "single-sphere"])
+                             "cornell-quad", "small", "single-sphere",
+                             "terrain"])
     pr.add_argument("--size", default="640x480")
     pr.add_argument("--spp", type=int, default=4)
     pr.add_argument("--iterations", type=int, default=8)
@@ -145,8 +168,15 @@ def main(argv: list[str] | None = None) -> int:
     pr.add_argument("--nee", action="store_true",
                     help="next-event estimation + MIS")
     pr.add_argument("--seed", type=int, default=0)
+    pr.add_argument("--backend", choices=["auto", "xla", "pallas"],
+                    default="auto",
+                    help="xla: the PyTorch wavefront with the CUDA packet "
+                         "and bin kernels; pallas: the persistent CUDA "
+                         "kernel; auto: the wavefront on the CPU and for "
+                         "meshes above 10,000 triangles, else the "
+                         "persistent kernel")
     pr.add_argument("--device", default="cuda",
-                    help="cuda (the CUDA kernel) or cpu (plain PyTorch)")
+                    help="cuda (the CUDA kernels) or cpu (plain PyTorch)")
     pr.add_argument("-o", "--output", help="PNG output path")
     pr.set_defaults(fn=cmd_render)
 

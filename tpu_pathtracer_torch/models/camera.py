@@ -3,8 +3,10 @@
 Counterpart of ``tpu_pathtracer/models/camera.py`` (reference camera.h:28-177
 semantics): ``translate`` and ``rotate`` return a new Camera, the view matrix
 is the 3x3 row stack [u; v; w], and ``generate_rays`` is batched over pixels.
-Thin-lens depth of field is not ported yet: a camera with
-``lens_radius > 0`` raises ``NotImplementedError``.
+Thin-lens depth of field is not ported yet: ``make_camera`` refuses a lens,
+and every route that takes a camera refuses one made otherwise (e.g. by
+``dataclasses.replace``). ``lens_radius`` is a host float, so that check
+costs no device read.
 """
 from __future__ import annotations
 
@@ -19,8 +21,8 @@ from torch import Tensor
 from tpu_pathtracer_torch.ops import vecmath as vm
 
 ARRAY_FIELDS = ("pos", "view", "px_x", "px_y", "first_ray_dir", "dist",
-                "hfov", "vfov", "lens_radius", "focal_distance")
-STATIC_FIELDS = ("width", "height")
+                "hfov", "vfov", "focal_distance")
+STATIC_FIELDS = ("width", "height", "lens_radius")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +35,13 @@ class Camera:
     dist: Tensor  # () distance eye -> image plane
     hfov: Tensor  # () horizontal fov, degrees
     vfov: Tensor  # () vertical fov, degrees
-    lens_radius: Tensor  # () always 0: thin lens is not ported yet
     focal_distance: Tensor  # ()
     width: int = 640
     height: int = 480
+    lens_radius: float = 0.0  # host value; > 0 is refused (DOF not ported)
+
+    def __post_init__(self):
+        object.__setattr__(self, "lens_radius", float(self.lens_radius))
 
     @property
     def device(self) -> torch.device:
@@ -47,11 +52,17 @@ class Camera:
             self, **{f: getattr(self, f).to(device) for f in ARRAY_FIELDS})
 
 
-def _no_dof(lens_radius: float) -> None:
+def _no_dof(lens_radius: float, who: str = "make_camera") -> None:
     if lens_radius > 0.0:
         raise NotImplementedError(
-            "thin-lens depth of field is not ported to tpu_pathtracer_torch "
-            "yet (lens_radius > 0)")
+            f"{who}: thin-lens depth of field is not ported to "
+            "tpu_pathtracer_torch yet (ROADMAP Slice A; lens_radius > 0)")
+
+
+def refuse_lens(camera: Camera, who: str) -> None:
+    """Raise NotImplementedError in a route that traces pinhole rays only,
+    rather than render a lens camera as a pinhole one."""
+    _no_dof(camera.lens_radius, who)
 
 
 def _image_plane(view: Tensor, dist: Tensor, hfov: Tensor, vfov: Tensor,
@@ -90,21 +101,23 @@ def make_camera(eye: Any, look_at: Any, up: Any, width: int, height: int,
     return Camera(
         pos=eye, view=view, px_x=px_x, px_y=px_y,
         first_ray_dir=first_ray_dir, dist=dist, hfov=hfov, vfov=vfov,
-        lens_radius=torch.as_tensor(lens_radius, **f32),
         focal_distance=torch.as_tensor(focal_distance, **f32),
-        width=width, height=height,
+        width=width, height=height, lens_radius=lens_radius,
     )
 
 
 def camera_from_numpy(arrays: Mapping[str, np.ndarray],
                       static: Mapping[str, Any], *, device="cuda") -> Camera:
     """Build a Camera from the array fields (numpy) and static fields of a
-    JAX ``Camera``."""
-    _no_dof(float(np.asarray(arrays["lens_radius"])))
+    JAX ``Camera`` (``lens_radius`` among the static ones: an array there,
+    a host float here)."""
+    lens = float(np.asarray(static["lens_radius"]))
+    _no_dof(lens, "camera_from_numpy")
     return Camera(
         **{f: torch.tensor(np.asarray(arrays[f], np.float32),
                            device=device) for f in ARRAY_FIELDS},
         width=int(static["width"]), height=int(static["height"]),
+        lens_radius=lens,
     )
 
 

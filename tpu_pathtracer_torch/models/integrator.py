@@ -1,14 +1,40 @@
-"""Render settings.
+"""Wavefront path-tracing integrator and render settings.
 
-Counterpart of ``RenderConfig`` in ``tpu_pathtracer/models/integrator.py``,
-with the same fields and defaults. The wavefront integrator
-(``trace``/``render``) is not ported yet.
+Counterpart of ``tpu_pathtracer/models/integrator.py``: all paths of a frame
+advance in lockstep, one bounce per step of a Python loop, with liveness as
+a lane mask. Each step traces the segment the previous one produced
+(intersect first), so a frame makes ``max_bounces + 1`` scene queries, each
+one closest-hit wave and, with NEE, one shadow wave. On the card a packed
+mesh turns every wave into one launch of the packet kernel (kernel 5) and,
+with the coarse tree, one of the bin kernel (kernel 6); the rest of the
+wavefront is plain PyTorch, as it is XLA in the JAX package.
+
+Per bounce, as the reference integrator (pathtracer.cu:112-170): emitter
+hits add T Le (with NEE, MIS-weighted by the power heuristic against the
+light sampler's pdf, TRI_LIGHT hits by their solid-angle pdf); NEE adds the
+light sample's contribution behind a shadow wave; the BSDF is sampled and T
+updated by its closed-form weight; Russian roulette after ``rr_start``.
+
+Draws come from ``utils/rng.py`` keyed on global lane ids, so the
+bounce-level sort of a packet-mesh scene without a coarse tree is invisible
+to the estimate: lanes carry their ids and positions and the radiance is
+scattered back by position once at the end. This slice is forward only: it
+runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from tpu_pathtracer_torch.models.scene import EPSILON
+import torch
+from torch import Tensor
+
+from tpu_pathtracer_torch.models import camera as cam_mod
+from tpu_pathtracer_torch.models.camera import Camera
+from tpu_pathtracer_torch.models.scene import EPSILON, Scene, prim_attrs
+from tpu_pathtracer_torch.ops import bsdf, lights, sampling
+from tpu_pathtracer_torch.ops import vecmath as vm
+from tpu_pathtracer_torch.ops.intersect import intersect, intersect_p
+from tpu_pathtracer_torch.utils import rng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,9 +45,199 @@ class RenderConfig:
     max_bounces: int = 10
     rr_start: int = 3
     tmin: float = EPSILON
+    # Gradient-estimator settings of the JAX package's autodiff; the
+    # wavefront here is forward only and does not read them.
     detach_sampling: bool = True
     use_nee: bool = False
     remat: bool = True
     count_rays: bool = False
+    # Packet-mesh scenes without a coarse tree: the shadow wave sorts on
+    # its own key instead of riding the bounce-level order.
     shadow_self_sort: bool = True
     attached_geom: bool = False
+
+
+def _permute(perm: Tensor, *arrays: Tensor) -> list[Tensor]:
+    """One packed row gather for the whole carry: floats as columns, ints
+    and bools bit-cast or cast to float32 (exact)."""
+    cols, split = [], []
+    for a in arrays:
+        if a.dtype == torch.int32:
+            c = a.view(torch.float32)[:, None]
+        elif a.dtype == torch.bool:
+            c = a.to(torch.float32)[:, None]
+        else:
+            c = a if a.ndim == 2 else a[:, None]
+        cols.append(c)
+        split.append(c.shape[1])
+    packed = torch.cat(cols, dim=1)[perm]
+    out = []
+    for a, part in zip(arrays, torch.split(packed, split, dim=1)):
+        if a.dtype == torch.int32:
+            out.append(part[:, 0].contiguous().view(torch.int32))
+        elif a.dtype == torch.bool:
+            out.append(part[:, 0] > 0.5)
+        else:
+            out.append(part if a.ndim == 2 else part[:, 0])
+    return out
+
+
+@torch.no_grad()
+def trace(scene: Scene, o: Tensor, d: Tensor, lane_ids: Tensor,
+          draws: rng.Draws, config: RenderConfig):
+    """Radiance along N rays (o, d: (N, 3)); ``lane_ids`` (N,) int32 are the
+    global path-sample ids that key the draws. Returns (N, 3), and with
+    ``config.count_rays`` also the closest-hit segments traced, primaries
+    included (the JAX package's count)."""
+    attrs = prim_attrs(scene)
+    bounce_sort = (scene.mesh_packed is not None
+                   and scene.mesh_packed_coarse is None)
+    n = o.shape[0]
+    L = torch.zeros_like(o)
+    T = torch.ones_like(o)
+    prev_pdf = torch.zeros(n, dtype=o.dtype, device=o.device)
+    alive = torch.ones(n, dtype=torch.bool, device=o.device)
+    prev_delta = alive.clone()
+    lids = lane_ids.to(torch.int32)
+    pos = torch.arange(n, dtype=torch.int32, device=o.device)
+    prev_o, wo = o, d
+    live_counts = []
+    park_d = torch.zeros_like(o)
+    park_d[:, 2] = 1.0
+    for bounce in range(config.max_bounces + 1):
+        if bounce_sort and bounce > 0:
+            # bounce 0 is in raster order, already coherent
+            from tpu_pathtracer_torch.ops.kernels.mesh_kernel import (
+                packet_sort_key,
+            )
+
+            perm = torch.argsort(packet_sort_key(prev_o, wo, alive=alive),
+                                 stable=True)
+            (L, T, prev_o, wo, alive, prev_pdf, prev_delta, lids,
+             pos) = _permute(perm, L, T, prev_o, wo, alive, prev_pdf,
+                             prev_delta, lids, pos)
+        hit = intersect(scene, attrs, prev_o, wo, tmin=config.tmin,
+                        alive=alive, presorted=bounce_sort)
+        live_counts.append(torch.sum(alive.to(torch.int64)))
+        alive = alive & hit.hit
+        u = rng.bounce_uniforms(draws, bounce, lids)
+
+        # emitter hit
+        one_sided = vm.dot(hit.n, -wo) > 0.0
+        take_le = alive & one_sided
+        if config.use_nee:
+            is_light = ~vm.is_black(hit.emission)
+            lp = lights.light_dir_pdf(scene, prev_o, wo, hit.center,
+                                      hit.radius, is_light,
+                                      hit_prim=hit.prim)
+            if scene.has_tri_lights:
+                is_tri_hit = hit.prim >= scene.centers.shape[0]
+                fac = lights.tri_sel_over_area_by_mat(scene)[
+                    torch.clamp(hit.mat, 0, scene.mat_color.shape[0] - 1)]
+                tt = torch.clamp_max(hit.t, 1e6)
+                cos_l = torch.abs(vm.dot(hit.n, wo))
+                lp_tri = tt * tt / torch.clamp_min(cos_l, 1e-9) * fac
+                lp = torch.where(is_tri_hit, lp_tri, lp)
+            w_emit = torch.where(
+                prev_delta, 1.0,
+                sampling.power_heuristic(1.0, prev_pdf, 1.0, lp))
+        else:
+            w_emit = torch.ones_like(prev_pdf)
+        L = L + T * hit.emission * (take_le.to(T.dtype) * w_emit)[:, None]
+
+        # next-event estimation
+        if config.use_nee:
+            ul = rng.light_uniforms(draws, bounce, lids)
+            ls = lights.sample_lights(scene, hit.p, ul, tmin=config.tmin)
+            f_l = bsdf.f(hit.mtype, hit.albedo, wo, ls.wi, hit.n)
+            pdf_b = bsdf.pdf(hit.mtype, wo, ls.wi, hit.n)
+            # a tight shrink of the visibility segment: excludes the light
+            # surface, keeps occluders that hug it
+            vis_tmax = ls.dist * (1.0 - 1e-3) - EPSILON
+            occluded = intersect_p(
+                scene, hit.p, ls.wi, tmin=config.tmin, tmax=vis_tmax,
+                mask=alive & ls.valid,
+                presorted=bounce_sort and not config.shadow_self_sort)
+            w_l = torch.where(ls.is_delta, 1.0,
+                              sampling.power_heuristic(1.0, ls.pdf, 1.0,
+                                                       pdf_b))
+            cos_l = torch.abs(vm.dot(ls.wi, hit.n))
+            take_nee = alive & ls.valid & ~occluded
+            contrib = f_l * ls.radiance * torch.where(
+                ls.pdf > 0.0,
+                cos_l * w_l / torch.where(ls.pdf > 0.0, ls.pdf, 1.0),
+                0.0)[:, None]
+            L = L + T * contrib * take_nee[:, None].to(T.dtype)
+
+        # BSDF sampling, with the per-lobe closed form of f |wi.n| / pdf
+        f_val, wi, pdf = bsdf.sample(hit.mtype, hit.albedo, hit.coef, wo,
+                                     hit.n, u[:, 0], u[:, 1])
+        contrib_ok = ~vm.is_black(f_val) & (pdf > 0.0)
+        cos_wi = torch.abs(vm.dot(wi, hit.n))
+        weight = torch.where(bsdf.is_specular_type(hit.mtype)[:, None],
+                             f_val * cos_wi[:, None], hit.albedo)
+        step_ok = alive & contrib_ok
+        T = torch.where(step_ok[:, None], T * weight, T)
+
+        # Russian roulette
+        do_rr = bounce > config.rr_start
+        p_cont = torch.clamp_max(vm.max_component(T), 0.5)
+        survive = u[:, 2] <= p_cont
+        boost = step_ok & do_rr & survive & (p_cont > 0.0)
+        T = torch.where(boost[:, None],
+                        T / torch.clamp_min(p_cont, 1e-20)[:, None], T)
+        rr_ok = survive if do_rr else torch.ones_like(survive)
+
+        # termination; dead lanes park on a fixed finite ray
+        alive = step_ok & rr_ok & (bounce < config.max_bounces)
+        prev_delta = bsdf.is_specular_type(hit.mtype)
+        av = alive[:, None]
+        prev_o = torch.where(av, hit.p, 0.0)
+        wo = torch.where(av, wi, park_d)
+        prev_pdf = pdf
+    if bounce_sort:
+        out = torch.empty_like(L)
+        out[pos.to(torch.int64)] = L
+        L = out
+    if config.count_rays:
+        return L, torch.stack(live_counts).sum()
+    return L
+
+
+def trace_pixels(scene: Scene, camera: Camera, lane_ids: Tensor,
+                 draws: rng.Draws, config: RenderConfig):
+    """Primary rays of the given lanes (lane = (py * W + px) * spp + s),
+    traced. A lens camera raises: thin-lens DOF is ROADMAP Slice A."""
+    cam_mod.refuse_lens(camera, "the wavefront (trace_pixels)")
+    W, spp = camera.width, config.spp
+    s = lane_ids % spp
+    pix = lane_ids // spp
+    px = pix % W
+    py = pix // W
+    u = rng.camera_uniforms(draws, lane_ids)
+    ox, oy = sampling.stratified_jitter_for_sample(u[:, 0], u[:, 1], s, spp)
+    o, d = cam_mod.generate_rays(camera, px, py, ox, oy)
+    return trace(scene, o.contiguous(), d, lane_ids, draws, config)
+
+
+def render(scene: Scene, camera: Camera, seed: int, config: RenderConfig,
+           iteration: int = 0, draws: rng.Draws | None = None):
+    """One progressive iteration: (H, W, 3) mean radiance over spp. Draws
+    are Philox keyed on (seed, iteration) unless ``draws`` is given."""
+    H, W, spp = camera.height, camera.width, config.spp
+    if draws is None:
+        draws = rng.philox_draws(seed, iteration)
+    lane_ids = torch.arange(H * W * spp, dtype=torch.int32,
+                            device=camera.device)
+    out = trace_pixels(scene, camera, lane_ids, draws, config)
+    if config.count_rays:
+        radiance, n_rays = out
+        return radiance.reshape(H, W, spp, 3).mean(dim=2), n_rays
+    return out.reshape(H, W, spp, 3).mean(dim=2)
+
+
+def render_image(scene: Scene, camera: Camera, seed: int,
+                 config: RenderConfig, iteration: int = 0,
+                 draws: rng.Draws | None = None):
+    """Single-iteration render (the JAX package's jitted entry point)."""
+    return render(scene, camera, seed, config, iteration, draws)

@@ -1,9 +1,9 @@
-"""Mesh constructors: boxes, quads and merging, in NumPy.
+"""Mesh constructors: boxes, quads, terrain, merging, textures, in NumPy.
 
-Counterpart of ``box``, ``quad`` and ``merge`` in
-``tpu_pathtracer/models/meshes.py``, the geometry of the mesh Cornell
-scenes. ``uv_sphere``, ``terrain``, ``load_obj`` and ``checker_texture`` are
-not ported yet (they serve the textured scenes).
+Counterpart of ``box``, ``quad``, ``terrain``, ``merge`` and
+``checker_texture`` in ``tpu_pathtracer/models/meshes.py``: the geometry of
+the mesh Cornell scenes and of the textured terrain (BASELINE config 4).
+``uv_sphere`` and ``load_obj`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -77,3 +77,45 @@ def merge(*parts):
         np.concatenate(uvs_all),
         np.concatenate(mats_all),
     )
+
+
+def terrain(n: int = 224, extent: float = 100.0, height: float = 12.0,
+            seed: int = 0):
+    """Procedural heightfield, 2 (n-1)^2 triangles with planar uvs: a few
+    octaves of smoothstep-upsampled value noise. Returns (vertices, faces,
+    uvs)."""
+    rng = np.random.default_rng(seed)
+    h = np.zeros((n, n))
+    for octave in range(5):
+        k = 4 * (2 ** octave)
+        g = rng.standard_normal((k + 1, k + 1)) / (1.7 ** octave)
+        xs = np.linspace(0, k, n)
+        x0 = np.floor(xs).astype(int).clip(0, k - 1)
+        fx = xs - x0
+        w = fx * fx * (3 - 2 * fx)
+        row = g[x0, :] * (1 - w[:, None]) + g[x0 + 1, :] * w[:, None]
+        col = row[:, x0] * (1 - w[None, :]) + row[:, x0 + 1] * w[None, :]
+        h += col
+    h *= height / max(1e-9, np.abs(h).max())
+
+    xs = np.linspace(-extent / 2, extent / 2, n)
+    zz, xx = np.meshgrid(xs, xs, indexing="ij")
+    verts = np.stack([xx.ravel(), h.ravel(), zz.ravel()], axis=-1)
+    uu, vv = np.meshgrid(np.linspace(0, 1, n), np.linspace(0, 1, n),
+                         indexing="ij")
+    uvs = np.stack([uu.ravel(), vv.ravel()], axis=-1)
+    # two triangles per grid cell, row-major, as the JAX package orders them
+    i, j = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    a, b = (i * n + j).ravel(), ((i + 1) * n + j).ravel()
+    faces = np.stack([np.stack([a, b, a + 1], -1),
+                      np.stack([a + 1, b, b + 1], -1)], axis=1)
+    return verts, faces.reshape(-1, 3).astype(np.int64), uvs
+
+
+def checker_texture(n: int = 256, tiles: int = 8, c0=(0.9, 0.9, 0.9),
+                    c1=(0.2, 0.3, 0.6)) -> np.ndarray:
+    """(n, n, 3) float32 checkerboard of ``tiles`` x ``tiles`` squares."""
+    ij = np.arange(n) * tiles // n
+    mask = (ij[:, None] + ij[None, :]) % 2
+    tex = np.where(mask[..., None] == 0, np.asarray(c0), np.asarray(c1))
+    return tex.astype(np.float32)

@@ -1,21 +1,119 @@
-"""Progressive rendering over the persistent path-regeneration step.
+"""Progressive rendering: the wavefront renderer and the persistent one.
 
-Counterpart of ``PersistentRenderer`` in
-``tpu_pathtracer/models/progressive.py``: step / render_to / image /
-min_samples / iteration / reset / update_camera. The kernel's PathState is
-the progressive accumulator: per-pixel radiance sums and completed-sample
-counts stay on the device across steps. A mesh scene is packed here for the
-kernel's in-kernel walk unless it comes packed.
+Counterpart of ``tpu_pathtracer/models/progressive.py``:
+
+* ``init_state`` / ``step`` / ``image`` / ``reset`` and
+  ``ProgressiveRenderer``: the wavefront integrator (``models/integrator.py``)
+  renders one frame of ``spp`` samples per step and the state sums the
+  frames; a frame's draws are keyed on (seed, iteration). On a CUDA device
+  ``ProgressiveRenderer`` packs an unpacked mesh itself (two-pass), so every
+  mesh query runs kernels 5 and 6;
+* ``PersistentRenderer``: step / render_to / image / min_samples /
+  iteration / reset / update_camera over the persistent path-regeneration
+  kernel, whose PathState is the accumulator: per-pixel radiance sums and
+  completed-sample counts stay on the device across steps. A mesh scene is
+  packed here for the kernel's in-kernel walk unless it comes packed;
+* ``auto_backend``: the routing of ``cli render --backend auto``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from tpu_pathtracer_torch.models.camera import Camera
-from tpu_pathtracer_torch.models.integrator import RenderConfig
-from tpu_pathtracer_torch.models.scene import Scene, with_packet_mesh
+from tpu_pathtracer_torch.models.integrator import RenderConfig, render
+from tpu_pathtracer_torch.models.scene import (
+    Scene, refuse_textures, with_packet_mesh,
+)
 from tpu_pathtracer_torch.ops.kernels import persistent as pk
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+
+
+@dataclasses.dataclass
+class AccumulatorState:
+    """Progressive state: the sum of the per-iteration mean images, and how
+    many were added."""
+
+    radiance_sum: torch.Tensor  # (H, W, 3)
+    iteration: int = 0
+
+
+def init_state(height: int, width: int, *, device="cuda") -> AccumulatorState:
+    return AccumulatorState(
+        radiance_sum=torch.zeros((height, width, 3), dtype=torch.float32,
+                                 device=device))
+
+
+def reset(state: AccumulatorState) -> AccumulatorState:
+    """Restart accumulation (reference Pathtracer::Reset)."""
+    return AccumulatorState(torch.zeros_like(state.radiance_sum), 0)
+
+
+def step(state: AccumulatorState, scene: Scene, camera: Camera, seed: int,
+         config: RenderConfig) -> AccumulatorState:
+    """One progressive iteration; its draws are keyed on the iteration."""
+    frame = render(scene, camera, seed, config, iteration=state.iteration)
+    return AccumulatorState(state.radiance_sum + frame, state.iteration + 1)
+
+
+def image(state: AccumulatorState) -> torch.Tensor:
+    """The running mean of the accumulated frames."""
+    return state.radiance_sum / max(state.iteration, 1)
+
+
+# Above this many triangles the wavefront with the two-pass binned packet
+# traversal is the mesh path, as in the JAX package.
+BIG_MESH_TRIS = 10_000
+
+
+def auto_backend(scene: Scene, device) -> str:
+    """``"xla"`` (the wavefront) on the CPU and for meshes of more than
+    BIG_MESH_TRIS triangles, else ``"pallas"`` (the persistent kernel). The
+    names are the JAX package's, so commands carry over."""
+    if torch.device(device).type == "cpu":
+        return "xla"
+    if scene.mesh is not None and int(scene.mesh.num_tris) > BIG_MESH_TRIS:
+        return "xla"
+    return "pallas"
+
+
+class ProgressiveRenderer:
+    """Wavefront renderer with the reference app loop's surface: step(),
+    image(), iteration, and camera updates that reset the accumulation."""
+
+    def __init__(self, scene: Scene, camera: Camera, config: RenderConfig,
+                 seed: int = 0, *, device):
+        self.device = torch.device(device)
+        if (self.device.type == "cuda" and scene.mesh is not None
+                and scene.mesh_packed is None):
+            scene = with_packet_mesh(scene)
+        self.scene = scene.to(self.device)
+        self.camera = camera.to(self.device)
+        self.config = config
+        self.seed = seed
+        self.state = init_state(camera.height, camera.width,
+                                device=self.device)
+
+    def step(self) -> None:
+        self.state = step(self.state, self.scene, self.camera, self.seed,
+                          self.config)
+
+    def image(self) -> torch.Tensor:
+        return image(self.state)
+
+    @property
+    def iteration(self) -> int:
+        return self.state.iteration
+
+    def reset(self) -> None:
+        """Restart accumulation (pathtracer.cu:245 semantics)."""
+        self.state = reset(self.state)
+
+    def update_camera(self, camera: Camera) -> None:
+        """Camera motion restarts accumulation (main.cpp:209 semantics)."""
+        self.camera = camera.to(self.device)
+        self.reset()
 
 
 class PersistentRenderer:
@@ -34,9 +132,10 @@ class PersistentRenderer:
             raise NotImplementedError(
                 "sharded rendering (mesh=) is not ported yet (ROADMAP Queue 1 "
                 "item 15)")
+        refuse_textures(scene, "PersistentRenderer")
         self.device = torch.device(device)
         if scene.mesh is not None and scene.mesh_packed is None:
-            scene = with_packet_mesh(scene)
+            scene = with_packet_mesh(scene, two_pass=False)
         self.scene = scene.to(self.device)
         self.camera = camera.to(self.device)
         self.config = config

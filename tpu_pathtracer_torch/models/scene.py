@@ -6,8 +6,10 @@ lights. The array fields keep the JAX layouts and paddings; the static
 structure (``emissive_prims``, ``prim_mtypes``, ``light_structure``, ...)
 stays as Python tuples so the kernel wrappers can read it without a device
 sync. A mesh is a ``models/mesh.py::MeshData``; ``with_packet_mesh`` packs
-it for the kernels' in-kernel walk. Textures are not ported yet:
-``make_scene`` raises ``NotImplementedError`` for them.
+it for the kernels, with the coarse tree of the two-pass traversal. A texture
+atlas ``(K, TH, TW, 3)`` and a per-material texture index modulate the
+colours of textured materials; the wavefront integrator samples them, and
+the persistent kernels refuse textured scenes (``refuse_textures``).
 """
 from __future__ import annotations
 
@@ -37,12 +39,13 @@ ARRAY_FIELDS = (
     "centers", "radii", "material_id", "light_id", "prim_valid",
     "mat_color", "mat_coef", "mat_type",
     "light_type", "light_pos", "light_prim", "light_intensity", "light_valid",
-    "light_mat",
+    "light_mat", "mat_texture",
 )
 STATIC_FIELDS = (
     "num_prims", "num_lights", "emissive_prims", "prim_mtypes",
     "prim_material_ids", "light_structure", "mat_types",
     "light_mats", "tri_light_counts", "mesh_mats_static", "has_tri_lights",
+    "mat_textures_static",
 )
 # Triangle-light sampling tables: None in scenes without a TRI_LIGHT.
 TRI_FIELDS = ("tl_v0", "tl_e1", "tl_e2", "tl_n", "tl_cdf", "tl_area")
@@ -71,6 +74,7 @@ class Scene:
     light_intensity: Tensor  # (L, 3)
     light_valid: Tensor  # (L,) bool
     light_mat: Tensor  # (L,) int32 emissive material of a TRI_LIGHT, else -1
+    mat_texture: Tensor  # (M,) int32 texture index per material, -1 = none
     # Static structure
     num_prims: int = 0
     num_lights: int = 0
@@ -83,10 +87,14 @@ class Scene:
     tri_light_counts: tuple = ()  # per light: its triangle count, else 0
     mesh_mats_static: tuple = ()  # material ids used by mesh triangles
     has_tri_lights: bool = False
-    # Triangle mesh + BVH (models/mesh.py), None in sphere-only scenes, and
-    # its packed layout for the in-kernel walk (with_packet_mesh).
+    mat_textures_static: tuple = ()  # host copy of mat_texture
+    # Triangle mesh + BVH (models/mesh.py), None in sphere-only scenes, its
+    # packed layout for the kernels and the coarse tree of the two-pass
+    # traversal (with_packet_mesh).
     mesh: Any = None
     mesh_packed: Any = None
+    mesh_packed_coarse: Any = None
+    textures: Tensor | None = None  # (K, TH, TW, 3) texture atlas
     # TRI_LIGHT sampling tables (L, K, ...) over the post-BVH triangle
     # order, K the padded largest triangle count (_build_tri_light_tables)
     tl_v0: Tensor | None = None  # (L, K, 3)
@@ -100,34 +108,49 @@ class Scene:
     def device(self) -> torch.device:
         return self.centers.device
 
+    @property
+    def textured(self) -> bool:
+        """Some material samples the texture atlas."""
+        return self.textures is not None and any(
+            t >= 0 for t in self.mat_textures_static)
+
     def to(self, device) -> "Scene":
         moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
         moved.update({f: getattr(self, f).to(device) for f in TRI_FIELDS
                       if getattr(self, f) is not None})
-        for f in ("mesh", "mesh_packed"):
+        for f in ("mesh", "mesh_packed", "mesh_packed_coarse", "textures"):
             if getattr(self, f) is not None:
                 moved[f] = getattr(self, f).to(device)
         return dataclasses.replace(self, **moved)
 
 
-def with_packet_mesh(scene: Scene, two_pass: bool = False) -> Scene:
-    """Pack the scene's mesh for the persistent kernels' in-kernel walk
-    (``pack_mesh`` with 64-triangle leaves). ``two_pass`` would also build
-    the coarse tree of the JAX package's binned wavefront traversal, whose
-    bin kernel is not ported yet, so it raises (the JAX default is True;
-    the persistent kernels never read that tree)."""
+def refuse_textures(scene: Scene, who: str) -> None:
+    """Raise for a textured scene in a route that cannot sample textures,
+    rather than render its textured materials untextured."""
+    if scene.textured:
+        raise NotImplementedError(
+            f"{who} does not sample textures yet (ROADMAP Slice A, the "
+            "persistent kernels' texture block); render textured scenes with "
+            "the wavefront integrator (models.progressive.ProgressiveRenderer, "
+            "cli render --backend xla)")
+
+
+def with_packet_mesh(scene: Scene, two_pass: bool = True,
+                     coarse_leaf: int = 1024) -> Scene:
+    """Pack the scene's mesh for the kernels (``pack_mesh`` with 64-triangle
+    leaves), the JAX package's defaults. ``two_pass`` also builds the coarse
+    nodes-only tree (``coarse_leaf``-triangle cells, with its map onto the
+    fine tree) that drives the wavefront's two-pass binned traversal; the
+    persistent kernels never read it."""
     if scene.mesh is None:
         return scene
     from tpu_pathtracer_torch.ops.kernels.mesh_kernel import pack_mesh
 
-    if two_pass:
-        raise NotImplementedError(
-            "the coarse tree of the two-pass traversal feeds the bin kernel, "
-            "which is not ported to tpu_pathtracer_torch yet (ROADMAP "
-            "Queue 2 item 6); the persistent kernels need two_pass=False")
-    return dataclasses.replace(scene,
-                               mesh_packed=pack_mesh(scene.mesh,
-                                                     collapse_leaf=64))
+    coarse = (pack_mesh(scene.mesh, collapse_leaf=coarse_leaf,
+                        nodes_only=True, fine_leaf=64) if two_pass else None)
+    return dataclasses.replace(
+        scene, mesh_packed=pack_mesh(scene.mesh, collapse_leaf=64),
+        mesh_packed_coarse=coarse)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,11 +227,8 @@ def make_scene(
     """Build a padded SoA Scene from declarative Python data, with the JAX
     package's host-side validation and padding. ``mesh`` is a MeshData
     (``models/mesh.py::build_bvh``); a TRI_LIGHT's tables are built from it
-    here."""
-    if textures is not None or mat_texture is not None:
-        raise NotImplementedError(
-            "textures are not ported to tpu_pathtracer_torch yet (ROADMAP "
-            "Queue 1 item 10)")
+    here. ``textures`` is one (TH, TW, 3) texture or a (K, TH, TW, 3) stack
+    and ``mat_texture`` a texture index per material (-1 = untextured)."""
     n_p, n_m, n_l = len(spheres), len(materials), len(lights)
     mesh_mids = None if mesh is None else mesh.material_id.cpu().numpy()
     for i, s in enumerate(spheres):
@@ -292,6 +312,14 @@ def make_scene(
         light_prim=l_prim, light_intensity=l_int, light_valid=l_valid,
         light_mat=l_mat,
     )
+    mat_tex = np.full((M,), -1, np.int32)
+    if mat_texture is not None:
+        for i, t in enumerate(mat_texture):
+            mat_tex[i] = t
+    arrays["mat_texture"] = mat_tex
+    if textures is not None:
+        textures = np.asarray(textures, np.float32)
+        arrays["textures"] = textures[None] if textures.ndim == 3 else textures
     tri_tabs = _build_tri_light_tables(mesh, l_type, l_mat, l_valid, L)
     arrays.update({f: v for f, v in tri_tabs.items() if v is not None})
     static = dict(
@@ -313,6 +341,7 @@ def make_scene(
         mesh_mats_static=(tuple(sorted(int(m) for m in np.unique(mesh_mids)))
                           if mesh is not None else ()),
         has_tri_lights=tri_tabs["tl_area"] is not None,
+        mat_textures_static=tuple(int(t) for t in mat_tex),
     )
     return scene_from_numpy(arrays, static, mesh=mesh, device=device)
 
@@ -364,7 +393,8 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray],
     JAX ``Scene``, so both packages compute on identical tables. ``mesh`` is
     a MeshData (``models/mesh.py::mesh_from_numpy`` carries a JAX mesh
     across); the TRI_LIGHT tables are read from ``arrays`` when the scene
-    has triangle lights."""
+    has triangle lights, and the texture atlas from ``arrays["textures"]``
+    when it is there."""
     ints = {"material_id", "light_prim"}
     tensors = {}
     for f in ARRAY_FIELDS:
@@ -377,6 +407,9 @@ def scene_from_numpy(arrays: Mapping[str, np.ndarray],
             raise ValueError("a scene with triangle lights needs its mesh")
         tensors.update({f: torch.tensor(np.asarray(arrays[f], np.float32),
                                         device=device) for f in TRI_FIELDS})
+    if arrays.get("textures") is not None:
+        tensors["textures"] = torch.tensor(
+            np.asarray(arrays["textures"], np.float32), device=device)
     if mesh is not None:
         mesh = mesh.to(device)
     return Scene(**tensors, **{f: static[f] for f in STATIC_FIELDS},
@@ -560,6 +593,25 @@ def cornell_quad(device="cuda") -> tuple[Scene, dict]:
     return make_scene([], mats, lights, mesh=mesh, device=device), cam
 
 
+def terrain_textured(n: int = 224, device="cuda") -> tuple[Scene, dict]:
+    """BASELINE config 4: a textured heightfield (2 (n-1)^2 triangles,
+    99,458 at the default n = 224) under a sphere sky-light, its ground
+    checker-textured."""
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.terrain(n=n, extent=120.0, height=14.0, seed=3)
+    mesh = build_bvh(v, f, uv, 0, device=device)
+    tex = meshes.checker_texture(256, tiles=24, c0=(0.85, 0.8, 0.7),
+                                 c1=(0.35, 0.45, 0.25))
+    spheres = [sphere([0, 320, 0], 160.0, 1, 0)]  # sky dome emitter
+    mats = [diffuse([1.0, 1.0, 1.0]), diffuse([1.0, 1.0, 1.0])]
+    lights = [area_light(0, [6.0, 6.0, 6.0])]
+    cam = dict(eye=[0, 26, 52], look_at=[0, 6, 0], up=[0, 1, 0], fov=60.0)
+    return make_scene(spheres, mats, lights, mesh=mesh, textures=tex,
+                      mat_texture=[0, -1], device=device), cam
+
+
 BUILTIN_SCENES = {
     "cornell": cornell_spheres,
     "cornell-glass": cornell_glass,
@@ -567,4 +619,5 @@ BUILTIN_SCENES = {
     "single-sphere": single_sphere,
     "cornell-boxes": cornell_boxes,
     "cornell-quad": cornell_quad,
+    "terrain": terrain_textured,
 }

@@ -28,8 +28,13 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # explicit FMA, as the kernel's fmaf does): with contraction its position
 # tangents on a 1e4-radius floor sphere differ from the plain version's by
 # more than 1e-4 on ~3% of lanes, more than the plain version on the CPU
-# differs from itself on the card.
-SOURCE_FLAGS = {"camera_jvp.cu": ["-fmad=false"]}
+# differs from itself on the card. The packet and bin kernels are built the
+# same way, so that they equal their plain versions bit for bit: with
+# contraction the packet kernel fails its t and attribute bars (see the
+# note in csrc/packet.cu).
+SOURCE_FLAGS = {"camera_jvp.cu": ["-fmad=false"],
+                "packet.cu": ["-fmad=false"],
+                "bin.cu": ["-fmad=false"]}
 
 
 def sources(csrc: Path = CSRC) -> list[Path]:

@@ -34,7 +34,10 @@ flattened (the JAX side draws it under ``jax.random.key(3)``); production
 mode draws Philox4x32-10 keyed on (seed, salt), countered on (global lane,
 iteration, wavefront step, ``STREAM | draw group``).
 
-Not ported: thin-lens DOF and textures, which the JAX kernel refuses too.
+Not ported: textures, which raise NotImplementedError (ROADMAP Slice A).
+A lens camera (``lens_radius > 0``) raises ValueError, a recorded departure
+from the JAX package: its kernel reads only the pinhole slots of the packed
+camera, so on a lens camera it returns a pinhole camera's gradients.
 """
 from __future__ import annotations
 
@@ -49,6 +52,7 @@ from torch import Tensor
 
 from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, TRI_LIGHT, Scene,
+    refuse_textures,
 )
 from tpu_pathtracer_torch.ops.kernels._walk import mesh_walk_ref
 from tpu_pathtracer_torch.ops.kernels.persistent import (
@@ -267,6 +271,7 @@ def camera_jvp_ref(
     bound): ``"paths"`` started, path ``"segments"``, NEE ``"shadow"``
     segments needed, of them ``"lit"`` (unoccluded), and ``"score"``
     vertices (IOR-tangent vertices, summed over the tangents)."""
+    refuse_textures(scene, "camera_jvp_ref")
     dev = cam_packed.device
     D = tangent_rows(dcam, coef_mats).to(dev)
     n_tan = D.shape[0]
@@ -927,23 +932,50 @@ def camera_jvp_call(
     current stream, once per ``MAX_TAN`` tangents (each launch walks the
     same paths; L, n_samp and the ray count are the first one's); on the
     CPU it runs ``camera_jvp_ref``; any other device raises. A mesh must be
-    packed (``models.scene.with_packet_mesh``)."""
+    packed (``models.scene.with_packet_mesh``). A lens (slot 12 of
+    ``cam_packed`` > 0) raises ValueError; that slot is read from the
+    device, one read per call (the gradient entry points below check the
+    Camera's host value instead)."""
+    if cam_packed.device.type not in ("cuda", "cpu"):
+        raise ValueError(
+            f"camera_jvp_call: unsupported device {cam_packed.device}")
+    _refuse_lens(float(cam_packed[12]), "camera_jvp_call")
+    return _tangent_walk(
+        scene, cam_packed, dcam, seed, iteration, spp=spp, budget=budget,
+        width=width, height=height, max_bounces=max_bounces,
+        rr_start=rr_start, tile_rows=tile_rows, use_nee=use_nee,
+        strat_k=strat_k, tile_offset=tile_offset, coef_mats=coef_mats,
+        uniforms=uniforms)
+
+
+def _tangent_walk(scene, cam_packed, dcam, seed, iteration, *, tile_offset=0,
+                  coef_mats=(), uniforms=None, **kw):
+    """camera_jvp_call once the lens has been refused."""
+    refuse_textures(scene, "camera_jvp_call")
     packed_mesh(scene)  # refuses an unpacked mesh
-    kw = dict(spp=spp, budget=budget, width=width, height=height,
-              max_bounces=max_bounces, rr_start=rr_start, tile_rows=tile_rows,
-              use_nee=use_nee, strat_k=strat_k, tile_offset=tile_offset,
-              coef_mats=tuple(coef_mats), uniforms=uniforms)
     dev = cam_packed.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"camera_jvp_call: unsupported device {dev}")
+    kw.update(tile_offset=tile_offset, coef_mats=tuple(coef_mats),
+              uniforms=uniforms)
     if dev.type == "cuda":
         return _camera_jvp_cuda(scene, cam_packed, dcam, seed, iteration, **kw)
-    if dev.type == "cpu":
-        return camera_jvp_ref(scene, cam_packed, dcam, seed, iteration, **kw)
-    raise ValueError(f"camera_jvp_call: unsupported device {dev}")
+    return camera_jvp_ref(scene, cam_packed, dcam, seed, iteration, **kw)
 
 
 # ---------------------------------------------------------------------------
 # Gradients through the tangent walk
 # ---------------------------------------------------------------------------
+
+def _refuse_lens(lens_radius: float, who: str) -> None:
+    """The tangent walk traces pinhole rays; a lens camera's gradients
+    would come out as a pinhole camera's, so it is refused."""
+    if lens_radius > 0.0:
+        raise ValueError(
+            f"{who}: the tangent walk traces a pinhole camera, and this "
+            f"camera has a lens (lens_radius {lens_radius}); its gradients "
+            "would be a pinhole camera's")
+
 
 def _pixel_means(L: Tensor, dL: Tensor, ns: Tensor, width: int, height: int
                  ) -> tuple[Tensor, Tensor]:
@@ -976,6 +1008,7 @@ def camera_weighted_grad(
     one tangent walk per field, every scalar component of the field a
     tangent of it. d pack_camera / d field is ``torch.func.jacfwd`` of
     ``pack_camera`` over the replaced field. Returns (value, {name: grad})."""
+    _refuse_lens(camera.lens_radius, "camera_weighted_grad")
     w, h = camera.width, camera.height
     if budget is None:
         budget = default_budget(spp, max_bounces)
@@ -990,7 +1023,7 @@ def camera_weighted_grad(
                 camera, **{name: v.reshape(base.shape)}))
 
         jac = torch.func.jacfwd(packed_of)(flat)  # (24, n)
-        L, dL, ns, _ = camera_jvp_call(
+        L, dL, ns, _ = _tangent_walk(
             scene, cp, jac.T.contiguous(), seed, iteration, spp=spp,
             budget=budget, width=w, height=h, max_bounces=max_bounces,
             rr_start=rr_start, tile_rows=tile_rows, use_nee=use_nee,
@@ -1007,13 +1040,14 @@ def _ior_walk(scene, camera, seed, *, spp, max_bounces, rr_start, budget,
               tile_rows, use_nee, strat_k, iteration, uniforms, who):
     """One tangent walk with an IOR tangent per transmissive material.
     Returns (pixel mean, its tangents, the materials)."""
+    _refuse_lens(camera.lens_radius, who)
     tmats = transmissive_mats(scene)
     if not tmats:
         raise ValueError(f"{who}: scene has no transmissive material — "
                          "mat_coef has no ior gradient")
     w, h = camera.width, camera.height
     cp = pack_camera(camera)
-    L, dL, ns, _ = camera_jvp_call(
+    L, dL, ns, _ = _tangent_walk(
         scene, cp, cp.new_zeros((0, 24)), seed, iteration, spp=spp,
         budget=default_budget(spp, max_bounces) if budget is None else budget,
         width=w, height=h, max_bounces=max_bounces, rr_start=rr_start,

@@ -1,19 +1,31 @@
-"""Packed mesh layout for the in-kernel BVH walk (host side).
+"""Packed mesh layouts and the wavefront's mesh queries (host side).
 
-Counterpart of ``PackedMesh``, ``_collapse_subtrees`` and ``pack_mesh`` in
-``tpu_pathtracer/ops/pallas/mesh_kernel.py``, with the same fine layout:
-16-float triangle slots ``v0 e1 e2 | material | uv0 uv_e1 uv_e2``, 8 slots
-per 128-float row, every leaf starting on a row, and one leaf block of tail
-padding. Both persistent kernels walk this layout
-(``csrc/pt_common.cuh``, ``ops/kernels/_walk.py``).
+Counterpart of ``tpu_pathtracer/ops/pallas/mesh_kernel.py``:
 
-The standalone packet and bin kernels of that file (``_packet_kernel``,
-``_bin_kernel``) and the coarse nodes-only tree they use are not ported yet
-(ROADMAP Queue 2 items 5 and 6).
+* ``PackedMesh`` / ``pack_mesh``: the fine layout (16-float triangle slots
+  ``v0 e1 e2 | material | uv0 uv_e1 uv_e2``, 8 slots per 128-float row,
+  every leaf starting on a row, one leaf block of tail padding), which both
+  persistent kernels walk too (``csrc/pt_common.cuh``,
+  ``ops/kernels/_walk.py``); and with ``nodes_only=True`` the coarse tree of
+  the two-pass traversal: its leaf cells as flat tables and, with
+  ``fine_leaf``, each coarse node's subtree as a fine-tree node range;
+* ``intersect_mesh_packet``: the closest-hit or any-hit query of a ray wave,
+  with ``t_init`` pruning, the in-call coherence sort, and the two-pass
+  binned traversal (``bin_rays`` maps every ray to the coarse cell it enters
+  nearest; rays sort by (cell, octant, depth), and rays that enter no cell
+  before ``t_init`` are culled);
+* kernel 5, the per-ray walk of the fine tree (``csrc/packet.cu``, which
+  replaces ``_packet_kernel``), and kernel 6, the coarse-cell sweep
+  (``csrc/bin.cu``, which replaces ``_bin_kernel``). Each has its plain
+  PyTorch version here, ``packet_ref`` and ``bin_rays_ref``: a CPU tensor
+  goes to the plain version, a CUDA tensor to the kernel, anything else
+  raises. ``packet_launches`` and ``bin_launches`` count kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -22,14 +34,25 @@ from torch import Tensor
 from tpu_pathtracer_torch.models.mesh import MeshData
 
 LANES = 128
+BIG = 1e30
 TRIS_PER_ROW = 8
 TRI_STRIDE = 16  # floats per triangle slot
+# Lanes per chunk of the plain walk's batched leaf tests (bounds its
+# (lanes, leaf_size, 16) gather).
+_LEAF_CHUNK = 1 << 15
+
+# Kernel launches (plain-version calls are not counted).
+packet_launches = 0
+bin_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedMesh:
     """Packed layout plus a remap back to MeshData triangle ids. ``boxes``
-    and ``meta`` are the node table split as the kernels read it."""
+    and ``meta`` are the node table split as the kernels read it. A coarse
+    tree (``pack_mesh(nodes_only=True)``) has no triangles; its leaf cells
+    are ``cell_boxes``/``cell_ids`` and, with ``fine_leaf``, ``fine_map``
+    holds each coarse node's subtree as a fine-tree node range."""
 
     nodes: Tensor  # (M, 16) f32: min3 max3 skip start count
     tri_rows: Tensor  # (R, 128) f32
@@ -38,16 +61,20 @@ class PackedMesh:
     meta: Tensor  # (M*3,) int32 [skip start count], flat
     leaf_size: int = 32
     num_nodes: int = 0
+    fine_map: Tensor | None = None  # (M, 2) int32 [fine_start, fine_skip)
+    cell_boxes: Tensor | None = None  # (C*6,) f32 leaf-cell AABBs, DFS order
+    cell_ids: Tensor | None = None  # (C,) int32 leaf-cell node ids
 
     @property
     def device(self) -> torch.device:
-        return self.tri_rows.device
+        return self.nodes.device
 
     def to(self, device) -> "PackedMesh":
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device)
                      for f in ("nodes", "tri_rows", "remap", "boxes",
-                               "meta")})
+                               "meta", "fine_map", "cell_boxes", "cell_ids")
+                     if getattr(self, f) is not None})
 
 
 def _collapse_subtrees(node_start, node_count, node_skip, node_min,
@@ -103,23 +130,27 @@ def _collapse_subtrees(node_start, node_count, node_skip, node_min,
 def pack_mesh(mesh: MeshData, collapse_leaf: int = 64,
               nodes_only: bool = False,
               fine_leaf: int | None = None) -> PackedMesh:
-    """Re-pack a built MeshData for the in-kernel walk (leaf-aligned
-    triangles), on the mesh's device. Subtrees of up to ``collapse_leaf``
-    triangles fold into one leaf."""
-    if nodes_only or fine_leaf is not None:
-        raise NotImplementedError(
-            "the coarse nodes-only tree feeds the bin kernel, which is not "
-            "ported to tpu_pathtracer_torch yet (ROADMAP Queue 2 item 6)")
-    node_start = mesh.node_start.cpu().numpy()
-    node_count = mesh.node_count.cpu().numpy()
-    node_skip = mesh.node_skip.cpu().numpy()
-    node_min = mesh.node_min.cpu().numpy()
-    node_max = mesh.node_max.cpu().numpy()
+    """Re-pack a built MeshData for the kernels (leaf-aligned triangles), on
+    the mesh's device. Subtrees of up to ``collapse_leaf`` triangles fold
+    into one leaf. ``nodes_only`` packs the coarse tree of the two-pass
+    traversal instead (no triangles; use a large ``collapse_leaf``, ~1024),
+    and ``fine_leaf`` adds its ``fine_map`` onto the tree that
+    ``collapse_leaf=fine_leaf`` packs (the JAX kernel's hint table, packed
+    as JAX packs it; the port's kernels do not read it)."""
+    arrays = [getattr(mesh, f).cpu().numpy() for f in (
+        "node_start", "node_count", "node_skip", "node_min", "node_max")]
+    node_start, node_count, node_skip, node_min, node_max = arrays
+    dev = mesh.v0.device
+    kept_orig = old_skips = None
     if collapse_leaf and mesh.num_nodes:
         (node_start, node_count, node_skip, node_min,
-         node_max, *_) = _collapse_subtrees(
+         node_max, _o2n, kept_orig, old_skips) = _collapse_subtrees(
             node_start, node_count, node_skip, node_min, node_max,
             collapse_leaf)
+    if nodes_only:
+        return _pack_coarse(arrays, node_start, node_count, node_skip,
+                            node_min, node_max, kept_orig, old_skips,
+                            fine_leaf, dev)
     v0, e1, e2 = (getattr(mesh, f).cpu().numpy() for f in ("v0", "e1", "e2"))
     mat = mesh.material_id.cpu().numpy()
     uv0, uve1, uve2 = (getattr(mesh, f).cpu().numpy()
@@ -169,7 +200,6 @@ def pack_mesh(mesh: MeshData, collapse_leaf: int = 64,
     nodes[:, 7] = new_start
     nodes[:, 8] = node_count
 
-    dev = mesh.v0.device
     return PackedMesh(
         nodes=torch.tensor(nodes, device=dev),
         tri_rows=torch.tensor(tri_rows, device=dev),
@@ -181,3 +211,479 @@ def pack_mesh(mesh: MeshData, collapse_leaf: int = 64,
         leaf_size=leaf_size,
         num_nodes=M,
     )
+
+
+def _pack_coarse(arrays, node_start, node_count, node_skip, node_min,
+                 node_max, kept_orig, old_skips, fine_leaf, dev
+                 ) -> PackedMesh:
+    """The nodes-only tree of the two-pass traversal (JAX ``pack_mesh``
+    with ``nodes_only=True``): node table, leaf-cell tables, and with
+    ``fine_leaf`` the map of each node onto the fine tree's node ranges."""
+    M = len(node_start)
+    nodes = np.zeros((M, 16), np.float32)
+    nodes[:, 0:3] = node_min
+    nodes[:, 3:6] = node_max
+    nodes[:, 6] = node_skip
+    nodes[:, 7] = node_start  # the raw triangle index; the sweep ignores it
+    nodes[:, 8] = node_count
+    fine_map = None
+    if fine_leaf is not None and kept_orig is not None:
+        # A node the coarse collapse keeps is kept by the finer collapse
+        # too, unless it is finer than fine_leaf: such a node gets no hint.
+        o2n_f = _collapse_subtrees(*arrays, fine_leaf)[5]
+        fs, fe = o2n_f[kept_orig], o2n_f[old_skips]
+        ok = (fs >= 0) & (fe >= 0)
+        fine_map = torch.tensor(
+            np.stack([np.where(ok, fs, 0), np.where(ok, fe, 0)],
+                     axis=1).astype(np.int32), device=dev)
+    leaf_sel = np.nonzero(node_count > 0)[0]
+    return PackedMesh(
+        nodes=torch.tensor(nodes, device=dev),
+        tri_rows=torch.zeros((1, LANES), dtype=torch.float32, device=dev),
+        remap=torch.full((1,), -1, dtype=torch.int32, device=dev),
+        boxes=torch.tensor(nodes[:, 0:6].reshape(-1), device=dev),
+        meta=torch.tensor(nodes[:, 6:9].astype(np.int32).reshape(-1),
+                          device=dev),
+        leaf_size=int(node_count.max()) if M else 0,
+        num_nodes=M,
+        fine_map=fine_map,
+        cell_boxes=torch.tensor(
+            np.concatenate([node_min[leaf_sel], node_max[leaf_sel]], axis=1)
+            .reshape(-1).astype(np.float32), device=dev),
+        cell_ids=torch.tensor(leaf_sel.astype(np.int32), device=dev),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of kernels 5 and 6
+# ---------------------------------------------------------------------------
+
+def _safe_inv(a: Tensor) -> Tensor:
+    """1/a with |a| clamped to 1e-12, keeping its sign (slab tests of
+    axis-parallel rays)."""
+    s = torch.where(torch.abs(a) > 1e-12, a,
+                    torch.where(a >= 0, 1e-12, -1e-12))
+    return 1.0 / s
+
+
+def _slab(b: Tensor, ox, oy, oz, ix, iy, iz) -> tuple[Tensor, Tensor]:
+    """(tn, tf) of rays against boxes b (..., 6) [min3 max3], in the
+    kernels' operation order."""
+    tx0 = (b[..., 0] - ox) * ix
+    tx1 = (b[..., 3] - ox) * ix
+    ty0 = (b[..., 1] - oy) * iy
+    ty1 = (b[..., 4] - oy) * iy
+    tz0 = (b[..., 2] - oz) * iz
+    tz1 = (b[..., 5] - oz) * iz
+    tn = torch.maximum(torch.maximum(torch.minimum(tx0, tx1),
+                                     torch.minimum(ty0, ty1)),
+                       torch.minimum(tz0, tz1))
+    tf = torch.minimum(torch.minimum(torch.maximum(tx0, tx1),
+                                     torch.maximum(ty0, ty1)),
+                       torch.maximum(tz0, tz1))
+    return tn, tf
+
+
+def bin_rays_ref(coarse: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
+                 tmin: float, counts: dict | None = None
+                 ) -> tuple[Tensor, Tensor]:
+    """Plain version of kernel 6: per ray, the coarse leaf cell whose box it
+    enters nearest (clamped entry distance; ties to the first cell in DFS
+    order) among cells entered before ``t_init``, and that distance. Lanes
+    with ``t_init <= 0`` or no such cell get (-1, BIG). ``counts['cells']``
+    adds the cell tests of live lanes."""
+    live = t_init > 0.0
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    ix, iy, iz = (_safe_inv(d[:, k]) for k in range(3))
+    boxes = coarse.cell_boxes.reshape(-1, 6)
+    best = torch.full_like(t_init, BIG)
+    cell = torch.full(t_init.shape, -1, dtype=torch.int32, device=o.device)
+    for c in range(boxes.shape[0]):
+        tn, tf = _slab(boxes[c], ox, oy, oz, ix, iy, iz)
+        tn_eff = torch.clamp_min(tn, 0.0)
+        better = (live & (tn <= tf) & (tf > tmin)
+                  & (tn < torch.minimum(t_init, best)) & (tn_eff < best))
+        best = torch.where(better, tn_eff, best)
+        cell = torch.where(better, coarse.cell_ids[c], cell)
+    if counts is not None:
+        counts["cells"] = (counts.get("cells", 0)
+                           + int(live.sum()) * boxes.shape[0])
+    return cell, best
+
+
+def _mt_terms(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z, e2x,
+              e2y, e2z):
+    """Moller-Trumbore's determinant and the numerators of u, v and t, in
+    the kernel's operation order (u = nu / det, v = nv / det, t = nt /
+    det)."""
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    return (det, tvx * px + tvy * py + tvz * pz, dx * qx + dy * qy + dz * qz,
+            e2x * qx + e2y * qy + e2z * qz)
+
+
+def _leaf_tests(slots: Tensor, leaf_size: int, start: Tensor, count: Tensor,
+                o: Tensor, d: Tensor, t: Tensor, tmin: float
+                ) -> tuple[Tensor, Tensor, Tensor]:
+    """Moller-Trumbore of rays (A,) against their leaves' triangles, in the
+    kernel's operation order: (any valid, closest t, its slot). The kernel
+    tests a leaf in slot order with strict < updates, which keeps the first
+    slot of the smallest t; so does argmin over the valid t."""
+    j = torch.arange(leaf_size, device=o.device)
+    rows = slots[start[:, None] + j]  # (A, J, 16)
+    det, nu, nv, nt = _mt_terms(*(o[:, k, None] for k in range(3)),
+                                *(d[:, k, None] for k in range(3)),
+                                *(rows[..., k] for k in range(9)))
+    inv_det = 1.0 / det  # det = 0 gives inf/NaN, which every compare rejects
+    uu, vv, tt = nu * inv_det, nv * inv_det, nt * inv_det
+    valid = ((j[None, :] < count[:, None]) & (uu >= 0.0) & (vv >= 0.0)
+             & (uu + vv <= 1.0) & (tt > tmin) & (tt < t[:, None]))
+    tt = torch.where(valid, tt, torch.inf)
+    jmin = torch.argmin(tt, dim=1)
+    return (valid.any(dim=1), tt.gather(1, jmin[:, None])[:, 0],
+            start + jmin)
+
+
+def _walk_ref(packed: PackedMesh, lanes: Tensor, o: Tensor, d: Tensor,
+              inv: Tensor, t: Tensor, slot: Tensor, tmin: float,
+              any_hit: bool, counts: dict | None) -> None:
+    """Advance every lane in ``lanes`` one node per step through the
+    skip-link tree from the root to its end, updating t and slot in
+    place."""
+    M = packed.num_nodes
+    boxes = packed.boxes.reshape(M, 6)
+    meta = packed.meta.reshape(M, 3).to(torch.int64)
+    slots = packed.tri_rows.reshape(-1, TRI_STRIDE)
+    node = torch.zeros_like(lanes)
+    while lanes.numel():
+        keep = node < M
+        lanes, node = lanes[keep], node[keep]
+        if not lanes.numel():
+            break
+        lo, ld, li, lt = o[lanes], d[lanes], inv[lanes], t[lanes]
+        tn, tf = _slab(boxes[node], lo[:, 0], lo[:, 1], lo[:, 2],
+                       li[:, 0], li[:, 1], li[:, 2])
+        box_hit = (tn <= tf) & (tf > tmin) & (tn < lt)
+        if any_hit:
+            box_hit &= lt > 0.0
+        m = meta[node]
+        skip, start, count = m[:, 0], m[:, 1], m[:, 2]
+        leaf = torch.nonzero(box_hit & (count > 0))[:, 0]
+        if counts is not None:
+            counts["nodes"] = counts.get("nodes", 0) + lanes.numel()
+            counts["tris"] = counts.get("tris", 0) + int(count[leaf].sum())
+        done = torch.zeros_like(box_hit)
+        for c0 in range(0, leaf.numel(), _LEAF_CHUNK):
+            sub = leaf[c0:c0 + _LEAF_CHUNK]
+            g = lanes[sub]
+            hit, tt, ss = _leaf_tests(slots, packed.leaf_size, start[sub],
+                                      count[sub], lo[sub], ld[sub], lt[sub],
+                                      tmin)
+            if any_hit:
+                t[g] = torch.where(hit, 0.0, t[g])
+                done[sub] = hit
+            else:
+                t[g] = torch.where(hit, tt, t[g])
+                slot[g] = torch.where(hit, ss, slot[g])
+        node = torch.where(box_hit & (count == 0), node + 1, skip)
+        # an occluded lane's boxes all fail from here on: retire it
+        node = torch.where(done, M, node)
+
+
+def _attributes(packed: PackedMesh, o: Tensor, d: Tensor, slot: Tensor,
+                found: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """Normal, uv and material of the winning slot, resolved after the walk
+    (the JAX package's ``defer_attrs`` route), 0 where nothing was found:
+    the geometric normal cross(e1, e2) normalized, the uv from the
+    barycentrics, in the kernel's operation order."""
+    row = packed.tri_rows.reshape(-1, TRI_STRIDE)[slot]
+    e1x, e1y, e1z = row[:, 3], row[:, 4], row[:, 5]
+    e2x, e2y, e2z = row[:, 6], row[:, 7], row[:, 8]
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    nlen = torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-20))
+    det, nu, nv, _ = _mt_terms(*(o[:, k] for k in range(3)),
+                               *(d[:, k] for k in range(3)),
+                               *(row[:, k] for k in range(9)))
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-12, det, 1.0)
+    uu, vv = nu * inv_det, nv * inv_det
+    f = found[:, None]
+    n = torch.where(f, torch.stack([nx / nlen, ny / nlen, nz / nlen], -1), 0.0)
+    uv = torch.where(f, torch.stack([row[:, 10] + uu * row[:, 12]
+                                     + vv * row[:, 14],
+                                     row[:, 11] + uu * row[:, 13]
+                                     + vv * row[:, 15]], -1), 0.0)
+    mat = torch.where(found, row[:, 9].to(torch.int32), 0)
+    return n, uv, mat
+
+
+def packet_ref(packed: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
+               tmin: float, any_hit: bool = False,
+               counts: dict | None = None):
+    """Plain version of kernel 5: every live lane (``t_init > 0``) walks the
+    fine tree from t = t_init, descending a node whose box it enters before
+    its current t, testing a leaf's triangles with Moller-Trumbore and
+    keeping a strictly closer hit; ``any_hit`` stops at the first one with
+    t = 0. Returns (t, slot, n, uv, mat): t is 0 on dead lanes and t_init
+    where nothing is closer; the attributes are 0 where no closer hit was
+    found and in ``any_hit``. ``counts`` adds nodes entered, triangles
+    tested and hits found (whose attributes are resolved)."""
+    N = o.shape[0]
+    live = t_init > 0.0
+    t = torch.where(live, t_init, 0.0)
+    slot = torch.zeros(N, dtype=torch.int64, device=o.device)
+    _walk_ref(packed, torch.nonzero(live)[:, 0], o, d, _safe_inv(d), t, slot,
+              tmin, any_hit, counts)
+    found = live & (t < t_init)
+    if any_hit:
+        found = torch.zeros_like(found)
+    if counts is not None:
+        counts["found"] = counts.get("found", 0) + int(found.sum())
+    n, uv, mat = _attributes(packed, o, d, slot, found)
+    return t, torch.where(found, slot, 0).to(torch.int32), n, uv, mat
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _kernels():
+    """The bound C entry points of csrc/packet.cu and csrc/bin.cu."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    packet = lib.tpt_packet
+    packet.argtypes = [p, p, p,  # o (N,3), d (N,3), t_init (N,)
+                       p, p, p, i,  # boxes, meta, slots, n_nodes
+                       i, f, i,  # n, tmin, any_hit
+                       p, p, p, p, p,  # t, slot, n (N,3), uv (N,2), mat
+                       p]  # cudaStream_t
+    packet.restype = i
+    binf = lib.tpt_bin
+    binf.argtypes = [p, p, p,  # o, d, t_init
+                     p, p, i,  # cell boxes (C*6), cell ids (C), C
+                     i, f,  # n, tmin
+                     p, p,  # cell (N,) int32, tn (N,)
+                     p]  # cudaStream_t
+    binf.restype = i
+    lib.tpt_error_string.argtypes = [i]
+    lib.tpt_error_string.restype = ctypes.c_char_p
+    return packet, binf, lib.tpt_error_string
+
+
+def _checked(t: Tensor, name: str, dtype, shape: tuple, dev) -> Tensor:
+    """t as a contiguous tensor of dtype on dev, shape checked."""
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: want a {dtype} tensor of shape {shape} on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.contiguous()
+
+
+def _raise_on(err: int, what: str, error_string) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{error_string(err).decode()} ({err})")
+
+
+def _packet_cuda(packed, o, d, t_init, tmin, any_hit):
+    global packet_launches
+    dev = o.device
+    N = o.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    M = packed.num_nodes
+    o = _checked(o, "o", f32, (N, 3), dev)
+    d = _checked(d, "d", f32, (N, 3), dev)
+    t_init = _checked(t_init, "t_init", f32, (N,), dev)
+    boxes = _checked(packed.boxes, "boxes", f32, (M * 6,), dev)
+    meta = _checked(packed.meta, "meta", i32, (M * 3,), dev)
+    slots = _checked(packed.tri_rows, "tri_rows", f32,
+                     tuple(packed.tri_rows.shape), dev)
+    t = torch.empty(N, dtype=f32, device=dev)
+    slot = torch.empty(N, dtype=i32, device=dev)
+    n = torch.empty((N, 3), dtype=f32, device=dev)
+    uv = torch.empty((N, 2), dtype=f32, device=dev)
+    mat = torch.empty(N, dtype=i32, device=dev)
+    if N == 0:
+        return t, slot, n, uv, mat
+    packet, _, error_string = _kernels()
+    with torch.cuda.device(dev):
+        err = packet(o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
+                     boxes.data_ptr(), meta.data_ptr(), slots.data_ptr(), M,
+                     N, float(tmin), int(any_hit), t.data_ptr(),
+                     slot.data_ptr(), n.data_ptr(), uv.data_ptr(),
+                     mat.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "packet kernel", error_string)
+    packet_launches += 1
+    return t, slot, n, uv, mat
+
+
+def _bin_cuda(coarse, o, d, t_init, tmin):
+    global bin_launches
+    dev = o.device
+    N = o.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    C = coarse.cell_ids.shape[0]
+    o = _checked(o, "o", f32, (N, 3), dev)
+    d = _checked(d, "d", f32, (N, 3), dev)
+    t_init = _checked(t_init, "t_init", f32, (N,), dev)
+    cboxes = _checked(coarse.cell_boxes, "cell_boxes", f32, (C * 6,), dev)
+    cids = _checked(coarse.cell_ids, "cell_ids", i32, (C,), dev)
+    cell = torch.empty(N, dtype=i32, device=dev)
+    tn = torch.empty(N, dtype=f32, device=dev)
+    if N == 0:
+        return cell, tn
+    _, binf, error_string = _kernels()
+    with torch.cuda.device(dev):
+        err = binf(o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
+                   cboxes.data_ptr(), cids.data_ptr(), C, N, float(tmin),
+                   cell.data_ptr(), tn.data_ptr(),
+                   torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "bin kernel", error_string)
+    bin_launches += 1
+    return cell, tn
+
+
+def packet_query(packed: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
+                 tmin: float, any_hit: bool = False):
+    """Kernel 5 on CUDA tensors, ``packet_ref`` on CPU tensors; (t, slot, n,
+    uv, mat) as ``packet_ref`` returns them."""
+    dev = o.device
+    if dev.type == "cuda":
+        return _packet_cuda(packed, o, d, t_init, tmin, any_hit)
+    if dev.type == "cpu":
+        return packet_ref(packed, o, d, t_init, tmin, any_hit)
+    raise ValueError(f"packet_query: unsupported device {dev}")
+
+
+def bin_rays(coarse: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
+             tmin: float) -> tuple[Tensor, Tensor]:
+    """(cell, tn): kernel 6 on CUDA tensors, ``bin_rays_ref`` on CPU
+    tensors. cell is the nearest coarse cell's node id (-1: provably no mesh
+    hit before t_init, or a dead lane), tn its clamped entry distance (BIG
+    when none)."""
+    dev = o.device
+    if dev.type == "cuda":
+        return _bin_cuda(coarse, o, d, t_init, tmin)
+    if dev.type == "cpu":
+        return bin_rays_ref(coarse, o, d, t_init, tmin)
+    raise ValueError(f"bin_rays: unsupported device {dev}")
+
+
+# ---------------------------------------------------------------------------
+# The wave query
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PacketHit:
+    """Closest-hit record with the kernel-resolved shading attributes."""
+
+    t: Tensor  # (N,) BIG on a miss
+    tri: Tensor  # (N,) original MeshData triangle id (or slot, want_tri=False)
+    n: Tensor  # (N, 3) geometric normal
+    uv: Tensor  # (N, 2) interpolated texture uv
+    mat: Tensor  # (N,) material id
+
+
+def _octant(d: Tensor) -> Tensor:
+    return ((d[:, 0] < 0).to(torch.int32) * 4
+            + (d[:, 1] < 0).to(torch.int32) * 2
+            + (d[:, 2] < 0).to(torch.int32))
+
+
+def packet_sort_key(o: Tensor, d: Tensor, alive: Tensor | None = None
+                    ) -> Tensor:
+    """Ray-coherence sort key: direction octant (major) and a 16^3 origin
+    cell (minor); dead lanes sort last."""
+    oct_ = _octant(d)
+    lo = torch.amin(o, dim=0)
+    hi = torch.amax(o, dim=0)
+    q = torch.clamp(((o - lo) / torch.clamp_min(hi - lo, 1e-6) * 15.0)
+                    .to(torch.int32), 0, 15)
+    cell = (q[:, 0] * 16 + q[:, 2]) * 16 + q[:, 1]
+    key = oct_ * 4096 + cell
+    if alive is not None:
+        key = torch.where(alive, key, 1 << 20)
+    return key
+
+
+def intersect_mesh_packet(
+    packed: PackedMesh, o: Tensor, d: Tensor, tmin: float, sort: bool = True,
+    t_init: Tensor | None = None, any_hit: bool = False,
+    coarse: PackedMesh | None = None, hints: Tensor | None = None,
+    want_tri: bool = True,
+) -> PacketHit:
+    """Closest-hit (or, ``any_hit``, occlusion) query of N rays against the
+    packed mesh; the contract of the JAX function of the same name.
+
+    ``t_init`` (N,): the walk only finds hits strictly closer; lanes with
+    ``t_init <= 0`` are dead. t equals t_init (or BIG) where no closer hit
+    exists. ``any_hit``: the first occluder sets t = 0, and tri, n, uv and
+    mat are zeros. ``sort`` groups rays by ``packet_sort_key`` before the
+    walk and un-permutes the results; with ``coarse`` it is the two-pass
+    binned traversal: ``bin_rays`` maps rays to their nearest coarse cell,
+    rays sort by (cell, octant, quantized entry depth), and rays that enter
+    no cell before t_init skip the walk. ``want_tri=False`` returns the
+    padded slot id instead of the MeshData triangle id. ``hints`` (the JAX
+    kernel's per-tile fine-tree ranges to walk first) order the TPU's shared
+    tile walk and do not change the result; the CUDA kernel walks every ray
+    from the root, one launch per wave, so they are accepted and ignored
+    (the TPU's ``tile_rows`` has no counterpart here)."""
+    n = o.shape[0]
+    if t_init is None:
+        t_init = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
+    if sort:
+        live = t_init > 0.0
+        if coarse is not None:
+            cell, btn = bin_rays(coarse, o, d, t_init, tmin)
+            has = (cell >= 0) & live
+            root = coarse.nodes[0]
+            diag = torch.sqrt(torch.sum((root[3:6] - root[0:3]) ** 2))
+            tq = torch.clamp(btn * (64.0 / torch.clamp_min(diag, 1e-6)),
+                             0.0, 63.0).to(torch.int32)
+            key = torch.where(has, ((cell * 8 + _octant(d)) << 6) | tq,
+                              1 << 26)
+            t_eff = torch.where(has, t_init, 0.0)
+        else:
+            key = packet_sort_key(o, d, alive=live)
+            t_eff = t_init
+        perm = torch.argsort(key, stable=True)
+        rays = torch.cat([o, d, t_eff[:, None]], dim=1)[perm]
+        hit = intersect_mesh_packet(
+            packed, rays[:, 0:3], rays[:, 3:6], tmin, sort=False,
+            t_init=rays[:, 6], any_hit=any_hit, want_tri=want_tri)
+
+        def unsort(a: Tensor) -> Tensor:
+            out = torch.empty_like(a)
+            out[perm] = a
+            return out
+
+        t_u = unsort(hit.t)
+        if coarse is not None:
+            # culled live lanes have no mesh hit before t_init
+            t_u = torch.where(live & ~has, t_init, t_u)
+        if any_hit:
+            return dataclasses.replace(hit, t=t_u)
+        return PacketHit(t=t_u, tri=unsort(hit.tri), n=unsort(hit.n),
+                         uv=unsort(hit.uv), mat=unsort(hit.mat))
+    t, slot, nrm, uv, mat = packet_query(packed, o, d, t_init, tmin,
+                                         any_hit)
+    pos = torch.where(t_init > 0.0, t_init, 0.0)
+    found = t < pos
+    t_out = torch.where(found, t, torch.where(t_init > 0.0, t_init, BIG))
+    if any_hit:  # only t is meaningful: the attributes are zeros
+        tri = torch.zeros_like(slot)
+    elif want_tri:
+        tri = torch.where(found, packed.remap[slot.to(torch.int64)], 0)
+    else:
+        tri = slot
+    return PacketHit(t=t_out, tri=tri, n=nrm, uv=uv, mat=mat)

@@ -28,7 +28,8 @@ Scenes may hold a triangle mesh, packed by ``models/scene.py::
 with_packet_mesh``: the closest hit merges the in-kernel BVH walk into the
 sphere pass, triangles of a TRI_LIGHT's material emit, NEE samples triangle
 lights by area, and shadow rays walk the mesh in occlusion mode. Not ported
-yet: thin-lens DOF and textures.
+yet: thin-lens DOF and textures; a textured scene raises
+NotImplementedError (the wavefront integrator renders it).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from torch import Tensor
 
 from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, TRI_LIGHT, Scene,
+    refuse_textures,
 )
 from tpu_pathtracer_torch.ops.kernels._walk import mesh_walk_ref
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
@@ -565,6 +567,7 @@ def persistent_step_ref(
     """Plain PyTorch version of ``persistent_step``: the JAX kernel's lane
     math, vectorized over all lanes at once with masked selects. Returns a
     new state (the input is not modified) and the live-ray count."""
+    refuse_textures(scene, "persistent_step_ref")
     dev = state.lr.device
     rows_total = state.lr.shape[0]
     n_tiles = rows_total // tile_rows
@@ -1029,6 +1032,7 @@ def persistent_step(
     state on the CPU it runs ``persistent_step_ref``, which returns new
     tensors. Any other device raises.
     """
+    refuse_textures(scene, "persistent_step")
     kw = dict(budget=budget, width=width, height=height,
               max_bounces=max_bounces, rr_start=rr_start,
               tile_rows=tile_rows, use_nee=use_nee, strat_k=strat_k,

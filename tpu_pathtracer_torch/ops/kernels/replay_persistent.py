@@ -29,8 +29,9 @@ gradient walk from replaying a forward render's paths.
 Mesh scenes (packed by ``models/scene.py::with_packet_mesh``) walk the mesh
 in-kernel as the forward step does; a mesh vertex routes its adjoint to its
 material's slot, and a TRI_LIGHT's emission and NEE credit its intensity
-adjoint. Not ported yet: thin-lens DOF (ROADMAP Queue 1 item 7), textures,
-the ``"scatter"`` phase and the chunked textured driver (items 10 and 12).
+adjoint. Not ported yet: thin-lens DOF (ROADMAP Queue 1 item 7), textures
+(a textured scene raises NotImplementedError), the ``"scatter"`` phase and
+the chunked textured driver (items 10 and 12).
 """
 from __future__ import annotations
 
@@ -42,7 +43,7 @@ import torch
 from torch import Tensor
 
 from tpu_pathtracer_torch.models.scene import (
-    AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, Scene,
+    AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, Scene, refuse_textures,
 )
 from tpu_pathtracer_torch.ops.kernels.persistent import (
     _MASK, _check, _f32_add, _f32_div, camera_dirs, dot3_fma,
@@ -192,6 +193,7 @@ def persistent_replay_ref(
     returns; if ``counts`` is a dict it also receives ``"shadow"``, the NEE
     shadow segments traced (for the kernel's bound, which the kernel does
     not count)."""
+    refuse_textures(scene, "persistent_replay_ref")
     _check_route(use_dof, phase)
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
@@ -681,6 +683,7 @@ def persistent_replay_call(
     the CUDA kernel on the current stream; on the CPU it runs
     ``persistent_replay_ref``; any other device raises.
     """
+    refuse_textures(scene, "persistent_replay_call")
     _check_route(use_dof, phase)
     kw = dict(spp=spp, budget=budget, width=width, height=height,
               max_bounces=max_bounces, rr_start=rr_start,

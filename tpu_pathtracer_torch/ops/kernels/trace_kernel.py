@@ -11,6 +11,7 @@ import math
 import torch
 from torch import Tensor
 
+from tpu_pathtracer_torch.models.camera import refuse_lens
 from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, TRI_LIGHT, Scene, prim_attrs,
 )
@@ -23,10 +24,15 @@ INV_PI = 1.0 / math.pi
 def pack_camera(camera) -> Tensor:
     """(24,) f32: first_ray_dir[0:3], px_x[3:6], px_y[6:9], pos[9:12],
     lens_radius[12], focal_distance[13], view rows u[14:17], v[17:20],
-    w[20:23], pad[23]."""
+    w[20:23], pad[23]. A lens camera raises NotImplementedError: no kernel
+    of the port reads the lens slots yet, and every route that packs a
+    camera (the persistent renderer, the trainer, the gradient calls) would
+    render it as a pinhole camera."""
+    refuse_lens(camera, "pack_camera (the port's kernels trace pinhole rays)")
     return torch.cat([
         camera.first_ray_dir, camera.px_x, camera.px_y, camera.pos,
-        camera.lens_radius[None], camera.focal_distance[None],
+        camera.focal_distance.new_full((1,), camera.lens_radius),
+        camera.focal_distance[None],
         camera.view[0], camera.view[1], camera.view[2],
         torch.zeros(1, dtype=torch.float32, device=camera.device),
     ]).to(torch.float32)

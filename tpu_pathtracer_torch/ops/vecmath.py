@@ -50,3 +50,53 @@ def normalize3(x, y, z):
     """SoA normalize through rsqrt with the kernels' 1e-20 clamp."""
     inv = torch.rsqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
     return x * inv, y * inv, z * inv
+
+
+def distance_sq(a: Tensor, b: Tensor) -> Tensor:
+    return length_sq(a - b)
+
+
+def distance(a: Tensor, b: Tensor) -> Tensor:
+    return length(a - b)
+
+
+def lerp(t: Tensor, v1: Tensor, v2: Tensor) -> Tensor:
+    """(1-t)*v1 + t*v2 (reference globals.h:103-105)."""
+    return (1.0 - t) * v1 + t * v2
+
+
+def luminance(c: Tensor) -> Tensor:
+    """Rec.601 luma (reference Color::Y)."""
+    w = torch.tensor([0.212671, 0.715160, 0.072169], dtype=c.dtype,
+                     device=c.device)
+    return torch.sum(c * w, dim=-1)
+
+
+def max_component(c: Tensor) -> Tensor:
+    """Max RGB component (drives Russian roulette)."""
+    return torch.amax(c, dim=-1)
+
+
+def is_black(c: Tensor, eps: float = 0.0) -> Tensor:
+    """True where a colour has no contribution."""
+    return torch.all(c <= eps, dim=-1)
+
+
+def orthonormal_basis(n: Tensor) -> tuple[Tensor, Tensor]:
+    """(u, v) completing unit normal n to a right-handed frame, with the
+    JAX package's branch and a normalized tangent."""
+    cond = (torch.abs(n[..., 0]) > torch.abs(n[..., 2]))[..., None]
+    zero = torch.zeros_like(n[..., 0])
+    u = torch.where(
+        cond,
+        torch.stack([-n[..., 1], n[..., 0], zero], dim=-1),
+        torch.stack([zero, -n[..., 2], n[..., 1]], dim=-1),
+    )
+    u = normalize(u)
+    return u, cross(n, u)
+
+
+def to_world(local: Tensor, n: Tensor) -> Tensor:
+    """Rotate a z-up local-frame vector into the frame around normal n."""
+    u, v = orthonormal_basis(n)
+    return u * local[..., 0:1] + v * local[..., 1:2] + n * local[..., 2:3]

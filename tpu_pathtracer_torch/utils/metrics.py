@@ -146,3 +146,69 @@ def tangent_lane_agreement(a, b, width: int, height: int,
     planes = [(f"dL[{j}][{'rgb'[c]}]", dLa[j, ..., c], dLb[j, ..., c])
               for j in range(dLa.shape[0]) for c in range(3)]
     return _plane_agreement(La, na, Lb, nb, planes, width * height, dl_tol)
+
+
+# Kernels 5 and 6 against their plain versions (chip_smoke.py phases 17,
+# 18 and 21): hit/miss and triangle (any-hit: occlusion) equal on
+# PACKET_AGREE of lanes, t within PACKET_T_TOL * max(1, t) and the normal,
+# uv and material equal there, and of the n lanes that differ, one sign of
+# dt in excess by at most SIGN_Z * sqrt(n); coarse cells equal on
+# PACKET_AGREE of lanes and their entry distance within BIN_TN_RTOL.
+PACKET_AGREE = 0.999
+PACKET_T_TOL = 1e-5
+BIN_TN_RTOL = 1e-6
+SIGN_Z = 6.0
+
+
+def packet_agreement(k, r, t_init, any_hit: bool) -> dict:
+    """Two answers to one packet query, each (t, id, n, uv, mat) with id the
+    triangle or the slot, against the bars above: the share of lanes that
+    agree, the share of hits, the largest |dt| on agreeing hits, whether t
+    and the attributes hold on the agreeing lanes (``t_ratio``: the largest
+    |dt| over its allowance there, 1.0 is the bar; ``attr_diff``: the
+    largest difference of n or uv and the count of unequal materials), the
+    lanes that differ and the sign balance over them (1.0 is the bar), and
+    ``ok``."""
+    lim = torch.where(t_init > 0, t_init, 0.0)
+    hk, hr = k[0] < lim, r[0] < lim
+    same = hk == hr
+    if not any_hit:
+        same &= ~hr | (k[1] == r[1])
+    dt = (k[0] - r[0]).abs()
+    ratio = dt[same] / (PACKET_T_TOL * r[0][same].abs().clamp_min(1.0))
+    t_ratio = float(ratio.max()) if ratio.numel() else 0.0
+    attrs_ok = any_hit or all(torch.equal(a[same], b[same].to(a.dtype))
+                              for a, b in zip(k[2:], r[2:]))
+    gaps = [float((a[same] - b[same].to(a.dtype)).abs().max())
+            if bool(same.any()) else 0.0 for a, b in zip(k[2:4], r[2:4])]
+    mat_off = int((k[4][same] != r[4][same].to(k[4].dtype)).sum())
+    off = ~same
+    n_off = int(off.sum())
+    excess = abs(int(((k[0] > r[0]) & off).sum())
+                 - int(((k[0] < r[0]) & off).sum()))
+    agreeing_hits = same & hr
+    out = dict(agree=float(same.double().mean()),
+               hits=float(hr.double().mean()),
+               max_abs_err=float(dt[agreeing_hits].max())
+               if bool(agreeing_hits.any()) else 0.0,
+               t_ok=t_ratio <= 1.0, t_ratio=t_ratio, attrs_ok=attrs_ok,
+               attr_diff=(max(gaps), mat_off), n_off=n_off,
+               sign=excess / (SIGN_Z * n_off ** 0.5) if n_off else 0.0)
+    out["ok"] = (out["agree"] >= PACKET_AGREE and out["t_ok"] and attrs_ok
+                 and out["sign"] <= 1.0)
+    return out
+
+
+def bin_agreement(k, r) -> dict:
+    """Two (cell, tn) answers of the coarse-cell sweep against the bars
+    above: the share of equal cells, tn's largest relative and absolute
+    (on binned lanes) differences where the cells agree, and ``ok``."""
+    same = k[0] == r[0]
+    gap = (k[1] - r[1]).abs()
+    binned = same & (r[0] >= 0)
+    out = dict(agree=float(same.double().mean()),
+               tn_rel=float((gap / r[1].abs().clamp_min(1e-30))[same].max())
+               if bool(same.any()) else 0.0,
+               tn_abs=float(gap[binned].max()) if bool(binned.any()) else 0.0)
+    out["ok"] = out["agree"] >= PACKET_AGREE and out["tn_rel"] <= BIN_TN_RTOL
+    return out
