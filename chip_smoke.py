@@ -5,8 +5,9 @@ print one line; any failure exits non-zero:
 
 1. environment: versions, the card, its power limit, nvcc, triton;
 2. build: compiles csrc/*.cu for sm_90a, one nvcc per source started
-   together, and links both kernels into one library under
-   build/tpu_pathtracer_torch/;
+   together, and links the kernels into one library under
+   build/tpu_pathtracer_torch/; prints registers, stack and spill bytes of
+   every build (kernel and template arguments);
 3. kernel vs plain PyTorch version on the card, with the same injected
    uniforms (cornell 160x120 brute force and NEE, the point-light scene with
    NEE) and with the production Philox draws; >= 98% of lanes must agree on
@@ -121,7 +122,35 @@ print one line; any failure exits non-zero:
    shadow, at its full 2M lanes, sorted as the kernels received it) runs
    again through the plain versions on the same inputs: both kernels' answers
    are held to phases 17 and 18's bars there, the plain versions' counts of
-   that work give both kernels' bounds, and their ms per wave is printed.
+   that work give both kernels' bounds, and their ms per wave is printed;
+22. the forward kernel with a thin lens (radius 4, focused at 60) against
+   its plain version at 160x120: cornell_spheres and cornell_boxes, brute
+   force and NEE (7 and 10 draws), injected and Philox, phase 11's bars;
+23. the lens main path: PersistentRenderer with the lens on both scenes in
+   both modes at 640x480, budget 16, to 4 spp, every launch checked as in
+   phase 4; each image differs from the pinhole render (max |d| > 0.05);
+24. the gradient kernel with the lens against its plain version (phase 7's
+   checks at 160x120), and the lens trainer at config 5 (brute force and
+   NEE, target + 5 Adam steps: the loss falls, the last launch replayed and
+   checked by phase 7's bars);
+25. the forward kernel with textures against its plain version at
+   640x480, NEE: the checker quad of the JAX suite and terrain_textured(32)
+   (1,922 triangles), injected and Philox, phase 11's bars; the textured
+   main path (PersistentRenderer on terrain32, 3 bounces, to 4 spp, every
+   launch checked); both checker tiles through the renderer; terrain32
+   through the persistent kernel against the wavefront in image mean (256x256,
+   64 spp, within MEAN_TOL);
+26. config 4 at full width through the persistent kernel: the terrain at
+   1024x1024, 3 bounces, NEE, PersistentRenderer, render_to(2) (launches
+   counted), its mean within MEAN_TOL of phase 19's wavefront image; every
+   launch replayed and checked as in phase 4 on three bands of tiles (top,
+   middle, bottom of the image), each band also launched alone and equal
+   bit for bit to the whole launch's; ms to 2 spp (median of REPS) beside
+   phase 21's wavefront frame, the kernel's ms per launch and the idle
+   share from one trace (the bound is a lower bound);
+27. times by phase 6's and 10's protocol: the forward kernel and the
+   gradient with the lens on cornell_spheres; the forward kernel on
+   terrain32 textured and with its texture stripped.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -133,6 +162,11 @@ The line before the last prints one JSON object {"kernels": [...]} and the
 card's name and power limit precede it. The last line of standard output
 is ``{"ok": true, "device": {...}}``. Run it with no arguments from the
 repository root: ``python3 chip_smoke.py``.
+
+``python3 chip_smoke.py --ab CHECKOUT`` runs no phase: it compares the
+persistent kernels' device ms per launch, and their outputs bit for bit,
+on the pinhole, untextured workloads of phases 6, 10, 12 and 13, between
+this checkout and another (``ab``), about two minutes with the builds.
 """
 from __future__ import annotations
 
@@ -176,6 +210,9 @@ OPS = {
     "adjoint_segment": 7,  # nA, cA at the vertex
     "adjoint_flush_slot": 9,  # GA at completion, per material slot
     "adjoint_flush_light": 3,  # GI at completion, per light
+    "lens": 45,  # thin_lens() of a regenerated path
+    "uv": 8,  # the winner's uv at a found mesh hit (mesh_walk_uv)
+    "texel": 51,  # texel(): wrap and taps 12, blend 36, colour product 3
     "walk": 6,  # reciprocal direction of a ray's BVH walk
     "slab": 22,  # slab test per node entered
     "tri": 45,  # Moller-Trumbore per triangle tested
@@ -231,26 +268,75 @@ def phase_environment():
 
 
 def phase_build():
+    """Build the library; print registers, stack and spills per build."""
     from tpu_pathtracer_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
     path, compile_s = _build.build()
     log = path.with_suffix(".log")
-    regs = [ln.strip() for ln in log.read_text().splitlines()
-            if "registers" in ln or "spill" in ln] if log.is_file() else []
+    report = _build.ptxas_report(log.read_text()) if log.is_file() else {}
+    builds = " | ".join(
+        f"{k}: {v.get('regs')} regs, {v.get('stack')} B stack, "
+        f"{v.get('spill_st')}/{v.get('spill_ld')} B spill st/ld"
+        for k, v in report.items())
     print(f"[2 build] {path.relative_to(ROOT)} in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {compile_s:.2f} s); "
-          f"ptxas: {' | '.join(regs) or 'no register report'}", flush=True)
+          f"ptxas: {builds or 'no register report'}", flush=True)
+    return report
 
 
-def _scene(name, w, h, device):
-    """A built-in scene (its mesh packed), its camera and packed camera."""
+def _checker_quad(device):
+    """The checker quad of the JAX suite (tests/test_persistent.py:494-528):
+    a two-colour checker on a quad whose material colour is not white, lit
+    by a point light, and its camera."""
+    from tpu_pathtracer_torch.models import meshes, scene as sc
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
+                           [10, 0, -10])
+    scene = sc.make_scene(
+        [], [sc.diffuse([0.7, 1.0, 0.9])],
+        [sc.point_light([0.0, 8.0, 0.0], [60.0, 60.0, 60.0])],
+        mesh=build_bvh(v, f, uv, 0, device=device),
+        textures=meshes.checker_texture(16, tiles=4, c0=(0.9, 0.15, 0.1),
+                                        c1=(0.05, 0.85, 0.9)),
+        mat_texture=[0], device=device)
+    return scene, dict(eye=[0, 14, 9], look_at=[0, 0, 0], up=[0, 1, 0],
+                       fov=60.0)
+
+
+def _terrain32(device, textured=True):
+    """terrain_textured(n=32): 1,922 triangles, under BIG_MESH_TRIS, so the
+    CLI's auto backend renders it through the persistent kernel; with
+    ``textured`` false the same scene with its texture stripped."""
+    import dataclasses
+
+    from tpu_pathtracer_torch.models import scene as sc
+
+    scene, cs = sc.terrain_textured(n=32, device=device)
+    return (scene if textured
+            else dataclasses.replace(scene, textures=None)), cs
+
+
+EXTRA_SCENES = {
+    "checker": _checker_quad,
+    "terrain32": _terrain32,
+    "terrain32-bare": lambda device: _terrain32(device, textured=False),
+}
+# A thin lens of radius 4 focused at 60 (tests/test_persistent.py:224-227).
+LENS = dict(lens_radius=4.0, focal_distance=60.0)
+
+
+def _scene(name, w, h, device, lens=None):
+    """A built-in scene (its mesh packed for the persistent kernels), its
+    camera (with ``lens`` = LENS, a thin-lens camera) and packed camera."""
     from tpu_pathtracer_torch.models import camera as cm, scene as sc
     from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
 
-    scene, cs = sc.BUILTIN_SCENES[name](device=device)
+    build = EXTRA_SCENES.get(name) or sc.BUILTIN_SCENES[name]
+    scene, cs = build(device=device)
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h, cs["fov"],
-                         device=device)
+                         device=device, **(lens or {}))
     return sc.with_packet_mesh(scene), cam, pack_camera(cam)
 
 
@@ -286,6 +372,20 @@ MESH_CASES = [
                       ("cornell-glass", True), ("cornell-quad", True))
     for inj in (True, False)
 ]
+DOF_CASES = [
+    (f"{name}-lens-{'nee' if nee else 'brute'}-"
+     f"{'injected' if inj else 'philox'}",
+     lambda w, h, dev, name=name: _scene(name, w, h, dev, LENS), 160, 120,
+     32, 8, nee, inj)
+    for name in ("cornell", "cornell-boxes") for nee in (False, True)
+    for inj in (True, False)
+]
+TEX_CASES = [
+    (f"{name}-nee-{'injected' if inj else 'philox'}",
+     lambda w, h, dev, name=name: _scene(name, w, h, dev), W, H, 32, 8, True,
+     inj)
+    for name in ("checker", "terrain32") for inj in (True, False)
+]
 
 
 def phase_compare(cases=SPHERE_CASES, label="3 kernel vs plain"):
@@ -301,16 +401,18 @@ def phase_compare(cases=SPHERE_CASES, label="3 kernel vs plain"):
     worst = dict(n_agree=1.0, l_agree=1.0, max_abs_err=0.0, sign_balance=0.0)
     parts = []
     for name, build, w, h, tr, budget, use_nee, injected in cases:
-        scene, _, cp = build(w, h, dev)
+        scene, cam, cp = build(w, h, dev)
         kw = dict(budget=budget, width=w, height=h, max_bounces=10,
-                  rr_start=3, tile_rows=tr, use_nee=use_nee)
+                  rr_start=3, tile_rows=tr, use_nee=use_nee,
+                  use_dof=cam.use_dof)
         st_k = pk.init_state(w, h, tr, device=dev)
         st_r = st_k.clone()
         rays_k, rays_r = 0, 0
         for _ in range(2):
             u = None
             if injected:
-                rows = st_k.lr.shape[0] * budget * pk.n_draws(use_nee)
+                rows = st_k.lr.shape[0] * budget * pk.n_draws(use_nee,
+                                                              cam.use_dof)
                 u = torch.rand((rows, pk.LANES), generator=gen, device=dev)
             st_r, nr = pk.persistent_step_ref(scene, cp, (5, 1), st_r,
                                               uniforms=u, **kw)
@@ -342,7 +444,8 @@ def phase_compare(cases=SPHERE_CASES, label="3 kernel vs plain"):
     return worst
 
 
-def _render_plain(scene, cp, seed, steps, use_nee, budget):
+def _render_plain(scene, cp, seed, steps, use_nee, budget, use_dof=False,
+                  max_bounces=10):
     """The plain version driven as the renderer drives the kernel: the same
     seed, salt 0, frames 0..steps-1, so the same Philox draws. Returns the
     state and the live rays it traced."""
@@ -353,7 +456,8 @@ def _render_plain(scene, cp, seed, steps, use_nee, budget):
     for _ in range(steps):
         st, nr = pk.persistent_step_ref(
             scene, cp, (seed, 0), st, budget=budget, width=W, height=H,
-            max_bounces=10, rr_start=3, tile_rows=TR, use_nee=use_nee)
+            max_bounces=max_bounces, rr_start=3, tile_rows=TR,
+            use_nee=use_nee, use_dof=use_dof)
         rays += int(nr)
     return st, rays
 
@@ -386,8 +490,9 @@ def _replay_per_step(scene, cam, cp, use_nee, main, floor_always=True):
     r = PersistentRenderer(scene, cam, main.config, seed=main.seed,
                            device="cuda", budget=main.budget)
     scene_cpu, cp_cpu = scene.to("cpu"), cp.cpu()
-    kw = dict(budget=r.budget, width=w, height=h, max_bounces=10,
-              rr_start=3, tile_rows=TR, use_nee=use_nee)
+    kw = dict(budget=r.budget, width=w, height=h,
+              max_bounces=main.config.max_bounces, rr_start=3, tile_rows=TR,
+              use_nee=use_nee, use_dof=cam.use_dof)
     out = []
     for _ in range(main.state.frame):
         before = r.state.clone()
@@ -413,13 +518,117 @@ def _replay_per_step(scene, cam, cp, use_nee, main, floor_always=True):
     return out
 
 
+def _bands(state, bands):
+    """The bands of tiles ``bands`` ((first tile, tiles) pairs) of a state of
+    TR-row tiles, copied into one state, in order."""
+    import dataclasses
+
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+
+    return dataclasses.replace(state, **{
+        f: torch.cat([getattr(state, f)[t0 * TR:(t0 + nt) * TR]
+                      for t0, nt in bands]) for f in pk.STATE_FIELDS})
+
+
+def _replay_bands(main, bands):
+    """``_replay_per_step`` for a main path too large for the plain version
+    over every lane: the same replay, but each launch is checked on the
+    bands of tiles ``bands`` ((first tile, tiles) pairs) alone. From each
+    band of the launch's input state the kernel runs again on the band
+    (``tile_offset``, the same Philox draws), and must give that band of the
+    whole launch bit for bit, since lanes do not interact. The plain version
+    runs once on the card from all the bands together (``tile_offset`` a
+    list of tiles: its per-tile walk costs about as much for three tiles as
+    for one); its live rays are held to the band launches' and its lanes to
+    the whole launch's, band by band. The plain version on the CPU, the
+    floor, runs only for a launch below the 98% bar. Returns one dict per
+    launch and band and the plain version's seconds per launch; fails
+    unless the replay ends in main's exact state."""
+    import dataclasses
+
+    import torch
+
+    from tpu_pathtracer_torch import PersistentRenderer
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+    from tpu_pathtracer_torch.utils.metrics import AGREE, lane_agreement
+
+    scene, cam = main.scene, main.camera
+    cp = pack_camera(cam)
+    r = PersistentRenderer(scene, cam, main.config, seed=main.seed,
+                           device="cuda", budget=main.budget)
+    scene_cpu, cp_cpu = scene.to("cpu"), cp.cpu()
+    kw = dict(budget=r.budget, width=cam.width, height=cam.height,
+              max_bounces=main.config.max_bounces,
+              rr_start=main.config.rr_start, tile_rows=TR,
+              use_nee=main.config.use_nee, use_dof=cam.use_dof)
+    tiles = [t for t0, nt in bands for t in range(t0, t0 + nt)]
+    out, seconds = [], []
+    for launch in range(main.state.frame):
+        before = r.state.clone()
+        r.step()
+        got = _bands(r.state, bands)
+        k_rays = 0
+        for t0, nt in bands:
+            k_st, nr = pk.persistent_step(scene, cp, (r.seed, 0),
+                                          _bands(before, [(t0, nt)]),
+                                          tile_offset=t0, **kw)
+            k_rays += int(nr)
+            for f in pk.STATE_FIELDS:
+                if not torch.equal(getattr(k_st, f),
+                                   getattr(_bands(r.state, [(t0, nt)]), f)):
+                    fail(f"launch {launch}, tiles {t0}+{nt}: the band "
+                         f"launch differs from the whole launch in {f}")
+        t_start = time.perf_counter()
+        ref, rays_r = pk.persistent_step_ref(scene, cp, (r.seed, 0),
+                                             _bands(before, bands),
+                                             tile_offset=tiles, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t_start)
+        ray_err = abs(k_rays - int(rays_r)) / max(int(rays_r), 1)
+
+        def per_band(a, b):
+            res, row = [], 0
+            for _, nt in bands:
+                part = [_bands(x, [(row // TR, nt)]) for x in (a, b)]
+                res.append(lane_agreement(*part, nt * TR * pk.LANES, 1))
+                row += nt * TR
+            return res
+
+        checks = per_band(ref, got)
+        floors = [(1.0, 1.0, 0.0)] * len(bands)
+        if min(min(c[0], c[1]) for c in checks) < AGREE:
+            b_cpu = _bands(before, bands)
+            b_cpu = dataclasses.replace(
+                b_cpu, **{f: getattr(b_cpu, f).cpu()
+                          for f in pk.STATE_FIELDS})
+            ref_cpu, _ = pk.persistent_step_ref(
+                scene_cpu, cp_cpu, (r.seed, 0), b_cpu, tile_offset=tiles,
+                **kw)
+            floors = per_band(ref, ref_cpu)
+        for band, (n_ok, l_ok, dmax), (n_fl, l_fl, _) in zip(
+                bands, checks, floors):
+            out.append(dict(launch=launch, tiles=band, n_agree=n_ok,
+                            l_agree=l_ok, max_abs_err=dmax, n_floor=n_fl,
+                            l_floor=l_fl, rays=(k_rays, int(rays_r)),
+                            ray_err=ray_err))
+    for f in pk.STATE_FIELDS:
+        if not torch.equal(getattr(r.state, f), getattr(main.state, f)):
+            fail(f"the replay of the main path differs in {f}")
+    return out, seconds
+
+
 def phase_main_path(name="cornell", modes=(False, True), budget=32,
-                    target=16, floor_always=True, label="4 main path"):
-    """PersistentRenderer on ``name`` until ``target`` spp in each mode,
-    every launch replayed and checked (``_replay_per_step``), the whole run
-    against the plain version's, and update_camera. Returns the kernel's
-    launches in the rendering runs, those on a mesh scene, and the worst
-    agreement numbers."""
+                    target=16, floor_always=True, label="4 main path",
+                    lens=None, max_bounces=10):
+    """PersistentRenderer on ``name`` (with ``lens``, a thin-lens camera)
+    until ``target`` spp in each mode, every launch replayed and checked
+    (``_replay_per_step``), the whole run against the plain version's, and
+    update_camera. Returns the kernel's launches in the rendering runs,
+    those on a mesh scene, the worst agreement numbers and each mode's
+    image."""
     import torch
 
     from tpu_pathtracer_torch import PersistentRenderer, RenderConfig
@@ -427,12 +636,12 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.utils.metrics import AGREE, lane_agreement
 
-    scene, cam, cp = _scene(name, W, H, "cuda")
+    scene, cam, cp = _scene(name, W, H, "cuda", lens)
     renderers, rays = {}, {}
     pk.launches = pk.mesh_launches = 0
     for use_nee in modes:
         r = PersistentRenderer(scene, cam,
-                               RenderConfig(spp=4, max_bounces=10,
+                               RenderConfig(spp=4, max_bounces=max_bounces,
                                             rr_start=3, use_nee=use_nee),
                                seed=7, device="cuda", budget=budget)
         rays[use_nee] = r.render_to(target)
@@ -469,7 +678,8 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
         worst["max_abs_err"] = max(worst["max_abs_err"], step["max_abs_err"])
         # the whole run against the plain version's whole run
         ref_st, ref_rays = _render_plain(scene, cp, 7, r.state.frame,
-                                         use_nee, r.budget)
+                                         use_nee, r.budget, cam.use_dof,
+                                         max_bounces)
         n_run, l_run, _ = lane_agreement(ref_st, r.state, W, H)
         ray_err = abs(rays[use_nee] - ref_rays) / max(ref_rays, 1)
         m = img.mean().item()
@@ -486,7 +696,8 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
             f"plain: n {n_run:.4f} "
             f"L {l_run:.4f} rays {rays[use_nee]}/{ref_rays} mean "
             f"{m:.6f}/{m_ref:.6f}")
-    r = renderers[True]
+    images = {use_nee: r.image().clone() for use_nee, r in renderers.items()}
+    r = renderers[modes[-1]]
     before = r.image().clone()
     r.update_camera(cm.translate(r.camera, [0.0, 0.0, 10.0]))
     if r.iteration != 0 or r.min_samples != 0 or r.state.frame != 0:
@@ -494,11 +705,13 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
     r.step()
     if torch.equal(before, r.image()):
         fail("the image did not change after update_camera")
-    print(f"[{label}] {name} {W}x{H} spp 4, 10 bounces, budget "
-          f"{r.budget}: " + " | ".join(parts) + f" | kernel launches "
+    lens_s = (f", lens radius {cam.lens_radius} focused at "
+              f"{float(cam.focal_distance)}" if cam.use_dof else "")
+    print(f"[{label}] {name}{lens_s} {W}x{H} spp 4, {max_bounces} bounces, "
+          f"budget {r.budget}: " + " | ".join(parts) + f" | kernel launches "
           f"{launches} = steps {steps} ({mesh_launches} on a mesh) | "
           f"update_camera resets", flush=True)
-    return launches, mesh_launches, worst
+    return launches, mesh_launches, worst, images
 
 
 def phase_cli(scene="cornell", label="5 cli"):
@@ -524,7 +737,8 @@ def phase_cli(scene="cornell", label="5 cli"):
           flush=True)
 
 
-def _time_steps(scene, cp, use_nee, k, salt, step_fn, budget=16):
+def _time_steps(scene, cp, use_nee, k, salt, step_fn, budget=16,
+                use_dof=False):
     """CUDA-event time of k steps from a fresh state (host wrapper
     included), and the rays they traced."""
     import torch
@@ -539,7 +753,7 @@ def _time_steps(scene, cp, use_nee, k, salt, step_fn, budget=16):
     for _ in range(k):
         st, nr = step_fn(scene, cp, (salt, 0), st, budget=budget, width=W,
                          height=H, max_bounces=10, rr_start=3, tile_rows=TR,
-                         use_nee=use_nee)
+                         use_nee=use_nee, use_dof=use_dof)
         rays.append(nr)
     end.record()
     torch.cuda.synchronize()
@@ -556,9 +770,11 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _profile_steps(scene, cp, use_nee, k=10, tag=""):
+def _profile_steps(scene, cp, use_nee, k=10, tag="", use_dof=False):
     """One torch.profiler trace of k steps from a fresh state (``_profile``'s
-    numbers), and the work per launch: rays, paths started and lanes."""
+    numbers), and the work per launch: rays, paths started and lanes; on a
+    textured scene also the texel fetches, from the plain version's first
+    launch on the same seed, scaled to the kernel's rays per launch."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
@@ -574,7 +790,7 @@ def _profile_steps(scene, cp, use_nee, k=10, tag=""):
         st, nr = pk.persistent_step(scene, cp, (400, i), st, budget=16,
                                     width=W, height=H, max_bounces=10,
                                     rr_start=3, tile_rows=TR,
-                                    use_nee=use_nee)
+                                    use_nee=use_nee, use_dof=use_dof)
         rays.append(nr)
 
     kernel_ms, busy, window, by_name = _profile(
@@ -583,7 +799,15 @@ def _profile_steps(scene, cp, use_nee, k=10, tag=""):
     # paths started over the k launches: completed plus still in flight
     work = dict(rays=int(torch.stack(rays).sum()) / k,
                 paths=int(st.n_samp.sum() + st.alive.sum()) / k,
-                lanes=st.lr.numel())
+                lanes=st.lr.numel(), texel=0.0)
+    if scene.textured:
+        counts = {}
+        _, nr = pk.persistent_step_ref(
+            scene, cp, (400, 0), pk.init_state(W, H, TR, device="cuda"),
+            budget=16, width=W, height=H, max_bounces=10, rr_start=3,
+            tile_rows=TR, use_nee=use_nee, use_dof=use_dof, counts=counts)
+        work["texel"] = counts.get("texel", 0) / max(int(nr), 1) \
+            * work["rays"]
     return kernel_ms, busy, window, by_name, work
 
 
@@ -657,10 +881,12 @@ def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _walk_ops(scene, segments, paths, shadows) -> float:
+def _walk_ops(scene, segments, paths, shadows, texels=0, lens_paths=0
+              ) -> float:
     """f32 operations of a persistent walk: closest hit and shading per
-    segment, a camera ray per path, a light sample and the shadow sweep per
-    shadow segment. With a mesh, every segment also walks the BVH: a packed
+    segment, a camera ray per path (its thin lens for ``lens_paths`` of
+    them), a light sample and the shadow sweep per shadow segment, the uv
+    and the four bilinear taps per texel fetch. With a mesh, every segment also walks the BVH: a packed
     tree of one leaf (the mesh scenes here) is one slab test and all T
     triangles per segment; a deeper tree counts its root alone (a lower
     bound). A shadow walk stops at its first occluder, so it counts its
@@ -675,50 +901,57 @@ def _walk_ops(scene, segments, paths, shadows) -> float:
         tris = pm.leaf_size if pm.num_nodes == 1 else 0
         ops += (segments * (OPS["walk"] + OPS["slab"] + OPS["tri"] * tris)
                 + shadows * (OPS["walk"] + OPS["slab"]))
-    return ops
+    return (ops + texels * (OPS["uv"] + OPS["texel"])
+            + lens_paths * OPS["lens"])
 
 
-def forward_bound(scene, work_brute, work):
+def forward_bound(scene, work_brute, work, use_dof=False):
     """Bound of one forward launch. The NEE walk traces the brute-force
     walk's path segments on the same Philox draws (NEE never changes a
     path's throughput or direction), so its shadow segments are its rays
-    less the brute-force run's."""
+    less the brute-force run's. A textured scene adds the texture atlas to
+    the bytes (read once)."""
     shadows = work["rays"] - work_brute["rays"]
-    ops = _walk_ops(scene, work_brute["rays"], work["paths"], shadows)
-    return _bound(ops, 20 * 4 * 2 * work["lanes"])
+    ops = _walk_ops(scene, work_brute["rays"], work["paths"], shadows,
+                    work.get("texel", 0.0),
+                    work["paths"] if use_dof else 0)
+    atlas = scene.textures.numel() * 4 if scene.textured else 0
+    return _bound(ops, 20 * 4 * 2 * work["lanes"] + atlas)
 
 
-def phase_times(smi, name="cornell", label="6 times"):
+def phase_times(smi, name="cornell", label="6 times", lens=None):
     """End-to-end step time and rays/s (CUDA events, slope between 1 and K
     steps, median of REPS), the plain version's step time, then one profiled
     window for the kernel's device time and the device's idle share (last,
     so its tracing touches no other number)."""
+    import functools
+
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
 
-    scene, _, cp = _scene(name, W, H, "cuda")
-    tag = "" if name == "cornell" else f"{name}_"
+    scene, cam, cp = _scene(name, W, H, "cuda", lens)
+    dof = cam.use_dof
+    tag = ("" if name == "cornell" else f"{name}_") + ("lens_" if dof else "")
+    step_k = functools.partial(pk.persistent_step, use_dof=dof)
+    step_r = functools.partial(pk.persistent_step_ref, use_dof=dof)
     K = 24
     out = {}
     for use_nee in (False, True):
         mode = "nee" if use_nee else "brute"
-        _time_steps(scene, cp, use_nee, 2, 99, pk.persistent_step)  # warm
+        _time_steps(scene, cp, use_nee, 2, 99, step_k)  # warm
         steps_ms, rates = [], []
         for rep in range(REPS):
-            t1, r1 = _time_steps(scene, cp, use_nee, 1, 100 + rep,
-                                 pk.persistent_step)
-            tk, rk = _time_steps(scene, cp, use_nee, K, 200 + rep,
-                                 pk.persistent_step)
+            t1, r1 = _time_steps(scene, cp, use_nee, 1, 100 + rep, step_k)
+            tk, rk = _time_steps(scene, cp, use_nee, K, 200 + rep, step_k)
             steps_ms.append((tk - t1) / (K - 1))
             rates.append((rk - r1) / (tk - t1) * 1e3)
-        _time_steps(scene, cp, use_nee, 1, 98, pk.persistent_step_ref)
-        t2, _ = _time_steps(scene, cp, use_nee, 2, 300,
-                            pk.persistent_step_ref)
+        _time_steps(scene, cp, use_nee, 1, 98, step_r)
+        t2, _ = _time_steps(scene, cp, use_nee, 2, 300, step_r)
         out[mode] = dict(step_ms=statistics.median(steps_ms),
                          rays_per_s=statistics.median(rates), reps=rates,
                          plain_ms=t2 / 2)
     for mode, o in out.items():
         o["kernel_ms"], busy, window, by_name, o["work"] = _profile_steps(
-            scene, cp, mode == "nee", tag=tag)
+            scene, cp, mode == "nee", tag=tag, use_dof=dof)
         o["busy_ms"], o["window_ms"] = busy, window
         o["idle_share"] = 1.0 - busy / window
         if o["idle_share"] < 0.0:
@@ -728,7 +961,7 @@ def phase_times(smi, name="cornell", label="6 times"):
         o["top"] = "; ".join(f"{n[:48]} {ms:.4f}" for n, ms in top)
     for o in out.values():
         o["bound_ms"], o["bound_by"] = forward_bound(
-            scene, out["brute"]["work"], o["work"])
+            scene, out["brute"]["work"], o["work"], dof)
     parts = [
         f"{mode}: step {o['step_ms']:.4f} ms, {o['rays_per_s']:.6g} rays/s "
         f"(median of {REPS}: {', '.join(f'{r:.6g}' for r in o['reps'])}), "
@@ -736,11 +969,13 @@ def phase_times(smi, name="cornell", label="6 times"):
         f"{o['window_ms']:.4f} ms/step, device busy {o['busy_ms']:.4f} ms, "
         f"idle share {o['idle_share']:.3f}, kernel {o['kernel_ms']:.4f} "
         f"ms/launch (bound {o['bound_ms']:.5f} ms by {o['bound_by']}: "
-        f"{o['work']['rays']:.0f} rays, {o['work']['paths']:.0f} paths per "
-        f"launch); top device ms/step: {o['top']}"
+        f"{o['work']['rays']:.0f} rays, {o['work']['paths']:.0f} paths, "
+        f"{o['work']['texel']:.0f} texel fetches per launch); top device "
+        f"ms/step: {o['top']}"
         for mode, o in out.items()]
-    print(f"[{label}] {name} {W}x{H} budget 16 tile_rows {TR} on {smi}: "
-          + " | ".join(parts), flush=True)
+    lens_s = f" lens {LENS}" if dof else ""
+    print(f"[{label}] {name}{lens_s} {W}x{H} budget 16 tile_rows {TR} on "
+          f"{smi}: " + " | ".join(parts), flush=True)
     return out
 
 
@@ -892,9 +1127,10 @@ def _fmt_check(c) -> str:
 
 
 def phase_grad_compare(cases=(("cornell", False), ("cornell", True)),
-                       label="7 gradient kernel vs plain"):
+                       label="7 gradient kernel vs plain", lens=None):
     """Gradient kernel vs plain version on the card at 160x120, for each
-    (scene, use_nee) case on injected uniforms and on Philox."""
+    (scene, use_nee) case (with ``lens``, a thin-lens camera) on injected
+    uniforms and on Philox."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
@@ -907,16 +1143,18 @@ def phase_grad_compare(cases=(("cornell", False), ("cornell", True)),
         torch.rand((h, w, 3), generator=gen, device="cuda"), rows)
     parts, checks = [], []
     for name, use_nee in cases:
-        scene, _, cp = _scene(name, w, h, "cuda")
+        scene, cam, cp = _scene(name, w, h, "cuda", lens)
+        dof = cam.use_dof
         for injected in (True, False):
-            case = (f"{name}-{'nee' if use_nee else 'brute'}-"
+            case = (f"{name}{'-lens' if dof else ''}-"
+                    f"{'nee' if use_nee else 'brute'}-"
                     f"{'injected' if injected else 'philox'}")
-            u = (torch.rand((rows * budget * pk.n_draws(use_nee), pk.LANES),
-                            generator=gen, device="cuda")
+            u = (torch.rand((rows * budget * pk.n_draws(use_nee, dof),
+                             pk.LANES), generator=gen, device="cuda")
                  if injected else None)
             kw = dict(spp=SPP, budget=budget, width=w, height=h,
                       max_bounces=MB, rr_start=3, tile_rows=TR,
-                      use_nee=use_nee, uniforms=u)
+                      use_nee=use_nee, use_dof=dof, uniforms=u)
             c = _check_grad_launch(case, (scene, cp, (5, 2), 3, tgt), kw,
                                    w, h)
             checks.append(c)
@@ -931,10 +1169,11 @@ def phase_grad_compare(cases=(("cornell", False), ("cornell", True)),
 
 
 def phase_trainer(name="cornell", modes=(False, True), mat=3,
-                  steps=TRAIN_STEPS, label="8 trainer main path"):
-    """BASELINE config 5 (or its workload on another scene) through the
-    trainer's entry points: material ``mat`` and the light start perturbed;
-    the target, then ``steps`` same-seed Adam steps."""
+                  steps=TRAIN_STEPS, label="8 trainer main path", lens=None):
+    """BASELINE config 5 (or its workload on another scene, or with
+    ``lens`` a thin-lens camera) through the trainer's entry points:
+    material ``mat`` and the light start perturbed; the target, then
+    ``steps`` same-seed Adam steps."""
     import torch
 
     from tpu_pathtracer_torch.diff import inverse
@@ -942,7 +1181,7 @@ def phase_trainer(name="cornell", modes=(False, True), mat=3,
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
 
-    scene, cam, cp = _scene(name, W, H, "cuda")
+    scene, cam, cp = _scene(name, W, H, "cuda", lens)
     rows, _ = rp.pixel_lanes_layout(W, H, TR)
     budget = rp.default_budget(SPP, MB)
     seed = (17, 0)
@@ -987,7 +1226,8 @@ def phase_trainer(name="cornell", modes=(False, True), mat=3,
                  "fall")
         tgt_lanes = rp.target_to_lanes(target.reshape(H, W, 3), rows)
         kw = dict(spp=SPP, budget=budget, width=W, height=H, max_bounces=MB,
-                  rr_start=3, tile_rows=TR, use_nee=use_nee)
+                  rr_start=3, tile_rows=TR, use_nee=use_nee,
+                  use_dof=cam.use_dof)
         c = _check_grad_launch(
             f"trainer ({mode}) last launch",
             (inverse.apply_params(scene, last_params), cp, seed, 0,
@@ -1003,7 +1243,8 @@ def phase_trainer(name="cornell", modes=(False, True), mat=3,
             f"{[round(a, 3) for a in true_inten]}); launches "
             f"{launches[mode]} = 1 + {steps} ({mesh_launches[mode]} on a "
             f"mesh); last launch vs plain: {_fmt_check(c)}")
-    print(f"[{label}] {name} {W}x{H} spp {SPP}, {MB} bounces, budget "
+    lens_s = f" lens {LENS}" if cam.use_dof else ""
+    print(f"[{label}] {name}{lens_s} {W}x{H} spp {SPP}, {MB} bounces, budget "
           f"{budget}, lr {LR}: " + " | ".join(parts), flush=True)
     return launches, sum(mesh_launches.values()), dict(
         n_agree=min(c["n_agree"] for c in checks),
@@ -1049,7 +1290,7 @@ def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False,
             out = rp.persistent_replay_ref(
                 scene, cp, (salt, i), 0,
                 rp.target_to_lanes(target, rows), width=W, height=H,
-                counts=counts, **kw)
+                use_dof=cam.use_dof, counts=counts, **kw)
             rays.append(out[5])
         else:
             rays.append(rp.persistent_mse_value_and_grad(
@@ -1059,7 +1300,7 @@ def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False,
     return start.elapsed_time(end), int(torch.stack(rays).sum())
 
 
-def grad_bound(scene, cp, target, use_nee, seed, shadows):
+def grad_bound(scene, cp, target, use_nee, seed, shadows, use_dof=False):
     """Bound of one gradient launch at config 5, from the work of the
     kernel's launch on ``seed``: its path segments and completed paths, and
     ``shadows``, the NEE shadow segments the plain version traced on the
@@ -1071,11 +1312,13 @@ def grad_bound(scene, cp, target, use_nee, seed, shadows):
     out = rp.persistent_replay_call(
         scene, cp, seed, 0, rp.target_to_lanes(target, rows), spp=SPP,
         budget=rp.default_budget(SPP, MB), width=W, height=H,
-        max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=use_nee)
+        max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=use_nee,
+        use_dof=use_dof)
     n_slots = len(rp.material_slots(scene)[0])
     n_l = len(scene.light_structure)
     segments, paths = int(out[5]), int(out[1].sum())
-    ops = (_walk_ops(scene, segments, paths, shadows)
+    ops = (_walk_ops(scene, segments, paths, shadows,
+                     lens_paths=paths if use_dof else 0)
            + segments * OPS["adjoint_segment"]
            + paths * (OPS["adjoint_flush_slot"] * n_slots
                       + OPS["adjoint_flush_light"] * n_l))
@@ -1088,7 +1331,7 @@ def grad_bound(scene, cp, target, use_nee, seed, shadows):
 
 
 def phase_grad_times(smi, name="cornell", modes=(False, True),
-                     label="10 gradient times"):
+                     label="10 gradient times", lens=None):
     """Config 5 (or the same workload on another scene): ms per gradient
     and fwd+bwd rays/s by the CUDA-event slope between 1 and K gradients
     (median of REPS), the plain version's time per gradient, the bound, then
@@ -1098,8 +1341,9 @@ def phase_grad_times(smi, name="cornell", modes=(False, True),
 
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
 
-    scene, cam, cp = _scene(name, W, H, "cuda")
-    tag = "" if name == "cornell" else f"{name}_"
+    scene, cam, cp = _scene(name, W, H, "cuda", lens)
+    tag = ("" if name == "cornell" else f"{name}_") + (
+        "lens_" if cam.use_dof else "")
     gen = torch.Generator(device="cuda").manual_seed(5)
     target = torch.rand((H, W, 3), generator=gen, device="cuda")
     K = 24
@@ -1122,7 +1366,7 @@ def phase_grad_times(smi, name="cornell", modes=(False, True),
                          rays_per_s=statistics.median(rates), reps=ms,
                          plain_ms=t_plain,
                          **grad_bound(scene, cp, target, use_nee, (300, 0),
-                                      int(counts["shadow"])))
+                                      int(counts["shadow"]), cam.use_dof))
     for mode, o in out.items():
         def run(i, use_nee=(mode == "nee")):
             rp.persistent_mse_value_and_grad(
@@ -1150,7 +1394,8 @@ def phase_grad_times(smi, name="cornell", modes=(False, True),
         f"{o['busy_ms']:.4f} ms, idle share {o['idle_share']:.3f}; top "
         f"device ms/gradient: {o['top']}"
         for mode, o in out.items()]
-    print(f"[{label}] {name} {W}x{H} spp {SPP}, {MB} bounces, budget "
+    lens_s = f" lens {LENS}" if cam.use_dof else ""
+    print(f"[{label}] {name}{lens_s} {W}x{H} spp {SPP}, {MB} bounces, budget "
           f"{rp.default_budget(SPP, MB)} on {smi}: " + " | ".join(parts),
           flush=True)
     return out
@@ -1652,6 +1897,7 @@ def phase_jvp_times(smi):
 # Config 4 (BASELINE.md): the textured terrain at 1024x1024, 2 spp, 3
 # bounces, NEE, the two-pass binned packet traversal.
 C4_W, C4_H, C4_SPP, C4_MB = 1024, 1024, 2, 3
+C4_BAND_TILES = 1  # tiles per band of phase 26's check against the plain
 WAVE_LANES = 1 << 16  # lanes per kernel check (a fixed random subset)
 
 
@@ -2207,6 +2453,357 @@ def phase_wavefront_times(smi, r2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Thin-lens DOF and in-kernel textures in the persistent kernels, phases
+# 22-27
+# ---------------------------------------------------------------------------
+
+def _red_cyan(img):
+    """Shares of lit pixels where red, or green, is more than twice the
+    other: the checker quad's two tiles."""
+    lum = img.sum(-1)
+    lit = lum > 0.05 * float(lum.max())
+    n = max(int(lit.sum()), 1)
+    return (int((lit & (img[..., 0] > 2 * img[..., 1])).sum()) / n,
+            int((lit & (img[..., 1] > 2 * img[..., 0])).sum()) / n)
+
+
+def phase_dof_main():
+    """23: PersistentRenderer with the lens on cornell_spheres and
+    cornell_boxes, brute force and NEE (7 and 10 draws), 640x480, budget 16,
+    to 4 spp, every launch replayed and checked by phase 4's bars; each
+    image differs from the same render through the pinhole camera."""
+    import torch
+
+    from tpu_pathtracer_torch import PersistentRenderer, RenderConfig
+
+    total, mesh_total, worst, parts = 0, 0, [], []
+    for name in ("cornell", "cornell-boxes"):
+        launches, mesh_l, w, images = phase_main_path(
+            name, (False, True), budget=16, target=4, floor_always=False,
+            label="23 DOF main path", lens=LENS)
+        total, mesh_total = total + launches, mesh_total + mesh_l
+        worst.append(w)
+        scene, cam, _ = _scene(name, W, H, "cuda")
+        for use_nee, img in images.items():
+            r = PersistentRenderer(
+                scene, cam, RenderConfig(spp=4, max_bounces=10, rr_start=3,
+                                         use_nee=use_nee),
+                seed=7, device="cuda", budget=16)
+            r.render_to(4)
+            gap = float((img - r.image()).abs().max())
+            if not gap > 0.05:
+                fail(f"{name} lens image equals the pinhole image "
+                     f"(max |d| {gap})")
+            parts.append(f"{name} {'nee' if use_nee else 'brute'} lens vs "
+                         f"pinhole max|d| {gap:.3f}")
+    torch.cuda.synchronize()
+    print("[23 DOF main path] " + " | ".join(parts), flush=True)
+    return total, mesh_total, {
+        k: (min if "agree" in k or "floor" in k else max)(x[k] for x in worst)
+        for k in worst[0]}
+
+
+def phase_texture_main(smi):
+    """25: the textured main path. PersistentRenderer on terrain32 (NEE, 3
+    bounces, 640x480, budget 16, to 4 spp) with every launch replayed and
+    checked; the checker quad through the renderer shows both tiles; and
+    terrain32 through the persistent kernel against the wavefront in image
+    mean (256x256, 64 spp, as phase 20)."""
+    import torch
+
+    from tpu_pathtracer_torch import (
+        PersistentRenderer, ProgressiveRenderer, RenderConfig,
+    )
+
+    launches, walks, worst, _ = phase_main_path(
+        "terrain32", (True,), budget=16, target=4, floor_always=False,
+        label="25 textured main path", max_bounces=C4_MB)
+    if walks != launches:
+        fail(f"textured main path: {walks} of {launches} launches walked a "
+             "mesh")
+    scene, cam, _ = _scene("checker", W, H, "cuda")
+    r = PersistentRenderer(scene, cam, RenderConfig(spp=4, max_bounces=1,
+                                                    use_nee=True),
+                           seed=3, device="cuda", budget=16)
+    r.render_to(4)
+    red, cyan = _red_cyan(r.image())
+    if red < 0.05 or cyan < 0.05:
+        fail(f"checker quad: the tiles do not both show (red {red}, cyan "
+             f"{cyan})")
+    scene, cam, _ = _scene("terrain32", 256, 256, "cuda")
+    cfg = RenderConfig(spp=8, max_bounces=C4_MB, use_nee=True)
+    wf = ProgressiveRenderer(scene, cam, cfg, seed=5, device="cuda")
+    for _ in range(8):
+        wf.step()
+    pr = PersistentRenderer(scene, cam, cfg, seed=5, device="cuda")
+    pr.render_to(64)
+    torch.cuda.synchronize()
+    m_w, m_p = float(wf.image().mean()), float(pr.image().mean())
+    if not torch.isfinite(pr.image()).all() \
+            or abs(m_w - m_p) > MEAN_TOL * abs(m_p):
+        fail(f"terrain32: wavefront mean {m_w} vs persistent {m_p}")
+    print(f"[25 textured checks] checker quad 640x480 NEE, 4 spp: red tiles "
+          f"{red:.3f}, cyan tiles {cyan:.3f} of lit pixels | terrain32 NEE "
+          f"256x256, 64 spp, {C4_MB} bounces: wavefront mean {m_w:.6f}, "
+          f"persistent mean {m_p:.6f} (min spp {pr.min_samples}), gap "
+          f"{abs(m_w - m_p) / m_p:.4f} (bar {MEAN_TOL})", flush=True)
+    return launches, walks, worst, dict(red=red, cyan=cyan, wavefront=m_w,
+                                        persistent=m_p)
+
+
+def phase_c4_persistent(smi, wf_renderer, wf_times):
+    """26: config 4 at full width through the persistent kernel: the terrain
+    (99,458 triangles) at 1024x1024, 3 bounces, NEE, PersistentRenderer
+    (the backend cli render --backend pallas takes), render_to(2), the
+    launch count set to 0 just before and read just after; the image is
+    finite, shows the checker and its mean is within MEAN_TOL of the
+    wavefront's (phase 19's 4 frames). Every launch is replayed and held to
+    the plain version on the card by phase 4's bars on three bands of tiles
+    (``_replay_bands``): the plain walk over all 1M lanes of a 4,095-node
+    tree would take minutes. Then ms to 2 spp (CUDA events around reset +
+    render_to(2), median of REPS) beside phase 21's wavefront frame, and one
+    profiler trace of those launches for the kernel's ms per launch and the
+    idle share."""
+    import torch
+
+    from tpu_pathtracer_torch import PersistentRenderer
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.utils.metrics import AGREE
+
+    t0 = time.perf_counter()
+    scene, cs = sc.terrain_textured(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
+                         cs["fov"], device="cuda")
+    r = PersistentRenderer(scene, cam, _c4_config(), seed=3, device="cuda")
+    setup_s = time.perf_counter() - t0
+    pk.launches = pk.mesh_launches = 0
+    rays = r.render_to(C4_SPP)
+    torch.cuda.synchronize()
+    launches, walks, steps = pk.launches, pk.mesh_launches, r.state.frame
+    if launches != steps or walks != launches or steps == 0:
+        fail(f"config 4 persistent: {launches} launches ({walks} on a mesh) "
+             f"for {steps} steps")
+    img = r.image()
+    if tuple(img.shape) != (C4_H, C4_W, 3) or not torch.isfinite(img).all():
+        fail(f"config 4 persistent: bad image {tuple(img.shape)}")
+    green, pale = _texture_modes(img)
+    m_p, m_w = float(img.mean()), float(wf_renderer.image().mean())
+    if green < 0.05 or pale < 0.05 or abs(m_p - m_w) > MEAN_TOL * abs(m_w):
+        fail(f"config 4 persistent: mean {m_p} vs the wavefront's {m_w}, "
+             f"checker modes green {green} pale {pale}")
+    paths = int(r.state.n_samp.sum() + r.state.alive.sum())
+    # every launch held to the plain version on three bands of
+    # C4_BAND_TILES tiles spread over the image (top, middle, bottom)
+    n_tiles = r.state.lr.shape[0] // TR
+    bands = [(int(n_tiles * f), C4_BAND_TILES)
+             for f in (1 / 6, 1 / 2, 5 / 6)]
+    checks, plain_s = _replay_bands(r, bands)
+    for c in checks:
+        if c["n_agree"] < min(AGREE, c["n_floor"]) \
+                or c["l_agree"] < min(AGREE, c["l_floor"]) \
+                or c["ray_err"] > RAY_TOL:
+            fail(f"config 4 persistent, launch {c['launch']} tiles "
+                 f"{c['tiles']} vs plain: {c}")
+    worst = {k: min(c[k] for c in checks)
+             for k in ("n_agree", "l_agree", "n_floor", "l_floor")}
+    worst["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    band_s = " | ".join(
+        f"launch {c['launch']} tiles {c['tiles'][0]}-"
+        f"{c['tiles'][0] + c['tiles'][1] - 1}: n {c['n_agree']:.4f} L "
+        f"{c['l_agree']:.4f} max|dL| {c['max_abs_err']:.3g} (plain cpu vs "
+        f"card: n {c['n_floor']:.4f} L {c['l_floor']:.4f})"
+        for c in checks) + "; rays of the bands " + ", ".join(
+        f"{c['rays'][0]}/{c['rays'][1]}" for c in checks[::len(bands)]) \
+        + "; plain s per launch " + ", ".join(f"{x:.1f}" for x in plain_s)
+
+    def to_spp():
+        r.reset()
+        return r.render_to(C4_SPP)
+
+    _timed(to_spp)  # warm
+    runs = [_timed(to_spp)[1] for _ in range(REPS)]
+    ms = statistics.median(runs)
+    kernel_ms, busy, window, _ = _profile(lambda i: r.step(), steps,
+                                          "persistent_kernel",
+                                          "c4_persistent", start=r.reset)
+    pm = r.scene.mesh_packed
+    # a lower bound: every counted ray priced as a path segment, the root's
+    # slab test only, no texel fetch (no plain run counts them at this size)
+    ops = _walk_ops(r.scene, rays / steps, paths / steps, 0)
+    nbytes = (20 * 4 * 2 * r.state.lr.numel()
+              + 4 * (pm.tri_rows.numel() + pm.boxes.numel()
+                     + pm.meta.numel() + scene.textures.numel()))
+    bound_ms, bound_by = _bound(ops, nbytes)
+    frame = wf_times["two_pass"]["frame_ms"]
+    print(f"[26 config 4 persistent] terrain {C4_W}x{C4_H}, {C4_MB} bounces, "
+          f"NEE, PersistentRenderer budget {r.budget} on {smi} (scene set-up "
+          f"{setup_s:.1f} s, {pm.num_nodes} nodes): {launches} launches = "
+          f"{steps} steps to {C4_SPP} spp (min spp {r.min_samples}), "
+          f"{rays} rays, mean {m_p:.6f} vs the wavefront's {m_w:.6f} (gap "
+          f"{abs(m_p - m_w) / m_w:.4f}, bar {MEAN_TOL}), checker modes green "
+          f"{green:.3f} pale {pale:.3f} | {ms:.3f} ms to {C4_SPP} spp "
+          f"(median of {REPS}: {', '.join(f'{x:.3f}' for x in runs)}) "
+          f"against the wavefront's {frame:.3f} ms per {C4_SPP}-spp frame; "
+          f"kernel {kernel_ms:.4f} ms/launch (bound {bound_ms:.5f} ms by "
+          f"{bound_by}, a lower bound), profiled window {window:.4f} "
+          f"ms/launch, idle share {1.0 - busy / window:.3f} | every launch "
+          f"vs plain on the card, band by band: {band_s}", flush=True)
+    return dict(launches=launches, walks=walks, ms_to_spp=ms, runs=runs,
+                worst=worst,
+                kernel_ms=kernel_ms, idle_share=1.0 - busy / window,
+                bound_ms=bound_ms, bound_by=bound_by, mean=m_p,
+                wavefront_mean=m_w, wavefront_frame_ms=frame)
+
+
+# ---------------------------------------------------------------------------
+# --ab: the persistent kernels' device time per launch in two checkouts
+# ---------------------------------------------------------------------------
+
+AB_FORWARD = [("cornell", False), ("cornell", True), ("cornell-boxes", False),
+              ("cornell-boxes", True)]
+AB_GRADIENT = [("cornell", False), ("cornell", True), ("cornell-boxes", True)]
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def ab_worker(root: str) -> dict:
+    """With the package of the checkout ``root``: device ms per launch (one
+    ``_profile`` trace of 10 launches) of the forward kernel on phases 6 and
+    12's workloads (cornell_spheres and cornell_boxes, brute force and NEE)
+    and of the gradient kernel on phases 10 and 13's (config 5: spheres
+    brute force and NEE, cornell_boxes NEE), pinhole and untextured, which
+    every checkout since the mesh slice runs through the same calls; a
+    digest of each workload's outputs (the state planes after two forward
+    launches from a fresh state; the loss and raw gradients of one gradient
+    launch; Philox draws, seeds fixed); and the build log."""
+    sys.path.insert(0, root)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.ops.kernels import _build
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+
+    if not Path(pk.__file__).resolve().is_relative_to(Path(root).resolve()):
+        fail(f"imported {pk.__file__}, not from {root}")
+    _build.load_library()
+    log = _build.library_path().with_suffix(".log").read_text()
+    k = 10
+    out, digests, scenes = {}, {}, {}
+    for name in ("cornell", "cornell-boxes"):
+        scene, cs = sc.BUILTIN_SCENES[name](device="cuda")
+        cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                             cs["fov"], device="cuda")
+        scenes[name] = (sc.with_packet_mesh(scene), cam, pack_camera(cam))
+    for name, nee in AB_FORWARD:
+        scene, cam, cp = scenes[name]
+        st = [None]
+
+        def start(st=st):
+            st[0] = pk.init_state(W, H, TR, device="cuda")
+
+        def run(i, scene=scene, cp=cp, nee=nee, st=st):
+            st[0], _ = pk.persistent_step(
+                scene, cp, (400, i), st[0], budget=16, width=W, height=H,
+                max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=nee)
+
+        key = f"forward {name} {'nee' if nee else 'brute'}"
+        start()
+        run(0)
+        run(1)
+        digests[key] = _digest(getattr(st[0], f) for f in pk.STATE_FIELDS)
+        out[key] = _profile(run, k, "persistent_kernel", "ab", start)[0]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    target = torch.rand((H, W, 3), generator=gen, device="cuda")
+    kw = dict(spp=SPP, budget=rp.default_budget(SPP, MB), max_bounces=MB,
+              rr_start=3, tile_rows=TR)
+    for name, nee in AB_GRADIENT:
+        scene, cam, _ = scenes[name]
+
+        def run(i, scene=scene, cam=cam, nee=nee):
+            rp.persistent_mse_value_and_grad(scene, cam, (400, i), 0, target,
+                                             use_nee=nee, **kw)
+
+        key = f"gradient {name} {'nee' if nee else 'brute'}"
+        loss, grads, _ = rp.persistent_mse_value_and_grad(
+            scene, cam, (500, 0), 0, target, use_nee=nee, **kw)
+        digests[key] = _digest([loss, grads["mat_color"],
+                                grads["light_intensity"]])
+        out[key] = _profile(run, k, "replay_persistent_kernel", "ab")[0]
+    return dict(ms=out, digests=digests, log=log)
+
+
+def ab(other: str) -> int:
+    """``ab_worker`` in one process per checkout, in the order other, this,
+    this, other (A B B A, so that a drift of the card's clocks over the call
+    shows as a gap between the two runs of one checkout). Prints each
+    checkout's ptxas registers, stack and spills per build of the two
+    kernels, each run's device ms per launch, then per workload the two runs
+    of each checkout, the change against the other checkout's mean, and
+    whether the outputs are equal bit for bit."""
+    sys.path.insert(0, str(ROOT))
+    from tpu_pathtracer_torch.ops.kernels._build import ptxas_report
+
+    order = [("other", other), ("this", str(ROOT)), ("this", str(ROOT)),
+             ("other", other)]
+    runs, logs, digests = [], {}, {}
+    for tag, root in order:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--ab-worker",
+             str(Path(root).resolve())],
+            capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return 1
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append((tag, got["ms"]))
+        logs[tag] = got["log"]
+        digests.setdefault(tag, []).append(got["digests"])
+        print(f"{tag} ({root}): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in got["ms"].items()), flush=True)
+    for tag, log in logs.items():
+        print(f"{tag} ptxas: " + " | ".join(
+            f"{k}: {v.get('regs')} regs, {v.get('stack')} B stack, "
+            f"{v.get('spill_st')}/{v.get('spill_ld')} B spill st/ld"
+            for k, v in ptxas_report(log).items() if "persistent" in k))
+    print("device ms per launch: workload | other (run 1, run 4) | this "
+          "(run 2, run 3) | this / other - 1 | outputs equal")
+    for key in runs[0][1]:
+        oth = [r[key] for t, r in runs if t == "other"]
+        this = [r[key] for t, r in runs if t == "this"]
+        gap = statistics.mean(this) / statistics.mean(oth) - 1.0
+        same = len({d[key] for ds in digests.values() for d in ds}) == 1
+        print(f"{key} | {oth[0]:.4f}, {oth[1]:.4f} | {this[0]:.4f}, "
+              f"{this[1]:.4f} | {gap:+.4f} | {'yes' if same else 'NO'}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip())
+    return 0
+
+
+_LAP = [0.0]
+
+
+def _lap() -> float:
+    """Seconds since the previous call."""
+    now = time.perf_counter()
+    dt, _LAP[0] = now - _LAP[0], now
+    return dt
+
+
 def main() -> int:
     try:
         import torch
@@ -2225,48 +2822,102 @@ def main() -> int:
         AGREE, BIN_TN_RTOL, L_TOL, PACKET_AGREE, PACKET_T_TOL, SIGN_Z,
     )
 
+    _lap()
+    laps = []
     smi = phase_environment()
-    phase_build()
+    laps.append(('1', _lap()))
+    builds = phase_build()
+    laps.append(('2', _lap()))
     worst = phase_compare()
-    launches, _, worst_main = phase_main_path()
+    laps.append(('3', _lap()))
+    launches, _, worst_main, _ = phase_main_path()
+    laps.append(('4', _lap()))
     phase_cli()
+    laps.append(('5', _lap()))
     times = phase_times(smi)
+    laps.append(('6', _lap()))
     worst_grad = phase_grad_compare()
+    laps.append(('7', _lap()))
     grad_launches, _, worst_train = phase_trainer()
+    laps.append(('8', _lap()))
     phase_cli_invert()
+    laps.append(('9', _lap()))
     gtimes = phase_grad_times(smi)
+    laps.append(('10', _lap()))
     # the mesh slice: cornell_boxes, cornell_glass and cornell_quad
     m_worst = phase_compare(MESH_CASES, "11 mesh kernel vs plain")
+    laps.append(('11', _lap()))
     phase_cli("cornell-boxes", "12 mesh cli")
-    m_launches, m_walks, m_worst_main = phase_main_path(
+    laps.append(('12 cli', _lap()))
+    m_launches, m_walks, m_worst_main, _ = phase_main_path(
         "cornell-quad", (True,), budget=16, target=4, floor_always=False,
         label="12 mesh main path")
+    laps.append(('12 main', _lap()))
     if m_walks != m_launches:
         fail(f"mesh main path: {m_walks} of {m_launches} launches walked a "
              "mesh")
     m_times = {name: phase_times(smi, name, "12 mesh times")
                for name in ("cornell-boxes", "cornell-quad")}
+    laps.append(('12 times', _lap()))
     m_worst_grad = phase_grad_compare(
         (("cornell-boxes", True), ("cornell-quad", True)),
         "13 mesh gradient kernel vs plain")
+    laps.append(('13', _lap()))
     m_grad_launches, m_grad_walks, m_worst_train = phase_trainer(
         "cornell-boxes", (True,), mat=0, steps=5,
         label="13 mesh trainer main path")
+    laps.append(('13 trainer', _lap()))
     if m_grad_walks != sum(m_grad_launches.values()):
         fail(f"mesh trainer: {m_grad_walks} of "
              f"{sum(m_grad_launches.values())} launches walked a mesh")
     m_gtimes = phase_grad_times(smi, "cornell-boxes", (True,),
                                 "13 mesh gradient times")
+    laps.append(('13 times', _lap()))
     # the tangent kernel: camera-pose and IOR gradients
     j_worst = phase_jvp_compare()
+    laps.append(('14', _lap()))
     fd = phase_jvp_fd()
+    laps.append(('15', _lap()))
     j_launches, j_worst_main = phase_ior_trainer()
+    laps.append(('16', _lap()))
     j_times = phase_jvp_times(smi)
+    laps.append(('16 times', _lap()))
     # the wavefront slice: the packet and bin kernels
     p_worst = phase_packet_compare(smi)
+    laps.append(('17-18', _lap()))
     wf_launches, wf_renderer, wf_main = phase_wavefront_main(smi)
+    laps.append(('19', _lap()))
     wf_means = phase_wavefront_vs_persistent()
+    laps.append(('20', _lap()))
     wf_times = phase_wavefront_times(smi, wf_renderer)
+    laps.append(('21', _lap()))
+    # thin-lens DOF and textures in the persistent kernels
+    d_worst = phase_compare(DOF_CASES, "22 DOF kernel vs plain")
+    laps.append(('22', _lap()))
+    d_launches, d_walks, d_worst_main = phase_dof_main()
+    laps.append(('23', _lap()))
+    d_worst_grad = phase_grad_compare(
+        (("cornell", False), ("cornell", True)),
+        "24 DOF gradient kernel vs plain", lens=LENS)
+    laps.append(('24', _lap()))
+    d_grad_launches, _, d_worst_train = phase_trainer(
+        "cornell", (False, True), steps=5, label="24 DOF trainer main path",
+        lens=LENS)
+    laps.append(('24 trainer', _lap()))
+    t_worst = phase_compare(TEX_CASES, "25 textured kernel vs plain")
+    laps.append(('25', _lap()))
+    t_launches, t_walks, t_worst_main, t_checks = phase_texture_main(smi)
+    laps.append(('25 main', _lap()))
+    c4p = phase_c4_persistent(smi, wf_renderer, wf_times)
+    laps.append(('26', _lap()))
+    d_times = phase_times(smi, "cornell", "27 DOF times", lens=LENS)
+    laps.append(('27 lens', _lap()))
+    d_gtimes = phase_grad_times(smi, "cornell", (False, True),
+                                "27 DOF gradient times", lens=LENS)
+    laps.append(('27 lens gradient', _lap()))
+    t_times = {name: phase_times(smi, name, "27 texture times")
+               for name in ("terrain32", "terrain32-bare")}
+    laps.append(('27 texture', _lap()))
 
     forward = {
         "name": "persistent_step",
@@ -2376,26 +3027,99 @@ def main() -> int:
         grad_ms_cornell_boxes_nee=mg["grad_ms"],
         rays_per_s_cornell_boxes_nee=mg["rays_per_s"],
         idle_share_cornell_boxes_nee=mg["idle_share"])
+    # this slice: the lens and texture main paths, config 4 persistent
+    forward.update(
+        launches=forward["launches"] + d_launches + t_launches
+        + c4p["launches"],
+        launches_dof_path=d_launches, launches_texture_path=t_launches,
+        launches_config4_path=c4p["launches"],
+        n_agree_dof=min(d_worst["n_agree"], d_worst_main["n_agree"]),
+        l_agree_dof=min(d_worst["l_agree"], d_worst_main["l_agree"]),
+        n_floor_dof_main=d_worst_main["n_floor"],
+        l_floor_dof_main=d_worst_main["l_floor"],
+        max_abs_err_dof=max(d_worst["max_abs_err"],
+                            d_worst_main["max_abs_err"]),
+        sign_balance_dof=d_worst["sign_balance"],
+        n_agree_texture=min(t_worst["n_agree"], t_worst_main["n_agree"]),
+        l_agree_texture=min(t_worst["l_agree"], t_worst_main["l_agree"]),
+        max_abs_err_texture=max(t_worst["max_abs_err"],
+                                t_worst_main["max_abs_err"]),
+        sign_balance_texture=t_worst["sign_balance"],
+        checker_red_cyan=[t_checks["red"], t_checks["cyan"]],
+        terrain32_mean_wavefront_persistent=[t_checks["wavefront"],
+                                             t_checks["persistent"]],
+        config4_ms_to_2spp=c4p["ms_to_spp"],
+        config4_wavefront_frame_ms=c4p["wavefront_frame_ms"],
+        config4_kernel_ms=c4p["kernel_ms"],
+        config4_bound_ms=c4p["bound_ms"],
+        config4_bound_by=c4p["bound_by"],
+        config4_idle_share=c4p["idle_share"],
+        config4_mean_persistent_wavefront=[c4p["mean"],
+                                           c4p["wavefront_mean"]],
+        n_agree_config4_bands=c4p["worst"]["n_agree"],
+        l_agree_config4_bands=c4p["worst"]["l_agree"],
+        n_floor_config4_bands=c4p["worst"]["n_floor"],
+        l_floor_config4_bands=c4p["worst"]["l_floor"],
+        max_abs_err_config4_bands=c4p["worst"]["max_abs_err"])
+    for key, t in (("lens", d_times), ("terrain32", t_times["terrain32"]),
+                   ("terrain32_bare", t_times["terrain32-bare"])):
+        for mode, o in t.items():
+            forward.update({
+                f"ms_{key}_{mode}": o["kernel_ms"],
+                f"plain_ms_{key}_{mode}": o["plain_ms"],
+                f"bound_ms_{key}_{mode}": o["bound_ms"],
+                f"bound_by_{key}_{mode}": o["bound_by"],
+                f"step_ms_{key}_{mode}": o["step_ms"],
+                f"idle_share_{key}_{mode}": o["idle_share"],
+                f"rays_per_s_{key}_{mode}": o["rays_per_s"]})
+    gradient.update(
+        launches=gradient["launches"] + sum(d_grad_launches.values()),
+        launches_dof_path=sum(d_grad_launches.values()),
+        n_agree_dof=min(d_worst_grad["n_agree"], d_worst_train["n_agree"]),
+        l_agree_dof=min(d_worst_grad["l_agree"], d_worst_train["l_agree"]),
+        plane_agree_dof=min(d_worst_grad["plane_agree"],
+                            d_worst_train["plane_agree"]),
+        max_abs_err_dof=max(d_worst_grad["max_abs_err"],
+                            d_worst_train["max_abs_err"]),
+        sign_balance_dof=max(d_worst_grad["sign_balance"],
+                             d_worst_train["sign_balance"]))
+    for mode, o in d_gtimes.items():
+        gradient.update({f"ms_lens_{mode}": o["kernel_ms"],
+                         f"plain_ms_lens_{mode}": o["plain_ms"],
+                         f"bound_ms_lens_{mode}": o["bound_ms"],
+                         f"bound_by_lens_{mode}": o["bound_by"],
+                         f"grad_ms_lens_{mode}": o["grad_ms"],
+                         f"idle_share_lens_{mode}": o["idle_share"]})
     boxes = m_times["cornell-boxes"]["brute"]
+    textured = t_times["terrain32"]["nee"]
     walk = {
         "name": "mesh_walk",
         "route": "cuda",
         "source": "tpu_pathtracer_torch/csrc/pt_common.cuh",
         "replaces": "tpu_pathtracer/ops/pallas/_walk.py:22",
-        "launches": m_walks + m_grad_walks,
+        "launches": m_walks + m_grad_walks + d_walks + t_walks
+        + c4p["walks"],
         "max_abs_err": max(forward["max_abs_err_mesh"],
-                           gradient["max_abs_err_mesh"]),
+                           gradient["max_abs_err_mesh"],
+                           forward["max_abs_err_texture"],
+                           forward["max_abs_err_config4_bands"]),
         "ms": boxes["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
         "bound_ms": boxes["bound_ms"],
         "bound_by": boxes["bound_by"],
         "library_ms": None,
+        "ms_textured_nee": textured["kernel_ms"],
+        "plain_ms_textured_nee": textured["plain_ms"],
+        "bound_ms_textured_nee": textured["bound_ms"],
+        "bound_by_textured_nee": textured["bound_by"],
         "note": "a __device__ function inside persistent_step and "
                 "persistent_replay_call, with no launch of its own: "
                 "launches are those of the two kernels on mesh scenes in "
-                "the mesh main paths; ms, plain_ms and bound_ms are those "
-                "of the cornell_boxes brute-force forward launch that runs "
-                "it; held against mesh_walk_ref through both kernels' "
+                "the mesh main paths (the lens, textured and config-4 "
+                "paths included); ms, plain_ms and bound_ms are those of "
+                "the cornell_boxes brute-force forward launch that runs it, "
+                "the *_textured_* keys those of terrain32 NEE with the uv "
+                "tracked; held against mesh_walk_ref through both kernels' "
                 "mesh checks",
     }
     main_t = j_times["ior_cornell_nee"]
@@ -2507,6 +3231,14 @@ def main() -> int:
         "note": "per wave of the main path (config 4, two-pass); the "
                 "single-pass traversal launches no bin kernel",
     }
+    for entry, kernel in ((forward, "persistent_kernel"),
+                          (gradient, "replay_persistent_kernel"),
+                          (jvp, "camera_jvp_kernel"),
+                          (packet, "packet_kernel"), (binning, "bin_kernel")):
+        entry["ptxas"] = {k: v for k, v in builds.items()
+                          if k.split("<")[0] == kernel}
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in laps)
+          + f"; total {sum(v for _, v in laps):.1f}", flush=True)
     print(json.dumps({"kernels": [forward, gradient, walk, jvp, packet,
                                   binning]}))
     print(smi)
@@ -2517,4 +3249,15 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", metavar="CHECKOUT",
+                    help="instead of the smoke run, time the persistent "
+                    "kernels per launch against another checkout's (ab)")
+    ap.add_argument("--ab-worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.ab_worker:
+        print(json.dumps(ab_worker(args.ab_worker)))
+        sys.exit(0)
+    sys.exit(ab(args.ab) if args.ab else main())

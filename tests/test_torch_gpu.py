@@ -165,6 +165,155 @@ def test_mesh_gradient_kernel_matches_plain_on_gpu():
     torch.testing.assert_close(k_both[4], g_i, rtol=1e-5, atol=1e-9)
 
 
+LENS = dict(lens_radius=4.0, focal_distance=60.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True])
+@pytest.mark.parametrize("injected", [True, False])
+def test_dof_kernel_matches_plain_on_gpu(use_nee, injected):
+    """The forward kernel with a thin lens (7 or 10 draws) against its plain
+    version on the same uniforms: >= 98% lane agreement, ray counts within
+    1%, and a lens image unlike the pinhole one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda", **LENS)
+    cp = pack_camera(cam)
+    kw = dict(budget=BUDGET, width=W, height=H, max_bounces=MB, tile_rows=TR,
+              use_nee=use_nee, use_dof=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    st_k = pk.init_state(W, H, tile_rows=TR, device="cuda")
+    st_r = st_k.clone()
+    rows = st_k.lr.shape[0] * BUDGET * pk.n_draws(use_nee, True)
+    rays_k = rays_r = 0
+    for _ in range(2):
+        u = (torch.rand((rows, LANES), generator=gen, device="cuda")
+             if injected else None)
+        st_r, nr = pk.persistent_step_ref(scene, cp, (1, 2), st_r,
+                                          uniforms=u, **kw)
+        st_k, nk = pk.persistent_step(scene, cp, (1, 2), st_k, uniforms=u,
+                                      **kw)
+        rays_r, rays_k = rays_r + int(nr), rays_k + int(nk)
+    n_agree, l_agree, _ = lane_agreement(st_r, st_k, W, H)
+    assert n_agree >= AGREE and l_agree >= AGREE, (n_agree, l_agree)
+    assert abs(rays_k - rays_r) <= 0.01 * rays_r
+    st_p = pk.init_state(W, H, tile_rows=TR, device="cuda")
+    st_p, _ = pk.persistent_step(scene, cp, (1, 2), st_p,
+                                 **dict(kw, use_dof=False))
+    assert float((pk.state_image(st_p, W, H)
+                  - pk.state_image(st_k, W, H)).abs().max()) > 0.05
+
+
+@pytest.mark.gpu
+def test_textured_kernel_matches_plain_on_gpu():
+    """The checker quad of the JAX suite at 64x48 with NEE: the textured
+    build (uv tracked in the walk, four taps per textured hit) against the
+    plain version's gathers, >= 98% lane agreement, both tiles shown."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
+                           [10, 0, -10])
+    scene = sc.with_packet_mesh(sc.make_scene(
+        [], [sc.diffuse([0.7, 1.0, 0.9])],
+        [sc.point_light([0.0, 8.0, 0.0], [60.0, 60.0, 60.0])],
+        mesh=build_bvh(v, f, uv, 0, device="cuda"),
+        textures=meshes.checker_texture(16, tiles=4, c0=(0.9, 0.15, 0.1),
+                                        c1=(0.05, 0.85, 0.9)),
+        mat_texture=[0], device="cuda"))
+    w, h = 64, 48
+    cam = cm.make_camera([0, 14, 9], [0, 0, 0], [0, 1, 0], w, h, 60.0,
+                         device="cuda")
+    cp = pack_camera(cam)
+    kw = dict(budget=BUDGET, width=w, height=h, max_bounces=1, tile_rows=TR,
+              use_nee=True)
+    st_k = pk.init_state(w, h, tile_rows=TR, device="cuda")
+    st_r = st_k.clone()
+    for _ in range(2):
+        st_r, _ = pk.persistent_step_ref(scene, cp, (6, 1), st_r, **kw)
+        st_k, _ = pk.persistent_step(scene, cp, (6, 1), st_k, **kw)
+    n_agree, l_agree, _ = lane_agreement(st_r, st_k, w, h)
+    assert n_agree >= AGREE and l_agree >= AGREE, (n_agree, l_agree)
+    img = pk.state_image(st_k, w, h)
+    lit = img.sum(-1) > 1e-3
+    assert bool((lit & (img[..., 0] > 2 * img[..., 1])).any())
+    assert bool((lit & (img[..., 1] > 2 * img[..., 0])).any())
+
+
+@pytest.mark.gpu
+def test_texture_id_past_the_atlas_is_black_on_gpu():
+    """A material whose texture id is past the atlas takes a zero texel in
+    the kernel and in its plain version, as in the TPU kernel: the quad lit
+    by a point light renders black, and the two agree lane for lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
+                           [10, 0, -10])
+    scene = sc.with_packet_mesh(sc.make_scene(
+        [], [sc.diffuse([0.7, 1.0, 0.9])],
+        [sc.point_light([0.0, 8.0, 0.0], [60.0, 60.0, 60.0])],
+        mesh=build_bvh(v, f, uv, 0, device="cuda"),
+        textures=meshes.checker_texture(16, tiles=4), mat_texture=[1],
+        device="cuda"))
+    w, h = 64, 48
+    cam = cm.make_camera([0, 14, 9], [0, 0, 0], [0, 1, 0], w, h, 60.0,
+                         device="cuda")
+    cp = pack_camera(cam)
+    kw = dict(budget=BUDGET, width=w, height=h, max_bounces=1, tile_rows=TR,
+              use_nee=True)
+    st_k = pk.init_state(w, h, tile_rows=TR, device="cuda")
+    st_r = st_k.clone()
+    st_r, _ = pk.persistent_step_ref(scene, cp, (6, 1), st_r, **kw)
+    st_k, _ = pk.persistent_step(scene, cp, (6, 1), st_k, **kw)
+    n_agree, l_agree, _ = lane_agreement(st_r, st_k, w, h)
+    assert n_agree >= AGREE and l_agree >= AGREE, (n_agree, l_agree)
+    assert int(st_k.n_samp.sum()) > 0
+    assert float(pk.state_image(st_k, w, h).abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True])
+def test_dof_gradient_kernel_matches_plain_on_gpu(use_nee):
+    """The gradient kernel with the thin lens against its plain version on
+    the same uniforms, lane for lane, and phase "both" against the fold of
+    its own phase "adjoint" lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import grad_lane_agreement
+
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda", **LENS)
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tgt = rp.target_to_lanes(
+        torch.rand((H, W, 3), generator=gen, device="cuda"), rows)
+    u = torch.rand((rows * BUDGET * pk.n_draws(use_nee, True), LANES),
+                   generator=gen, device="cuda")
+    kw = dict(spp=2, budget=BUDGET, width=W, height=H, max_bounces=MB,
+              tile_rows=TR, use_nee=use_nee, use_dof=True, uniforms=u)
+    args = (scene, pack_camera(cam), (3, 8), 0, tgt)
+    k_adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
+    k_both = rp.persistent_replay_call(*args, **kw)
+    r_adj = rp.persistent_replay_ref(*args, phase="adjoint", **kw)
+    torch.cuda.synchronize()
+    agree = grad_lane_agreement(r_adj[:4], k_adj[:4], W, H)
+    assert agree["n_samp"] >= AGREE and agree["L"] >= AGREE, agree
+    assert min(agree["planes"].values()) >= AGREE, agree
+    loss, g_a, g_i = rp.mse_fold(*k_adj[:4], tgt, W, H)
+    torch.testing.assert_close(k_both[2], loss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(k_both[3], g_a, rtol=1e-5, atol=1e-9)
+    torch.testing.assert_close(k_both[4], g_i, rtol=1e-5, atol=1e-9)
+
+
 def _position_rows(device):
     """d pack_camera / d pos: the three camera-position tangents."""
     rows = torch.zeros((3, 24), device=device)

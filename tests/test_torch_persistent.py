@@ -17,6 +17,8 @@ few 1e-4 relative (the point-light scene: 96.9% of lanes within an absolute
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -48,9 +50,10 @@ W, H, TR = 32, 24, 8
 # throughput of the next.
 MB, RRS, BUDGET, FRAMES = 3, 0, 6, 2
 
-def jax_uniforms(seed, frame, n_tiles, budget, use_nee, tile_offset=0):
+def jax_uniforms(seed, frame, n_tiles, budget, use_nee, tile_offset=0,
+                 use_dof=False):
     """The external uniform block interpret mode feeds the JAX kernel."""
-    n_draw = tpk.n_draws(use_nee)
+    n_draw = tpk.n_draws(use_nee, use_dof)
     rkey = jax.random.fold_in(
         jax.random.fold_in(jax.random.key(0), seed[0] + 131 * seed[1]), frame)
     blk = budget * n_draw * TR
@@ -229,3 +232,39 @@ def test_unsupported_device_is_refused():
     with pytest.raises(ValueError, match="unsupported device"):
         tpk.persistent_step(scene, torch.zeros(24), (0, 0), st, budget=1,
                             width=8, height=8, tile_rows=TR)
+
+
+def test_scattered_tiles_step_as_in_the_whole_image(cornell_torch):
+    """The plain step on tiles picked from over the image (``tile_offset``
+    a list of their indices) gives those tiles of the whole image's step
+    bit for bit, Philox draws and rays included: lanes do not interact. A
+    list of the wrong length is refused."""
+    scene, cp = cornell_torch
+    kw = dict(budget=6, width=W, height=H, max_bounces=MB, tile_rows=TR,
+              use_nee=True)
+    whole = tpk.init_state(W, H, tile_rows=TR, device="cpu")
+    whole, _ = tpk.persistent_step(scene, cp, (4, 1), whole, **kw)
+    n_tiles = whole.lr.shape[0] // TR
+    picked = [n_tiles - 1, 0]
+
+    def tiles(st):
+        return dataclasses.replace(st, **{
+            f: torch.cat([getattr(st, f)[t * TR:(t + 1) * TR]
+                          for t in picked]) for f in tpk.STATE_FIELDS})
+
+    got, rays = tpk.persistent_step_ref(scene, cp, (4, 1), tiles(whole),
+                                        tile_offset=picked, **kw)
+    want, _ = tpk.persistent_step(scene, cp, (4, 1), whole, **kw)
+    rays_want = sum(
+        int(tpk.persistent_step_ref(
+            scene, cp, (4, 1),
+            dataclasses.replace(whole, **{
+                f: getattr(whole, f)[t * TR:(t + 1) * TR]
+                for f in tpk.STATE_FIELDS}),
+            tile_offset=t, **kw)[1]) for t in picked)
+    for f in tpk.STATE_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(tiles(want), f)), f
+    assert int(rays) == rays_want
+    with pytest.raises(ValueError, match="tile_offset"):
+        tpk.persistent_step_ref(scene, cp, (4, 1), tiles(whole),
+                                tile_offset=[0], **kw)

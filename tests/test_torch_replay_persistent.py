@@ -55,11 +55,12 @@ FOLD_RTOL = 1e-5  # the same lanes summed in another order
 LOSS_RTOL, GRAD_RTOL = 1e-4, 2e-3  # tests/test_replay_persistent.py's bars
 
 
-def jax_uniforms(seed, iteration, n_tiles, budget, use_nee, tile_rows=TR):
+def jax_uniforms(seed, iteration, n_tiles, budget, use_nee, tile_rows=TR,
+                 use_dof=False):
     """The external uniform block interpret mode feeds the JAX gradient
     kernel: key(2), folded with seed[0] + 131*seed[1], the iteration and the
     global tile."""
-    n_draw = tpk.n_draws(use_nee)
+    n_draw = tpk.n_draws(use_nee, use_dof)
     rkey = jax.random.fold_in(
         jax.random.fold_in(jax.random.key(2), seed[0] + 131 * seed[1]),
         iteration)
@@ -210,9 +211,16 @@ def test_unsupported_routes_raise(cornell):
     with pytest.raises(NotImplementedError, match="item 12"):
         trp.persistent_replay_call(scene, cp, (1, 0), 0, tgt,
                                    phase="scatter", **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        trp.persistent_replay_call(scene, cp, (1, 0), 0, tgt, use_dof=True,
-                                   **kw)
+    # thin-lens DOF is ported: with a lens in the packed camera, use_dof
+    # runs and starts paths off the eye (tests/test_torch_dof.py holds it
+    # to the JAX kernel)
+    cp_lens = cp.clone()
+    cp_lens[12], cp_lens[13] = 4.0, 60.0
+    pin = trp.persistent_replay_call(scene, cp_lens, (1, 0), 0, tgt, **kw)
+    dof = trp.persistent_replay_call(scene, cp_lens, (1, 0), 0, tgt,
+                                     use_dof=True, **kw)
+    assert torch.isfinite(dof[0]).all() and torch.isfinite(dof[2])
+    assert not torch.equal(pin[0], dof[0])
     with pytest.raises(NotImplementedError, match="item 12"):
         trp.chunked_mse_value_and_grad(scene)
     with pytest.raises(ValueError, match="unsupported device"):

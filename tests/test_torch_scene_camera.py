@@ -156,19 +156,27 @@ def test_make_scene_validation_matches_jax(case):
 
 
 def test_unported_features_raise():
-    """The thin lens still raises; textures and the coarse two-pass tree are
-    ported (tests/test_torch_wavefront.py, tests/test_torch_packet.py), and
-    the persistent kernels refuse a textured scene."""
+    """The thin lens, textures and the coarse two-pass tree are ported (a
+    lens camera keeps its lens; tests/test_torch_dof.py,
+    tests/test_torch_persistent_texture.py, tests/test_torch_packet.py); a
+    route that still cannot sample textures refuses a textured scene
+    through refuse_textures, with its reason and its error type."""
     mats = [tsc.diffuse([0.5, 0.5, 0.5])]
-    with pytest.raises(NotImplementedError):
-        tcm.make_camera([0, 0, 5], [0, 0, 0], [0, 1, 0], 8, 8,
-                        lens_radius=1.0, focal_distance=5.0, device="cpu")
+    lens = tcm.make_camera([0, 0, 5], [0, 0, 0], [0, 1, 0], 8, 8,
+                           lens_radius=1.0, focal_distance=5.0, device="cpu")
+    assert lens.use_dof and lens.lens_radius == 1.0
+    assert float(lens.focal_distance) == 5.0
+    assert not tcm.make_camera([0, 0, 5], [0, 0, 0], [0, 1, 0], 8, 8,
+                               device="cpu").use_dof
     tex = tsc.make_scene([], mats, textures=np.zeros((4, 4, 3)),
                          mat_texture=[0], device="cpu")
     assert tex.textured and tex.textures.shape == (1, 4, 4, 3)
-    assert not tsc.make_scene([], mats, mat_texture=[0],
-                              device="cpu").textured
+    untextured = tsc.make_scene([], mats, mat_texture=[0], device="cpu")
+    assert not untextured.textured
     scene, _ = tsc.cornell_glass(device="cpu")
     assert tsc.with_packet_mesh(scene).mesh_packed_coarse is not None
-    with pytest.raises(NotImplementedError, match="Slice A"):
-        tsc.refuse_textures(tex, "the persistent kernel")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tsc.refuse_textures(tex, "the gradient kernel", "item 12")
+    with pytest.raises(ValueError, match="the tangent walk does not take"):
+        tsc.refuse_textures(tex, "the tangent walk", "Slice E", ValueError)
+    tsc.refuse_textures(untextured, "the gradient kernel", "item 12")

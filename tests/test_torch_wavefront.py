@@ -13,8 +13,9 @@ compared pixel for pixel:
 
 Then the port's own invariants: packed two-pass, packed single-pass and
 unpacked renders agree; the bounce-level sort is invisible; the progressive
-renderer's image is the mean of its frames; backends route as JAX's do; and
-every route that cannot render a textured scene or a lens camera refuses it.
+renderer's image is the mean of its frames; backends route as JAX's do;
+textured scenes and lens cameras reach the persistent routes, and the routes
+that cannot take them refuse them.
 """
 from __future__ import annotations
 
@@ -230,11 +231,13 @@ def test_cli_render_wavefront(tmp_path):
 
 
 def test_textured_scenes_and_lenses_are_refused(terrain):
-    """Every route that cannot sample textures refuses a textured scene; a
-    lens camera made by dataclasses.replace is refused by the camera packer
-    (so by every persistent route), by the tangent walk (ValueError, also
-    for a packed camera with a lens slot) and by the wavefront (DOF is not
-    ported)."""
+    """The routes that cannot sample textures refuse a textured scene: the
+    gradient kernel (ROADMAP Queue 1 item 12) and the tangent walk
+    (ValueError, as in the JAX package); the forward persistent step and
+    PersistentRenderer render it. A lens camera made by dataclasses.replace
+    packs with its lens and renders through the persistent step, the
+    renderer and the wavefront; the tangent walk refuses it (ValueError,
+    also for a packed camera with a lens slot)."""
     from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
@@ -246,17 +249,20 @@ def test_textured_scenes_and_lenses_are_refused(terrain):
     w, h = cam.width, cam.height
     st = pk.init_state(w, h, 8, device="cpu")
     kw = dict(budget=2, width=w, height=h, tile_rows=8)
-    with pytest.raises(NotImplementedError, match="Slice A"):
-        pk.persistent_step(sp, cp, (0, 0), st, **kw)
-    with pytest.raises(NotImplementedError, match="Slice A"):
-        pk.persistent_step_ref(sp, cp, (0, 0), st, **kw)
+    st_k, rays = pk.persistent_step(sp, cp, (0, 0), st, **kw)
+    st_r, rays_r = pk.persistent_step_ref(sp, cp, (0, 0), st, **kw)
+    assert int(rays) == int(rays_r) > 0
+    assert torch.equal(st_k.lr, st_r.lr)
+    assert torch.isfinite(pk.state_image(st_k, w, h)).all()
     lanes = torch.zeros((st.lr.shape[0], 128, 3))
-    with pytest.raises(NotImplementedError, match="Slice A"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         rp.persistent_replay_call(sp, cp, (0, 0), 0, lanes, spp=1, **kw)
-    with pytest.raises(NotImplementedError, match="Slice A"):
+    with pytest.raises(ValueError, match="uv-motion"):
         cj.camera_jvp_call(sp, cp, torch.zeros(24), (0, 0), 0, spp=1, **kw)
-    with pytest.raises(NotImplementedError, match="Slice A"):
-        tprog.PersistentRenderer(ts, cam, RenderConfig(), device="cpu")
+    r = tprog.PersistentRenderer(ts, cam, RenderConfig(max_bounces=1),
+                                 device="cpu", budget=2, tile_rows=8)
+    r.step()
+    assert torch.isfinite(r.image()).all() and float(r.image().mean()) > 0
 
     scene, cs = tsc.cornell_spheres(device="cpu")
     pin = tcm.make_camera(cs["eye"], cs["look_at"], cs["up"], 8, 6,
@@ -264,13 +270,13 @@ def test_textured_scenes_and_lenses_are_refused(terrain):
     lens = dataclasses.replace(pin, lens_radius=0.5,
                                focal_distance=torch.tensor(40.0))
     weights = torch.ones((6, 8, 3))
-    # the packer refuses it, so every persistent route does
-    with pytest.raises(NotImplementedError, match="Slice A"):
-        pack_camera(lens)
-    with pytest.raises(NotImplementedError, match="Slice A"):
-        tprog.PersistentRenderer(scene, lens, RenderConfig(), device="cpu")
-    cp_lens = pack_camera(pin).clone()
-    cp_lens[12] = 0.5
+    # the packer keeps the lens, so every persistent route traces it
+    cp_lens = pack_camera(lens)
+    assert float(cp_lens[12]) == 0.5 and float(cp_lens[13]) == 40.0
+    r = tprog.PersistentRenderer(scene, lens, RenderConfig(max_bounces=1),
+                                 device="cpu", budget=2, tile_rows=8)
+    r.step()
+    assert torch.isfinite(r.image()).all()
     with pytest.raises(ValueError, match="lens"):
         cj.camera_jvp_call(scene, cp_lens, torch.zeros(24), (0, 0), 0,
                            spp=1, budget=2, width=8, height=6)
@@ -281,11 +287,11 @@ def test_textured_scenes_and_lenses_are_refused(terrain):
         cj.ior_mse_grad(scene, lens, (0, 0), weights, spp=1, budget=2)
     with pytest.raises(ValueError, match="lens"):
         cj.ior_weighted_grad(scene, lens, (0, 0), weights, spp=1, budget=2)
-    with pytest.raises(NotImplementedError, match="Slice A"):
-        render_image(scene, lens, 0, RenderConfig(spp=1, max_bounces=1))
-    # the pinhole camera still runs every route
+    img_lens = render_image(scene, lens, 0, RenderConfig(spp=1, max_bounces=1))
+    assert torch.isfinite(img_lens).all()
+    # the pinhole camera still runs every route, and differs
     img = render_image(scene, pin, 0, RenderConfig(spp=1, max_bounces=1))
-    assert torch.isfinite(img).all()
+    assert torch.isfinite(img).all() and not torch.equal(img, img_lens)
 
 
 def test_trace_direct_rays_match_jax():

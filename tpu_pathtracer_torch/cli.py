@@ -46,7 +46,9 @@ def cmd_render(args: argparse.Namespace) -> int:
     w, h = _parse_size(args.size)
     scene, cs = sc.BUILTIN_SCENES[args.scene](device=device)
     camera = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h,
-                            cs["fov"], device=device)
+                            cs["fov"], lens_radius=cs.get("lens_radius", 0.0),
+                            focal_distance=cs.get("focal_distance", 0.0),
+                            device=device)
     config = RenderConfig(spp=args.spp, max_bounces=args.bounces,
                           use_nee=args.nee)
     backend = args.backend

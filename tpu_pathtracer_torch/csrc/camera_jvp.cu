@@ -3,7 +3,9 @@
 // Replaces: tpu_pathtracer/ops/pallas/camera_jvp.py::_cjvp_kernel (launched
 // by camera_jvp_call) for sphere and triangle-mesh scenes, brute force and
 // NEE+MIS with point, sphere-area and triangle (TRI_LIGHT) lights. The JAX
-// kernel refuses thin-lens DOF and textures, and so does this one.
+// kernel refuses textured scenes, and so does the wrapper of this one; the
+// JAX kernel reads a thin-lens camera as a pinhole one, which the wrapper
+// refuses instead (ops/kernels/camera_jvp.py).
 //
 // What it computes: forward-mode tangents through one walk of the persistent
 // regeneration schedule (one lane per pixel; a dead lane starts its pixel's

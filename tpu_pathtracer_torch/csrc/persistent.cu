@@ -1,10 +1,11 @@
 // Persistent path-regeneration kernel for Hopper (sm_90a).
 //
 // Replaces: tpu_pathtracer/ops/pallas/persistent.py::_persistent_kernel
-// (launched by persistent_step) for sphere and triangle-mesh scenes: brute
-// force, and NEE+MIS with point, sphere-area and triangle (TRI_LIGHT) lights;
-// the in-kernel BVH walk of ops/pallas/_walk.py is pt_common.cuh's
-// mesh_walk. Thin-lens DOF and textures are not ported yet.
+// (launched by persistent_step), whole: sphere and triangle-mesh scenes,
+// brute force and NEE+MIS with point, sphere-area and triangle (TRI_LIGHT)
+// lights, pinhole and thin-lens cameras (DOF), and textured mesh materials.
+// The in-kernel BVH walk of ops/pallas/_walk.py is pt_common.cuh's
+// mesh_walk_uv, which also returns the hit's uv on a textured scene.
 //
 // What bounds it on this card: it is a long, divergent, register-heavy ALU
 // state machine. Each lane does per-prim quadratics, transcendentals and
@@ -26,9 +27,15 @@
 //  * a mesh is walked per thread after the sphere pass, from the sphere t,
 //    so boxes behind the sphere hit are never entered; the packed node and
 //    triangle tables are read from global memory through the read-only
-//    cache (every lane of a warp mostly reads the same node). The kernel is
-//    built twice, with and without the mesh code (MESH), so that a sphere
-//    scene does not carry the walk's registers and spills;
+//    cache (every lane of a warp mostly reads the same node);
+//  * a textured mesh hit reads its four bilinear taps from the atlas in
+//    device memory through the read-only cache (the TPU kernel's soft
+//    two-hot MXU contraction stands in for a per-lane gather, which Hopper
+//    has); untextured lanes and sphere hits read none;
+//  * the kernel is built in six variants, templated on the mesh code
+//    (MESH), the texture code (TEX, with a mesh only: the walk then tracks
+//    uv) and the thin lens (DOF), so that a sphere or untextured scene and a
+//    pinhole camera carry none of their registers;
 //  * the live-ray count is reduced per warp and added to the per-tile
 //    counter with one atomicAdd per warp.
 //
@@ -41,7 +48,11 @@
 // differently from XLA on the CPU and from PyTorch's elementwise ops, and the
 // 1e5-radius walls turn an ulp into a different closest hit on a few lanes.
 // So the kernel is held to >= 98% of lanes against its plain version (the
-// JAX package's own bar), not to bitwise equality.
+// JAX package's own bar), not to bitwise equality. The build keeps nvcc's
+// default FMA contraction (no -fmad=false in _build.py): it holds that bar;
+// explicit fmaf calls fix the rounding where the walls need it, the thin
+// lens rounds each step as the plain version does (pt_common.cuh), and the
+// texel blend is contracted as nvcc likes.
 //
 // C interface (loaded with ctypes): tpt_persistent_step, tpt_error_string.
 
@@ -76,11 +87,14 @@ struct Params {
   const float* uniforms;  // NULL: production Philox
   int* nrays;             // (n_tiles,) live-ray counter
   MeshView mesh;          // n_nodes 0: no mesh
+  const float* atlas;     // (tex_k, tex_th, tex_tw, 3) texture atlas (TEX)
+  int tex_k, tex_th, tex_tw;
 };
 
-template <bool MESH>
+template <bool MESH, bool TEX, bool DOF>
 __global__ void __launch_bounds__(LANES)
 persistent_kernel(State s, Params p) {
+  static_assert(MESH || !TEX, "textures live on mesh materials");
   const int row = blockIdx.x;  // one block per 128-lane row
   const int col = threadIdx.x;
   const int idx = row * LANES + col;
@@ -91,7 +105,9 @@ persistent_kernel(State s, Params p) {
   const bool in_domain = lane < p.n_lanes;
   const float px = (float)(lane % p.width);
   const float py = (float)(lane / p.width);
-  const int n_draw = p.use_nee ? 8 : 5;
+  // draws per iteration, in the TPU kernel's order (pt_common.cuh)
+  constexpr int U1 = DOF ? 4 : 2;  // index of u1, after the camera's draws
+  const int n_draw = U1 + 3 + (p.use_nee ? 3 : 0);
 
   float Lr = s.lr[idx], Lg = s.lg[idx], Lb = s.lb[idx];
   int n_samp = s.n_samp[idx];
@@ -106,12 +122,13 @@ persistent_kernel(State s, Params p) {
   int n_live = 0;
 
   for (int it = 0; it < p.budget; ++it) {
-    // ---- this iteration's uniforms: u_cam v_cam u1 u2 u3 [ul1 ul2 usel]
-    float u[8];
+    // ---- this iteration's uniforms: u_cam v_cam [u_lens v_lens] u1 u2 u3
+    // [ul1 ul2 usel]
+    float u[DOF ? 12 : 8];
     draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
                   col, lane, p.frame, p.seed, p.salt, 0u);
-    const float u1 = u[2], u2 = u[3], u3 = u[4];
-    const float ul1 = u[5], ul2 = u[6], usel = u[7];
+    const float u1 = u[U1], u2 = u[U1 + 1], u3 = u[U1 + 2];
+    const float ul1 = u[U1 + 3], ul2 = u[U1 + 4], usel = u[U1 + 5];
 
     // ---- regenerate: a dead lane starts its pixel's next sample. Stratified
     // jitter over strat_k^2 cells picked by n_samp % strat_k^2; prev_delta
@@ -121,6 +138,7 @@ persistent_kernel(State s, Params p) {
       ox = c_cam[9];
       oy = c_cam[10];
       oz = c_cam[11];
+      if (DOF) thin_lens(c_cam, u[2], u[3], ox, oy, oz, dx, dy, dz);
       Tr = Tg = Tb = 1.f;
       Cr = Cg = Cb = 0.f;
       bounce = 0;
@@ -154,11 +172,11 @@ persistent_kernel(State s, Params p) {
     }
     // ---- the mesh, pruned from the sphere t; a triangle wins only if
     // strictly closer (persistent.py:358-397)
-    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f;
+    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f, hu = 0.f, hv = 0.f;
     int mmat = -1;
     if (MESH)
-      tm = mesh_walk<false>(p.mesh, ox, oy, oz, dx, dy, dz, best_t, gnx, gny,
-                            gnz, mmat);
+      tm = mesh_walk_uv<false, TEX>(p.mesh, ox, oy, oz, dx, dy, dz, best_t,
+                                    gnx, gny, gnz, mmat, hu, hv);
     const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
     if (!mesh_hit && !(best_t < 0.5f * BIG)) {
       // miss: the path ends here and flushes into the pixel sum
@@ -190,6 +208,21 @@ persistent_kernel(State s, Params p) {
       ab = __ldg(MT + 2);
       mtype = (int)__ldg(MT + 4);
       coef = __ldg(MT + 3);
+      if (TEX) {
+        // a textured material's colour is multiplied by the texel
+        // (persistent.py:491-497); a texture id past the atlas gives a zero
+        // texel, as the TPU kernel's rows past the atlas match no row
+        const int texk = (int)__ldg(MT + 5);
+        if (texk >= 0) {
+          const float3 tx =
+              texk < p.tex_k
+                  ? texel(p.atlas, texk, p.tex_th, p.tex_tw, hu, hv)
+                  : make_float3(0.f, 0.f, 0.f);
+          ar = tx.x * ar;
+          ag = tx.y * ag;
+          ab = tx.z * ab;
+        }
+      }
       // triangles of a TRI_LIGHT's material emit its intensity (the last
       // such light wins, as in the TPU kernel's select chain)
       for (int li = 0; li < p.n_lights; ++li) {
@@ -367,6 +400,11 @@ persistent_kernel(State s, Params p) {
   if ((col & 31) == 0) atomicAdd(p.nrays + tile, warp_sum);
 }
 
+template <bool MESH, bool TEX, bool DOF>
+void launch(int rows, cudaStream_t st, const State& s, const Params& p) {
+  persistent_kernel<MESH, TEX, DOF><<<rows, LANES, 0, st>>>(s, p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -377,25 +415,29 @@ extern "C" {
 // device pointers; pflags/lstruct (LS ints per light) are host arrays. The
 // prim, light and camera tables are copied into __constant__ memory on the
 // same stream, so launches must stay on one stream. n_nodes == 0 means no
-// mesh (its pointers are then not read). Returns the first CUDA error (0 on
-// success).
+// mesh (its pointers are then not read); a non-NULL atlas (tex_k, tex_th,
+// tex_tw, 3) with a mesh runs the textured build; use_dof the thin-lens
+// build. Returns the first CUDA error (0 on success).
 int tpt_persistent_step(void* const* state, const float* prims,
                         const int* pflags, int n_prims, const float* lights,
                         const int* lstruct, int n_lights, const float* cam,
                         const float* uniforms, int* nrays,
                         const float* mesh_boxes, const int* mesh_meta,
                         const float* mesh_tris, const float* mesh_mats,
-                        const float* tri_lights, int n_nodes, int rows_total,
-                        int tile_rows, int budget, int width, int n_lanes,
-                        int max_bounces, int rr_start, int use_nee,
-                        int strat_k, int tile_offset, uint32_t seed,
-                        uint32_t salt, uint32_t frame, void* stream) {
+                        const float* tri_lights, int n_nodes,
+                        const float* atlas, int tex_k, int tex_th, int tex_tw,
+                        int rows_total, int tile_rows, int budget, int width,
+                        int n_lanes, int max_bounces, int rr_start,
+                        int use_nee, int use_dof, int strat_k,
+                        int tile_offset, uint32_t seed, uint32_t salt,
+                        uint32_t frame, void* stream) {
   if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 0 ||
       n_lights > MAX_LIGHTS || rows_total <= 0 || tile_rows <= 0 ||
       rows_total % tile_rows != 0 || width <= 0 || strat_k < 1 ||
       n_nodes < 0 ||
       (n_nodes > 0 && !(mesh_boxes && mesh_meta && mesh_tris && mesh_mats &&
-                        tri_lights)))
+                        tri_lights)) ||
+      (atlas && (n_nodes == 0 || tex_k <= 0 || tex_th <= 0 || tex_tw <= 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaSuccess;
@@ -465,11 +507,21 @@ int tpt_persistent_step(void* const* state, const float* prims,
   p.mesh.mats = mesh_mats;
   p.mesh.tl = tri_lights;
   p.mesh.n_nodes = n_nodes;
+  p.atlas = atlas;
+  p.tex_k = tex_k;
+  p.tex_th = tex_th;
+  p.tex_tw = tex_tw;
 
-  if (n_nodes > 0)
-    persistent_kernel<true><<<rows_total, LANES, 0, st>>>(s, p);
+  const int r = rows_total;
+  if (n_nodes == 0)
+    use_dof ? launch<false, false, true>(r, st, s, p)
+            : launch<false, false, false>(r, st, s, p);
+  else if (!atlas)
+    use_dof ? launch<true, false, true>(r, st, s, p)
+            : launch<true, false, false>(r, st, s, p);
   else
-    persistent_kernel<false><<<rows_total, LANES, 0, st>>>(s, p);
+    use_dof ? launch<true, true, true>(r, st, s, p)
+            : launch<true, true, false>(r, st, s, p);
   return (int)cudaGetLastError();
 }
 

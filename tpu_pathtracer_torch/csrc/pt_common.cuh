@@ -2,10 +2,12 @@
 // persistent fused value-and-grad kernel (replay_persistent.cu).
 //
 // Only code that is the same math in both TPU kernels lives here: the
-// uniforms of one wavefront iteration, the camera ray of a regenerated path,
-// the three BSDF lobes, the NEE light samples (point light, cone sampling of
-// a sphere light, area sampling of a triangle light), the MIS pdfs of sphere
-// and triangle emitter hits, and the BVH walk over a packed mesh. The
+// uniforms of one wavefront iteration, the camera ray of a regenerated path
+// and its thin lens, the three BSDF lobes, the NEE light samples (point
+// light, cone sampling of a sphere light, area sampling of a triangle
+// light), the MIS pdfs of sphere and triangle emitter hits, the BVH walk
+// over a packed mesh (with the hit's texture uv on request) and the bilinear
+// texel of the texture atlas. The
 // sphere closest-hit loops and the sphere shadow tests differ between the
 // two TPU kernels (tie rule, segment-ball vs quadratic occlusion) and stay
 // in each kernel.
@@ -38,7 +40,7 @@ constexpr int TRI_LIGHT = 2;
 constexpr int LS = 5;
 constexpr int TRI_STRIDE = 16;  // floats per packed triangle slot
 constexpr int TL_STRIDE = 14;   // floats per triangle-light row
-constexpr int MAT_STRIDE = 5;   // floats per mesh material: r g b coef type
+constexpr int MAT_STRIDE = 6;   // floats per mesh material: r g b coef type tex
 
 // The 1e5-radius wall spheres make the quadratic b^2 - |op|^2 + r^2 cancel
 // badly in f32, so one ulp there changes which surface a lane hits. XLA on
@@ -84,27 +86,36 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t x) {
   return (float)(x >> 8) * (1.0f / 16777216.0f);
 }
 
-// The uniforms of one wavefront iteration, in the order u_cam v_cam u1 u2 u3
-// [ul1 ul2 usel]. Test mode (`uniforms` non-NULL) reads the TPU kernels'
-// external block (n_tiles, budget, n_draw, tile_rows, 128); production mode
-// draws Philox keyed on (seed, salt), countered on (global lane, frame,
-// iteration, stream | draw group). `stream` keeps the kernels' draws apart.
+// The n_draw uniforms of one wavefront iteration, in the TPU kernels' order
+// u_cam v_cam [u_lens v_lens] u1 u2 u3 [ul1 ul2 usel] (the lens pair with a
+// thin lens, the last three with NEE); N, 8 or 12, bounds n_draw. Test mode
+// (`uniforms` non-NULL) reads the TPU kernels' external block (n_tiles,
+// budget, n_draw, tile_rows, 128); production mode draws Philox keyed on
+// (seed, salt), countered on (global lane, frame, iteration, stream | draw
+// group), group g giving draws 4g to 4g+3: two groups always, a third when
+// n_draw > 8. `stream` keeps the kernels' draws apart.
+template <int N>
 __device__ __forceinline__ void draw_uniforms(
-    float u[8], const float* uniforms, int tile, int budget, int it,
+    float (&u)[N], const float* uniforms, int tile, int budget, int it,
     int n_draw, int tile_lanes, int trow, int col, uint32_t lane,
     uint32_t frame, uint32_t seed, uint32_t salt, uint32_t stream) {
+  static_assert(N == 8 || N == 12, "8 or 12 draws");
   if (uniforms) {
     const float* ub = uniforms +
                       (size_t)(tile * budget + it) * n_draw * tile_lanes +
                       trow * LANES + col;
-    for (int j = 0; j < 8; ++j) u[j] = j < n_draw ? ub[j * tile_lanes] : 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) u[j] = j < n_draw ? ub[j * tile_lanes] : 0.f;
   } else {
-    const uint4 a = philox4x32_10(make_uint4(lane, frame, it, stream), seed, salt);
-    const uint4 b = philox4x32_10(make_uint4(lane, frame, it, stream | 1u), seed, salt);
-    u[0] = bits_to_uniform(a.x); u[1] = bits_to_uniform(a.y);
-    u[2] = bits_to_uniform(a.z); u[3] = bits_to_uniform(a.w);
-    u[4] = bits_to_uniform(b.x); u[5] = bits_to_uniform(b.y);
-    u[6] = bits_to_uniform(b.z); u[7] = bits_to_uniform(b.w);
+#pragma unroll
+    for (int g = 0; g < N / 4; ++g) {
+      uint4 a = make_uint4(0u, 0u, 0u, 0u);
+      if (g < 2 || 4 * g < n_draw)
+        a = philox4x32_10(make_uint4(lane, frame, it, stream | (uint32_t)g),
+                          seed, salt);
+      u[4 * g] = bits_to_uniform(a.x); u[4 * g + 1] = bits_to_uniform(a.y);
+      u[4 * g + 2] = bits_to_uniform(a.z); u[4 * g + 3] = bits_to_uniform(a.w);
+    }
   }
 }
 
@@ -129,6 +140,44 @@ __device__ __forceinline__ void camera_dir(const float* cam, float px,
   dy = cam[1] - cam[7] * sy + cam[4] * sx;
   dz = cam[2] - cam[8] * sy + cam[5] * sx;
   normalize3(dx, dy, dz);
+}
+
+// Thin lens of a regenerated path (TPU kernels: persistent.py:569-587,
+// replay_persistent.py:512-527). On entry (o, d) is the pinhole ray; the
+// origin moves to a point of the lens disk by the polar map (radius
+// cam[12] sqrt(u_lens), angle 2 pi v_lens, along the view's u and v rows),
+// and the ray aims at the pinhole ray's point on the plane of focus,
+// cam[13] / cos(d, w) along it. A focal distance of 0 aims every ray at the
+// lens centre, as in the TPU kernels. Every step is rounded on its own, as
+// the plain version rounds it (no contraction): an origin one ulp off moves
+// every later hit of the path, and this runs once per path.
+__device__ __forceinline__ void thin_lens(const float* cam, float u_lens,
+                                          float v_lens, float& ox, float& oy,
+                                          float& oz, float& dx, float& dy,
+                                          float& dz) {
+  const float lens_r = __fmul_rn(cam[12], sqrtf(u_lens));
+  const float phi = __fmul_rn(TWO_PI, v_lens);
+  const float ldu = __fmul_rn(lens_r, cosf(phi));
+  const float ldv = __fmul_rn(lens_r, sinf(phi));
+  const float cos_w = __fadd_rn(
+      __fadd_rn(__fmul_rn(dx, cam[20]), __fmul_rn(dy, cam[21])),
+      __fmul_rn(dz, cam[22]));
+  const float ft = __fdiv_rn(cam[13], fmaxf(cos_w, 1e-6f));
+  const float fpx = __fadd_rn(ox, __fmul_rn(dx, ft));
+  const float fpy = __fadd_rn(oy, __fmul_rn(dy, ft));
+  const float fpz = __fadd_rn(oz, __fmul_rn(dz, ft));
+  ox = __fadd_rn(__fadd_rn(ox, __fmul_rn(cam[14], ldu)), __fmul_rn(cam[17], ldv));
+  oy = __fadd_rn(__fadd_rn(oy, __fmul_rn(cam[15], ldu)), __fmul_rn(cam[18], ldv));
+  oz = __fadd_rn(__fadd_rn(oz, __fmul_rn(cam[16], ldu)), __fmul_rn(cam[19], ldv));
+  dx = __fsub_rn(fpx, ox);
+  dy = __fsub_rn(fpy, oy);
+  dz = __fsub_rn(fpz, oz);
+  const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                             __fmul_rn(dz, dz));
+  const float inv = rsqrtf(fmaxf(n2, 1e-20f));
+  dx = __fmul_rn(dx, inv);
+  dy = __fmul_rn(dy, inv);
+  dz = __fmul_rn(dz, inv);
 }
 
 // Solid-angle pdf of cone-sampling the sphere light LP (a pack_prims row)
@@ -270,7 +319,7 @@ struct MeshView {
   const float* boxes;  // (n_nodes, 6) node AABBs: min3 max3
   const int* meta;     // (n_nodes, 3): skip, first slot, triangle count
   const float* tris;   // packed triangle slots: v0 e1 e2 mat uv0 uv_e1 uv_e2
-  const float* mats;   // (n_mats, MAT_STRIDE): r g b coef type
+  const float* mats;   // (n_mats, MAT_STRIDE): r g b coef type texture
   const float* tl;     // triangle-light rows (TL_STRIDE floats each)
   int n_nodes;
 };
@@ -290,14 +339,16 @@ __device__ __forceinline__ float safe_inv(float a) {
 // f32 edge case; the lane-agreement bars measure it. The walk keeps no
 // stack. Closest mode (OCCLUSION false) returns the closest t (t itself if
 // none is closer) with the unnormalized normal cross(e1, e2) and the
-// material of the winner; occlusion mode returns 0 at the first triangle in
-// (TMIN, t).
-template <bool OCCLUSION>
-__device__ __forceinline__ float mesh_walk(const MeshView& m, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz, float t,
-                                           float& gnx, float& gny, float& gnz,
-                                           int& mat) {
+// material of the winner, and with TRACK_UV its texture uv, uv0 + u uv_e1 +
+// v uv_e2 at its barycentrics (u, v) (TPU walk: _walk.py:142-157); occlusion
+// mode returns 0 at the first triangle in (TMIN, t) and tracks no uv.
+template <bool OCCLUSION, bool TRACK_UV>
+__device__ __forceinline__ float mesh_walk_uv(const MeshView& m, float ox,
+                                              float oy, float oz, float dx,
+                                              float dy, float dz, float t,
+                                              float& gnx, float& gny,
+                                              float& gnz, int& mat, float& hu,
+                                              float& hv) {
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   int node = 0;
   while (node < m.n_nodes) {
@@ -349,10 +400,61 @@ __device__ __forceinline__ float mesh_walk(const MeshView& m, float ox,
       gny = e1z * e2x - e1x * e2z;
       gnz = e1x * e2y - e1y * e2x;
       mat = (int)c.y;
+      if (TRACK_UV && !OCCLUSION) {
+        // uv0 = (c.z, c.w); uv_e1 = (d.x, d.y); uv_e2 = (d.z, d.w)
+        const float4 d = __ldg(S + 3);
+        hu = c.z + uu * d.x + vv * d.z;
+        hv = c.w + uu * d.y + vv * d.w;
+      }
     }
     node = skip;
   }
   return t;
+}
+
+template <bool OCCLUSION>
+__device__ __forceinline__ float mesh_walk(const MeshView& m, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz, float t,
+                                           float& gnx, float& gny, float& gnz,
+                                           int& mat) {
+  float hu, hv;
+  return mesh_walk_uv<OCCLUSION, false>(m, ox, oy, oz, dx, dy, dz, t, gnx,
+                                        gny, gnz, mat, hu, hv);
+}
+
+// Bilinear texel of texture k of a (K, TH, TW, 3) f32 atlas at uv, with the
+// TPU kernel's index arithmetic (persistent.py:419-438): uv wrapped by
+// u - floor(u), the four taps' rows and columns wrapped into the texture,
+// y interpolated before x. The TPU contracts two-hot rows with the atlas on
+// its MXU for want of a per-lane gather; here each lane reads its four taps
+// through the read-only cache (a 256^2 atlas is 0.79 MB, so it sits in L2).
+// The tap indices are clamped into the texture, which changes nothing for a
+// finite uv.
+__device__ __forceinline__ float3 texel(const float* atlas, int k, int th,
+                                        int tw, float u, float v) {
+  const float x = (u - floorf(u)) * (float)tw - 0.5f;
+  const float y = (v - floorf(v)) * (float)th - 0.5f;
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float fx = x - x0, fy = y - y0;
+  const int xi = (int)x0, yi = (int)y0;
+  const int c0 = min(max(xi < 0 ? xi + tw : xi, 0), tw - 1);
+  const int c1 = min(max(xi + 1 >= tw ? xi + 1 - tw : xi + 1, 0), tw - 1);
+  const int r0 = min(max(yi < 0 ? yi + th : yi, 0), th - 1);
+  const int r1 = min(max(yi + 1 >= th ? yi + 1 - th : yi + 1, 0), th - 1);
+  const float* T = atlas + (size_t)k * th * tw * 3;
+  const float* t00 = T + ((size_t)r0 * tw + c0) * 3;
+  const float* t01 = T + ((size_t)r0 * tw + c1) * 3;
+  const float* t10 = T + ((size_t)r1 * tw + c0) * 3;
+  const float* t11 = T + ((size_t)r1 * tw + c1) * 3;
+  float out[3];
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float col0 = (1.f - fy) * __ldg(t00 + ch) + fy * __ldg(t10 + ch);
+    const float col1 = (1.f - fy) * __ldg(t01 + ch) + fy * __ldg(t11 + ch);
+    out[ch] = (1.f - fx) * col0 + fx * col1;
+  }
+  return make_float3(out[0], out[1], out[2]);
 }
 
 struct Lobe {

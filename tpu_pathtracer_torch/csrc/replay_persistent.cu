@@ -3,10 +3,11 @@
 // Replaces: tpu_pathtracer/ops/pallas/replay_persistent.py::_preplay_kernel
 // (launched by persistent_replay_call) for sphere and triangle-mesh scenes
 // (tex=False), phases "both" and "adjoint": brute force, and NEE+MIS with
-// point, sphere-area and triangle (TRI_LIGHT) lights; a mesh vertex routes
-// its adjoint to its material like a sphere vertex, and a triangle light's
-// emission and NEE credit its intensity adjoint. Thin-lens DOF, textures and
-// the scatter launch are not ported yet.
+// point, sphere-area and triangle (TRI_LIGHT) lights, pinhole and thin-lens
+// cameras (DOF); a mesh vertex routes its adjoint to its material like a
+// sphere vertex, and a triangle light's emission and NEE credit its
+// intensity adjoint. Textures, the record_ct launch and the scatter launch
+// are not ported yet.
 //
 // What it computes: one launch walks `budget` wavefront iterations of the
 // persistent regeneration schedule (one lane per pixel; a dead lane starts
@@ -40,8 +41,9 @@
 //    slot, so they live in local memory (L1-cached); each vertex touches one
 //    slot, and only path regeneration and completion touch all of them;
 //  * a mesh is walked per thread as in persistent.cu, and the kernel is
-//    built twice, with and without the mesh code (MESH), so that a sphere
-//    scene does not carry the walk's registers and spills;
+//    built four times, with and without the mesh code (MESH) and the thin
+//    lens (DOF), so that a sphere scene or a pinhole camera does not carry
+//    their registers and spills;
 //  * the reduction across lanes is deterministic and uses no atomics: each
 //    block writes one row of partials (3 per slot, 3 per light, the loss),
 //    summed by a fixed shuffle tree, and the wrapper sums the rows, as the
@@ -105,7 +107,7 @@ __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
 // nvcc picks by itself, 6 blocks fit and its NEE walk ran ~9% slower), 6 for
 // the mesh build (at most 85; asked for 1 block, nvcc takes 103 registers
 // and the walk runs ~7% slower).
-template <bool MESH>
+template <bool MESH, bool DOF>
 __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
     replay_persistent_kernel(Params p) {
   __shared__ float fscratch[4];
@@ -120,7 +122,9 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
   const bool in_domain = lane < p.n_lanes;
   const float px = (float)(lane % p.width);
   const float py = (float)(lane / p.width);
-  const int n_draw = p.use_nee ? 8 : 5;
+  // draws per iteration, in the TPU kernel's order (pt_common.cuh)
+  constexpr int U1 = DOF ? 4 : 2;  // index of u1, after the camera's draws
+  const int n_draw = U1 + 3 + (p.use_nee ? 3 : 0);
   const int S = p.n_slots, NL = p.n_lights;
 
   float Lr = 0.f, Lg = 0.f, Lb = 0.f;
@@ -139,11 +143,11 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
   int n_live = 0;
 
   for (int it = 0; it < p.budget; ++it) {
-    float u[8];
+    float u[DOF ? 12 : 8];
     draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
                   col, lane, p.iteration, p.seed, p.salt, STREAM);
-    const float u1 = u[2], u2 = u[3], u3 = u[4];
-    const float ul1 = u[5], ul2 = u[6], usel = u[7];
+    const float u1 = u[U1], u2 = u[U1 + 1], u3 = u[U1 + 2];
+    const float ul1 = u[U1 + 3], ul2 = u[U1 + 4], usel = u[U1 + 5];
 
     // ---- regenerate while the pixel has samples left (the launch drains)
     if (!alive && in_domain && n_samp < p.spp) {
@@ -151,6 +155,7 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
       ox = c_cam[9];
       oy = c_cam[10];
       oz = c_cam[11];
+      if (DOF) thin_lens(c_cam, u[2], u[3], ox, oy, oz, dx, dy, dz);
       Tr = Tg = Tb = 1.f;
       Cr = Cg = Cb = 0.f;
       bounce = 0;
@@ -457,8 +462,8 @@ extern "C" {
 // __constant__ memory on the same stream. `slots` holds the adjoint slot of
 // each prim's material, then of each of the n_mats materials (-1 for a
 // material on no surface). Exactly one of `partials` (phase "both") and `gl`
-// (phase "adjoint") is non-NULL; n_nodes == 0 means no mesh. Returns the
-// first CUDA error (0 on success).
+// (phase "adjoint") is non-NULL; n_nodes == 0 means no mesh; use_dof runs
+// the thin-lens build. Returns the first CUDA error (0 on success).
 int tpt_replay_persistent(
     const float* prims, const int* pflags, const int* slots, int n_prims,
     int n_mats, const float* lights, const int* lstruct, int n_lights,
@@ -468,7 +473,7 @@ int tpt_replay_persistent(
     const float* mesh_tris, const float* mesh_mats, const float* tri_lights,
     int n_nodes, int rows_total, int tile_rows, int budget, int spp,
     int width, int n_lanes, int max_bounces, int rr_start, int use_nee,
-    int strat_k, int tile_offset, float inv_loss_n, uint32_t seed,
+    int use_dof, int strat_k, int tile_offset, float inv_loss_n, uint32_t seed,
     uint32_t salt, uint32_t iteration, void* stream) {
   if (n_prims < 0 || n_prims > MAX_PRIMS || n_mats < 0 ||
       n_mats > MAX_MATS || n_lights < 0 || n_lights > MAX_GRAD_LIGHTS ||
@@ -543,10 +548,16 @@ int tpt_replay_persistent(
   p.mesh.tl = tri_lights;
   p.mesh.n_nodes = n_nodes;
 
-  if (n_nodes > 0)
-    replay_persistent_kernel<true><<<rows_total, LANES, 0, st>>>(p);
-  else
-    replay_persistent_kernel<false><<<rows_total, LANES, 0, st>>>(p);
+  if (n_nodes > 0) {
+    if (use_dof)
+      replay_persistent_kernel<true, true><<<rows_total, LANES, 0, st>>>(p);
+    else
+      replay_persistent_kernel<true, false><<<rows_total, LANES, 0, st>>>(p);
+  } else if (use_dof) {
+    replay_persistent_kernel<false, true><<<rows_total, LANES, 0, st>>>(p);
+  } else {
+    replay_persistent_kernel<false, false><<<rows_total, LANES, 0, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 

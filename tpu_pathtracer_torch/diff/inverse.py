@@ -323,8 +323,8 @@ def render_target_kernel(
         budget=default_budget(config.spp, config.max_bounces)
         if budget is None else budget,
         width=w, height=h, max_bounces=config.max_bounces,
-        rr_start=config.rr_start, use_nee=config.use_nee, tile_rows=tr,
-        uniforms=uniforms)
+        rr_start=config.rr_start, use_nee=config.use_nee,
+        use_dof=camera.use_dof, tile_rows=tr, uniforms=uniforms)
     lanes = L_lanes.reshape(-1, 3)[:n_lanes]
     n = torch.clamp_min(ns.reshape(-1)[:n_lanes], 1)[:, None]
     return lanes / n

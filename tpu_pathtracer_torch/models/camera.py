@@ -1,12 +1,11 @@
-"""Pinhole perspective camera.
+"""Perspective camera, pinhole or thin lens.
 
 Counterpart of ``tpu_pathtracer/models/camera.py`` (reference camera.h:28-177
 semantics): ``translate`` and ``rotate`` return a new Camera, the view matrix
 is the 3x3 row stack [u; v; w], and ``generate_rays`` is batched over pixels.
-Thin-lens depth of field is not ported yet: ``make_camera`` refuses a lens,
-and every route that takes a camera refuses one made otherwise (e.g. by
-``dataclasses.replace``). ``lens_radius`` is a host float, so that check
-costs no device read.
+A camera with ``lens_radius > 0`` has thin-lens depth of field focused at
+``focal_distance``. ``lens_radius`` is a host float (the JAX camera's static
+``use_dof``), so a route can branch on it without a device read.
 """
 from __future__ import annotations
 
@@ -19,6 +18,7 @@ import torch
 from torch import Tensor
 
 from tpu_pathtracer_torch.ops import vecmath as vm
+from tpu_pathtracer_torch.ops.sampling import concentric_sample_disk
 
 ARRAY_FIELDS = ("pos", "view", "px_x", "px_y", "first_ray_dir", "dist",
                 "hfov", "vfov", "focal_distance")
@@ -38,7 +38,7 @@ class Camera:
     focal_distance: Tensor  # ()
     width: int = 640
     height: int = 480
-    lens_radius: float = 0.0  # host value; > 0 is refused (DOF not ported)
+    lens_radius: float = 0.0  # host value; > 0: thin-lens DOF
 
     def __post_init__(self):
         object.__setattr__(self, "lens_radius", float(self.lens_radius))
@@ -52,17 +52,20 @@ class Camera:
             self, **{f: getattr(self, f).to(device) for f in ARRAY_FIELDS})
 
 
-def _no_dof(lens_radius: float, who: str = "make_camera") -> None:
+    @property
+    def use_dof(self) -> bool:
+        return self.lens_radius > 0.0
+
+
+def refuse_lens(lens_radius: float, who: str) -> None:
+    """Raise ValueError in a route that traces pinhole rays only (the
+    tangent walk), rather than give a lens camera a pinhole camera's
+    results."""
     if lens_radius > 0.0:
-        raise NotImplementedError(
-            f"{who}: thin-lens depth of field is not ported to "
-            "tpu_pathtracer_torch yet (ROADMAP Slice A; lens_radius > 0)")
-
-
-def refuse_lens(camera: Camera, who: str) -> None:
-    """Raise NotImplementedError in a route that traces pinhole rays only,
-    rather than render a lens camera as a pinhole one."""
-    _no_dof(camera.lens_radius, who)
+        raise ValueError(
+            f"{who}: the tangent walk traces a pinhole camera, and this "
+            f"camera has a lens (lens_radius {lens_radius}); its gradients "
+            "would be a pinhole camera's")
 
 
 def _image_plane(view: Tensor, dist: Tensor, hfov: Tensor, vfov: Tensor,
@@ -80,8 +83,9 @@ def make_camera(eye: Any, look_at: Any, up: Any, width: int, height: int,
                 fov: float = 60.0, lens_radius: float = 0.0,
                 focal_distance: float = 0.0, *, device="cuda") -> Camera:
     """Build a camera; fov is the horizontal field of view in degrees and the
-    vertical one follows from the aspect ratio (camera.h:31-57)."""
-    _no_dof(lens_radius)
+    vertical one follows from the aspect ratio (camera.h:31-57).
+    ``lens_radius > 0`` gives thin-lens depth of field focused at
+    ``focal_distance``."""
     f32 = dict(dtype=torch.float32, device=device)
     eye = torch.as_tensor(eye, **f32)
     look_at = torch.as_tensor(look_at, **f32)
@@ -112,7 +116,6 @@ def camera_from_numpy(arrays: Mapping[str, np.ndarray],
     JAX ``Camera`` (``lens_radius`` among the static ones: an array there,
     a host float here)."""
     lens = float(np.asarray(static["lens_radius"]))
-    _no_dof(lens, "camera_from_numpy")
     return Camera(
         **{f: torch.tensor(np.asarray(arrays[f], np.float32),
                            device=device) for f in ARRAY_FIELDS},
@@ -122,15 +125,30 @@ def camera_from_numpy(arrays: Mapping[str, np.ndarray],
 
 
 def generate_rays(cam: Camera, px: Tensor, py: Tensor, jitter_u: Tensor,
-                  jitter_v: Tensor) -> tuple[Tensor, Tensor]:
-    """Pinhole primary rays through pixel (px, py) plus sub-pixel jitter:
+                  jitter_v: Tensor, lens_u: Tensor | None = None,
+                  lens_v: Tensor | None = None) -> tuple[Tensor, Tensor]:
+    """Primary rays through pixel (px, py) plus sub-pixel jitter:
     dir = first_ray_dir - px_y*sy + px_x*sx (camera.h:66-72). Returns
-    (origins, dirs), each (..., 3)."""
+    (origins, dirs), each (..., 3).
+
+    A lens camera given lens uniforms moves the origin to a point of the
+    lens disk (the concentric map) and re-aims the ray at the point where
+    the pinhole ray meets the plane of focus (JAX ``camera.py:136-150``)."""
     sx = px.to(torch.float32) + jitter_u
     sy = py.to(torch.float32) + jitter_v
     d = cam.first_ray_dir - cam.px_y * sy[..., None] + cam.px_x * sx[..., None]
     d = vm.normalize(d)
-    return cam.pos.expand(d.shape), d
+    o = cam.pos.expand(d.shape)
+    if cam.use_dof and lens_u is not None and lens_v is not None:
+        lx, ly = concentric_sample_disk(lens_u, lens_v)
+        offset = (cam.view[0] * (lx * cam.lens_radius)[..., None]
+                  + cam.view[1] * (ly * cam.lens_radius)[..., None])
+        cos_w = vm.dot(d, cam.view[2])[..., None]
+        ft = cam.focal_distance / torch.clamp_min(cos_w, 1e-6)
+        focus = o + d * ft
+        o = o + offset
+        d = vm.normalize(focus - o)
+    return o, d
 
 
 def translate(cam: Camera, delta: Any) -> Camera:

@@ -207,8 +207,8 @@ def trace(scene: Scene, o: Tensor, d: Tensor, lane_ids: Tensor,
 def trace_pixels(scene: Scene, camera: Camera, lane_ids: Tensor,
                  draws: rng.Draws, config: RenderConfig):
     """Primary rays of the given lanes (lane = (py * W + px) * spp + s),
-    traced. A lens camera raises: thin-lens DOF is ROADMAP Slice A."""
-    cam_mod.refuse_lens(camera, "the wavefront (trace_pixels)")
+    traced. A lens camera draws its two lens uniforms from ``LENS_STREAM``
+    (JAX ``integrator.py:419-422``)."""
     W, spp = camera.width, config.spp
     s = lane_ids % spp
     pix = lane_ids // spp
@@ -216,7 +216,12 @@ def trace_pixels(scene: Scene, camera: Camera, lane_ids: Tensor,
     py = pix // W
     u = rng.camera_uniforms(draws, lane_ids)
     ox, oy = sampling.stratified_jitter_for_sample(u[:, 0], u[:, 1], s, spp)
-    o, d = cam_mod.generate_rays(camera, px, py, ox, oy)
+    if camera.use_dof:
+        lu = rng.lens_uniforms(draws, lane_ids)
+        o, d = cam_mod.generate_rays(camera, px, py, ox, oy, lu[:, 0],
+                                     lu[:, 1])
+    else:
+        o, d = cam_mod.generate_rays(camera, px, py, ox, oy)
     return trace(scene, o.contiguous(), d, lane_ids, draws, config)
 
 

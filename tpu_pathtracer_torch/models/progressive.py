@@ -23,9 +23,7 @@ import torch
 
 from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.models.integrator import RenderConfig, render
-from tpu_pathtracer_torch.models.scene import (
-    Scene, refuse_textures, with_packet_mesh,
-)
+from tpu_pathtracer_torch.models.scene import Scene, with_packet_mesh
 from tpu_pathtracer_torch.ops.kernels import persistent as pk
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
 
@@ -132,7 +130,6 @@ class PersistentRenderer:
             raise NotImplementedError(
                 "sharded rendering (mesh=) is not ported yet (ROADMAP Queue 1 "
                 "item 15)")
-        refuse_textures(scene, "PersistentRenderer")
         self.device = torch.device(device)
         if scene.mesh is not None and scene.mesh_packed is None:
             scene = with_packet_mesh(scene, two_pass=False)
@@ -158,7 +155,7 @@ class PersistentRenderer:
             budget=self.budget, width=self.camera.width,
             height=self.camera.height, max_bounces=self.config.max_bounces,
             rr_start=self.config.rr_start, tile_rows=self.tile_rows,
-            use_nee=self.config.use_nee,
+            use_nee=self.config.use_nee, use_dof=self.camera.use_dof,
         )
         return int(nrays)
 

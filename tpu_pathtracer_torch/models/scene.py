@@ -8,8 +8,9 @@ stays as Python tuples so the kernel wrappers can read it without a device
 sync. A mesh is a ``models/mesh.py::MeshData``; ``with_packet_mesh`` packs
 it for the kernels, with the coarse tree of the two-pass traversal. A texture
 atlas ``(K, TH, TW, 3)`` and a per-material texture index modulate the
-colours of textured materials; the wavefront integrator samples them, and
-the persistent kernels refuse textured scenes (``refuse_textures``).
+colours of textured materials; the wavefront integrator and the forward
+persistent kernel sample them, and the routes that cannot refuse textured
+scenes (``refuse_textures``).
 """
 from __future__ import annotations
 
@@ -124,15 +125,13 @@ class Scene:
         return dataclasses.replace(self, **moved)
 
 
-def refuse_textures(scene: Scene, who: str) -> None:
-    """Raise for a textured scene in a route that cannot sample textures,
-    rather than render its textured materials untextured."""
+def refuse_textures(scene: Scene, who: str, why: str,
+                    error: type[Exception] = NotImplementedError) -> None:
+    """Raise ``error`` for a textured scene in a route that cannot sample
+    textures, rather than give its textured materials untextured results;
+    ``why`` names what is missing there."""
     if scene.textured:
-        raise NotImplementedError(
-            f"{who} does not sample textures yet (ROADMAP Slice A, the "
-            "persistent kernels' texture block); render textured scenes with "
-            "the wavefront integrator (models.progressive.ProgressiveRenderer, "
-            "cli render --backend xla)")
+        raise error(f"{who} does not take textured scenes: {why}")
 
 
 def with_packet_mesh(scene: Scene, two_pass: bool = True,

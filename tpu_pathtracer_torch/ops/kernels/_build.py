@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -129,6 +130,32 @@ def build() -> tuple[Path, float]:
         raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, out)
     return out, seconds
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, stack frame and spill bytes per kernel build, by name and
+    template arguments (e.g. ``persistent_kernel<1,1,0>``), from a build
+    log's ptxas lines."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)"
+                      r"(?:I((?:L[bi]\d+E)+)E)?", ln)
+        if m:
+            args = re.findall(r"L[bi](\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_st=int(m.group(2)),
+                             spill_ld=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["regs"] = int(m.group(1))
+    return out
 
 
 @functools.cache

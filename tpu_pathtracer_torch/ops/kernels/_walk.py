@@ -12,8 +12,9 @@ only if strictly closer (``tt < t_best``), so the first found wins a tie.
 The CUDA kernels walk per thread instead (``csrc/pt_common.cuh``): a thread
 enters only the boxes its own ray enters. The two differ only where a
 lane's own slab test misses a box whose triangle that ray still hits, an
-f32 edge case. The persistent kernels' plain versions call this walk; the
-texture-uv tracking of the TPU walk waits for the texture slice.
+f32 edge case. The persistent kernels' plain versions call this walk. With
+``track_uv`` the closest mode also returns the winner's interpolated texture
+uv, as the TPU walk does for textured scenes.
 """
 from __future__ import annotations
 
@@ -35,14 +36,16 @@ def _safe_inv(a: Tensor) -> Tensor:
 def mesh_walk_ref(packed: PackedMesh, ox: Tensor, oy: Tensor, oz: Tensor,
                   dx: Tensor, dy: Tensor, dz: Tensor, t_init: Tensor, *,
                   tile_rows: int, occlusion: bool = False,
-                  tmin: float = EPSILON):
+                  track_uv: bool = False, tmin: float = EPSILON):
     """Walk the packed mesh for (rows_total, 128) lane planes.
 
     Closest mode returns (t, nx, ny, nz, mat): t stays ``t_init`` where no
     triangle is closer, the normal is the winner's unnormalized
-    cross(e1, e2) (0 where none) and mat its material id (-1 where none).
-    Occlusion mode returns t alone, set to 0 at the first triangle found in
-    (tmin, t_init)."""
+    cross(e1, e2) (0 where none) and mat its material id (-1 where none);
+    with ``track_uv`` also (u, v), the winner's uv0 + b1 uv_e1 + b2 uv_e2
+    from slots 10-15 at its barycentrics (0 where none; JAX ``_walk.py:
+    142-157``). Occlusion mode returns t alone, set to 0 at the first
+    triangle found in (tmin, t_init); it never tracks uv."""
     shape = ox.shape
     n_tiles = shape[0] // tile_rows
 
@@ -52,8 +55,8 @@ def mesh_walk_ref(packed: PackedMesh, ox: Tensor, oy: Tensor, oz: Tensor,
     ox, oy, oz, dx, dy, dz = (tiles(x) for x in (ox, oy, oz, dx, dy, dz))
     ix, iy, iz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
     t = tiles(t_init).clone()
-    zeros = torch.zeros_like(t)
-    nx, ny, nz = zeros, zeros, zeros
+    nx, ny, nz, hu, hv = (torch.zeros_like(t) for _ in range(5))
+    track_uv = track_uv and not occlusion
     mat = torch.full(t.shape, -1, dtype=torch.int32, device=t.device)
 
     M = packed.num_nodes
@@ -85,40 +88,67 @@ def mesh_walk_ref(packed: PackedMesh, ox: Tensor, oy: Tensor, oz: Tensor,
         skip, start, count = meta[nc, 0], meta[nc, 1], meta[nc, 2]
         is_leaf = count > 0
         leaf = anyb & is_leaf
-        for j in range(leaf_slots if bool(leaf.any()) else 0):
-            sel = leaf & (j < count)
-            if not bool(sel.any()):
-                break  # counts are per tile, so later slots test nothing
-            tr = slots[torch.clamp_max(start + j, slots.shape[0] - 1)]
+        if bool(leaf.any()):
+            # the tiles at a leaf test all its slots at once, (tiles, slot,
+            # lane); the first slot of the smallest t wins, as the
+            # sequential strictly-closer test in slot order picks it
+            ti = leaf.nonzero().squeeze(1)
+            js = torch.arange(leaf_slots, device=t.device)
+            tr = slots[torch.clamp_max(start[ti, None] + js,
+                                       slots.shape[0] - 1)]
             (v0x, v0y, v0z, e1x, e1y, e1z,
-             e2x, e2y, e2z) = (tr[:, k:k + 1] for k in range(9))
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
+             e2x, e2y, e2z) = (tr[:, :, k:k + 1] for k in range(9))
+            lox, loy, loz, ldx, ldy, ldz = (x[ti, None, :] for x in
+                                            (ox, oy, oz, dx, dy, dz))
+            t_l = t[ti]
+            px = ldy * e2z - ldz * e2y
+            py = ldz * e2x - ldx * e2z
+            pz = ldx * e2y - ldy * e2x
             det = e1x * px + e1y * py + e1z * pz
             ok = det.abs() > 1e-12
             inv_det = 1.0 / torch.where(ok, det, 1.0)
-            tvx = ox - v0x
-            tvy = oy - v0y
-            tvz = oz - v0z
+            tvx = lox - v0x
+            tvy = loy - v0y
+            tvz = loz - v0z
             uu = (tvx * px + tvy * py + tvz * pz) * inv_det
             qx = tvy * e1z - tvz * e1y
             qy = tvz * e1x - tvx * e1z
             qz = tvx * e1y - tvy * e1x
-            vv = (dx * qx + dy * qy + dz * qz) * inv_det
+            vv = (ldx * qx + ldy * qy + ldz * qz) * inv_det
             tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-            valid = (sel[:, None] & ok & (uu >= 0.0) & (vv >= 0.0)
-                     & (uu + vv <= 1.0) & (tt > tmin) & (tt < t))
+            valid = ((js[None, :, None] < count[ti, None, None]) & ok
+                     & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                     & (tt > tmin) & (tt < t_l[:, None, :]))
+            found = valid.any(1)
             if occlusion:
-                t = torch.where(valid, 0.0, t)
-                continue
-            t = torch.where(valid, tt, t)
-            nx = torch.where(valid, e1y * e2z - e1z * e2y, nx)
-            ny = torch.where(valid, e1z * e2x - e1x * e2z, ny)
-            nz = torch.where(valid, e1x * e2y - e1y * e2x, nz)
-            mat = torch.where(valid, tr[:, 9:10].to(torch.int32), mat)
+                t[ti] = torch.where(found, 0.0, t_l)
+            else:
+                best, jb = torch.where(valid, tt, float("inf")).min(1)
+                jb = jb[:, None, :]
+
+                def pick(x):
+                    return x.expand(-1, -1, jb.shape[-1]).gather(
+                        1, jb).squeeze(1)
+
+                w1x, w1y, w1z, w2x, w2y, w2z = (
+                    pick(x) for x in (e1x, e1y, e1z, e2x, e2y, e2z))
+                t[ti] = torch.where(found, best, t_l)
+                for plane, g in ((nx, w1y * w2z - w1z * w2y),
+                                 (ny, w1z * w2x - w1x * w2z),
+                                 (nz, w1x * w2y - w1y * w2x)):
+                    plane[ti] = torch.where(found, g, plane[ti])
+                mat[ti] = torch.where(found, pick(tr[:, :, 9:10]).to(
+                    torch.int32), mat[ti])
+                if track_uv:
+                    bu, bv = pick(uu), pick(vv)
+                    a = [pick(tr[:, :, k:k + 1]) for k in range(10, 16)]
+                    hu[ti] = torch.where(found, a[0] + bu * a[2] + bv * a[4],
+                                         hu[ti])
+                    hv[ti] = torch.where(found, a[1] + bu * a[3] + bv * a[5],
+                                         hv[ti])
         nn = torch.where(active, torch.where(anyb & ~is_leaf, nn + 1, skip),
                          nn)
     if occlusion:
         return t.reshape(shape)
-    return tuple(x.reshape(shape) for x in (t, nx, ny, nz, mat))
+    out = (t, nx, ny, nz, mat) + ((hu, hv) if track_uv else ())
+    return tuple(x.reshape(shape) for x in out)

@@ -34,10 +34,13 @@ flattened (the JAX side draws it under ``jax.random.key(3)``); production
 mode draws Philox4x32-10 keyed on (seed, salt), countered on (global lane,
 iteration, wavefront step, ``STREAM | draw group``).
 
-Not ported: textures, which raise NotImplementedError (ROADMAP Slice A).
-A lens camera (``lens_radius > 0``) raises ValueError, a recorded departure
-from the JAX package: its kernel reads only the pinhole slots of the packed
-camera, so on a lens camera it returns a pinhole camera's gradients.
+A textured scene raises ValueError, as in the JAX package
+(``camera_jvp.py:1095-1098``): its interior estimator would need the
+texture's uv-motion term, so textured scenes take the XLA attached-autodiff
+route, which is not ported yet (ROADMAP Slice E). A lens camera
+(``lens_radius > 0``) raises ValueError too, a recorded departure from the
+JAX package: its kernel reads only the pinhole slots of the packed camera,
+so on a lens camera it returns a pinhole camera's gradients.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from typing import Sequence
 import torch
 from torch import Tensor
 
+from tpu_pathtracer_torch.models.camera import refuse_lens
 from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, TRI_LIGHT, Scene,
     refuse_textures,
@@ -76,6 +80,14 @@ MAX_TAN = 4  # tangents per kernel launch; more are split into launches
 # and those of them on a mesh scene.
 launches = 0
 mesh_launches = 0
+
+
+def _refuse_textures(scene: Scene, who: str) -> None:
+    refuse_textures(
+        scene, who, "the tangent walk's interior estimator would need the "
+        "texture's uv-motion term, so textured scenes take the XLA "
+        "attached-autodiff route (JAX camera_jvp.py:1095-1098), which is not "
+        "ported yet (ROADMAP Slice E)", ValueError)
 
 
 def tangent_rows(dcam: Tensor, coef_mats: Sequence[int]) -> Tensor:
@@ -271,7 +283,7 @@ def camera_jvp_ref(
     bound): ``"paths"`` started, path ``"segments"``, NEE ``"shadow"``
     segments needed, of them ``"lit"`` (unoccluded), and ``"score"``
     vertices (IOR-tangent vertices, summed over the tangents)."""
-    refuse_textures(scene, "camera_jvp_ref")
+    _refuse_textures(scene, "camera_jvp_ref")
     dev = cam_packed.device
     D = tangent_rows(dcam, coef_mats).to(dev)
     n_tan = D.shape[0]
@@ -939,7 +951,7 @@ def camera_jvp_call(
     if cam_packed.device.type not in ("cuda", "cpu"):
         raise ValueError(
             f"camera_jvp_call: unsupported device {cam_packed.device}")
-    _refuse_lens(float(cam_packed[12]), "camera_jvp_call")
+    refuse_lens(float(cam_packed[12]), "camera_jvp_call")
     return _tangent_walk(
         scene, cam_packed, dcam, seed, iteration, spp=spp, budget=budget,
         width=width, height=height, max_bounces=max_bounces,
@@ -951,7 +963,7 @@ def camera_jvp_call(
 def _tangent_walk(scene, cam_packed, dcam, seed, iteration, *, tile_offset=0,
                   coef_mats=(), uniforms=None, **kw):
     """camera_jvp_call once the lens has been refused."""
-    refuse_textures(scene, "camera_jvp_call")
+    _refuse_textures(scene, "camera_jvp_call")
     packed_mesh(scene)  # refuses an unpacked mesh
     dev = cam_packed.device
     if dev.type not in ("cuda", "cpu"):
@@ -966,16 +978,6 @@ def _tangent_walk(scene, cam_packed, dcam, seed, iteration, *, tile_offset=0,
 # ---------------------------------------------------------------------------
 # Gradients through the tangent walk
 # ---------------------------------------------------------------------------
-
-def _refuse_lens(lens_radius: float, who: str) -> None:
-    """The tangent walk traces pinhole rays; a lens camera's gradients
-    would come out as a pinhole camera's, so it is refused."""
-    if lens_radius > 0.0:
-        raise ValueError(
-            f"{who}: the tangent walk traces a pinhole camera, and this "
-            f"camera has a lens (lens_radius {lens_radius}); its gradients "
-            "would be a pinhole camera's")
-
 
 def _pixel_means(L: Tensor, dL: Tensor, ns: Tensor, width: int, height: int
                  ) -> tuple[Tensor, Tensor]:
@@ -1008,7 +1010,7 @@ def camera_weighted_grad(
     one tangent walk per field, every scalar component of the field a
     tangent of it. d pack_camera / d field is ``torch.func.jacfwd`` of
     ``pack_camera`` over the replaced field. Returns (value, {name: grad})."""
-    _refuse_lens(camera.lens_radius, "camera_weighted_grad")
+    refuse_lens(camera.lens_radius, "camera_weighted_grad")
     w, h = camera.width, camera.height
     if budget is None:
         budget = default_budget(spp, max_bounces)
@@ -1040,7 +1042,7 @@ def _ior_walk(scene, camera, seed, *, spp, max_bounces, rr_start, budget,
               tile_rows, use_nee, strat_k, iteration, uniforms, who):
     """One tangent walk with an IOR tangent per transmissive material.
     Returns (pixel mean, its tangents, the materials)."""
-    _refuse_lens(camera.lens_radius, who)
+    refuse_lens(camera.lens_radius, who)
     tmats = transmissive_mats(scene)
     if not tmats:
         raise ValueError(f"{who}: scene has no transmissive material — "

@@ -11,25 +11,30 @@ path and is flushed into the per-pixel sums when the path completes.
 state on a CUDA device and runs ``persistent_step_ref``, the plain PyTorch
 version, for state on the CPU. There is no fallback between the two.
 
-Randomness comes in two modes:
+Randomness comes in two modes, both in the JAX kernel's draw order
+``u_cam, v_cam[, u_lens, v_lens], u1, u2, u3[, ul1, ul2, usel]``
+(``n_draws``: 5 to 10 per iteration, the lens pair with ``use_dof``, the
+last three with NEE):
 
 * test mode (``uniforms`` given): the JAX kernel's external uniform block,
   ``(n_tiles, budget, n_draw, tile_rows, 128)`` flattened to
-  ``(n_tiles*budget*n_draw*tile_rows, 128)``, draw order
-  ``u_cam, v_cam, u1, u2, u3[, ul1, ul2, usel]`` (``n_draw`` 5, or 8 with
-  NEE);
+  ``(n_tiles*budget*n_draw*tile_rows, 128)``;
 * production mode: counter-based Philox4x32-10 with key (seed, salt) and
-  counter (global lane, frame, iteration, draw group). Draw group 0 gives
-  ``u_cam, v_cam, u1, u2`` and group 1 ``u3, ul1, ul2, usel``. The plain
-  version computes the same Philox in int64 tensor arithmetic, so kernel and
-  plain version see identical uniforms in both modes.
+  counter (global lane, frame, iteration, draw group); draw group g gives
+  the draws 4g to 4g+3 of that order. The plain version computes the same
+  Philox in int64 tensor arithmetic, so kernel and plain version see
+  identical uniforms in both modes.
+
+``use_dof`` (a host bool, the JAX kernel's static argument) regenerates
+paths through the packed camera's thin lens: a point of the lens disk by
+the polar map, aimed at the pinhole ray's point on the plane of focus.
 
 Scenes may hold a triangle mesh, packed by ``models/scene.py::
 with_packet_mesh``: the closest hit merges the in-kernel BVH walk into the
 sphere pass, triangles of a TRI_LIGHT's material emit, NEE samples triangle
-lights by area, and shadow rays walk the mesh in occlusion mode. Not ported
-yet: thin-lens DOF and textures; a textured scene raises
-NotImplementedError (the wavefront integrator renders it).
+lights by area, and shadow rays walk the mesh in occlusion mode. On a
+textured scene the walk also returns the hit's uv, and a textured
+material's colour is multiplied by the bilinear texel of the atlas there.
 """
 from __future__ import annotations
 
@@ -44,7 +49,6 @@ from torch import Tensor
 
 from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, TRI_LIGHT, Scene,
-    refuse_textures,
 )
 from tpu_pathtracer_torch.ops.kernels._walk import mesh_walk_ref
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
@@ -132,8 +136,17 @@ def state_min_samples(state: PathState, width: int, height: int) -> Tensor:
     return torch.min(state.n_samp.reshape(-1)[: width * height])
 
 
-def n_draws(use_nee: bool) -> int:
-    return 2 + 3 + (3 if use_nee else 0)
+def n_draws(use_nee: bool, use_dof: bool = False) -> int:
+    """Uniforms per lane per iteration (JAX ``persistent.py:525``)."""
+    return (4 if use_dof else 2) + 3 + (3 if use_nee else 0)
+
+
+def split_draws(u: list, use_nee: bool, use_dof: bool):
+    """One iteration's draws in kernel order -> ((u_cam, v_cam), (u_lens,
+    v_lens) or None, (u1, u2, u3), (ul1, ul2, usel) or None)."""
+    k = 4 if use_dof else 2
+    return (tuple(u[:2]), tuple(u[2:4]) if use_dof else None,
+            tuple(u[k:k + 3]), tuple(u[k + 3:k + 6]) if use_nee else None)
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +235,32 @@ def dot3_fma(ax, ay, az, bx, by, bz) -> Tensor:
 # (csrc/pt_common.cuh): the camera ray of a regenerated path, the cone pdf
 # of an emitter hit for MIS, the NEE light sample and the BSDF lobes. ``P``
 # and ``Lt`` are host lists of the pack_prims / pack_lights rows.
+
+def camera_rays(cam, px, py, n_samp, strat_k, u_cam, v_cam, lens=None):
+    """Primary rays of regenerated paths, (ox, oy, oz, dx, dy, dz): from the
+    eye through the jittered pixel (``camera_dirs``), or with ``lens`` =
+    (u_lens, v_lens) through the thin lens (JAX ``persistent.py:569-587``):
+    the origin moves to a point of the lens disk by the polar map (sqrt(u)
+    r, 2 pi v; the wavefront's camera uses the concentric map), and the ray
+    aims at the pinhole ray's point on the plane of focus, ``focal / cos``
+    along it against the view's w row. Origins are host floats when there
+    is no lens."""
+    dx, dy, dz = camera_dirs(cam, px, py, n_samp, strat_k, u_cam, v_cam)
+    if lens is None:
+        return cam[9], cam[10], cam[11], dx, dy, dz
+    u_lens, v_lens = lens
+    lens_r = cam[12] * torch.sqrt(u_lens)
+    phi = (2.0 * math.pi) * v_lens
+    ldu = lens_r * torch.cos(phi)
+    ldv = lens_r * torch.sin(phi)
+    cos_w = dx * cam[20] + dy * cam[21] + dz * cam[22]
+    ft = cam[13] / torch.clamp_min(cos_w, 1e-6)
+    fpx, fpy, fpz = cam[9] + dx * ft, cam[10] + dy * ft, cam[11] + dz * ft
+    ox = cam[9] + cam[14] * ldu + cam[17] * ldv
+    oy = cam[10] + cam[15] * ldu + cam[18] * ldv
+    oz = cam[11] + cam[16] * ldu + cam[19] * ldv
+    return (ox, oy, oz) + normalize3(fpx - ox, fpy - oy, fpz - oz)
+
 
 def camera_dirs(cam, px, py, n_samp, strat_k, u_cam, v_cam):
     """Primary ray directions of regenerated paths: stratified jitter over
@@ -415,11 +454,53 @@ def packed_mesh(scene: Scene):
 
 
 def pack_materials(scene: Scene) -> Tensor:
-    """(M, 5) material table for mesh hits: r g b coef type (f32), built on
-    the scene's device from its material tables."""
+    """(M, 6) material table for mesh hits: r g b coef type texture (f32;
+    texture -1: untextured), built on the scene's device from its material
+    tables."""
     return torch.cat([scene.mat_color, scene.mat_coef[:, None],
-                      scene.mat_type[:, None].to(torch.float32)],
+                      scene.mat_type[:, None].to(torch.float32),
+                      scene.mat_texture[:, None].to(torch.float32)],
                      dim=1).contiguous()
+
+
+def texel(textures: Tensor, mat_tex: Sequence[int], mc: Tensor,
+          mmat: Tensor, u: Tensor, v: Tensor) -> tuple[Tensor, Tensor]:
+    """The bilinear texel at each lane's mesh hit (JAX ``persistent.py:
+    413-438``), as four per-lane gathers with the TPU kernel's own index
+    arithmetic: uv wrapped by ``u - floor(u)``, the taps' rows and columns
+    wrapped into the texture, the row offset by ``texk * TH`` for the
+    material's texture ``texk``; then y interpolated before x, as the
+    kernel's two-hot contraction does. A texture id past the atlas gives a
+    zero texel, as in the TPU kernel, whose rows then match no row of the
+    atlas (``ops/texture.py`` reads the last texture instead). Returns
+    (has_tex, (r, g, b)): has_tex marks mesh-closer lanes of textured
+    materials."""
+    K, TH, TW, _ = textures.shape
+    texk = torch.full_like(u, -1.0)
+    for mi, tid in enumerate(mat_tex):
+        if tid >= 0:
+            texk = torch.where(mc & (mmat == mi), float(tid), texk)
+    has_tex = texk >= 0.0
+    x = (u - torch.floor(u)) * TW - 0.5
+    y = (v - torch.floor(v)) * TH - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    c0 = x0 + torch.where(x0 < 0.0, float(TW), 0.0)
+    c1 = torch.where(x0 + 1.0 >= TW, x0 + 1.0 - TW, x0 + 1.0)
+    base = torch.clamp(texk, 0.0, K - 1.0) * TH
+    r0 = y0 + torch.where(y0 < 0.0, float(TH), 0.0) + base
+    r1 = torch.where(y0 + 1.0 >= TH, y0 + 1.0 - TH, y0 + 1.0) + base
+    flat = textures.reshape(-1, 3)
+
+    def tap(r, c):
+        return flat[(r * TW + c).to(torch.int64)]
+
+    wy, wx = fy[..., None], fx[..., None]
+    col0 = (1.0 - wy) * tap(r0, c0) + wy * tap(r1, c0)
+    col1 = (1.0 - wy) * tap(r0, c1) + wy * tap(r1, c1)
+    tex = (1.0 - wx) * col0 + wx * col1
+    tex = torch.where((texk < K)[..., None], tex, 0.0)
+    return has_tex, tex.unbind(-1)
 
 
 def pack_tri_lights(scene: Scene) -> tuple[Tensor, tuple]:
@@ -447,7 +528,7 @@ def pack_tri_lights(scene: Scene) -> tuple[Tensor, tuple]:
 
 
 def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
-               best_t, h: dict, MT, tris, Lt):
+               best_t, h: dict, MT, tris, Lt, counts: dict | None = None):
     """Merge the mesh walk into a sphere hit record (``persistent.py:358-
     397, 498-507``): the walk starts from the sphere t on live lanes; where
     a triangle is strictly closer it wins the hit point (FMA, as the
@@ -455,11 +536,16 @@ def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
     and BSDF type, and the emission of a TRI_LIGHT on its material. ``h``
     holds hit, hx hy hz, nx ny nz, ar ag ab, coef, is_s, is_t, er eg eb and
     is updated in place; ``MT`` is pack_materials as host rows, ``tris``
-    pack_tri_lights' index. Returns (mesh_closer, t_mesh, material)."""
+    pack_tri_lights' index. On a textured scene the walk tracks the hit's uv
+    and the material colour of textured mesh hits is multiplied by their
+    texel (``texel``; JAX ``persistent.py:491-497``), and ``counts``, if
+    given, adds the texel fetches to ``"texel"``. Returns (mesh_closer,
+    t_mesh, material)."""
     where = torch.where
-    tm, mnx, mny, mnz, mmat = mesh_walk_ref(
+    tex = scene.textured
+    tm, mnx, mny, mnz, mmat, *uv = mesh_walk_ref(
         scene.mesh_packed, ox, oy, oz, dx, dy, dz,
-        where(alive, best_t, 0.0), tile_rows=tile_rows)
+        where(alive, best_t, 0.0), tile_rows=tile_rows, track_uv=tex)
     mc = alive & (tm < best_t) & (tm < 0.5 * BIG)
     inv_len = torch.rsqrt(torch.clamp_min(mnx * mnx + mny * mny + mnz * mnz,
                                           1e-20))
@@ -481,6 +567,13 @@ def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
             mt_b = mt_b | (mmat == mi)
     h["is_s"] = (h["is_s"] & ~mc) | (mc & ms)
     h["is_t"] = (h["is_t"] & ~mc) | (mc & mt_b)
+    if tex:
+        has_tex, rgb = texel(scene.textures, scene.mat_textures_static, mc,
+                             mmat, *uv)
+        if counts is not None:
+            counts["texel"] = counts.get("texel", 0) + int(has_tex.sum())
+        for k, t in zip(("ar", "ag", "ab"), rgb):
+            h[k] = where(has_tex, t * h[k], h[k])
     for k in ("er", "eg", "eb"):
         h[k] = where(mc, 0.0, h[k])
     for li, lmat, _, _ in tris:
@@ -560,14 +653,20 @@ def persistent_step_ref(
     rr_start: int = 3,
     tile_rows: int = 32,
     use_nee: bool = False,
+    use_dof: bool = False,
     strat_k: int = 2,
-    tile_offset: int = 0,
+    tile_offset: int | Sequence[int] = 0,
     uniforms: Tensor | None = None,
+    counts: dict | None = None,
 ) -> tuple[PathState, Tensor]:
     """Plain PyTorch version of ``persistent_step``: the JAX kernel's lane
     math, vectorized over all lanes at once with masked selects. Returns a
-    new state (the input is not modified) and the live-ray count."""
-    refuse_textures(scene, "persistent_step_ref")
+    new state (the input is not modified) and the live-ray count; if
+    ``counts`` is a dict it also receives ``"texel"``, the texel fetches of
+    textured mesh hits (for the kernel's bound). ``tile_offset`` may also
+    be a sequence, the image's tile index of each of the state's tiles, so
+    that one call steps tiles scattered over the image (a walk costs about
+    as much for several tiles as for one)."""
     dev = state.lr.device
     rows_total = state.lr.shape[0]
     n_tiles = rows_total // tile_rows
@@ -575,7 +674,7 @@ def persistent_step_ref(
     n_lanes = width * height
     n_prims = int(scene.num_prims)
     tmin = EPSILON
-    n_draw = n_draws(use_nee)
+    n_draw = n_draws(use_nee, use_dof)
     seed_i, salt = int(seed[0]), int(seed[1])
 
     # host copies of the small tables: per-prim loops index them as scalars
@@ -597,8 +696,15 @@ def persistent_step_ref(
     TL = TL.cpu().tolist()
     tri_of = {li: (off, K) for li, _, off, K in tris}
 
+    tile_of = torch.as_tensor(tile_offset, dtype=torch.int64, device=dev)
+    if tile_of.dim() == 0:
+        tile_of = tile_of + torch.arange(n_tiles, device=dev)
+    if tuple(tile_of.shape) != (n_tiles,):
+        raise ValueError(f"tile_offset names {tile_of.numel()} tiles for a "
+                         f"state of {n_tiles}")
     lane = (torch.arange(rows_total * LANES, device=dev, dtype=torch.int64)
-            .reshape(shape) + tile_offset * tile_rows * LANES)
+            .reshape(n_tiles, -1) % (tile_rows * LANES)
+            + tile_of[:, None] * (tile_rows * LANES)).reshape(shape)
     in_domain = lane < n_lanes
     px = (lane % width).to(torch.float32)
     py = (lane // width).to(torch.float32)
@@ -629,18 +735,19 @@ def persistent_step_ref(
             u = [ublk[:, it, j].reshape(shape) for j in range(n_draw)]
         else:
             u = philox_uniforms(lane, seed_i, salt, state.frame, it, n_draw)
-        u_cam, v_cam, u1, u2, u3 = u[:5]
+        (u_cam, v_cam), lens, (u1, u2, u3), nee_u = split_draws(
+            u, use_nee, use_dof)
         if use_nee:
-            ul1, ul2, usel = u[5:8]
+            ul1, ul2, usel = nee_u
 
         # ---- regenerate: dead lanes start the next sample of their pixel
         # (stratified jitter: cell = n_samp % strat_k^2, persistent.py:551)
         regen = (~alive) & in_domain
-        gdx, gdy, gdz = camera_dirs(cam, px, py, n_samp, strat_k, u_cam,
-                                    v_cam)
-        ox = where(regen, cam[9], ox)
-        oy = where(regen, cam[10], oy)
-        oz = where(regen, cam[11], oz)
+        gox, goy, goz, gdx, gdy, gdz = camera_rays(
+            cam, px, py, n_samp, strat_k, u_cam, v_cam, lens)
+        ox = where(regen, gox, ox)
+        oy = where(regen, goy, oy)
+        oz = where(regen, goz, oz)
         dx = where(regen, gdx, dx)
         dy = where(regen, gdy, dy)
         dz = where(regen, gdz, dz)
@@ -712,7 +819,8 @@ def persistent_step_ref(
                      ar=ar, ag=ag, ab=ab, coef=coef, is_s=is_s, is_t=is_t,
                      er=er, eg=eg, eb=eb)
             mc, tm, mmat = mesh_merge(scene, tile_rows, alive, ox, oy, oz,
-                                      dx, dy, dz, best_t, h, MT, tris, Lt)
+                                      dx, dy, dz, best_t, h, MT, tris, Lt,
+                                      counts)
             (hit, hx, hy, hz, nx, ny, nz, ar, ag, ab, coef, is_s, is_t,
              er, eg, eb) = h.values()
             # sphere winner masks must not fire on mesh-won lanes
@@ -881,8 +989,10 @@ def _kernel():
         p, ip, i,  # lights (device), light structure (host), n_lights
         p, p, p,  # camera (device), uniforms (device or NULL), nrays
         p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
+        p, i, i, i,  # texture atlas (device or NULL), K, TH, TW
         i, i, i, i, i,  # rows_total, tile_rows, budget, width, n_lanes
-        i, i, i, i, i,  # max_bounces, rr_start, use_nee, strat_k, tile_off
+        i, i, i, i, i, i,  # max_bounces, rr_start, use_nee, use_dof,
+        #                    strat_k, tile_off
         u, u, u,  # seed, salt, frame
         p,  # cudaStream_t
     ]
@@ -940,9 +1050,23 @@ def mesh_arguments(scene: Scene, dev) -> tuple[list, list, list]:
     return [t.data_ptr() for t in keep] + [pm.num_nodes], keep, lstruct
 
 
+def texture_arguments(scene: Scene, dev) -> tuple[list, list]:
+    """(pointer, K, TH, TW) of the texture atlas (K, TH, TW, 3) f32 for a
+    kernel launch, and the tensors to keep alive; NULL and zeros for a
+    scene that samples no texture (the untextured build runs then)."""
+    if not scene.textured:
+        return [None, 0, 0, 0], []
+    atlas = scene.textures
+    _check(atlas, "textures", torch.float32, tuple(atlas.shape), dev)
+    if atlas.ndim != 4 or atlas.shape[-1] != 3 or atlas.numel() >= 2 ** 31:
+        raise ValueError(f"the texture atlas must be (K, TH, TW, 3) with "
+                         f"fewer than 2^31 floats, got {tuple(atlas.shape)}")
+    return [atlas.data_ptr(), *atlas.shape[:3]], [atlas]
+
+
 def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
                           height, max_bounces, rr_start, tile_rows, use_nee,
-                          strat_k, tile_offset, uniforms):
+                          use_dof, strat_k, tile_offset, uniforms):
     global launches, mesh_launches
     dev = state.lr.device
     rows_total = state.lr.shape[0]
@@ -966,11 +1090,13 @@ def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
     _check(cam_packed, "cam_packed", torch.float32, (24,), dev)
     if uniforms is not None:
         _check(uniforms, "uniforms", torch.float32,
-               (n_tiles * budget * n_draws(use_nee) * tile_rows, LANES), dev)
+               (n_tiles * budget * n_draws(use_nee, use_dof) * tile_rows,
+                LANES), dev)
     if strat_k < 1 or budget < 0:
         raise ValueError("strat_k must be >= 1 and budget >= 0")
 
     mesh_ptrs, _keep, ls = mesh_arguments(scene, dev)
+    tex_args, _keep_tex = texture_arguments(scene, dev)
     # per-prim flags: bit 0 emissive, bits 1-2 the BSDF type
     emissive = set(scene.emissive_prims)
     pflags = (ctypes.c_int * max(n_prims, 1))(*[
@@ -988,9 +1114,9 @@ def _persistent_step_cuda(scene, cam_packed, seed, state, *, budget, width,
                  lights.data_ptr(), lstruct, n_lights,
                  cam_packed.data_ptr(),
                  uniforms.data_ptr() if uniforms is not None else None,
-                 nrays.data_ptr(), *mesh_ptrs,
+                 nrays.data_ptr(), *mesh_ptrs, *tex_args,
                  rows_total, tile_rows, budget, width, width * height,
-                 max_bounces, rr_start, int(use_nee), strat_k,
+                 max_bounces, rr_start, int(use_nee), int(use_dof), strat_k,
                  int(tile_offset),
                  int(seed[0]) & _MASK, int(seed[1]) & _MASK,
                  state.frame & _MASK, stream)
@@ -1018,13 +1144,16 @@ def persistent_step(
     rr_start: int = 3,
     tile_rows: int = 32,
     use_nee: bool = False,
+    use_dof: bool = False,
     strat_k: int = 2,
     tile_offset: int = 0,
     uniforms: Tensor | None = None,
 ) -> tuple[PathState, Tensor]:
     """Advance every lane by ``budget`` wavefront iterations.
 
-    ``seed`` is ``(seed, salt)`` as host integers. Returns (new_state,
+    ``seed`` is ``(seed, salt)`` as host integers; ``use_dof`` regenerates
+    paths through the packed camera's thin lens (pass ``camera.use_dof``).
+    Returns (new_state,
     live_rays_traced) with the ray count as a 0-d device tensor. For state on
     a CUDA device this launches the CUDA kernel on the current stream and
     UPDATES THE STATE PLANES IN PLACE (the JAX version donates its state): the
@@ -1032,10 +1161,10 @@ def persistent_step(
     state on the CPU it runs ``persistent_step_ref``, which returns new
     tensors. Any other device raises.
     """
-    refuse_textures(scene, "persistent_step")
     kw = dict(budget=budget, width=width, height=height,
               max_bounces=max_bounces, rr_start=rr_start,
-              tile_rows=tile_rows, use_nee=use_nee, strat_k=strat_k,
+              tile_rows=tile_rows, use_nee=use_nee, use_dof=use_dof,
+              strat_k=strat_k,
               tile_offset=tile_offset, uniforms=uniforms)
     dev = state.lr.device
     if dev.type == "cuda":

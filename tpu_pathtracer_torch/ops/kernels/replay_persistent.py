@@ -29,9 +29,10 @@ gradient walk from replaying a forward render's paths.
 Mesh scenes (packed by ``models/scene.py::with_packet_mesh``) walk the mesh
 in-kernel as the forward step does; a mesh vertex routes its adjoint to its
 material's slot, and a TRI_LIGHT's emission and NEE credit its intensity
-adjoint. Not ported yet: thin-lens DOF (ROADMAP Queue 1 item 7), textures
-(a textured scene raises NotImplementedError), the ``"scatter"`` phase and
-the chunked textured driver (items 10 and 12).
+adjoint. ``use_dof`` regenerates paths through the thin lens, as the
+forward step does. Not ported yet: textures (a textured scene raises
+NotImplementedError), the ``"scatter"`` phase and the chunked textured
+loop ``_chunked_mse_value_and_grad`` (ROADMAP Queue 1 item 12, Slice B).
 """
 from __future__ import annotations
 
@@ -46,10 +47,10 @@ from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, Scene, refuse_textures,
 )
 from tpu_pathtracer_torch.ops.kernels.persistent import (
-    _MASK, _check, _f32_add, _f32_div, camera_dirs, dot3_fma,
+    _MASK, _check, _f32_add, _f32_div, camera_rays, dot3_fma,
     emitter_light_pdf, fma, mesh_arguments, mesh_merge, mesh_occluded,
     n_draws, packed_mesh, pack_materials, pack_tri_lights, philox_uniforms,
-    sample_light, sample_lobe, tri_emitter_pdf,
+    sample_light, sample_lobe, split_draws, tri_emitter_pdf,
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
     BIG, INV_PI, LANES, pack_camera, pack_lights, pack_prims,
@@ -109,9 +110,12 @@ def material_slots(scene: Scene) -> tuple[tuple[int, ...], tuple[int, ...]]:
     return slot_mats, tuple(slot_mats.index(m) for m in mids)
 
 
-def _check_route(use_dof: bool, phase: str) -> None:
-    if use_dof:
-        raise _not_ported("thin-lens DOF in the gradient kernel", "7")
+def _check_route(scene: Scene, phase: str, who: str) -> None:
+    refuse_textures(
+        scene, who, "the gradient kernel's texture block and texture-atlas "
+        "gradients are not ported to tpu_pathtracer_torch yet (ROADMAP "
+        "Queue 1 item 12, Slice B); render textured scenes with "
+        "PersistentRenderer or the wavefront")
     if phase == "scatter":
         raise _not_ported('phase="scatter" (texture-atlas gradients)', "12")
     if phase not in ("both", "adjoint"):
@@ -193,8 +197,7 @@ def persistent_replay_ref(
     returns; if ``counts`` is a dict it also receives ``"shadow"``, the NEE
     shadow segments traced (for the kernel's bound, which the kernel does
     not count)."""
-    refuse_textures(scene, "persistent_replay_ref")
-    _check_route(use_dof, phase)
+    _check_route(scene, phase, "persistent_replay_ref")
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
     n_tiles = rows_total // tile_rows
@@ -202,7 +205,7 @@ def persistent_replay_ref(
     n_lanes = width * height
     n_prims = int(scene.num_prims)
     tmin = EPSILON
-    n_draw = n_draws(use_nee)
+    n_draw = n_draws(use_nee, use_dof)
     seed_i, salt = int(seed[0]), int(seed[1])
     inv_loss_n = 1.0 / (width * height * 3)
 
@@ -261,17 +264,19 @@ def persistent_replay_ref(
         else:
             u = philox_uniforms(lane, seed_i, salt, iteration, it, n_draw,
                                 stream=STREAM)
-        u_cam, v_cam, u1, u2, u3 = u[:5]
+        (u_cam, v_cam), lens, (u1, u2, u3), nee_u = split_draws(
+            u, use_nee, use_dof)
         if use_nee:
-            ul1, ul2, usel = u[5:8]
+            ul1, ul2, usel = nee_u
 
-        # ---- regenerate while the pixel has samples left
+        # ---- regenerate while the pixel has samples left (through the
+        # thin lens with use_dof, replay_persistent.py:467-477, 512-527)
         regen = (~alive) & in_domain & (n_samp < spp)
-        gdx, gdy, gdz = camera_dirs(cam, px, py, n_samp, strat_k, u_cam,
-                                    v_cam)
-        ox = where(regen, cam[9], ox)
-        oy = where(regen, cam[10], oy)
-        oz = where(regen, cam[11], oz)
+        gox, goy, goz, gdx, gdy, gdz = camera_rays(
+            cam, px, py, n_samp, strat_k, u_cam, v_cam, lens)
+        ox = where(regen, gox, ox)
+        oy = where(regen, goy, oy)
+        oz = where(regen, goz, oz)
         dx = where(regen, gdx, dx)
         dy = where(regen, gdy, dy)
         dz = where(regen, gdz, dz)
@@ -540,7 +545,8 @@ def _kernel():
         p, p,  # partials ("both") or gl ("adjoint"), the other NULL
         p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
         i, i, i, i, i, i,  # rows_total tile_rows budget spp width n_lanes
-        i, i, i, i, i,  # max_bounces rr_start use_nee strat_k tile_offset
+        i, i, i, i, i, i,  # max_bounces rr_start use_nee use_dof strat_k
+        #                    tile_offset
         f, u, u, u,  # inv_loss_n seed salt iteration
         p,  # cudaStream_t
     ]
@@ -552,7 +558,7 @@ def _kernel():
 
 def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
                  budget, width, height, max_bounces, rr_start, tile_rows,
-                 use_nee, strat_k, tile_offset, phase, uniforms):
+                 use_nee, use_dof, strat_k, tile_offset, phase, uniforms):
     global launches, mesh_launches
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
@@ -582,7 +588,8 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
     _check(cam_packed, "cam_packed", torch.float32, (24,), dev)
     if uniforms is not None:
         _check(uniforms, "uniforms", torch.float32,
-               (n_tiles * budget * n_draws(use_nee) * tile_rows, LANES), dev)
+               (n_tiles * budget * n_draws(use_nee, use_dof) * tile_rows,
+                LANES), dev)
     if strat_k < 1 or budget < 0 or spp < 0:
         raise ValueError("strat_k must be >= 1, budget and spp >= 0")
 
@@ -623,7 +630,7 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
                  partials.data_ptr() if partials is not None else None,
                  gl.data_ptr() if gl is not None else None, *mesh_ptrs,
                  rows_total, tile_rows, budget, spp, width, width * height,
-                 max_bounces, rr_start, int(use_nee), strat_k,
+                 max_bounces, rr_start, int(use_nee), int(use_dof), strat_k,
                  int(tile_offset), 1.0 / (width * height * 3),
                  int(seed[0]) & _MASK, int(seed[1]) & _MASK,
                  int(iteration) & _MASK, stream)
@@ -678,17 +685,18 @@ def persistent_replay_call(
       applied.
 
     Callers divide the raw gradients by clamp(mat_color, 1e-8) and
-    clamp(light_intensity, 1e-8). ``live_rays`` counts the lanes alive after
+    clamp(light_intensity, 1e-8). ``use_dof`` regenerates paths through the
+    packed camera's thin lens. ``live_rays`` counts the lanes alive after
     regeneration, once per iteration (the JAX kernel's count). For tensors on a CUDA device this launches
     the CUDA kernel on the current stream; on the CPU it runs
     ``persistent_replay_ref``; any other device raises.
     """
-    refuse_textures(scene, "persistent_replay_call")
-    _check_route(use_dof, phase)
+    _check_route(scene, phase, "persistent_replay_call")
     kw = dict(spp=spp, budget=budget, width=width, height=height,
               max_bounces=max_bounces, rr_start=rr_start,
-              tile_rows=tile_rows, use_nee=use_nee, strat_k=strat_k,
-              tile_offset=tile_offset, phase=phase, uniforms=uniforms)
+              tile_rows=tile_rows, use_nee=use_nee, use_dof=use_dof,
+              strat_k=strat_k, tile_offset=tile_offset, phase=phase,
+              uniforms=uniforms)
     dev = target_lanes.device
     if dev.type == "cuda":
         return _replay_cuda(scene, cam_packed, seed, iteration, target_lanes,
@@ -746,8 +754,9 @@ def persistent_mse_value_and_grad(
     uniforms: Tensor | None = None,
 ) -> tuple[Tensor, dict, Tensor]:
     """Loss and gradients w.r.t. ``mat_color`` and ``light_intensity`` of
-    mean((render - target)^2), ``target`` (H, W, 3), from one fused launch.
-    Returns (loss, grads, live_rays). Untextured route only."""
+    mean((render - target)^2), ``target`` (H, W, 3), from one fused launch;
+    a lens camera's paths start on its thin lens. Returns (loss, grads,
+    live_rays). Untextured route only."""
     w, h = camera.width, camera.height
     rows_total, _ = pixel_lanes_layout(w, h, tile_rows)
     aux = target_to_lanes(target, rows_total)
@@ -757,7 +766,7 @@ def persistent_mse_value_and_grad(
         scene, pack_camera(camera), seed, iteration, aux, spp=spp,
         budget=budget, width=w, height=h, max_bounces=max_bounces,
         rr_start=rr_start, tile_rows=tile_rows, use_nee=use_nee,
-        strat_k=strat_k, uniforms=uniforms)
+        use_dof=camera.use_dof, strat_k=strat_k, uniforms=uniforms)
     gI_full = torch.zeros_like(scene.light_intensity)
     gI_full[: gI_raw.shape[0]] = gI_raw
     grads = {

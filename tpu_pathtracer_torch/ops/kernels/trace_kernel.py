@@ -11,7 +11,6 @@ import math
 import torch
 from torch import Tensor
 
-from tpu_pathtracer_torch.models.camera import refuse_lens
 from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, TRI_LIGHT, Scene, prim_attrs,
 )
@@ -24,11 +23,8 @@ INV_PI = 1.0 / math.pi
 def pack_camera(camera) -> Tensor:
     """(24,) f32: first_ray_dir[0:3], px_x[3:6], px_y[6:9], pos[9:12],
     lens_radius[12], focal_distance[13], view rows u[14:17], v[17:20],
-    w[20:23], pad[23]. A lens camera raises NotImplementedError: no kernel
-    of the port reads the lens slots yet, and every route that packs a
-    camera (the persistent renderer, the trainer, the gradient calls) would
-    render it as a pinhole camera."""
-    refuse_lens(camera, "pack_camera (the port's kernels trace pinhole rays)")
+    w[20:23], pad[23]. The persistent kernels read the lens slots when
+    launched with ``use_dof``."""
     return torch.cat([
         camera.first_ray_dir, camera.px_x, camera.px_y, camera.pos,
         camera.focal_distance.new_full((1,), camera.lens_radius),

@@ -7,7 +7,7 @@ id) alone, so sorting, sharding or batching lanes never changes a value.
 * ``CAMERA_STREAM``: 2 uniforms per path sample (sub-pixel jitter);
 * ``BOUNCE_STREAM``, per bounce: 3 (bsdf u, bsdf v, russian roulette);
 * ``LIGHT_STREAM``, per bounce: 3 for NEE (light u, light v, select);
-* ``LENS_STREAM``: 2 for thin-lens DOF (not ported yet).
+* ``LENS_STREAM``: 2 per path sample for thin-lens DOF (lens cameras).
 
 The JAX package derives them from threefry keys by ``fold_in``; the port
 draws Philox4x32-10 (``ops/kernels/persistent.py::philox4x32``) keyed on
@@ -69,6 +69,11 @@ class TableDraws:
 def camera_uniforms(draws: Draws, lane_ids: Tensor) -> Tensor:
     """(u, v) sub-pixel jitter uniforms, (n_lanes, 2)."""
     return draws(CAMERA_STREAM, 0, lane_ids, 2)
+
+
+def lens_uniforms(draws: Draws, lane_ids: Tensor) -> Tensor:
+    """(u, v) thin-lens aperture uniforms, (n_lanes, 2)."""
+    return draws(LENS_STREAM, 0, lane_ids, 2)
 
 
 def bounce_uniforms(draws: Draws, bounce: int, lane_ids: Tensor) -> Tensor:
