@@ -150,7 +150,29 @@ print one line; any failure exits non-zero:
    share from one trace (the bound is a lower bound);
 27. times by phase 6's and 10's protocol: the forward kernel and the
    gradient with the lens on cornell_spheres; the forward kernel on
-   terrain32 textured and with its texture stripped.
+   terrain32 textured and with its texture stripped;
+28. texture-atlas gradients against the plain version at 640x480, spp 4,
+   10 bounces, budget 10: the JAX suite's tex_scene and terrain32, brute
+   force and NEE, injected and Philox. Phase 7's bars on L, n_samp, every
+   GA/GI plane and every C_tot record; the scatter launch's own radiance
+   sums and counts equal launch 1's on every lane (the replay is exact);
+   two scatters of the same inputs (the call's own and a replay) within
+   ATOMIC_RTOL of each cell's sum of |terms|; with the same cotangent,
+   zeroed where kernel and plain walks disagree, the atlas gradients within
+   ATLAS_RTOL of max|gT|, and not zero;
+29. the textured trainer main path: terrain32 at 640x480, spp 4, 10
+   bounces, budget 26, NEE; the target from render_target_kernel (one
+   launch, no atlas gradient), then 5 same-seed Adam steps from params_of
+   with the atlas times 0.6: the loss falls, 11 launches (5 scatters); the
+   last step's launches replayed and checked by phase 28's bars, its atlas
+   gradient against the replay's within the atomic bound;
+30. the chunked driver: tex_scene at 160x120, spp 48 (chunks 32 + 16), NEE,
+   against the plain driver on the card (loss rtol 1e-4, gradients 2e-3,
+   the atlas within ATLAS_RTOL);
+31. the textured gradient's times on terrain32 at 640x480, spp 4, NEE:
+   end to end with and without the atlas gradient (slope, median of REPS),
+   each launch's kernel ms and the idle share (one trace), the plain
+   version's ms per launch and each launch's bound (a lower bound).
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -158,7 +180,8 @@ is the larger of its f32 operations over 67 TFLOP/s and its bytes over
 work (see ``OPS``) and multiplied by the work this run's launches did; the
 bytes are each input read once and each output written once.
 
-The line before the last prints one JSON object {"kernels": [...]} and the
+The line before the last prints one JSON object {"kernels": [...]}, with
+the scatter launch of kernel 3 as an entry of its own, and the
 card's name and power limit precede it. The last line of standard output
 is ``{"ok": true, "device": {...}}``. Run it with no arguments from the
 repository root: ``python3 chip_smoke.py``.
@@ -226,6 +249,12 @@ OPS = {
     "tangent_segment": 81,  # IFT hit tangent, mirror JVP, throughput
     "tangent_shadow": 73,  # point-light tangents, cos, MIS, dC (lit only)
     "score": 71,  # Fresnel score and cS, per IOR-tangent vertex
+    # the scatter walk (replay_persistent.cu, SCATTER), per textured vertex
+    # of a recorded path: texel_taps 12 and the weights 1 - fx, 1 - fy 2,
+    # the value per channel 7 (C_tot - C, ok * it + nee, g *, max, 1 /, *);
+    # per tap per channel the two weight products and the atomic add
+    "scatter_vertex": 35,
+    "scatter_add": 3,
 }
 JVP_W, JVP_H, JVP_BUDGET = 160, 120, 10
 IOR_START = 1.3  # the trainer's starting glass IOR (true: 1.5)
@@ -320,6 +349,7 @@ def _terrain32(device, textured=True):
 
 EXTRA_SCENES = {
     "checker": _checker_quad,
+    "tex-scene": lambda device: _tex_scene(device),
     "terrain32": _terrain32,
     "terrain32-bare": lambda device: _terrain32(device, textured=False),
 }
@@ -997,8 +1027,14 @@ def _grad_floor(args, kw, ref_adj, w, h):
                   else kw["uniforms"].cpu())
     cpu = rp.persistent_replay_ref(scene.to("cpu"), cp.cpu(), seed, it,
                                    tgt.cpu(), phase="adjoint", **kw_cpu)
-    fl = grad_lane_agreement(ref_adj[:4], cpu[:4], w, h)
+    fl = grad_lane_agreement(_lanes(ref_adj), _lanes(cpu), w, h)
     return min(fl["n_samp"], fl["L"], min(fl["planes"].values()))
+
+
+def _lanes(adj):
+    """The per-lane outputs of a phase "adjoint" call that the lane bars
+    hold: L, n_samp, GA, GI and the C_tot records (None untextured)."""
+    return (*adj[:4], adj[5])
 
 
 def _sign_balance(pairs, n_lanes):
@@ -1062,7 +1098,9 @@ def _check_grad_launch(label, args, kw, w, h, main_loss=None):
     the agreeing lanes against the plain version's, and the sign balance of
     the lanes that differ from it (``_image_gap``). ``main_loss``, if
     given, is the loss the main path's launch returned from these inputs,
-    which the replayed launch must equal bit for bit."""
+    which the replayed launch must equal bit for bit. On a textured scene
+    the C_tot records are held like the GA/GI planes; the outputs are
+    returned under "outs" for the texture checks."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
@@ -1077,9 +1115,10 @@ def _check_grad_launch(label, args, kw, w, h, main_loss=None):
         fail(f"{label}: the replayed launch's loss {float(k_both[2])} is not "
              f"the main path's {float(main_loss)}")
     outs = (*k_adj[:4], *k_both[2:5], *r_adj[:4])
+    outs += tuple(x for x in (k_adj[5], r_adj[5], k_both[6]) if x is not None)
     if not all(bool(torch.isfinite(x.float()).all()) for x in outs):
         fail(f"{label}: non-finite outputs")
-    ag = grad_lane_agreement(r_adj[:4], k_adj[:4], w, h)
+    ag = grad_lane_agreement(_lanes(r_adj), _lanes(k_adj), w, h)
     worst = min(ag["n_samp"], ag["L"], min(ag["planes"].values()))
     floor = _grad_floor(args, kw, r_adj, w, h) if worst < AGREE else None
     if worst < AGREE and worst < floor:
@@ -1112,7 +1151,7 @@ def _check_grad_launch(label, args, kw, w, h, main_loss=None):
                 plane_agree=min(ag["planes"].values()), all_agree=ag["all"],
                 floor=floor, max_abs_err=ag["max_abs_err"],
                 rays=(rays_k, rays_r), loss=float(k_both[2]),
-                image=image)
+                image=image, outs=(k_adj, k_both, r_adj), mask=ag["mask"])
 
 
 def _fmt_check(c) -> str:
@@ -2661,6 +2700,419 @@ def phase_c4_persistent(smi, wf_renderer, wf_times):
 # --ab: the persistent kernels' device time per launch in two checkouts
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Texture-atlas gradients: kernel 3's TEX build (launch 1, C_tot records)
+# and its scatter walk (launch 2), the textured trainer, the chunked driver
+# ---------------------------------------------------------------------------
+
+TEX_GRAD_BUDGET = 10
+TEX_TRAIN_STEPS = 5
+TEX_ATLAS_SCALE = 0.6  # the trainer starts from the atlas times this
+
+
+def _tex_scene(device):
+    """The JAX suite's tex_scene (tests/test_replay_persistent.py:951-976):
+    a quad floor with an 8x8 two-colour checker, a diffuse sphere, an
+    emissive sphere area light and a point light, and its camera."""
+    from tpu_pathtracer_torch.models import meshes, scene as sc
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
+                           [10, 0, -10])
+    scene = sc.make_scene(
+        [sc.sphere([0, 2, 0], 1.0, 1),
+         sc.sphere([2, 2.5, 0], 1.5, 2, light=1)],
+        [sc.diffuse([0.7, 1.0, 0.9]), sc.diffuse([0.8, 0.4, 0.3]),
+         sc.diffuse([0.05, 0.05, 0.05])],
+        [sc.point_light([0.0, 8.0, 3.0], [60.0, 60.0, 60.0]),
+         sc.area_light(1, [40.0, 40.0, 40.0])],
+        mesh=build_bvh(v, f, uv, 0, device=device),
+        textures=meshes.checker_texture(8, tiles=2, c0=(0.9, 0.2, 0.15),
+                                        c1=(0.1, 0.8, 0.85)),
+        mat_texture=[0, -1, -1], device=device)
+    return scene, dict(eye=[0, 10, 9], look_at=[0, 0, 0], up=[0, 1, 0],
+                       fov=60.0)
+
+
+def _atomic_ratio(a, b, s_abs):
+    """The largest |a - b| over ATOMIC_RTOL * s_abs (1.0 is the bar): two
+    scatters of the same inputs, s_abs the scatter of |g|."""
+    import torch
+
+    from tpu_pathtracer_torch.utils.metrics import ATOMIC_RTOL
+
+    d = (a.double() - b.double()).abs()
+    lim = ATOMIC_RTOL * s_abs.double()
+    if bool(((d > 0) & (lim == 0)).any()):
+        return math.inf
+    return float(torch.where(lim > 0, d / lim.clamp_min(1e-300), 0.0).max())
+
+
+def _check_tex_launch(label, args, kw, w, h, main_loss=None, main_gT=None):
+    """``_check_grad_launch`` on a textured scene (L, n_samp, GA/GI and the
+    C_tot records lane for lane), then the scatter: launch 2 replays launch
+    1's radiance and counts bit for bit; two scatters of the same inputs
+    (the call's own launch 2, its replay and ``main_gT``, the main path's
+    atlas gradient, if given) agree within the atomic bound; with the same
+    cotangent, zeroed on the lanes where kernel and plain walks disagree,
+    the kernel's atlas gradient is within ATLAS_RTOL of the plain one and
+    not zero."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import ATLAS_RTOL, atlas_gap
+
+    c = _check_grad_launch(label, args, kw, w, h, main_loss)
+    k_adj, k_both, r_adj = c.pop("outs")
+    mask = c.pop("mask").to("cuda")
+    tgt = args[4]
+    lane0 = kw.get("tile_offset", 0) * kw["tile_rows"] * 128
+    g = rp.lane_cotangent(k_adj[0], k_adj[1], tgt, w, h, lane0)
+    L2, n2, rays2, gT = rp.scatter_walk(*args, g, k_adj[5], k_adj[1], **kw)
+    s_abs = rp.scatter_walk(*args, g.abs(), k_adj[5], k_adj[1], **kw)[3]
+    gm = g * mask
+    gk = rp.scatter_walk(*args, gm, k_adj[5], k_adj[1], **kw)[3]
+    gr = rp.persistent_replay_ref(*args, phase="scatter", ext_g=gm,
+                                  ext_ct=r_adj[5], ext_ns=r_adj[1], **kw)
+    torch.cuda.synchronize()
+    off = int((L2 != k_adj[0]).any(-1).sum() + (n2 != k_adj[1]).sum())
+    if off or int(rays2) != int(k_adj[4]):
+        fail(f"{label}: the scatter launch's replay differs from launch 1 on "
+             f"{off} lane outputs (rays {int(rays2)} vs {int(k_adj[4])})")
+    ratio = max(_atomic_ratio(x, gT, s_abs)
+                for x in (k_both[6], main_gT) if x is not None)
+    if not ratio <= 1.0:
+        fail(f"{label}: two scatters of the same inputs differ by {ratio} "
+             "times the atomic bound")
+    gap, top = atlas_gap(gk, gr), float(gr.abs().max())
+    if not (gap <= ATLAS_RTOL and top > 0):
+        fail(f"{label}: masked-g atlas gradient gap {gap} of max|gT| {top} "
+             f"(bar {ATLAS_RTOL})")
+    c.update(atlas_gap=gap, atomic_ratio=ratio, gT_max=top,
+             atlas_abs_err=float((gk - gr).abs().max()),
+             masked=int((~mask).reshape(-1)[:w * h].sum()),
+             taps=int((gr != 0).sum()))
+    return c
+
+
+def _fmt_tex(c) -> str:
+    return (f"{_fmt_check(c)}; replay bit for bit; atlas: masked-g gap "
+            f"{c['atlas_gap']:.3g} of max|gT| {c['gT_max']:.4g} ({c['taps']} "
+            f"nonzero cells, {c['masked']} lanes masked), atomic "
+            f"{c['atomic_ratio']:.3g} of its bound")
+
+
+def _worst_tex(checks) -> dict:
+    return dict(n_agree=min(c["n_agree"] for c in checks),
+                l_agree=min(c["l_agree"] for c in checks),
+                plane_agree=min(c["plane_agree"] for c in checks),
+                floor=min((c["floor"] for c in checks
+                           if c["floor"] is not None), default=None),
+                max_abs_err=max(c["max_abs_err"] for c in checks),
+                sign_balance=max(c["image"][0] for c in checks),
+                atlas_gap=max(c["atlas_gap"] for c in checks),
+                atlas_abs_err=max(c["atlas_abs_err"] for c in checks),
+                atomic_ratio=max(c["atomic_ratio"] for c in checks))
+
+
+def phase_tex_grad_compare():
+    """28: the textured gradient against its plain version at 640x480, spp
+    4, 10 bounces, budget 10: tex_scene and terrain32, brute force and NEE,
+    injected uniforms and Philox (``_check_tex_launch``)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    gen = torch.Generator(device="cuda").manual_seed(78)
+    tgt = rp.target_to_lanes(
+        torch.rand((H, W, 3), generator=gen, device="cuda"), rows)
+    parts, checks = [], []
+    for name in ("tex-scene", "terrain32"):
+        scene, cam, cp = _scene(name, W, H, "cuda")
+        for use_nee in (False, True):
+            for injected in (True, False):
+                case = (f"{name}-{'nee' if use_nee else 'brute'}-"
+                        f"{'injected' if injected else 'philox'}")
+                u = (torch.rand((rows * TEX_GRAD_BUDGET * pk.n_draws(use_nee),
+                                 pk.LANES), generator=gen, device="cuda")
+                     if injected else None)
+                kw = dict(spp=SPP, budget=TEX_GRAD_BUDGET, width=W, height=H,
+                          max_bounces=MB, rr_start=3, tile_rows=TR,
+                          use_nee=use_nee, uniforms=u)
+                c = _check_tex_launch(case, (scene, cp, (6, 2), 3, tgt), kw,
+                                      W, H)
+                checks.append(c)
+                parts.append(f"{case}: {_fmt_tex(c)}")
+    print(f"[28 textured gradient vs plain] {W}x{H} spp {SPP}, {MB} "
+          f"bounces, budget {TEX_GRAD_BUDGET}: " + " | ".join(parts),
+          flush=True)
+    return _worst_tex(checks)
+
+
+def phase_tex_trainer():
+    """29: the textured trainer at full width: terrain32 at 640x480, spp 4,
+    10 bounces, budget 26, NEE; the target from render_target_kernel (one
+    launch, no atlas gradient), then TEX_TRAIN_STEPS same-seed Adam steps
+    from params_of (the true colours and light, the atlas times
+    TEX_ATLAS_SCALE): the loss falls, two launches per step, one of them a
+    scatter; the last step's launches replayed and checked."""
+    import torch
+
+    from tpu_pathtracer_torch.diff import inverse
+    from tpu_pathtracer_torch.models.integrator import RenderConfig
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    scene, cam, cp = _scene("terrain32", W, H, "cuda")
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    budget = rp.default_budget(SPP, MB)
+    seed = (19, 0)
+    config = RenderConfig(spp=SPP, max_bounces=MB, rr_start=3, use_nee=True)
+    p0 = inverse.params_of(scene)
+    if set(p0) != {"mat_color", "light_intensity", "textures"}:
+        fail(f"params_of(terrain32) holds {sorted(p0)}")
+    p0["textures"] = p0["textures"] * TEX_ATLAS_SCALE
+    state = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
+    step = inverse.make_kernel_train_step(scene, cam, config,
+                                          fixed_iteration=0)
+    pk.launches = rp.launches = rp.mesh_launches = rp.scatter_launches = 0
+    target = inverse.render_target_kernel(scene, cam, seed, config,
+                                          iteration=0)
+    losses = []
+    for _ in range(TEX_TRAIN_STEPS):
+        last = {k: v.detach().clone() for k, v in state.params.items()}
+        state, loss = step(state, target, seed)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    counts = dict(launches=rp.launches, scatter=rp.scatter_launches,
+                  mesh=rp.mesh_launches)
+    if (rp.launches != 1 + 2 * TEX_TRAIN_STEPS
+            or rp.scatter_launches != TEX_TRAIN_STEPS
+            or rp.mesh_launches != rp.launches or pk.launches):
+        fail(f"textured trainer: launches {counts} and {pk.launches} forward "
+             f"for 1 target and {TEX_TRAIN_STEPS} steps")
+    main_gT = state.params["textures"].grad.detach().clone()
+    vals = [float(x) for x in losses]
+    finite = (bool(torch.isfinite(target).all())
+              and all(bool(torch.isfinite(v.detach()).all())
+                      for v in state.params.values())
+              and all(map(math.isfinite, vals)))
+    if tuple(target.shape) != (W * H, 3) or not finite:
+        fail("textured trainer: non-finite or misshapen results")
+    if not vals[-1] < vals[0]:
+        fail(f"textured trainer: loss {vals[0]} -> {vals[-1]} did not fall")
+    true_tex = scene.textures
+    gap0 = float((p0["textures"] - true_tex).abs().mean())
+    gap1 = float((state.params["textures"].detach() - true_tex).abs().mean())
+    kw = dict(spp=SPP, budget=budget, width=W, height=H, max_bounces=MB,
+              rr_start=3, tile_rows=TR, use_nee=True)
+    c = _check_tex_launch(
+        "textured trainer last launches",
+        (inverse.apply_params(scene, last), cp, seed, 0,
+         rp.target_to_lanes(target.reshape(H, W, 3), rows)), kw, W, H,
+        main_loss=losses[-1], main_gT=main_gT)
+    print(f"[29 textured trainer main path] terrain32 {W}x{H} spp {SPP}, "
+          f"{MB} bounces, budget {budget}, NEE, lr {LR}, atlas x "
+          f"{TEX_ATLAS_SCALE}: loss {' '.join(f'{v:.6g}' for v in vals)}; "
+          f"mean |atlas - true| {gap0:.5f} -> {gap1:.5f}; launches "
+          f"{counts['launches']} = 1 + 2 x {TEX_TRAIN_STEPS} ("
+          f"{counts['scatter']} scatter, {counts['mesh']} on the mesh); last "
+          f"launches vs plain: {_fmt_tex(c)}", flush=True)
+    return counts, _worst_tex([c])
+
+
+def phase_tex_chunked():
+    """30: the chunked driver, tex_scene at 160x120, spp 48 (chunks 32 +
+    16, default budgets), NEE, Philox: the kernel's loss and gradients
+    against the plain driver's on the card (the plain walk in place of the
+    kernel), loss rtol 1e-4, gradients rtol 2e-3 (the fold bars of phase 7,
+    atol 1e-6 of the largest entry), the atlas within ATLAS_RTOL."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import ATLAS_RTOL, atlas_gap
+
+    w, h, spp = 160, 120, 48
+    scene, cam, _ = _scene("tex-scene", w, h, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    target = torch.rand((h, w, 3), generator=gen, device="cuda")
+    kw = dict(spp=spp, max_bounces=MB, rr_start=3, tile_rows=TR,
+              use_nee=True)
+    plan = rp.chunk_plan(spp, None, MB)
+    before = rp.launches
+    k = rp.persistent_mse_value_and_grad(scene, cam, (3, 1), 2, target, **kw)
+    torch.cuda.synchronize()
+    if rp.launches - before != 2 * len(plan):
+        fail(f"chunked driver: {rp.launches - before} launches for "
+             f"{len(plan)} chunks")
+    call = rp.persistent_replay_call
+    rp.persistent_replay_call = rp.persistent_replay_ref
+    try:
+        r = rp.persistent_mse_value_and_grad(scene, cam, (3, 1), 2, target,
+                                             **kw)
+    finally:
+        rp.persistent_replay_call = call
+    torch.cuda.synchronize()
+    gaps = {}
+    for name in ("mat_color", "light_intensity"):
+        a, b = k[1][name], r[1][name]
+        scale = float(b.abs().max())
+        if not _close(a, b, GRAD_RTOL, 1e-6 * scale):
+            fail(f"chunked driver: {name} {a} vs plain {b}")
+        gaps[name] = float(((a - b).abs() / (b.abs() + 1e-6 * scale)).max())
+    gaps["textures"] = atlas_gap(k[1]["textures"], r[1]["textures"])
+    if not (_close(k[0], r[0], LOSS_RTOL)
+            and gaps["textures"] <= ATLAS_RTOL
+            and float(r[1]["textures"].abs().max()) > 0):
+        fail(f"chunked driver: loss {float(k[0])} vs plain {float(r[0])}, "
+             f"atlas gap {gaps['textures']}")
+    loss_gap = abs(float(k[0]) - float(r[0])) / abs(float(r[0]))
+    print(f"[30 chunked driver] tex_scene {w}x{h} spp {spp} = chunks "
+          f"{plan} (samples, budget), NEE: {rp.launches - before} launches; "
+          f"loss {float(k[0]):.6g} vs plain {float(r[0]):.6g} (relative gap "
+          f"{loss_gap:.3g}); relative gaps mat_color "
+          f"{gaps['mat_color']:.3g}, light_intensity "
+          f"{gaps['light_intensity']:.3g}, atlas {gaps['textures']:.3g} of "
+          f"max|gT|", flush=True)
+    return dict(loss_gap=loss_gap, **gaps)
+
+
+def _time_tex(scene, cam, cp, target, k, salt, tex_grad=True):
+    """CUDA-event ms of k textured gradients at config 5's workload (host
+    wrapper included), on seeds (salt, 0) .. (salt, k - 1): the atlas
+    gradient (two launches) or, with ``tex_grad`` false, the same call
+    without it (one launch)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for i in range(k):
+        rp.persistent_replay_call(
+            scene, cp, (salt, i), 0, rp.target_to_lanes(target, rows),
+            spp=SPP, budget=rp.default_budget(SPP, MB), width=W, height=H,
+            max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=True,
+            compute_tex_grad=tex_grad)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_tex_grad_times(smi):
+    """31: the textured gradient on terrain32 at 640x480, spp 4, 10 bounces,
+    budget 26, NEE (BASELINE's texture-gradient row at spp 4): ms per
+    gradient by the CUDA-event slope between 1 and K calls (median of
+    REPS), with and without the atlas gradient; one profiled window for
+    each launch's kernel ms and the idle share; the plain version's ms per
+    launch; each launch's bound from this run's work (the plain version's
+    counts of shadow segments, texel fetches and scattered vertices on the
+    same seed; the root-only mesh walk makes it a lower bound)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    scene, cam, cp = _scene("terrain32", W, H, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    target = torch.rand((H, W, 3), generator=gen, device="cuda")
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    tgt = rp.target_to_lanes(target, rows)
+    budget = rp.default_budget(SPP, MB)
+    K = 12
+    out = {}
+    for tex_grad in (True, False):
+        _time_tex(scene, cam, cp, target, 2, 90, tex_grad)  # warm
+        ms = []
+        for rep in range(REPS):
+            t1 = _time_tex(scene, cam, cp, target, 1, 100 + rep, tex_grad)
+            tk = _time_tex(scene, cam, cp, target, K, 200 + rep, tex_grad)
+            ms.append((tk - t1) / (K - 1))
+        out[tex_grad] = dict(grad_ms=statistics.median(ms), reps=ms)
+
+    kw = dict(spp=SPP, budget=budget, width=W, height=H, max_bounces=MB,
+              rr_start=3, tile_rows=TR, use_nee=True)
+    args = (scene, cp, (300, 0), 0, tgt)
+    # the plain version: launch 1 (records), then the scatter, timed apart
+    counts = {}
+    start, mid, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    torch.cuda.synchronize()
+    start.record()
+    r_adj = rp.persistent_replay_ref(*args, phase="adjoint", counts=counts,
+                                     **kw)
+    mid.record()
+    g = rp.lane_cotangent(r_adj[0], r_adj[1], tgt, W, H)
+    rp.persistent_replay_ref(*args, phase="scatter", ext_g=g,
+                             ext_ct=r_adj[5], ext_ns=r_adj[1], counts=counts,
+                             **kw)
+    end.record()
+    torch.cuda.synchronize()
+    plain1_ms, plain2_ms = start.elapsed_time(mid), mid.elapsed_time(end)
+    k_adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
+    n_slots = len(rp.material_slots(scene)[0])
+    n_l = len(scene.light_structure)
+    segments, paths = int(k_adj[4]), int(k_adj[1].sum())
+    shadows, texels = int(counts["shadow"]), int(counts["texel"])
+    scattered = int(counts["scatter"])
+    walk = _walk_ops(scene, segments, paths, shadows, texels)
+    lanes = rows * 128
+    atlas = scene.textures.numel() * 4
+    k_part = 3 * n_slots + 3 * n_l + 1
+    b1 = _bound(walk + segments * OPS["adjoint_segment"]
+                + paths * (OPS["adjoint_flush_slot"] * n_slots
+                           + OPS["adjoint_flush_light"] * n_l),
+                lanes * (12 + 12 + 4) + rows * (4 * k_part + 4) + atlas
+                + 3 * SPP * lanes * 4)
+    b2 = _bound(walk + scattered * (OPS["scatter_vertex"]
+                                    + 12 * OPS["scatter_add"]),
+                lanes * 4 * (3 + 3 * SPP + 1) + lanes * 4 * 4 + rows * 4
+                + 2 * atlas)
+
+    def run(i):
+        rp.persistent_replay_call(
+            scene, cp, (400, i), 0, tgt, spp=SPP, budget=budget, width=W,
+            height=H, max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=True)
+
+    names = ("replay_persistent_kernel", "replay_scatter_kernel")
+
+    def complete(events):
+        n = [sum(nm in e["name"] for e in events) for nm in names]
+        return None if n == [10, 10] else f"{n} launches of {names} for 10"
+
+    window, events = _traced(run, 10, "grad_textured_nee", complete)
+    kern = [sum(e["dur"] for e in events if nm in e["name"]) / 10 / 1e3
+            for nm in names]
+    busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 10 / 1e3
+    idle = 1.0 - busy / (window / 10)
+    if idle < 0.0:
+        fail(f"textured gradient: device busy {busy} ms exceeds the window")
+    t, f = out[True], out[False]
+    res = dict(grad_ms=t["grad_ms"], grad_ms_no_atlas=f["grad_ms"],
+               ms1=kern[0], ms2=kern[1], idle_share=idle, busy_ms=busy,
+               window_ms=window / 10, plain1_ms=plain1_ms,
+               plain2_ms=plain2_ms, bound1_ms=b1[0], bound1_by=b1[1],
+               bound2_ms=b2[0], bound2_by=b2[1], segments=segments,
+               paths=paths, shadows=shadows, texels=texels,
+               scattered=scattered)
+    print(f"[31 textured gradient times] terrain32 {W}x{H} spp {SPP}, {MB} "
+          f"bounces, budget {budget}, NEE, atlas {tuple(scene.textures.shape)}"
+          f" on {smi}: {t['grad_ms']:.4f} ms per gradient with the atlas "
+          f"(median of {REPS}; {', '.join(f'{v:.4f}' for v in t['reps'])}), "
+          f"{f['grad_ms']:.4f} ms without ({', '.join(f'{v:.4f}' for v in f['reps'])}); "
+          f"kernel ms per launch: launch 1 {kern[0]:.4f}, scatter "
+          f"{kern[1]:.4f}; profiled window {window / 10:.4f} ms, device busy "
+          f"{busy:.4f} ms, idle share {idle:.3f}; plain launch 1 "
+          f"{plain1_ms:.2f} ms, scatter {plain2_ms:.2f} ms; bound launch 1 "
+          f"{b1[0]:.5f} ms by {b1[1]}, scatter {b2[0]:.5f} ms by {b2[1]} "
+          f"(lower bounds: {segments} segments, {paths} paths, {shadows} "
+          f"shadow segments, {texels} texel fetches, {scattered} scattered "
+          f"vertices)", flush=True)
+    return res
+
+
 AB_FORWARD = [("cornell", False), ("cornell", True), ("cornell-boxes", False),
               ("cornell-boxes", True)]
 AB_GRADIENT = [("cornell", False), ("cornell", True), ("cornell-boxes", True)]
@@ -2819,7 +3271,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from tpu_pathtracer_torch.utils.metrics import (
-        AGREE, BIN_TN_RTOL, L_TOL, PACKET_AGREE, PACKET_T_TOL, SIGN_Z,
+        AGREE, ATLAS_RTOL, ATOMIC_RTOL, BIN_TN_RTOL, L_TOL, PACKET_AGREE,
+        PACKET_T_TOL, SIGN_Z,
     )
 
     _lap()
@@ -2918,6 +3371,15 @@ def main() -> int:
     t_times = {name: phase_times(smi, name, "27 texture times")
                for name in ("terrain32", "terrain32-bare")}
     laps.append(('27 texture', _lap()))
+    # texture-atlas gradients: kernel 3's TEX build and its scatter walk
+    tg_worst = phase_tex_grad_compare()
+    laps.append(('28', _lap()))
+    tg_counts, tg_worst_train = phase_tex_trainer()
+    laps.append(('29', _lap()))
+    tg_chunked = phase_tex_chunked()
+    laps.append(('30', _lap()))
+    tg_times = phase_tex_grad_times(smi)
+    laps.append(('31', _lap()))
 
     forward = {
         "name": "persistent_step",
@@ -3090,6 +3552,58 @@ def main() -> int:
                          f"bound_by_lens_{mode}": o["bound_by"],
                          f"grad_ms_lens_{mode}": o["grad_ms"],
                          f"idle_share_lens_{mode}": o["idle_share"]})
+    # texture-atlas gradients: launch 1 (TEX, C_tot records) of the textured
+    # trainer's main path, its checks and times
+    gradient.update(
+        launches=gradient["launches"] + tg_counts["launches"]
+        - tg_counts["scatter"],
+        launches_texture_path=tg_counts["launches"] - tg_counts["scatter"],
+        n_agree_texture=min(tg_worst["n_agree"], tg_worst_train["n_agree"]),
+        l_agree_texture=min(tg_worst["l_agree"], tg_worst_train["l_agree"]),
+        plane_agree_texture=min(tg_worst["plane_agree"],
+                                tg_worst_train["plane_agree"]),
+        max_abs_err_texture=max(tg_worst["max_abs_err"],
+                                tg_worst_train["max_abs_err"]),
+        sign_balance_texture=max(tg_worst["sign_balance"],
+                                 tg_worst_train["sign_balance"]),
+        ms_terrain32_textured_nee=tg_times["ms1"],
+        plain_ms_terrain32_textured_nee=tg_times["plain1_ms"],
+        bound_ms_terrain32_textured_nee=tg_times["bound1_ms"],
+        bound_by_terrain32_textured_nee=tg_times["bound1_by"],
+        grad_ms_terrain32_textured_nee=tg_times["grad_ms"],
+        grad_ms_terrain32_no_atlas_nee=tg_times["grad_ms_no_atlas"],
+        idle_share_terrain32_textured_nee=tg_times["idle_share"])
+    scatter = {
+        "name": "persistent_replay_call (phase scatter)",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/replay_persistent.cu",
+        "replaces": "tpu_pathtracer/ops/pallas/replay_persistent.py:1478",
+        "launches": tg_counts["scatter"],
+        "max_abs_err": max(tg_worst["atlas_abs_err"],
+                           tg_worst_train["atlas_abs_err"]),
+        "ms": tg_times["ms2"],
+        "plain_ms": tg_times["plain2_ms"],
+        "bound_ms": tg_times["bound2_ms"],
+        "bound_by": tg_times["bound2_by"],
+        "library_ms": None,
+        "tolerance": f"replayed L and n_samp equal to launch 1's on every "
+                     f"lane; with the cotangent zeroed where kernel and "
+                     f"plain walks disagree, |dgT| <= {ATLAS_RTOL} * "
+                     f"max|gT|; two scatters of the same inputs within "
+                     f"{ATOMIC_RTOL} * (the scatter of |g|) per cell",
+        "atlas_gap": max(tg_worst["atlas_gap"], tg_worst_train["atlas_gap"]),
+        "atomic_ratio": max(tg_worst["atomic_ratio"],
+                            tg_worst_train["atomic_ratio"]),
+        "chunked_vs_plain": tg_chunked,
+        "idle_share_terrain32_nee": tg_times["idle_share"],
+        "note": "the second launch of kernel 3 (replay_scatter_kernel): "
+                "the walk of launch 1 replayed on the same draws, adding "
+                "the atlas gradient into its four bilinear taps with float "
+                "atomics; launches are the textured trainer's 5 steps "
+                "(phase 29); ms, plain_ms and bound_ms on terrain32 "
+                "640x480 spp 4 NEE (phase 31, a lower bound: the mesh walk "
+                "counts the root only)",
+    }
     boxes = m_times["cornell-boxes"]["brute"]
     textured = t_times["terrain32"]["nee"]
     walk = {
@@ -3098,7 +3612,7 @@ def main() -> int:
         "source": "tpu_pathtracer_torch/csrc/pt_common.cuh",
         "replaces": "tpu_pathtracer/ops/pallas/_walk.py:22",
         "launches": m_walks + m_grad_walks + d_walks + t_walks
-        + c4p["walks"],
+        + c4p["walks"] + tg_counts["mesh"],
         "max_abs_err": max(forward["max_abs_err_mesh"],
                            gradient["max_abs_err_mesh"],
                            forward["max_abs_err_texture"],
@@ -3114,8 +3628,9 @@ def main() -> int:
         "bound_by_textured_nee": textured["bound_by"],
         "note": "a __device__ function inside persistent_step and "
                 "persistent_replay_call, with no launch of its own: "
-                "launches are those of the two kernels on mesh scenes in "
-                "the mesh main paths (the lens, textured and config-4 "
+                "launches are those of the persistent kernels (the "
+                "scatter walk included) on mesh scenes in the mesh main "
+                "paths (the lens, textured, config-4 and textured-trainer "
                 "paths included); ms, plain_ms and bound_ms are those of "
                 "the cornell_boxes brute-force forward launch that runs it, "
                 "the *_textured_* keys those of terrain32 NEE with the uv "
@@ -3233,14 +3748,15 @@ def main() -> int:
     }
     for entry, kernel in ((forward, "persistent_kernel"),
                           (gradient, "replay_persistent_kernel"),
+                          (scatter, "replay_scatter_kernel"),
                           (jvp, "camera_jvp_kernel"),
                           (packet, "packet_kernel"), (binning, "bin_kernel")):
         entry["ptxas"] = {k: v for k, v in builds.items()
                           if k.split("<")[0] == kernel}
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in laps)
           + f"; total {sum(v for _, v in laps):.1f}", flush=True)
-    print(json.dumps({"kernels": [forward, gradient, walk, jvp, packet,
-                                  binning]}))
+    print(json.dumps({"kernels": [forward, gradient, scatter, walk, jvp,
+                                  packet, binning]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

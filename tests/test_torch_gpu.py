@@ -314,6 +314,133 @@ def test_dof_gradient_kernel_matches_plain_on_gpu(use_nee):
     torch.testing.assert_close(k_both[4], g_i, rtol=1e-5, atol=1e-9)
 
 
+def _tex_scene(device):
+    """The JAX suite's tex_scene (tests/test_replay_persistent.py:951-976):
+    a checker-textured quad floor, a diffuse sphere, a sphere area light
+    and a point light, packed, and its camera's eye, target and fov."""
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
+                           [10, 0, -10])
+    scene = sc.make_scene(
+        [sc.sphere([0, 2, 0], 1.0, 1), sc.sphere([2, 2.5, 0], 1.5, 2,
+                                                 light=1)],
+        [sc.diffuse([0.7, 1.0, 0.9]), sc.diffuse([0.8, 0.4, 0.3]),
+         sc.diffuse([0.05, 0.05, 0.05])],
+        [sc.point_light([0.0, 8.0, 3.0], [60.0, 60.0, 60.0]),
+         sc.area_light(1, [40.0, 40.0, 40.0])],
+        mesh=build_bvh(v, f, uv, 0, device=device),
+        textures=meshes.checker_texture(8, tiles=2, c0=(0.9, 0.2, 0.15),
+                                        c1=(0.1, 0.8, 0.85)),
+        mat_texture=[0, -1, -1], device=device)
+    return sc.with_packet_mesh(scene), ([0, 10, 9], [0, 0, 0], 60.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True])
+def test_textured_gradient_kernel_matches_plain_on_gpu(use_nee):
+    """Kernel 3 on a textured scene: launch 1 (TEX, C_tot records) against
+    the plain version on >= 98% of lanes, the C_tot planes included; the
+    scatter walk replays launch 1's radiance and counts bit for bit; with the
+    same cotangent, zeroed where the lanes disagree, the kernel's atlas
+    gradient is within ATLAS_RTOL of the plain one; phase "both" is two
+    launches, one of them a scatter."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import (
+        ATLAS_RTOL, atlas_gap, grad_lane_agreement,
+    )
+
+    scene, (eye, at, fov) = _tex_scene("cuda")
+    cam = cm.make_camera(eye, at, [0, 1, 0], W, H, fov, device="cuda")
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tgt = rp.target_to_lanes(
+        torch.rand((H, W, 3), generator=gen, device="cuda"), rows)
+    u = torch.rand((rows * BUDGET * pk.n_draws(use_nee), LANES),
+                   generator=gen, device="cuda")
+    kw = dict(spp=2, budget=BUDGET, width=W, height=H, max_bounces=MB,
+              tile_rows=TR, use_nee=use_nee, uniforms=u)
+    args = (scene, pack_camera(cam), (3, 9), 0, tgt)
+    k_adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
+    r_adj = rp.persistent_replay_ref(*args, phase="adjoint", **kw)
+    launches, scatters = rp.launches, rp.scatter_launches
+    k_both = rp.persistent_replay_call(*args, **kw)
+    torch.cuda.synchronize()
+    assert (rp.launches - launches, rp.scatter_launches - scatters) == (2, 1)
+    agree = grad_lane_agreement((*r_adj[:4], r_adj[5]),
+                                (*k_adj[:4], k_adj[5]), W, H)
+    assert agree["n_samp"] >= AGREE and agree["L"] >= AGREE, agree
+    assert min(agree["planes"].values()) >= AGREE, agree
+    g = rp.lane_cotangent(k_adj[0], k_adj[1], tgt, W, H)
+    L2, n2, _, gT = rp.scatter_walk(*args, g, k_adj[5], k_adj[1], **kw)
+    assert torch.equal(L2, k_adj[0]) and torch.equal(n2, k_adj[1])
+    assert k_both[6].shape == scene.textures.shape
+    g = g * agree["mask"].to("cuda")
+    gk = rp.scatter_walk(*args, g, k_adj[5], k_adj[1], **kw)[3]
+    gr = rp.scatter_walk(*args, g, r_adj[5], r_adj[1], **kw)[3]
+    assert float(gr.abs().max()) > 0
+    assert atlas_gap(gk, gr) <= ATLAS_RTOL
+
+
+@pytest.mark.gpu
+def test_scatter_atomics_within_bound_on_gpu():
+    """Two scatter launches on the same inputs add in different orders:
+    every cell agrees within ATOMIC_RTOL of the cell's sum of |terms| (the
+    scatter of |g|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import ATOMIC_RTOL
+
+    scene, (eye, at, fov) = _tex_scene("cuda")
+    w, h = 160, 120
+    cam = cm.make_camera(eye, at, [0, 1, 0], w, h, fov, device="cuda")
+    rows, _ = rp.pixel_lanes_layout(w, h, TR)
+    tgt = rp.target_to_lanes(torch.rand((h, w, 3), device="cuda"), rows)
+    kw = dict(spp=4, budget=20, width=w, height=h, tile_rows=TR,
+              use_nee=True)
+    args = (scene, pack_camera(cam), (8, 1), 0, tgt)
+    adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
+    g = rp.lane_cotangent(adj[0], adj[1], tgt, w, h)
+    a, b, s = (rp.scatter_walk(*args, x, adj[5], adj[1], **kw)[3]
+               for x in (g, g, g.abs()))
+    assert float(s.abs().max()) > 0
+    assert bool(((a - b).abs() <= ATOMIC_RTOL * s).all())
+
+
+@pytest.mark.gpu
+def test_chunked_driver_matches_plain_on_gpu():
+    """spp 33 on a textured scene goes to the chunked driver (32 + 1): the
+    kernel's loss and gradients against the plain version's on the same
+    Philox draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    scene, (eye, at, fov) = _tex_scene("cuda")
+    cam = cm.make_camera(eye, at, [0, 1, 0], W, H, fov, device="cuda")
+    target = torch.rand((H, W, 3), device="cuda")
+    kw = dict(spp=33, budget=12, max_bounces=MB, tile_rows=TR, use_nee=True)
+    launches = rp.launches
+    k = rp.persistent_mse_value_and_grad(scene, cam, (2, 5), 1, target, **kw)
+    assert rp.launches - launches == 4  # two chunks, two launches each
+    call = rp.persistent_replay_call
+    rp.persistent_replay_call = rp.persistent_replay_ref
+    try:
+        r = rp.persistent_mse_value_and_grad(scene, cam, (2, 5), 1, target,
+                                             **kw)
+    finally:
+        rp.persistent_replay_call = call
+    torch.testing.assert_close(k[0], r[0], rtol=1e-4, atol=0)
+    for name in ("mat_color", "light_intensity", "textures"):
+        scale = float(r[1][name].abs().max())
+        torch.testing.assert_close(k[1][name], r[1][name], rtol=2e-3,
+                                   atol=2e-3 * scale, msg=name)
+
+
 def _position_rows(device):
     """d pack_camera / d pos: the three camera-position tangents."""
     rows = torch.zeros((3, 24), device=device)

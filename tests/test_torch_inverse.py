@@ -228,11 +228,18 @@ def test_unported_routes_raise(cornell):
                                    spp=1, engine="sample")
     with pytest.raises(NotImplementedError, match="item 15"):
         tinv.make_kernel_train_step(scene, cam, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tinv.apply_params(scene, dict(params, textures=torch.zeros(1)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tinv.kernel_loss_and_grads(dict(params, textures=torch.zeros(1)),
-                                   scene, cam, target, (0, 0), 0, spp=1)
+    # textures are ported: on a scene with no mesh no atlas gradient can be
+    # made, and mat_coef does not go with an atlas (the JAX ValueErrors)
+    tex = torch.full((1, 2, 2, 3), 0.5)
+    assert torch.equal(
+        tinv.apply_params(scene, dict(params, textures=tex)).textures, tex)
+    with pytest.raises(ValueError, match="cannot produce atlas gradients"):
+        tinv.kernel_loss_and_grads(dict(params, textures=tex), scene, cam,
+                                   target, (0, 0), 0, spp=1)
+    with pytest.raises(ValueError, match="mat_coef gradients"):
+        tinv.kernel_loss_and_grads(
+            dict(tinv.params_of(scene, ior=True), textures=tex), scene, cam,
+            target, (0, 0), 0, spp=1)
     from tpu_pathtracer_torch import cli
 
     with pytest.raises(NotImplementedError, match="item 14"):

@@ -206,11 +206,15 @@ def test_production_stream_is_its_own():
 
 
 def test_unsupported_routes_raise(cornell):
+    """The scatter phase needs a textured mesh scene (JAX returns no atlas
+    gradient without one); the lens runs; the chunked driver runs on a
+    sphere scene and gives no atlas gradient; other devices raise."""
     scene, cp, tgt = cornell
     kw = dict(spp=SPP, budget=2, width=W, height=H, tile_rows=TR)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match='phase="scatter"'):
         trp.persistent_replay_call(scene, cp, (1, 0), 0, tgt,
-                                   phase="scatter", **kw)
+                                   phase="scatter", ext_g=tgt, ext_ct=tgt,
+                                   ext_ns=tgt, **kw)
     # thin-lens DOF is ported: with a lens in the packed camera, use_dof
     # runs and starts paths off the eye (tests/test_torch_dof.py holds it
     # to the JAX kernel)
@@ -221,8 +225,13 @@ def test_unsupported_routes_raise(cornell):
                                      use_dof=True, **kw)
     assert torch.isfinite(dof[0]).all() and torch.isfinite(dof[2])
     assert not torch.equal(pin[0], dof[0])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        trp.chunked_mse_value_and_grad(scene)
+    _, cs = tsc.cornell_spheres(device="cpu")
+    cam = tcm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                          cs["fov"], device="cpu")
+    loss, grads, _ = trp.chunked_mse_value_and_grad(
+        scene, cam, (1, 0), 0, torch.zeros((H, W, 3)), spp=33, budget=2,
+        tile_rows=TR)
+    assert "textures" not in grads and torch.isfinite(loss)
     with pytest.raises(ValueError, match="unsupported device"):
         trp.persistent_replay_call(scene, cp, (1, 0), 0,
                                    tgt.to("meta"), **kw)

@@ -231,10 +231,9 @@ def test_cli_render_wavefront(tmp_path):
 
 
 def test_textured_scenes_and_lenses_are_refused(terrain):
-    """The routes that cannot sample textures refuse a textured scene: the
-    gradient kernel (ROADMAP Queue 1 item 12) and the tangent walk
-    (ValueError, as in the JAX package); the forward persistent step and
-    PersistentRenderer render it. A lens camera made by dataclasses.replace
+    """The tangent walk refuses a textured scene (ValueError, as in the JAX
+    package); the forward persistent step and PersistentRenderer render it,
+    and the gradient walk gives its atlas gradient. A lens camera made by dataclasses.replace
     packs with its lens and renders through the persistent step, the
     renderer and the wavefront; the tangent walk refuses it (ValueError,
     also for a packed camera with a lens slot)."""
@@ -255,8 +254,10 @@ def test_textured_scenes_and_lenses_are_refused(terrain):
     assert torch.equal(st_k.lr, st_r.lr)
     assert torch.isfinite(pk.state_image(st_k, w, h)).all()
     lanes = torch.zeros((st.lr.shape[0], 128, 3))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rp.persistent_replay_call(sp, cp, (0, 0), 0, lanes, spp=1, **kw)
+    # the gradient walk takes the textured terrain: an atlas gradient
+    grad = rp.persistent_replay_call(sp, cp, (0, 0), 0, lanes, spp=1, **kw)
+    assert grad[6].shape == sp.textures.shape
+    assert bool(torch.isfinite(grad[6]).all()) and torch.isfinite(grad[2])
     with pytest.raises(ValueError, match="uv-motion"):
         cj.camera_jvp_call(sp, cp, torch.zeros(24), (0, 0), 0, spp=1, **kw)
     r = tprog.PersistentRenderer(ts, cam, RenderConfig(max_bounces=1),

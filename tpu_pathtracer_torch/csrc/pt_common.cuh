@@ -423,36 +423,50 @@ __device__ __forceinline__ float mesh_walk(const MeshView& m, float ox,
                                         gny, gnz, mat, hu, hv);
 }
 
-// Bilinear texel of texture k of a (K, TH, TW, 3) f32 atlas at uv, with the
-// TPU kernel's index arithmetic (persistent.py:419-438): uv wrapped by
-// u - floor(u), the four taps' rows and columns wrapped into the texture,
-// y interpolated before x. The TPU contracts two-hot rows with the atlas on
-// its MXU for want of a per-lane gather; here each lane reads its four taps
-// through the read-only cache (a 256^2 atlas is 0.79 MB, so it sits in L2).
-// The tap indices are clamped into the texture, which changes nothing for a
-// finite uv.
-__device__ __forceinline__ float3 texel(const float* atlas, int k, int th,
-                                        int tw, float u, float v) {
+// The bilinear taps of a (th, tw) texture at uv, with the TPU kernel's index
+// arithmetic (persistent.py:419-438): uv wrapped by u - floor(u), the four
+// taps' rows r0, r1 and columns c0, c1 wrapped into the texture, fx and fy
+// the weights of c1 and r1. The indices are clamped into the texture, which
+// changes nothing for a finite uv.
+struct Taps {
+  int r0, r1, c0, c1;
+  float fx, fy;
+};
+
+__device__ __forceinline__ Taps texel_taps(int th, int tw, float u, float v) {
   const float x = (u - floorf(u)) * (float)tw - 0.5f;
   const float y = (v - floorf(v)) * (float)th - 0.5f;
   const float x0 = floorf(x), y0 = floorf(y);
-  const float fx = x - x0, fy = y - y0;
+  Taps t;
+  t.fx = x - x0;
+  t.fy = y - y0;
   const int xi = (int)x0, yi = (int)y0;
-  const int c0 = min(max(xi < 0 ? xi + tw : xi, 0), tw - 1);
-  const int c1 = min(max(xi + 1 >= tw ? xi + 1 - tw : xi + 1, 0), tw - 1);
-  const int r0 = min(max(yi < 0 ? yi + th : yi, 0), th - 1);
-  const int r1 = min(max(yi + 1 >= th ? yi + 1 - th : yi + 1, 0), th - 1);
+  t.c0 = min(max(xi < 0 ? xi + tw : xi, 0), tw - 1);
+  t.c1 = min(max(xi + 1 >= tw ? xi + 1 - tw : xi + 1, 0), tw - 1);
+  t.r0 = min(max(yi < 0 ? yi + th : yi, 0), th - 1);
+  t.r1 = min(max(yi + 1 >= th ? yi + 1 - th : yi + 1, 0), th - 1);
+  return t;
+}
+
+// Bilinear texel of texture k of a (K, TH, TW, 3) f32 atlas at uv
+// (texel_taps), y interpolated before x. The TPU contracts two-hot rows with
+// the atlas on its MXU for want of a per-lane gather; here each lane reads
+// its four taps through the read-only cache (a 256^2 atlas is 0.79 MB, so it
+// sits in L2).
+__device__ __forceinline__ float3 texel(const float* atlas, int k, int th,
+                                        int tw, float u, float v) {
+  const Taps t = texel_taps(th, tw, u, v);
   const float* T = atlas + (size_t)k * th * tw * 3;
-  const float* t00 = T + ((size_t)r0 * tw + c0) * 3;
-  const float* t01 = T + ((size_t)r0 * tw + c1) * 3;
-  const float* t10 = T + ((size_t)r1 * tw + c0) * 3;
-  const float* t11 = T + ((size_t)r1 * tw + c1) * 3;
+  const float* t00 = T + ((size_t)t.r0 * tw + t.c0) * 3;
+  const float* t01 = T + ((size_t)t.r0 * tw + t.c1) * 3;
+  const float* t10 = T + ((size_t)t.r1 * tw + t.c0) * 3;
+  const float* t11 = T + ((size_t)t.r1 * tw + t.c1) * 3;
   float out[3];
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
-    const float col0 = (1.f - fy) * __ldg(t00 + ch) + fy * __ldg(t10 + ch);
-    const float col1 = (1.f - fy) * __ldg(t01 + ch) + fy * __ldg(t11 + ch);
-    out[ch] = (1.f - fx) * col0 + fx * col1;
+    const float col0 = (1.f - t.fy) * __ldg(t00 + ch) + t.fy * __ldg(t10 + ch);
+    const float col1 = (1.f - t.fy) * __ldg(t01 + ch) + t.fy * __ldg(t11 + ch);
+    out[ch] = (1.f - t.fx) * col0 + t.fx * col1;
   }
   return make_float3(out[0], out[1], out[2]);
 }

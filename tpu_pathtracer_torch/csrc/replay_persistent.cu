@@ -1,13 +1,16 @@
 // Persistent fused value-and-grad kernel for Hopper (sm_90a).
 //
 // Replaces: tpu_pathtracer/ops/pallas/replay_persistent.py::_preplay_kernel
-// (launched by persistent_replay_call) for sphere and triangle-mesh scenes
-// (tex=False), phases "both" and "adjoint": brute force, and NEE+MIS with
-// point, sphere-area and triangle (TRI_LIGHT) lights, pinhole and thin-lens
-// cameras (DOF); a mesh vertex routes its adjoint to its material like a
-// sphere vertex, and a triangle light's emission and NEE credit its
-// intensity adjoint. Textures, the record_ct launch and the scatter launch
-// are not ported yet.
+// (launched by persistent_replay_call), whole: sphere and triangle-mesh
+// scenes, phases "both", "adjoint" and "scatter"; brute force, and NEE+MIS
+// with point, sphere-area and triangle (TRI_LIGHT) lights, pinhole and
+// thin-lens cameras (DOF), textured mesh materials (TEX); a mesh vertex
+// routes its adjoint to its material like a sphere vertex, and a triangle
+// light's emission and NEE credit its intensity adjoint. Texture-atlas
+// gradients take two launches, as on the TPU: replay_persistent_kernel with
+// TEX records each completed path's total C_tot (record_ct), and
+// replay_scatter_kernel replays the same walk and scatters the atlas
+// gradient (phase "scatter").
 //
 // What it computes: one launch walks `budget` wavefront iterations of the
 // persistent regeneration schedule (one lane per pixel; a dead lane starts
@@ -24,12 +27,29 @@
 // cotangent (lane == pixel) and reduces per block (phase "both"), or writes
 // GA/GI per lane (phase "adjoint", the TPU kernel's defer_g layout).
 //
+// A textured material's colour is multiplied by the bilinear texel, so every
+// factor at a textured vertex b is linear in the texel, and
+//     dC_tot/dT[tap] = sum_b w_tap(b) / texel_b * (ok_b (C_tot - C_b) + nee_b)
+// with C_b the path radiance after the vertex's emission and NEE. C_tot is
+// not known at the vertex, so launch 1 writes each completed path's C_tot
+// to plane (3 n_samp + c) of the records, and the scatter launch walks the
+// same schedule on the same draws and, at each textured vertex of a path
+// that completed in launch 1 (n_samp < launch 1's final count), adds
+// g * bracket / max(texel, 1e-8) with the bilinear weights into the four
+// taps of the atlas gradient (K, TH, TW, 3), g the lane-local cotangent
+// computed between the launches. The scatter launch also writes its own
+// radiance sums and sample counts, which equal launch 1's on every lane if
+// the replay is exact (chip_smoke.py requires it).
+//
 // What bounds it on this card: like the forward kernel, a long, divergent
 // ALU state machine (per-prim quadratics, transcendentals, three lobes, the
 // NEE shadow sweep). Its device-memory traffic is small: the target image is
 // read once, the radiance sums, sample counts and per-block partials (or the
 // per-lane GA/GI planes) are written once; in test mode the uniform block is
-// read too.
+// read too; with textures the atlas is read through the read-only cache, the
+// 3 spp C_tot planes written once by launch 1 and read at textured vertices
+// by the scatter, and the 0.79 MB atlas gradient of a 256^2 texture is
+// added to in L2.
 //
 // What the design does about it:
 //  * one thread per lane, one 128-thread block per 128-lane row of the
@@ -41,13 +61,36 @@
 //    slot, so they live in local memory (L1-cached); each vertex touches one
 //    slot, and only path regeneration and completion touch all of them;
 //  * a mesh is walked per thread as in persistent.cu, and the kernel is
-//    built four times, with and without the mesh code (MESH) and the thin
-//    lens (DOF), so that a sphere scene or a pinhole camera does not carry
-//    their registers and spills;
+//    built six times, with and without the mesh code (MESH), the texture
+//    code (TEX, with a mesh only) and the thin lens (DOF), so that a sphere
+//    scene, an untextured scene or a pinhole camera does not carry their
+//    registers and spills; the scatter walk is the same template body
+//    (replay_walk) with SCATTER set, built with and without DOF: it drops
+//    the adjoint sums, whose per-slot arrays the compiler then removes;
 //  * the reduction across lanes is deterministic and uses no atomics: each
 //    block writes one row of partials (3 per slot, 3 per light, the loss),
 //    summed by a fixed shuffle tree, and the wrapper sums the rows, as the
-//    JAX code sums its per-tile partials outside the pallas_call.
+//    JAX code sums its per-tile partials outside the pallas_call;
+//  * a completed path's C_tot goes straight to its record plane in device
+//    memory (the TPU keeps 3 spp lane tiles in VMEM);
+//  * the scatter adds into the atlas gradient with float atomicAdd
+//    (RED.ADD.F32 on L2): a 256^2 RGB atlas is 0.79 MB, beyond a block's
+//    227 KB of shared memory, and a partial atlas per block would take 2,400
+//    x 0.79 MB at 640x480. The TPU's transposed two-hot MXU product stands
+//    in for the scatter that Hopper has. The order of the additions changes
+//    from launch to launch, so the atlas gradient is not bit for bit
+//    reproducible; everything else of both launches is (ROADMAP,
+//    "Determinism").
+//
+// Rounding (REPLAY): the build keeps nvcc's FMA contraction, as the forward
+// kernel's. The scatter launch is another instantiation of the same body,
+// and its replay of launch 1 must be exact; chip_smoke.py holds its
+// radiance sums and sample counts equal to launch 1's on every lane. nvcc
+// fuses a product into the sum that takes it depending on the product's
+// other uses, and the emission and NEE terms also feed the intensity
+// adjoint in launch 1 only: with contraction, ~1,700 lane outputs of a
+// 640x480 NEE launch differed. Those products are therefore rounded on
+// their own (__fmul_rn), as the plain version rounds them.
 //
 // Differences from the forward kernel that are the TPU kernels' own: the
 // closest hit keeps the FIRST prim on an exact tie (strict <), the NEE shadow
@@ -92,6 +135,13 @@ struct Params {
   float* partials;        // phase "both": (rows_total, 3*slots+3*lights+1)
   float* gl;              // phase "adjoint": ((slots+lights)*3, rows, 128)
   MeshView mesh;          // n_nodes 0: no mesh
+  const float* atlas;     // (tex_k, tex_th, tex_tw, 3) texture atlas (TEX)
+  int tex_k, tex_th, tex_tw;
+  float* ct;              // launch 1: (3 spp, rows, 128) C_tot records or NULL
+  const float* g;         // scatter: (3, rows, 128) lane-local cotangent
+  const float* ct_in;     // scatter: launch 1's C_tot records
+  const int* nsf;         // scatter: launch 1's final sample counts
+  float* gT;              // scatter: (tex_k, tex_th, tex_tw, 3) atlas gradient
 };
 
 __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
@@ -103,13 +153,12 @@ __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
                           : 0;
 }
 
-// Blocks per SM: 7 for the sphere build (at most 73 registers; at the 80
-// nvcc picks by itself, 6 blocks fit and its NEE walk ran ~9% slower), 6 for
-// the mesh build (at most 85; asked for 1 block, nvcc takes 103 registers
-// and the walk runs ~7% slower).
-template <bool MESH, bool DOF>
-__global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
-    replay_persistent_kernel(Params p) {
+// The walk of both launches. SCATTER (launch 2, with MESH and TEX) replays
+// launch 1's walk without the adjoint sums and scatters the atlas gradient.
+template <bool MESH, bool TEX, bool DOF, bool SCATTER>
+__device__ __forceinline__ void replay_walk(const Params& p) {
+  static_assert(MESH || !TEX, "textures live on mesh materials");
+  static_assert(TEX || !SCATTER, "the scatter walk is a textured walk");
   __shared__ float fscratch[4];
   __shared__ int iscratch[4];
   const int row = blockIdx.x;  // one block per 128-lane row
@@ -138,8 +187,8 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
   // in-flight per-path adjoint, and the completed-path accumulators
   float nA[MAX_SLOTS], cA[MAX_SLOTS * 3], cI[MAX_GRAD_LIGHTS * 3];
   float GA[MAX_SLOTS * 3], GI[MAX_GRAD_LIGHTS * 3];
-  for (int k = 0; k < 3 * S; ++k) GA[k] = 0.f;
-  for (int k = 0; k < 3 * NL; ++k) GI[k] = 0.f;
+  for (int k = 0; k < (SCATTER ? 0 : 3 * S); ++k) GA[k] = 0.f;
+  for (int k = 0; k < (SCATTER ? 0 : 3 * NL); ++k) GI[k] = 0.f;
   int n_live = 0;
 
   for (int it = 0; it < p.budget; ++it) {
@@ -162,9 +211,11 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
       prev_pdf = 0.f;
       prev_delta = true;
       alive = true;
-      for (int k = 0; k < S; ++k) nA[k] = 0.f;
-      for (int k = 0; k < 3 * S; ++k) cA[k] = 0.f;
-      for (int k = 0; k < 3 * NL; ++k) cI[k] = 0.f;
+      if (!SCATTER) {
+        for (int k = 0; k < S; ++k) nA[k] = 0.f;
+        for (int k = 0; k < 3 * S; ++k) cA[k] = 0.f;
+        for (int k = 0; k < 3 * NL; ++k) cI[k] = 0.f;
+      }
     }
     if (!alive) continue;  // padding and drained lanes never act
     ++n_live;
@@ -189,11 +240,11 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
     }
     // ---- the mesh, pruned from the sphere t; a strictly closer triangle
     // wins (replay_persistent.py:302-339)
-    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f;
+    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f, hu = 0.f, hv = 0.f;
     int mmat = -1;
     if (MESH)
-      tm = mesh_walk<false>(p.mesh, ox, oy, oz, dx, dy, dz, best_t, gnx, gny,
-                            gnz, mmat);
+      tm = mesh_walk_uv<false, TEX>(p.mesh, ox, oy, oz, dx, dy, dz, best_t,
+                                    gnx, gny, gnz, mmat, hu, hv);
     const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
     bool alive_next = false;
     if (mesh_hit || best_p >= 0) {
@@ -203,6 +254,8 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
       float nx, ny, nz, ar, ag, ab, coef, er = 0.f, eg = 0.f, eb = 0.f;
       int mtype, sl;
       bool emissive = false;
+      int texk = -1;  // the hit's texture (TEX), -1 untextured
+      float3 tx = make_float3(0.f, 0.f, 0.f);
       if (mesh_hit) {
         const float inv_len =
             rsqrtf(fmaxf(gnx * gnx + gny * gny + gnz * gnz, 1e-20f));
@@ -216,6 +269,20 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
         coef = __ldg(MT + 3);
         mtype = (int)__ldg(MT + 4);
         sl = c_slot[p.n_prims + mmat];
+        if (TEX) {
+          // a textured material's colour is multiplied by the texel
+          // (replay_persistent.py:413-415); a texture id past the atlas
+          // gives a zero texel, as the TPU kernel's rows past the atlas
+          // match no row
+          texk = (int)__ldg(MT + 5);
+          if (texk >= 0) {
+            if (texk < p.tex_k)
+              tx = texel(p.atlas, texk, p.tex_th, p.tex_tw, hu, hv);
+            ar = tx.x * ar;
+            ag = tx.y * ag;
+            ab = tx.z * ab;
+          }
+        }
         for (int li = 0; li < NL; ++li) {  // the last matching light wins
           const int* S = c_lstruct + li * LS;
           if (S[0] != TRI_LIGHT || S[2] != mmat) continue;
@@ -271,12 +338,14 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
           const float pp2 = prev_pdf * prev_pdf;
           take *= prev_delta ? 1.f : pp2 / fmaxf(pp2 + ldp * ldp, 1e-20f);
         }
-        const float e_r = Tr * er * take, e_g = Tg * eg * take,
-                    e_b = Tb * eb * take;
+        // rounded before the sums (REPLAY below)
+        const float e_r = __fmul_rn(Tr * er, take),
+                    e_g = __fmul_rn(Tg * eg, take),
+                    e_b = __fmul_rn(Tb * eb, take);
         Cr += e_r;
         Cg += e_g;
         Cb += e_b;
-        for (int li = 0; li < NL; ++li) {
+        for (int li = 0; li < (SCATTER ? 0 : NL); ++li) {
           const int* S = c_lstruct + li * LS;
           if (mesh_hit ? !(S[0] == TRI_LIGHT && S[2] == mmat)
                        : !(S[0] == AREA_LIGHT && S[1] == best_p))
@@ -339,15 +408,18 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
                                   fmaxf(ls.pdf * ls.pdf + pdf_b * pdf_b, 1e-20f)
                             : 1.f;
           const float scale = cos_l * w_mis / fmaxf(ls.pdf, 1e-20f);
-          const float t_r = Tr * (ar * INV_PI) * ls.rad_r * scale;
-          const float t_g = Tg * (ag * INV_PI) * ls.rad_g * scale;
-          const float t_b = Tb * (ab * INV_PI) * ls.rad_b * scale;
+          // rounded before the sums (REPLAY below)
+          const float t_r = __fmul_rn(Tr * (ar * INV_PI) * ls.rad_r, scale);
+          const float t_g = __fmul_rn(Tg * (ag * INV_PI) * ls.rad_g, scale);
+          const float t_b = __fmul_rn(Tb * (ab * INV_PI) * ls.rad_b, scale);
           nee_r += t_r;
           nee_g += t_g;
           nee_b += t_b;
-          cI[3 * li] += t_r;
-          cI[3 * li + 1] += t_g;
-          cI[3 * li + 2] += t_b;
+          if (!SCATTER) {
+            cI[3 * li] += t_r;
+            cI[3 * li + 1] += t_g;
+            cI[3 * li + 2] += t_b;
+          }
         }
         Cr += nee_r;
         Cg += nee_g;
@@ -360,16 +432,49 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
       const bool f_black = lb.fr <= 0.f && lb.fg <= 0.f && lb.fb <= 0.f;
       const bool step_ok = !f_black && lb.pdf > 0.f;
 
+      // ---- the atlas scatter (launch 2) at a textured vertex of a path
+      // that completed in launch 1 (replay_persistent.py:912-978); a
+      // texture id past the atlas adds nothing
+      if (SCATTER && texk >= 0 && texk < p.tex_k &&
+          n_samp < __ldg(p.nsf + idx)) {
+        const size_t plane = (size_t)gridDim.x * LANES;
+        const float okf = step_ok ? 1.f : 0.f;
+        const float* ct = p.ct_in + (size_t)n_samp * 3 * plane + idx;
+        const float C[3] = {Cr, Cg, Cb}, nee[3] = {nee_r, nee_g, nee_b};
+        const float txc[3] = {tx.x, tx.y, tx.z};
+        float v[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          v[c] = __ldg(p.g + c * plane + idx) *
+                 (okf * (__ldg(ct + c * plane) - C[c]) + nee[c]) *
+                 (1.f / fmaxf(txc[c], 1e-8f));
+        const Taps t = texel_taps(p.tex_th, p.tex_tw, hu, hv);
+        float* G = p.gT + (size_t)texk * p.tex_th * p.tex_tw * 3;
+        const int tr[2] = {t.r0, t.r1}, tc[2] = {t.c0, t.c1};
+        const float wr[2] = {1.f - t.fy, t.fy}, wc[2] = {1.f - t.fx, t.fx};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float* cell = G + ((size_t)tr[i] * p.tex_tw + tc[j]) * 3;
+#pragma unroll
+            for (int c = 0; c < 3; ++c)
+              atomicAdd(cell + c, (wc[j] * v[c]) * wr[i]);
+          }
+      }
+
       // ---- streaming adjoint at this vertex's material
       if (step_ok) {
-        nA[sl] += 1.f;
-        cA[3 * sl] += Cr - nee_r;
-        cA[3 * sl + 1] += Cg - nee_g;
-        cA[3 * sl + 2] += Cb - nee_b;
+        if (!SCATTER) {
+          nA[sl] += 1.f;
+          cA[3 * sl] += Cr - nee_r;
+          cA[3 * sl + 1] += Cg - nee_g;
+          cA[3 * sl + 2] += Cb - nee_b;
+        }
         Tr = Tr * lb.fr * lb.wgt;
         Tg = Tg * lb.fg * lb.wgt;
         Tb = Tb * lb.fb * lb.wgt;
-      } else {
+      } else if (!SCATTER) {
         cA[3 * sl] -= nee_r;
         cA[3 * sl + 1] -= nee_g;
         cA[3 * sl + 2] -= nee_b;
@@ -399,13 +504,22 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
       Lr += Cr;
       Lg += Cg;
       Lb += Cb;
+      if (TEX && !SCATTER && p.ct) {
+        // the path's total into its sample slot (replay_persistent.py:
+        // 1008-1015); a padding lane never completes a path
+        const size_t plane = (size_t)gridDim.x * LANES;
+        float* ct = p.ct + (size_t)n_samp * 3 * plane + idx;
+        ct[0] = Cr;
+        ct[plane] = Cg;
+        ct[2 * plane] = Cb;
+      }
       ++n_samp;
-      for (int k = 0; k < S; ++k) {
+      for (int k = 0; k < (SCATTER ? 0 : S); ++k) {
         GA[3 * k] += Cr * nA[k] - cA[3 * k];
         GA[3 * k + 1] += Cg * nA[k] - cA[3 * k + 1];
         GA[3 * k + 2] += Cb * nA[k] - cA[3 * k + 2];
       }
-      for (int k = 0; k < 3 * NL; ++k) GI[k] += cI[k];
+      for (int k = 0; k < (SCATTER ? 0 : 3 * NL); ++k) GI[k] += cI[k];
     }
     alive = alive_next;
   }
@@ -417,6 +531,7 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
   p.n_samp[idx] = n_samp;
   const int rays = block_sum_int(n_live, iscratch);
   if (col == 0) p.nrays[row] = rays;
+  if (SCATTER) return;  // the atlas gradient went out during the walk
 
   if (p.gl) {
     // phase "adjoint": raw per-lane accumulators, cotangent applied outside
@@ -452,6 +567,29 @@ __global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
   if (col == 0) part[K - 1] = sse * p.inv_loss_n;
 }
 
+// Launch 1, phases "both" and "adjoint". Blocks per SM: 7 for the sphere
+// build (at most 73 registers; at the 80 nvcc picks by itself, 6 blocks fit
+// and its NEE walk ran ~9% slower), 6 for the mesh builds (at most 85; asked
+// for 1 block, nvcc takes 103 registers and the walk runs ~7% slower).
+template <bool MESH, bool TEX, bool DOF>
+__global__ void __launch_bounds__(LANES, MESH ? 6 : 7)
+    replay_persistent_kernel(const __grid_constant__ Params p) {
+  replay_walk<MESH, TEX, DOF, false>(p);
+}
+
+// Launch 2, phase "scatter": the textured walk replayed, scattering the
+// atlas gradient.
+template <bool DOF>
+__global__ void __launch_bounds__(LANES, 6)
+    replay_scatter_kernel(const __grid_constant__ Params p) {
+  replay_walk<true, true, DOF, true>(p);
+}
+
+template <bool MESH, bool TEX, bool DOF>
+void launch(int rows, cudaStream_t st, const Params& p) {
+  replay_persistent_kernel<MESH, TEX, DOF><<<rows, LANES, 0, st>>>(p);
+}
+
 }  // namespace
 
 extern "C" {
@@ -462,8 +600,14 @@ extern "C" {
 // __constant__ memory on the same stream. `slots` holds the adjoint slot of
 // each prim's material, then of each of the n_mats materials (-1 for a
 // material on no surface). Exactly one of `partials` (phase "both") and `gl`
-// (phase "adjoint") is non-NULL; n_nodes == 0 means no mesh; use_dof runs
-// the thin-lens build. Returns the first CUDA error (0 on success).
+// (phase "adjoint") is non-NULL, or neither for the scatter walk; n_nodes
+// == 0 means no mesh; a non-NULL atlas (tex_k, tex_th, tex_tw, 3), with a
+// mesh, runs the textured build, and `ct` (3 spp planes, zeroed by the
+// caller) then receives each completed path's C_tot. A non-NULL `gT` (the
+// atlas gradient, zeroed by the caller) runs the scatter walk, which reads
+// the cotangent `g` (3 planes), launch 1's records `ct_in` and final counts
+// `nsf`, and adds into gT with atomics. use_dof runs the thin-lens build.
+// Returns the first CUDA error (0 on success).
 int tpt_replay_persistent(
     const float* prims, const int* pflags, const int* slots, int n_prims,
     int n_mats, const float* lights, const int* lstruct, int n_lights,
@@ -471,7 +615,9 @@ int tpt_replay_persistent(
     float* lr, float* lg, float* lb, int* n_samp, int* nrays, float* partials,
     float* gl, const float* mesh_boxes, const int* mesh_meta,
     const float* mesh_tris, const float* mesh_mats, const float* tri_lights,
-    int n_nodes, int rows_total, int tile_rows, int budget, int spp,
+    int n_nodes, const float* atlas, int tex_k, int tex_th, int tex_tw,
+    float* ct, const float* g, const float* ct_in, const int* nsf, float* gT,
+    int rows_total, int tile_rows, int budget, int spp,
     int width, int n_lanes, int max_bounces, int rr_start, int use_nee,
     int use_dof, int strat_k, int tile_offset, float inv_loss_n, uint32_t seed,
     uint32_t salt, uint32_t iteration, void* stream) {
@@ -479,10 +625,13 @@ int tpt_replay_persistent(
       n_mats > MAX_MATS || n_lights < 0 || n_lights > MAX_GRAD_LIGHTS ||
       n_slots < 0 || n_slots > MAX_SLOTS || rows_total <= 0 ||
       tile_rows <= 0 || rows_total % tile_rows != 0 || width <= 0 ||
-      strat_k < 1 || (partials == nullptr) == (gl == nullptr) ||
-      n_nodes < 0 ||
+      strat_k < 1 || n_nodes < 0 ||
       (n_nodes > 0 && !(mesh_boxes && mesh_meta && mesh_tris && mesh_mats &&
-                        tri_lights)))
+                        tri_lights)) ||
+      (atlas && (n_nodes == 0 || tex_k <= 0 || tex_th <= 0 || tex_tw <= 0)) ||
+      (ct && !atlas) ||
+      (gT ? !(atlas && g && ct_in && nsf) || partials || gl || ct
+          : (partials == nullptr) == (gl == nullptr)))
     return (int)cudaErrorInvalidValue;
   for (int q = 0; q < n_prims + n_mats; ++q)
     if (slots[q] < (q < n_prims ? 0 : -1) || slots[q] >= n_slots)
@@ -547,16 +696,31 @@ int tpt_replay_persistent(
   p.mesh.mats = mesh_mats;
   p.mesh.tl = tri_lights;
   p.mesh.n_nodes = n_nodes;
+  p.atlas = atlas;
+  p.tex_k = tex_k;
+  p.tex_th = tex_th;
+  p.tex_tw = tex_tw;
+  p.ct = ct;
+  p.g = g;
+  p.ct_in = ct_in;
+  p.nsf = nsf;
+  p.gT = gT;
 
-  if (n_nodes > 0) {
+  const int r = rows_total;
+  if (gT) {
     if (use_dof)
-      replay_persistent_kernel<true, true><<<rows_total, LANES, 0, st>>>(p);
+      replay_scatter_kernel<true><<<r, LANES, 0, st>>>(p);
     else
-      replay_persistent_kernel<true, false><<<rows_total, LANES, 0, st>>>(p);
-  } else if (use_dof) {
-    replay_persistent_kernel<false, true><<<rows_total, LANES, 0, st>>>(p);
+      replay_scatter_kernel<false><<<r, LANES, 0, st>>>(p);
+  } else if (n_nodes == 0) {
+    use_dof ? launch<false, false, true>(r, st, p)
+            : launch<false, false, false>(r, st, p);
+  } else if (!atlas) {
+    use_dof ? launch<true, false, true>(r, st, p)
+            : launch<true, false, false>(r, st, p);
   } else {
-    replay_persistent_kernel<false, false><<<rows_total, LANES, 0, st>>>(p);
+    use_dof ? launch<true, true, true>(r, st, p)
+            : launch<true, true, false>(r, st, p);
   }
   return (int)cudaGetLastError();
 }

@@ -2,15 +2,18 @@
 
 Counterpart of the single-device persistent route of
 ``tpu_pathtracer/diff/inverse.py`` (BASELINE config 5): optimize the
-material colours and light intensities of a sphere or mesh scene, and with
-``params_of(scene, ior=True)`` the index of refraction of its transmissive
-materials (``mat_coef``), to match a target image. A mesh scene must come
-packed (``models.scene.with_packet_mesh``), as in the JAX package. Each step
-is ONE launch of the fused value-and-grad kernel
-(``ops/kernels/replay_persistent.py``), which returns the loss and the colour
-and intensity gradients from a single path walk, plus, with ``mat_coef``,
-one tangent walk (``ops/kernels/camera_jvp.py::ior_mse_grad``), then one
-Adam update. ``torch.optim.Adam`` has optax's ``adam`` update
+material colours and light intensities of a sphere or mesh scene, the
+texture atlas of a textured mesh scene (``params_of`` includes
+``textures`` when the scene has an atlas), and with ``params_of(scene,
+ior=True)`` the index of refraction of its transmissive materials
+(``mat_coef``; not with textures, as in the JAX package), to match a target
+image. A mesh scene must come packed (``models.scene.with_packet_mesh``),
+as in the JAX package. Each step is ONE launch of the fused value-and-grad
+kernel (``ops/kernels/replay_persistent.py``), which returns the loss and
+the colour and intensity gradients from a single path walk, plus the
+scatter launch for the atlas gradient on a textured scene (chunks of 32
+samples above spp 32), or with ``mat_coef`` one tangent walk
+(``ops/kernels/camera_jvp.py::ior_mse_grad``), then one Adam update. ``torch.optim.Adam`` has optax's ``adam`` update
 (bias-corrected moments, eps outside the square root).
 
 The gradient enters autograd through ``PersistentMSE``: its forward launches
@@ -19,8 +22,8 @@ incoming cotangent. A train step is ``loss.backward()``,
 ``optimizer.step()`` and the physical clamps under ``no_grad``.
 
 Not ported yet: ``engine="sample"`` (ROADMAP Queue 1 item 18), device meshes
-(item 15), texture gradients (items 10 and 12) and the XLA-side estimators
-(``sharded_loss``, ``make_train_step``, ``render_target``; item 14).
+(item 15) and the XLA-side estimators (``sharded_loss``,
+``make_train_step``, ``render_target``; item 14).
 """
 from __future__ import annotations
 
@@ -38,51 +41,51 @@ from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops.kernels.camera_jvp import ior_mse_grad
 from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
     _not_ported, default_budget, persistent_mse_value_and_grad,
-    persistent_replay_call, pixel_lanes_layout,
+    persistent_replay_call, pixel_lanes_layout, tex_route,
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
 
 PARAMS = ("mat_color", "light_intensity")
+TEX = "textures"  # the atlas, in params_of when the scene has one
 IOR = "mat_coef"  # optional: the index of refraction, params_of(ior=True)
 
 
 @dataclasses.dataclass
 class TrainState:
     params: dict  # {"mat_color": (M, 3), "light_intensity": (L, 3)} leaves,
-    # and "mat_coef": (M,) when the IOR is optimized
+    # "textures": (K, TH, TW, 3) on a scene with an atlas, and "mat_coef":
+    # (M,) when the IOR is optimized
     optimizer: torch.optim.Optimizer  # Adam over params' tensors
     step: int = 0
 
 
-def _check_params(params: Mapping[str, Any]) -> None:
-    if "textures" in params:
-        raise _not_ported("texture-atlas gradients", "10")
-
-
 def _names(params: Mapping[str, Any]) -> tuple[str, ...]:
     """The parameter names present, in a fixed order."""
-    return PARAMS + ((IOR,) if IOR in params else ())
+    return PARAMS + tuple(k for k in (TEX, IOR) if k in params)
 
 
 def params_of(scene: Scene, *, ior: bool = False) -> dict:
     """The optimizable tables, as fresh leaf tensors (the scene's own are
-    left untouched); ``ior`` adds ``mat_coef``, whose gradient comes from
+    left untouched): with the texture atlas when the scene has one (as the
+    JAX package does); ``ior`` adds ``mat_coef``, whose gradient comes from
     the tangent walk."""
-    names = PARAMS + ((IOR,) if ior else ())
+    names = PARAMS + ((TEX,) if scene.textures is not None else ()) + (
+        (IOR,) if ior else ())
     return {k: getattr(scene, k).detach().clone() for k in names}
 
 
 def apply_params(scene: Scene, params: Mapping[str, Tensor]) -> Scene:
     """Clamp-free parameter injection into the frozen Scene."""
-    _check_params(params)
     return dataclasses.replace(scene, **{k: params[k] for k in _names(params)})
 
 
 def clamp_params(params: Mapping[str, Tensor]) -> dict:
-    """Physical clamps: albedo in [0, 1], intensity >= 0, ior >= 1."""
-    _check_params(params)
+    """Physical clamps: albedo and texels in [0, 1], intensity >= 0,
+    ior >= 1."""
     out = {"mat_color": torch.clamp(params["mat_color"], 0.0, 1.0),
            "light_intensity": torch.clamp_min(params["light_intensity"], 0.0)}
+    if TEX in params:
+        out[TEX] = torch.clamp(params[TEX], 0.0, 1.0)
     if IOR in params:
         out[IOR] = torch.clamp_min(params[IOR], 1.0)
     return out
@@ -98,7 +101,6 @@ def init_state(scene: Scene, optimizer: Callable[..., torch.optim.Optimizer],
                init_params: Mapping[str, Tensor] | None = None) -> TrainState:
     params = dict(init_params) if init_params is not None \
         else params_of(scene)
-    _check_params(params)
     names = _names(params)
     params = {k: params[k].detach().clone().requires_grad_(True)
               for k in names}
@@ -111,7 +113,8 @@ def train_state_from_numpy(params: Mapping[str, np.ndarray],
                            adam: Mapping[str, Any] | None, step: int, *,
                            lr: float, device="cuda") -> TrainState:
     """Carry the JAX trainer's state across: ``params`` holds the two
-    tables (and ``mat_coef`` if the IOR is optimized), ``adam`` optax's Adam
+    tables (and ``textures`` and ``mat_coef`` where the JAX trainer
+    optimizes them), ``adam`` optax's Adam
     state as {"count": int, "mu": {name: array}, "nu": {name: array}} (None
     for a fresh optimizer), ``step`` the train-step counter. The moments
     become torch Adam's ``exp_avg`` and ``exp_avg_sq`` and ``count`` its
@@ -166,12 +169,31 @@ def _check_route(scene: Scene, mesh, engine: str) -> None:
             "first with models.scene.with_packet_mesh(scene)")
 
 
+def _check_texture_rules(scene_p: Scene, names, engine: str) -> None:
+    """The JAX trainer's texture rules (``diff/inverse.py:397-428``):
+    ``mat_coef`` is not differentiated on a textured scene, and
+    ``textures`` only where the fused walk makes atlas gradients."""
+    if IOR in names and scene_p.textures is not None:
+        raise ValueError(
+            "mat_coef gradients use the tangent kernel, which does not trace "
+            "textured materials — drop 'textures'/'mat_coef' from params or "
+            "use the XLA score path (diff.score.ior_value_and_grad)")
+    if TEX in names and not tex_route(scene_p):
+        raise ValueError(
+            "params include 'textures' but the selected engine cannot "
+            f"produce atlas gradients (engine={engine!r}, "
+            f"mesh={'present' if scene_p.mesh is not None else 'absent'}): "
+            "use engine='persistent' with a packed triangle mesh, or remove "
+            "'textures' from params / use the XLA train step")
+
+
 def _loss_and_grads(scene_p: Scene, camera: Camera, target: Tensor,
                     seed: Sequence[int], iteration: int, kw: dict,
                     ior: bool) -> tuple[Tensor, dict]:
-    """The fused kernel's loss and colour and intensity gradients; with
-    ``ior``, the ``mat_coef`` gradient from one tangent walk on the same
-    seed and iteration (its own uniform block in test mode)."""
+    """The fused kernel's loss and colour and intensity gradients, and the
+    atlas gradient on a textured mesh scene; with ``ior``, the ``mat_coef``
+    gradient from one tangent walk on the same seed and iteration (its own
+    uniform block in test mode)."""
     kw = dict(kw)
     ior_uniforms = kw.pop("ior_uniforms", None)
     loss, grads, _ = persistent_mse_value_and_grad(
@@ -185,31 +207,37 @@ def _loss_and_grads(scene_p: Scene, camera: Camera, target: Tensor,
 
 class PersistentMSE(torch.autograd.Function):
     """MSE loss of the fused kernel's render against a target, as a function
-    of (mat_color, light_intensity) and, if given, mat_coef. The forward
-    launches the kernels once each and saves the gradients (the colour and
-    intensity ones already divided by the clamped parameters); the backward
-    scales them by the cotangent."""
+    of (mat_color, light_intensity) and, if given, mat_coef and the texture
+    atlas. The forward launches the kernels and saves the gradients (the
+    colour and intensity ones already divided by the clamped parameters,
+    the atlas one final); the backward scales them by the cotangent."""
 
     @staticmethod
     def forward(ctx, mat_color: Tensor, light_intensity: Tensor,
                 scene: Scene, camera: Camera, target: Tensor,
                 seed: Sequence[int], iteration: int, kw: dict,
-                mat_coef: Tensor | None = None) -> Tensor:
+                mat_coef: Tensor | None = None,
+                textures: Tensor | None = None) -> Tensor:
         params = {"mat_color": mat_color.detach(),
                   "light_intensity": light_intensity.detach()}
-        if mat_coef is not None:
-            params[IOR] = mat_coef.detach()
-        loss, grads = _loss_and_grads(apply_params(scene, params), camera,
-                                      target, seed, iteration, kw,
-                                      mat_coef is not None)
-        ctx.save_for_backward(*(grads[k] for k in _names(grads)))
+        for k, v in ((IOR, mat_coef), (TEX, textures)):
+            if v is not None:
+                params[k] = v.detach()
+        names = _names(params)
+        scene_p = apply_params(scene, params)
+        _check_texture_rules(scene_p, names, "persistent")
+        loss, grads = _loss_and_grads(scene_p, camera, target, seed,
+                                      iteration, kw, mat_coef is not None)
+        ctx.names = names
+        ctx.save_for_backward(*(grads[k] for k in names))
         return loss
 
     @staticmethod
     def backward(ctx, grad_output: Tensor):
-        g = [grad_output * x for x in ctx.saved_tensors]
-        return (g[0], g[1], None, None, None, None, None, None,
-                g[2] if len(g) > 2 else None)
+        g = dict(zip(ctx.names,
+                     (grad_output * x for x in ctx.saved_tensors)))
+        return (g["mat_color"], g["light_intensity"], None, None, None, None,
+                None, None, g.get(IOR), g.get(TEX))
 
 
 def _kernel_kw(spp, max_bounces, rr_start, tile_rows, use_nee, strat_k,
@@ -243,13 +271,18 @@ def kernel_loss_and_grads(
     uniforms: Tensor | None = None,
     ior_uniforms: Tensor | None = None,
 ) -> tuple[Tensor, dict]:
-    """MSE loss and gradients w.r.t. ``params`` from one fused launch, and
-    with ``mat_coef`` in ``params`` one tangent walk for its gradient on the
+    """MSE loss and gradients w.r.t. ``params`` from one fused launch (and
+    the scatter launch for ``textures``, the atlas gradient), and with
+    ``mat_coef`` in ``params`` one tangent walk for its gradient on the
     same seed and iteration (``ior_mse_grad``). ``seed`` is ``(seed,
     salt)``; ``uniforms`` and ``ior_uniforms`` (test mode) are the JAX
-    kernels' external uniform blocks of the two walks."""
+    kernels' external uniform blocks of the two walks (at spp > 32 on a
+    textured scene, ``uniforms`` is one block per chunk). Raises
+    ValueError, as the JAX trainer does, for ``mat_coef`` on a textured
+    scene and for ``textures`` where no atlas gradient can be made."""
     _check_route(scene, mesh, engine)
     scene_p = apply_params(scene, params)
+    _check_texture_rules(scene_p, _names(params), engine)
     return _loss_and_grads(
         scene_p, camera, target, seed, iteration,
         _kernel_kw(spp, max_bounces, rr_start, tile_rows, use_nee, strat_k,
@@ -269,8 +302,9 @@ def make_kernel_train_step(
     uniforms: Tensor | None = None,
     ior_uniforms: Tensor | None = None,
 ) -> Callable[[TrainState, Tensor, Sequence[int]], tuple[TrainState, Tensor]]:
-    """A train step over the fused kernel: one launch (loss and gradients),
-    one tangent walk if ``mat_coef`` is a parameter, then the Adam update
+    """A train step over the fused kernel: one launch (loss and gradients;
+    with the atlas a parameter, the scatter launch too), one tangent walk
+    if ``mat_coef`` is a parameter, then the Adam update
     and the clamps. ``train_step(state, target, seed)`` updates ``state`` in
     place and returns it with the loss of the parameters it started from.
     The RNG frame is the step counter, or ``fixed_iteration`` for same-seed
@@ -291,7 +325,7 @@ def make_kernel_train_step(
         loss = PersistentMSE.apply(
             state.params["mat_color"], state.params["light_intensity"],
             scene, camera, target.reshape(h, w, 3), seed, it, kw,
-            state.params.get(IOR))
+            state.params.get(IOR), state.params.get(TEX))
         loss.backward()
         state.optimizer.step()
         with torch.no_grad():
@@ -309,9 +343,10 @@ def render_target_kernel(
     engine: str = "persistent", budget: int | None = None,
     uniforms: Tensor | None = None,
 ) -> Tensor:
-    """(H*W, 3) target rendered by the fused kernel's own forward walk, for
-    same-seed inverse rendering with ``make_kernel_train_step`` at the same
-    fixed iteration."""
+    """(H*W, 3) target rendered by the fused kernel's own forward walk (no
+    atlas gradient, so one launch on a textured scene too), for same-seed
+    inverse rendering with ``make_kernel_train_step`` at the same fixed
+    iteration."""
     _check_route(scene, None, engine)
     w, h = camera.width, camera.height
     tr = 32 if tile_rows is None else tile_rows
@@ -324,7 +359,8 @@ def render_target_kernel(
         if budget is None else budget,
         width=w, height=h, max_bounces=config.max_bounces,
         rr_start=config.rr_start, use_nee=config.use_nee,
-        use_dof=camera.use_dof, tile_rows=tr, uniforms=uniforms)
+        use_dof=camera.use_dof, tile_rows=tr, uniforms=uniforms,
+        compute_tex_grad=False)
     lanes = L_lanes.reshape(-1, 3)[:n_lanes]
     n = torch.clamp_min(ns.reshape(-1)[:n_lanes], 1)[:, None]
     return lanes / n

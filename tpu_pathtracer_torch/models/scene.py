@@ -8,8 +8,9 @@ stays as Python tuples so the kernel wrappers can read it without a device
 sync. A mesh is a ``models/mesh.py::MeshData``; ``with_packet_mesh`` packs
 it for the kernels, with the coarse tree of the two-pass traversal. A texture
 atlas ``(K, TH, TW, 3)`` and a per-material texture index modulate the
-colours of textured materials; the wavefront integrator and the forward
-persistent kernel sample them, and the routes that cannot refuse textured
+colours of textured materials; the wavefront integrator and both
+persistent kernels sample them (the gradient kernel also differentiates the
+atlas), and the route that cannot, the tangent walk, refuses textured
 scenes (``refuse_textures``).
 """
 from __future__ import annotations

@@ -476,20 +476,9 @@ def texel(textures: Tensor, mat_tex: Sequence[int], mc: Tensor,
     (has_tex, (r, g, b)): has_tex marks mesh-closer lanes of textured
     materials."""
     K, TH, TW, _ = textures.shape
-    texk = torch.full_like(u, -1.0)
-    for mi, tid in enumerate(mat_tex):
-        if tid >= 0:
-            texk = torch.where(mc & (mmat == mi), float(tid), texk)
+    texk, (r0, r1, c0, c1), (fx, fy) = texel_taps(
+        textures.shape, mat_tex, mc, mmat, u, v)
     has_tex = texk >= 0.0
-    x = (u - torch.floor(u)) * TW - 0.5
-    y = (v - torch.floor(v)) * TH - 0.5
-    x0, y0 = torch.floor(x), torch.floor(y)
-    fx, fy = x - x0, y - y0
-    c0 = x0 + torch.where(x0 < 0.0, float(TW), 0.0)
-    c1 = torch.where(x0 + 1.0 >= TW, x0 + 1.0 - TW, x0 + 1.0)
-    base = torch.clamp(texk, 0.0, K - 1.0) * TH
-    r0 = y0 + torch.where(y0 < 0.0, float(TH), 0.0) + base
-    r1 = torch.where(y0 + 1.0 >= TH, y0 + 1.0 - TH, y0 + 1.0) + base
     flat = textures.reshape(-1, 3)
 
     def tap(r, c):
@@ -501,6 +490,30 @@ def texel(textures: Tensor, mat_tex: Sequence[int], mc: Tensor,
     tex = (1.0 - wx) * col0 + wx * col1
     tex = torch.where((texk < K)[..., None], tex, 0.0)
     return has_tex, tex.unbind(-1)
+
+
+def texel_taps(shape, mat_tex: Sequence[int], mc: Tensor, mmat: Tensor,
+               u: Tensor, v: Tensor):
+    """``texel``'s index arithmetic for an atlas of ``shape`` (K, TH, TW,
+    3): (texk, (r0, r1, c0, c1), (fx, fy)), the texture id per lane (-1
+    untextured, as f32), the taps' atlas rows (offset by ``texk * TH``, the
+    id clamped into the atlas) and texture columns, and the bilinear
+    weights of r1 and c1, all f32."""
+    K, TH, TW = shape[:3]
+    texk = torch.full_like(u, -1.0)
+    for mi, tid in enumerate(mat_tex):
+        if tid >= 0:
+            texk = torch.where(mc & (mmat == mi), float(tid), texk)
+    x = (u - torch.floor(u)) * TW - 0.5
+    y = (v - torch.floor(v)) * TH - 0.5
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    c0 = x0 + torch.where(x0 < 0.0, float(TW), 0.0)
+    c1 = torch.where(x0 + 1.0 >= TW, x0 + 1.0 - TW, x0 + 1.0)
+    base = torch.clamp(texk, 0.0, K - 1.0) * TH
+    r0 = y0 + torch.where(y0 < 0.0, float(TH), 0.0) + base
+    r1 = torch.where(y0 + 1.0 >= TH, y0 + 1.0 - TH, y0 + 1.0) + base
+    return texk, (r0, r1, c0, c1), (fx, fy)
 
 
 def pack_tri_lights(scene: Scene) -> tuple[Tensor, tuple]:
@@ -528,7 +541,8 @@ def pack_tri_lights(scene: Scene) -> tuple[Tensor, tuple]:
 
 
 def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
-               best_t, h: dict, MT, tris, Lt, counts: dict | None = None):
+               best_t, h: dict, MT, tris, Lt, counts: dict | None = None,
+               tex_out: dict | None = None):
     """Merge the mesh walk into a sphere hit record (``persistent.py:358-
     397, 498-507``): the walk starts from the sphere t on live lanes; where
     a triangle is strictly closer it wins the hit point (FMA, as the
@@ -539,8 +553,10 @@ def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
     pack_tri_lights' index. On a textured scene the walk tracks the hit's uv
     and the material colour of textured mesh hits is multiplied by their
     texel (``texel``; JAX ``persistent.py:491-497``), and ``counts``, if
-    given, adds the texel fetches to ``"texel"``. Returns (mesh_closer,
-    t_mesh, material)."""
+    given, adds the texel fetches to ``"texel"``; ``tex_out``, if given,
+    receives the hit's ``"uv"`` and ``"texel"`` (has_tex, (r, g, b)), for
+    the gradient walk's atlas scatter. Returns (mesh_closer, t_mesh,
+    material)."""
     where = torch.where
     tex = scene.textured
     tm, mnx, mny, mnz, mmat, *uv = mesh_walk_ref(
@@ -572,6 +588,8 @@ def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
                              mmat, *uv)
         if counts is not None:
             counts["texel"] = counts.get("texel", 0) + int(has_tex.sum())
+        if tex_out is not None:
+            tex_out.update(uv=uv, texel=(has_tex, rgb))
         for k, t in zip(("ar", "ag", "ab"), rgb):
             h[k] = where(has_tex, t * h[k], h[k])
     for k in ("er", "eg", "eb"):
@@ -1050,11 +1068,19 @@ def mesh_arguments(scene: Scene, dev) -> tuple[list, list, list]:
     return [t.data_ptr() for t in keep] + [pm.num_nodes], keep, lstruct
 
 
+def tex_route(scene: Scene) -> bool:
+    """The kernels sample (and the gradient kernel differentiates) the
+    texture atlas: the scene has a packed mesh and an atlas (JAX
+    ``persistent.py:1131``, ``replay_persistent.py:1176``)."""
+    return scene.textures is not None and packed_mesh(scene) is not None
+
+
 def texture_arguments(scene: Scene, dev) -> tuple[list, list]:
     """(pointer, K, TH, TW) of the texture atlas (K, TH, TW, 3) f32 for a
-    kernel launch, and the tensors to keep alive; NULL and zeros for a
-    scene that samples no texture (the untextured build runs then)."""
-    if not scene.textured:
+    kernel launch, and the tensors to keep alive; NULL and zeros where the
+    kernels take no atlas (``tex_route``; the untextured build runs
+    then)."""
+    if not tex_route(scene):
         return [None, 0, 0, 0], []
     atlas = scene.textures
     _check(atlas, "textures", torch.float32, tuple(atlas.shape), dev)

@@ -1,12 +1,12 @@
 """Persistent fused value-and-grad walk: CUDA kernel wrapper and plain version.
 
-Counterpart of ``tpu_pathtracer/ops/pallas/replay_persistent.py`` for sphere
-scenes, phases ``"both"`` and ``"adjoint"``. One launch walks ``budget``
-wavefront iterations of the persistent regeneration schedule (lane ==
-pixel; a dead lane starts its pixel's next stratified sample while it has
-completed fewer than ``spp``) and carries the streaming adjoint of every
-path: per path, ``nA_m`` / ``cA_m`` per material and ``cI_l`` per light,
-flushed at path completion into per-lane accumulators
+Counterpart of ``tpu_pathtracer/ops/pallas/replay_persistent.py``, whole:
+phases ``"both"``, ``"adjoint"`` and ``"scatter"``. One launch walks
+``budget`` wavefront iterations of the persistent regeneration schedule
+(lane == pixel; a dead lane starts its pixel's next stratified sample while
+it has completed fewer than ``spp``) and carries the streaming adjoint of
+every path: per path, ``nA_m`` / ``cA_m`` per material and ``cI_l`` per
+light, flushed at path completion into per-lane accumulators
 
     GA_m += C_tot * nA_m - cA_m        GI_l += cI_l
 
@@ -30,9 +30,23 @@ Mesh scenes (packed by ``models/scene.py::with_packet_mesh``) walk the mesh
 in-kernel as the forward step does; a mesh vertex routes its adjoint to its
 material's slot, and a TRI_LIGHT's emission and NEE credit its intensity
 adjoint. ``use_dof`` regenerates paths through the thin lens, as the
-forward step does. Not ported yet: textures (a textured scene raises
-NotImplementedError), the ``"scatter"`` phase and the chunked textured
-loop ``_chunked_mse_value_and_grad`` (ROADMAP Queue 1 item 12, Slice B).
+forward step does.
+
+Texture-atlas gradients take two launches, as in the JAX package. A
+textured material's colour is multiplied by the bilinear texel, so every
+factor at a textured vertex b is linear in the texel and
+
+    dC_tot/dT[tap] = sum_b w_tap(b) / texel_b * (ok_b (C_tot - C_b) + nee_b)
+
+with C_b the path radiance after the vertex's emission and NEE. Launch 1
+(``record_ct``) records each completed path's C_tot in slot k = its sample
+index (3 * spp planes); launch 2 (phase ``"scatter"``) replays the same
+schedule on the same draws and, at every textured vertex of a path that
+completed in launch 1, adds the bracket times the lane-local cotangent into
+the four bilinear taps of an atlas-shaped ``(K, TH, TW, 3)`` gradient, the
+final dLoss/dtextures. ``compute_tex_grad=False`` turns both off (a forward
+target). ``chunked_mse_value_and_grad`` splits spp > 32 into chunks of 32
+samples, as the JAX driver does.
 """
 from __future__ import annotations
 
@@ -44,13 +58,14 @@ import torch
 from torch import Tensor
 
 from tpu_pathtracer_torch.models.scene import (
-    AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, Scene, refuse_textures,
+    AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, Scene,
 )
 from tpu_pathtracer_torch.ops.kernels.persistent import (
     _MASK, _check, _f32_add, _f32_div, camera_rays, dot3_fma,
     emitter_light_pdf, fma, mesh_arguments, mesh_merge, mesh_occluded,
     n_draws, packed_mesh, pack_materials, pack_tri_lights, philox_uniforms,
-    sample_light, sample_lobe, split_draws, tri_emitter_pdf,
+    sample_light, sample_lobe, split_draws, tex_route, texel_taps,
+    texture_arguments, tri_emitter_pdf,
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
     BIG, INV_PI, LANES, pack_camera, pack_lights, pack_prims,
@@ -62,11 +77,17 @@ MAX_PRIMS = 256  # sizes of the kernel's __constant__ tables
 MAX_SLOTS = 16  # materials on a surface (prims or mesh triangles)
 MAX_GRAD_LIGHTS = 16
 MAX_MATS = 256
+# Samples per textured-gradient launch: the JAX kernel keeps 3 * spp C_tot
+# planes in VMEM and caps spp at 32; the port keeps the cap, because it
+# decides which samples the chunked driver draws (chunked_mse_value_and_grad)
+MAX_TEX_SPP = 32
 
 # Kernel launches by persistent_replay_call (plain-version calls are not
-# counted), and those of them on a mesh scene.
+# counted; a textured gradient is two launches), those of them on a mesh
+# scene, and the scatter launches (phase "scatter", launch 2) among them.
 launches = 0
 mesh_launches = 0
+scatter_launches = 0
 
 
 def _not_ported(what: str, item: str):
@@ -110,16 +131,40 @@ def material_slots(scene: Scene) -> tuple[tuple[int, ...], tuple[int, ...]]:
     return slot_mats, tuple(slot_mats.index(m) for m in mids)
 
 
-def _check_route(scene: Scene, phase: str, who: str) -> None:
-    refuse_textures(
-        scene, who, "the gradient kernel's texture block and texture-atlas "
-        "gradients are not ported to tpu_pathtracer_torch yet (ROADMAP "
-        "Queue 1 item 12, Slice B); render textured scenes with "
-        "PersistentRenderer or the wavefront")
-    if phase == "scatter":
-        raise _not_ported('phase="scatter" (texture-atlas gradients)', "12")
-    if phase not in ("both", "adjoint"):
+def _check_route(scene: Scene, phase: str, spp: int, compute_tex_grad: bool,
+                 ext: tuple) -> bool:
+    """Validate the call; returns whether it makes atlas gradients."""
+    if phase not in ("both", "adjoint", "scatter"):
         raise ValueError(f"unknown phase {phase!r}")
+    tex_grad = compute_tex_grad and tex_route(scene)
+    if tex_grad and spp > MAX_TEX_SPP:
+        raise ValueError(
+            "textured-atlas gradients record per-path totals in 3*spp lane "
+            f"planes; spp={spp} > {MAX_TEX_SPP} per launch — "
+            "persistent_mse_value_and_grad chunks the sample budget "
+            "automatically (phase='adjoint'/'scatter')")
+    if phase == "scatter":
+        if not tex_grad:
+            raise ValueError(
+                'phase="scatter" replays a textured gradient walk: it needs '
+                "a packed mesh, a texture atlas and compute_tex_grad")
+        if any(x is None for x in ext):
+            raise ValueError('phase="scatter" needs ext_g, ext_ct and ext_ns')
+    return tex_grad
+
+
+def lane_cotangent(L_lanes: Tensor, n_samp: Tensor, target_lanes: Tensor,
+                   width: int, height: int, lane0: int = 0) -> Tensor:
+    """(3, rows, 128) lane-local MSE cotangent of launch 1's pixel means, the
+    scatter launch's ``g`` (JAX ``replay_persistent.py:1438-1453``, its f32
+    arithmetic); ``lane0`` is the global lane of the first row."""
+    lane = torch.arange(n_samp.numel(), device=n_samp.device).reshape(
+        n_samp.shape) + lane0
+    havef = ((n_samp > 0) & (lane < width * height)).to(torch.float32)
+    inv_n = havef / torch.clamp_min(n_samp.to(torch.float32), 1.0)
+    gscale = (2.0 / (width * height * 3)) * inv_n
+    return torch.stack([(L_lanes[..., c] * inv_n - target_lanes[..., c])
+                        * havef * gscale for c in range(3)])
 
 
 def _scatter_slots(slot_vals: Tensor, slot_mats: Sequence[int],
@@ -151,18 +196,33 @@ def _epilogue(Lr, Lg, Lb, n_samp, GA, GI, target_lanes, in_domain,
     return sse.sum(0), rows_sum(g * GA), rows_sum(g * GI)
 
 
-def _finish(scene, slot_mats, phase, L_lanes, n_samp, nrays, grads):
-    """persistent_replay_call's return tuple. ``grads`` holds per-slot and
-    per-light rows: (ga (S, 3, rows, 128), gi (NL, 3, rows, 128)) for phase
-    "adjoint", (loss, gA (S, 3), gI (NL, 3)) for phase "both"."""
+def _drive(launch, scene: Scene, target_lanes: Tensor, width: int,
+           height: int, lane0: int, phase: str, tex_grad: bool, ext: tuple):
+    """persistent_replay_call's launches and return tuple, shared by the
+    kernel and the plain version. ``launch(kind, record_ct, scatter_in)``
+    runs one walk (``kind`` "both", "adjoint" or "scatter") and returns
+    (L_lanes, n_samp, grads, live_rays, ct, gT): ``grads`` holds per-slot
+    and per-light rows, (ga (S, 3, rows, 128), gi (NL, 3, rows, 128)) for
+    "adjoint" and (loss, gA (S, 3), gI (NL, 3)) for "both"; ``ct`` the C_tot
+    planes (3*spp, rows, 128) with ``record_ct``; ``gT`` the atlas gradient
+    of a scatter walk, which takes ``scatter_in`` = (g, ct, n_samp)."""
+    if phase == "scatter":
+        return launch("scatter", False, ext)[5]
+    L_lanes, n_samp, grads, nrays, ct, _ = launch(phase, tex_grad, None)
+    slot_mats = material_slots(scene)[0]
     n_mats = scene.mat_color.shape[0]
     if phase == "adjoint":
         ga, gi = grads
         return (L_lanes, n_samp, _scatter_slots(ga, slot_mats, n_mats), gi,
-                nrays, None)
+                nrays, ct)
+    gT = None
+    if tex_grad:
+        g = lane_cotangent(L_lanes, n_samp, target_lanes, width, height,
+                           lane0)
+        gT = launch("scatter", False, (g, ct, n_samp))[5]
     loss, gA, gI = grads
     return (L_lanes, n_samp, loss, _scatter_slots(gA, slot_mats, n_mats), gI,
-            nrays, None)
+            nrays, gT)
 
 
 # ---------------------------------------------------------------------------
@@ -189,15 +249,80 @@ def persistent_replay_ref(
     tile_offset: int = 0,
     phase: str = "both",
     uniforms: Tensor | None = None,
+    compute_tex_grad: bool = True,
+    ext_g: Tensor | None = None,
+    ext_ct: Tensor | None = None,
+    ext_ns: Tensor | None = None,
     counts: dict | None = None,
 ):
     """Plain PyTorch version of ``persistent_replay_call``: the JAX kernel's
     lane math, vectorized over all lanes with masked selects, with the
     explicit-FMA quadratics of ``persistent_step_ref``. Same arguments and
     returns; if ``counts`` is a dict it also receives ``"shadow"``, the NEE
-    shadow segments traced (for the kernel's bound, which the kernel does
-    not count)."""
-    _check_route(scene, phase, "persistent_replay_ref")
+    shadow segments traced, ``"texel"``, the texel fetches, and from a
+    scatter walk ``"scatter"``, the textured vertices scattered into the
+    atlas (for the kernel's bound; the kernel counts none of them)."""
+    tex_grad = _check_route(scene, phase, spp, compute_tex_grad,
+                            (ext_g, ext_ct, ext_ns))
+    launch = functools.partial(
+        _walk_ref, scene, cam_packed, seed, iteration, target_lanes, spp=spp,
+        budget=budget, width=width, height=height, max_bounces=max_bounces,
+        rr_start=rr_start, tile_rows=tile_rows, use_nee=use_nee,
+        use_dof=use_dof, strat_k=strat_k, tile_offset=tile_offset,
+        uniforms=uniforms, counts=counts)
+    return _drive(launch, scene, target_lanes, width, height,
+                  tile_offset * tile_rows * LANES, phase, tex_grad,
+                  (ext_g, ext_ct, ext_ns))
+
+
+def scatter_walk(scene: Scene, cam_packed: Tensor, seed: Sequence[int],
+                 iteration: int, target_lanes: Tensor, ext_g: Tensor,
+                 ext_ct: Tensor, ext_ns: Tensor, *, spp: int, budget: int,
+                 width: int, height: int, max_bounces: int = 10,
+                 rr_start: int = 3, tile_rows: int = 32,
+                 use_nee: bool = False, use_dof: bool = False,
+                 strat_k: int = 2, tile_offset: int = 0,
+                 uniforms: Tensor | None = None):
+    """Phase "scatter" with the replayed walk's own outputs: (L_lanes,
+    n_samp, live_rays, gT). The scatter walk replays launch 1's schedule
+    on the same draws, so its L_lanes and n_samp equal launch 1's on every
+    lane; ``chip_smoke.py`` holds the kernel to that. CUDA tensors launch
+    the kernel, CPU tensors run the plain walk."""
+    ext = (ext_g, ext_ct, ext_ns)
+    _check_route(scene, "scatter", spp, True, ext)
+    kw = dict(spp=spp, budget=budget, width=width, height=height,
+              max_bounces=max_bounces, rr_start=rr_start,
+              tile_rows=tile_rows, use_nee=use_nee, use_dof=use_dof,
+              strat_k=strat_k, tile_offset=tile_offset, uniforms=uniforms)
+    L_lanes, n_samp, _, nrays, _, gT = _launcher(
+        scene, cam_packed, seed, iteration, target_lanes, kw)(
+            "scatter", False, ext)
+    return L_lanes, n_samp, nrays, gT
+
+
+def _launcher(scene, cam_packed, seed, iteration, target_lanes, kw):
+    """``_drive``'s launch for the device of ``target_lanes``: the CUDA
+    kernel or the plain walk."""
+    dev = target_lanes.device
+    if dev.type == "cuda":
+        fn = _launch_cuda
+    elif dev.type == "cpu":
+        fn, kw = _walk_ref, dict(kw, counts=None)
+    else:
+        raise ValueError(f"persistent_replay_call: unsupported device {dev}")
+    return functools.partial(fn, scene, cam_packed, seed, iteration,
+                             target_lanes, **kw)
+
+
+def _walk_ref(scene, cam_packed, seed, iteration, target_lanes, kind,
+              record_ct, scatter_in, *, spp, budget, width, height,
+              max_bounces, rr_start, tile_rows, use_nee, use_dof, strat_k,
+              tile_offset, uniforms, counts):
+    """One plain walk of kind "both", "adjoint" or "scatter" (``_drive``'s
+    ``launch``). A scatter walk replays launch 1's schedule without the
+    adjoint sums: ``scatter_in`` = (g (3, rows, 128), ct (3*spp, rows, 128),
+    launch 1's n_samp); the taps go into the atlas in a fixed order."""
+    scatter = kind == "scatter"
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
     n_tiles = rows_total // tile_rows
@@ -257,6 +382,16 @@ def persistent_replay_ref(
     GI = [[fzeros] * 3 for _ in range(n_l)]
     n_live = torch.zeros((), dtype=torch.int64, device=dev)
     n_shadow = torch.zeros((), dtype=torch.int64, device=dev)
+    n_scatter = torch.zeros((), dtype=torch.int64, device=dev)
+    # launch 1 of a textured gradient: each completed path's C_tot, slot k
+    # = its sample index (JAX replay_persistent.py:1008-1015)
+    Ct = [[fzeros] * 3 for _ in range(spp)] if record_ct else None
+    if scatter:
+        # launch 2: the cotangent, launch 1's records and final counts
+        g_ct, ct_in, nsf = scatter_in
+        ct_in = ct_in.reshape(spp, 3, *shape)
+        K, TH, TW, _ = scene.textures.shape
+        gT = torch.zeros((K * TH * TW, 3), dtype=torch.float32, device=dev)
 
     for it in range(budget):
         if uniforms is not None:
@@ -289,9 +424,10 @@ def persistent_replay_ref(
         bounce = where(regen, 0, bounce)
         prev_pdf = where(regen, 0.0, prev_pdf)
         prev_delta = prev_delta | regen
-        nA = [where(regen, 0.0, x) for x in nA]
-        cA = [[where(regen, 0.0, x) for x in xs] for xs in cA]
-        cI = [[where(regen, 0.0, x) for x in xs] for xs in cI]
+        if not scatter:
+            nA = [where(regen, 0.0, x) for x in nA]
+            cA = [[where(regen, 0.0, x) for x in xs] for xs in cA]
+            cI = [[where(regen, 0.0, x) for x in xs] for xs in cI]
         alive = alive | regen
         n_live = n_live + alive.sum()
 
@@ -346,12 +482,14 @@ def persistent_replay_ref(
         for p in trans_prims:
             is_t = is_t | is_ps[p]
         mc = bzeros
+        tex_out = {}
         if mesh:
             h = dict(hit=hit, hx=hx, hy=hy, hz=hz, nx=nx, ny=ny, nz=nz,
                      ar=ar, ag=ag, ab=ab, coef=coef, is_s=is_s, is_t=is_t,
                      er=er, eg=eg, eb=eb)
             mc, tm, mmat = mesh_merge(scene, tile_rows, alive, ox, oy, oz,
-                                      dx, dy, dz, best_t, h, MT, tris, Lt)
+                                      dx, dy, dz, best_t, h, MT, tris, Lt,
+                                      None if scatter else counts, tex_out)
             (hit, hx, hy, hz, nx, ny, nz, ar, ag, ab, coef, is_s, is_t,
              er, eg, eb) = h.values()
             # the sphere winner fires on no mesh-won lane (emitter pdfs, cI
@@ -378,12 +516,12 @@ def persistent_replay_ref(
         e_r, e_g, e_b = Tr * er * take, Tg * eg * take, Tb * eb * take
         Cr, Cg, Cb = Cr + e_r, Cg + e_g, Cb + e_b
         for li, (ltype, lprim) in enumerate(lights_static):
-            if ltype != AREA_LIGHT or lprim < 0:
+            if ltype != AREA_LIGHT or lprim < 0 or scatter:
                 continue
             m = is_ps[lprim].to(torch.float32)
             cI[li] = [cI[li][0] + e_r * m, cI[li][1] + e_g * m,
                       cI[li][2] + e_b * m]
-        for li, lmat, _, _ in tris:  # a triangle light's own emission
+        for li, lmat, _, _ in () if scatter else tris:  # own emission
             m = (mc & (mmat == lmat)).to(torch.float32)
             cI[li] = [cI[li][0] + e_r * m, cI[li][1] + e_g * m,
                       cI[li][2] + e_b * m]
@@ -440,7 +578,9 @@ def persistent_replay_ref(
                 t_g = Tg * (ag * INV_PI) * rad[1] * scale
                 t_b = Tb * (ab * INV_PI) * rad[2] * scale
                 nee_r, nee_g, nee_b = nee_r + t_r, nee_g + t_g, nee_b + t_b
-                cI[li] = [cI[li][0] + t_r, cI[li][1] + t_g, cI[li][2] + t_b]
+                if not scatter:
+                    cI[li] = [cI[li][0] + t_r, cI[li][1] + t_g,
+                              cI[li][2] + t_b]
             Cr, Cg, Cb = Cr + nee_r, Cg + nee_g, Cb + nee_b
 
         # ---- BSDF sampling: one lobe per lane under masks
@@ -451,8 +591,13 @@ def persistent_replay_ref(
         step_ok = act & ~f_black & (pdf > 0.0)
         okf = step_ok.to(torch.float32)
 
+        if scatter and "texel" in tex_out:
+            n_scatter = n_scatter + _scatter_taps(
+                gT, scene, mc, mmat, tex_out, n_samp, nsf, step_ok, g_ct,
+                ct_in, (Cr, Cg, Cb), (nee_r, nee_g, nee_b))
+
         # ---- streaming adjoint at the hit's material slot
-        for s in range(n_slots):
+        for s in range(n_slots if not scatter else 0):
             mm = bzeros
             for p in range(n_prims):
                 if prim_slot[p] == s:
@@ -486,11 +631,15 @@ def persistent_replay_ref(
         Lr = where(died, Lr + Cr, Lr)
         Lg = where(died, Lg + Cg, Lg)
         Lb = where(died, Lb + Cb, Lb)
+        if record_ct:
+            for k in range(spp):
+                mk = died & (n_samp == k)
+                Ct[k] = [where(mk, C, x) for C, x in zip((Cr, Cg, Cb), Ct[k])]
         n_samp = n_samp + died.to(torch.int32)
-        for s in range(n_slots):
+        for s in range(n_slots if not scatter else 0):
             GA[s] = [where(died, G + (C * nA[s] - x), G)
                      for G, C, x in zip(GA[s], (Cr, Cg, Cb), cA[s])]
-        for li in range(n_l):
+        for li in range(n_l if not scatter else 0):
             GI[li] = [where(died, G + x, G) for G, x in zip(GI[li], cI[li])]
 
         # ---- pending ray for the next iteration
@@ -507,20 +656,59 @@ def persistent_replay_ref(
 
     dom = in_domain.to(torch.float32)
     L_lanes = torch.stack([Lr * dom, Lg * dom, Lb * dom], dim=-1)
+    if scatter:
+        if counts is not None:
+            counts["scatter"] = n_scatter
+        return L_lanes, n_samp, None, n_live, None, gT.reshape(K, TH, TW, 3)
 
     def planes(G):
         return torch.stack([torch.stack(x) for x in G]) if G \
             else fzeros.new_zeros((0, 3) + shape)
 
     GA, GI = planes(GA), planes(GI)
-    if phase == "adjoint":
+    if kind == "adjoint":
         grads = (GA, GI)
     else:
         grads = _epilogue(Lr, Lg, Lb, n_samp, GA, GI, target_lanes, in_domain,
                           inv_loss_n, rows_total)
     if counts is not None:
         counts["shadow"] = n_shadow
-    return _finish(scene, slot_mats, phase, L_lanes, n_samp, n_live, grads)
+    ct = torch.stack([x for xs in Ct for x in xs]) if record_ct else None
+    return L_lanes, n_samp, grads, n_live, ct, None
+
+
+def _scatter_taps(gT, scene, mc, mmat, tex_out, n_samp, nsf, step_ok, g,
+                  ct, C, nee):
+    """One iteration of the plain scatter (JAX ``replay_persistent.py:
+    912-978``): at each acting textured vertex of a path that completed in
+    launch 1 (sample index ``n_samp`` below launch 1's count ``nsf``), per
+    channel ``g * (ok (C_tot - C) + nee) / max(texel, 1e-8)``, with C_tot
+    the path's record in ``ct`` (spp, 3, rows, 128), added with the bilinear
+    weights into the four taps of the flat atlas gradient ``gT`` (K*TH*TW,
+    3) by ``index_put_(accumulate=True)``. A tap of a texture id past the
+    atlas adds nothing, as its TPU two-hot row matches no atlas row. Returns
+    the vertices scattered."""
+    has_tex, rgb = tex_out["texel"]
+    K, TH, TW, _ = scene.textures.shape
+    texk, (r0, r1, c0, c1), (fx, fy) = texel_taps(
+        scene.textures.shape, scene.mat_textures_static, mc, mmat,
+        *tex_out["uv"])
+    m_sc = has_tex & (n_samp < nsf)  # has_tex implies an acting mesh hit
+    slot = torch.clamp(n_samp, 0, ct.shape[0] - 1).to(torch.int64)
+    ct_now = torch.gather(ct, 0, slot.expand(1, 3, *slot.shape))[0]
+    mscf = m_sc.to(torch.float32)
+    okf = step_ok.to(torch.float32)
+    v = torch.stack([
+        g[c] * (okf * (ct_now[c] - C[c]) + nee[c])
+        * (1.0 / torch.clamp_min(rgb[c], 1e-8)) * mscf for c in range(3)], -1)
+    sel = m_sc & (texk < K)
+    v = v[sel]
+    for r, wr in ((r0, 1.0 - fy), (r1, fy)):
+        for col, wc in ((c0, 1.0 - fx), (c1, fx)):
+            idx = (r * TW + col)[sel].to(torch.int64)
+            gT.index_put_((idx,), (wc[sel][:, None] * v) * wr[sel][:, None],
+                          accumulate=True)
+    return sel.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +732,9 @@ def _kernel():
         p, p, p, p, p,  # lr lg lb n_samp nrays (device)
         p, p,  # partials ("both") or gl ("adjoint"), the other NULL
         p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
+        p, i, i, i,  # texture atlas (or NULL), K, TH, TW
+        p,  # C_tot records written by launch 1 (or NULL)
+        p, p, p, p,  # scatter: g, C_tot records, counts in; atlas grad out
         i, i, i, i, i, i,  # rows_total tile_rows budget spp width n_lanes
         i, i, i, i, i, i,  # max_bounces rr_start use_nee use_dof strat_k
         #                    tile_offset
@@ -556,10 +747,13 @@ def _kernel():
     return fn, lib.tpt_error_string
 
 
-def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
-                 budget, width, height, max_bounces, rr_start, tile_rows,
-                 use_nee, use_dof, strat_k, tile_offset, phase, uniforms):
-    global launches, mesh_launches
+def _launch_cuda(scene, cam_packed, seed, iteration, target_lanes, kind,
+                 record_ct, scatter_in, *, spp, budget, width, height,
+                 max_bounces, rr_start, tile_rows, use_nee, use_dof, strat_k,
+                 tile_offset, uniforms):
+    """One kernel launch of kind "both", "adjoint" or "scatter"
+    (``_drive``'s ``launch``)."""
+    global launches, mesh_launches, scatter_launches
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
     if rows_total % tile_rows:
@@ -609,26 +803,40 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
     n_samp = torch.empty(shape, dtype=torch.int32, device=dev)
     nrays = torch.empty(rows_total, dtype=torch.int32, device=dev)
     n_k = 3 * n_slots + 3 * n_lights + 1
-    partials = gl = None
-    if phase == "both":
+    partials = gl = ct = gT = None
+    tex, _keep_tex = texture_arguments(scene, dev)
+    scatter = [None] * 3
+    if kind == "both":
         partials = torch.empty((rows_total, n_k), dtype=torch.float32,
                                device=dev)
-    else:
+    elif kind == "adjoint":
         gl = torch.empty(((n_slots + n_lights) * 3,) + shape,
                          dtype=torch.float32, device=dev)
+    else:
+        g, ct_in, nsf = scatter_in
+        _check(g, "ext_g", torch.float32, (3,) + shape, dev)
+        _check(ct_in, "ext_ct", torch.float32, (3 * spp,) + shape, dev)
+        _check(nsf, "ext_ns", torch.int32, shape, dev)
+        gT = torch.zeros(scene.textures.shape, dtype=torch.float32,
+                         device=dev)
+        scatter = [g.data_ptr(), ct_in.data_ptr(), nsf.data_ptr()]
+    if record_ct:
+        # slots of paths that never complete stay 0, as the JAX records
+        ct = torch.zeros((3 * spp,) + shape, dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
 
     fn, error_string = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(prims.data_ptr(), pflags, slots, n_prims, n_mats,
                  lights.data_ptr(), lstruct, n_lights, n_slots,
-                 cam_packed.data_ptr(),
-                 uniforms.data_ptr() if uniforms is not None else None,
+                 cam_packed.data_ptr(), ptr(uniforms),
                  target_lanes.data_ptr(),
                  lr.data_ptr(), lg.data_ptr(), lb.data_ptr(),
-                 n_samp.data_ptr(), nrays.data_ptr(),
-                 partials.data_ptr() if partials is not None else None,
-                 gl.data_ptr() if gl is not None else None, *mesh_ptrs,
+                 n_samp.data_ptr(), nrays.data_ptr(), ptr(partials), ptr(gl),
+                 *mesh_ptrs, *tex, ptr(ct), *scatter, ptr(gT),
                  rows_total, tile_rows, budget, spp, width, width * height,
                  max_bounces, rr_start, int(use_nee), int(use_dof), strat_k,
                  int(tile_offset), 1.0 / (width * height * 3),
@@ -639,16 +847,18 @@ def _replay_cuda(scene, cam_packed, seed, iteration, target_lanes, *, spp,
         raise RuntimeError(f"gradient kernel launch failed: {msg} ({err})")
     launches += 1
     mesh_launches += scene.mesh is not None
+    scatter_launches += kind == "scatter"
     L_lanes = torch.stack([lr, lg, lb], dim=-1)
-    if phase == "adjoint":
+    if kind == "scatter":
+        grads = None
+    elif kind == "adjoint":
         planes = gl.reshape(n_slots + n_lights, 3, *shape)
         grads = (planes[:n_slots], planes[n_slots:])
     else:
         part = partials.sum(0)
         grads = (part[n_k - 1], part[:3 * n_slots].reshape(n_slots, 3),
                  part[3 * n_slots:n_k - 1].reshape(n_lights, 3))
-    return _finish(scene, slot_mats, phase, L_lanes, n_samp, nrays.sum(),
-                   grads)
+    return L_lanes, n_samp, grads, nrays.sum(), ct, gT
 
 
 def persistent_replay_call(
@@ -671,40 +881,49 @@ def persistent_replay_call(
     tile_offset: int = 0,
     phase: str = "both",
     uniforms: Tensor | None = None,
+    compute_tex_grad: bool = True,
+    ext_g: Tensor | None = None,
+    ext_ct: Tensor | None = None,
+    ext_ns: Tensor | None = None,
 ):
-    """One fused fwd+bwd launch over the (rows_total, 128) lane layout.
+    """One fused fwd+bwd walk over the (rows_total, 128) lane layout, and on
+    a textured mesh scene the scatter walk after it.
 
     ``seed`` is ``(seed, salt)`` and ``iteration`` the RNG frame, as host
     integers; ``target_lanes`` is the per-pixel target in the lane layout
     (``target_to_lanes``). Returns, as the JAX function does:
 
     * phase ``"both"``: (L_lanes (rows, 128, 3), n_samp, loss, gA_raw (M, 3),
-      gI_raw (NL, 3), live_rays, None);
+      gI_raw (NL, 3), live_rays, gT), with gT the final dLoss/dtextures
+      (K, TH, TW, 3) of the second launch on a textured mesh scene, None
+      otherwise or with ``compute_tex_grad`` false;
     * phase ``"adjoint"``: (L_lanes, n_samp, ga_lanes (M, 3, rows, 128),
-      gi_lanes (NL, 3, rows, 128), live_rays, None), the cotangent not
-      applied.
+      gi_lanes (NL, 3, rows, 128), live_rays, ct_lanes), the cotangent not
+      applied; ct_lanes the C_tot records (3*spp, rows, 128), plane k*3 + c
+      for slot k and channel c, on a textured mesh scene, else None;
+    * phase ``"scatter"``: gT of the scatter walk alone, replaying this
+      call's schedule with the cotangent ``ext_g`` (3, rows, 128), the
+      records ``ext_ct`` (3*spp, rows, 128) and the final counts ``ext_ns``
+      (rows, 128) int32 of a phase "adjoint" call (the chunked driver).
 
-    Callers divide the raw gradients by clamp(mat_color, 1e-8) and
-    clamp(light_intensity, 1e-8). ``use_dof`` regenerates paths through the
+    A textured gradient takes spp <= 32 per launch (ValueError otherwise,
+    as in JAX; ``persistent_mse_value_and_grad`` chunks). Callers divide the
+    raw gradients by clamp(mat_color, 1e-8) and clamp(light_intensity,
+    1e-8); gT needs no division. ``use_dof`` regenerates paths through the
     packed camera's thin lens. ``live_rays`` counts the lanes alive after
-    regeneration, once per iteration (the JAX kernel's count). For tensors on a CUDA device this launches
-    the CUDA kernel on the current stream; on the CPU it runs
-    ``persistent_replay_ref``; any other device raises.
+    regeneration, once per iteration (the JAX kernel's count). For tensors
+    on a CUDA device this launches the CUDA kernel on the current stream;
+    on the CPU it runs ``persistent_replay_ref``; any other device raises.
     """
-    _check_route(scene, phase, "persistent_replay_call")
+    ext = (ext_g, ext_ct, ext_ns)
+    tex_grad = _check_route(scene, phase, spp, compute_tex_grad, ext)
     kw = dict(spp=spp, budget=budget, width=width, height=height,
               max_bounces=max_bounces, rr_start=rr_start,
               tile_rows=tile_rows, use_nee=use_nee, use_dof=use_dof,
-              strat_k=strat_k, tile_offset=tile_offset, phase=phase,
-              uniforms=uniforms)
-    dev = target_lanes.device
-    if dev.type == "cuda":
-        return _replay_cuda(scene, cam_packed, seed, iteration, target_lanes,
-                            **kw)
-    if dev.type == "cpu":
-        return persistent_replay_ref(scene, cam_packed, seed, iteration,
-                                     target_lanes, **kw)
-    raise ValueError(f"persistent_replay_call: unsupported device {dev}")
+              strat_k=strat_k, tile_offset=tile_offset, uniforms=uniforms)
+    launch = _launcher(scene, cam_packed, seed, iteration, target_lanes, kw)
+    return _drive(launch, scene, target_lanes, width, height,
+                  tile_offset * tile_rows * LANES, phase, tex_grad, ext)
 
 
 def mse_lane_terms(L_lanes: Tensor, n_samp: Tensor, ga_lanes: Tensor,
@@ -751,22 +970,37 @@ def persistent_mse_value_and_grad(
     tile_rows: int = 32,
     use_nee: bool = False,
     strat_k: int = 2,
-    uniforms: Tensor | None = None,
+    uniforms=None,
 ) -> tuple[Tensor, dict, Tensor]:
-    """Loss and gradients w.r.t. ``mat_color`` and ``light_intensity`` of
-    mean((render - target)^2), ``target`` (H, W, 3), from one fused launch;
-    a lens camera's paths start on its thin lens. Returns (loss, grads,
-    live_rays). Untextured route only."""
+    """Loss and gradients of mean((render - target)^2), ``target`` (H, W,
+    3), w.r.t. ``mat_color`` and ``light_intensity``, and on a textured mesh
+    scene w.r.t. ``textures`` (the atlas, (K, TH, TW, 3)): one fused launch,
+    plus the scatter launch for the atlas. A lens camera's paths start on
+    its thin lens. A textured scene at spp > 32 goes to
+    ``chunked_mse_value_and_grad`` (``uniforms`` then one block per chunk).
+    Returns (loss, grads, live_rays)."""
+    if tex_route(scene) and spp > MAX_TEX_SPP:
+        return chunked_mse_value_and_grad(
+            scene, camera, seed, iteration, target, spp=spp, budget=budget,
+            max_bounces=max_bounces, rr_start=rr_start, tile_rows=tile_rows,
+            use_nee=use_nee, strat_k=strat_k, uniforms=uniforms)
     w, h = camera.width, camera.height
     rows_total, _ = pixel_lanes_layout(w, h, tile_rows)
     aux = target_to_lanes(target, rows_total)
     if budget is None:
         budget = default_budget(spp, max_bounces)
-    _, _, loss, gA_raw, gI_raw, nrays, _ = persistent_replay_call(
+    _, _, loss, gA_raw, gI_raw, nrays, gT = persistent_replay_call(
         scene, pack_camera(camera), seed, iteration, aux, spp=spp,
         budget=budget, width=w, height=h, max_bounces=max_bounces,
         rr_start=rr_start, tile_rows=tile_rows, use_nee=use_nee,
         use_dof=camera.use_dof, strat_k=strat_k, uniforms=uniforms)
+    return loss, _param_grads(scene, gA_raw, gI_raw, gT), nrays
+
+
+def _param_grads(scene: Scene, gA_raw: Tensor, gI_raw: Tensor,
+                 gT: Tensor | None) -> dict:
+    """The raw colour and intensity gradients divided by the clamped
+    parameters; the atlas gradient, already final, as it is."""
     gI_full = torch.zeros_like(scene.light_intensity)
     gI_full[: gI_raw.shape[0]] = gI_raw
     grads = {
@@ -774,10 +1008,90 @@ def persistent_mse_value_and_grad(
         "light_intensity": gI_full / torch.clamp_min(scene.light_intensity,
                                                      1e-8),
     }
-    return loss, grads, nrays
+    if gT is not None:
+        grads["textures"] = gT
+    return grads
 
 
-def chunked_mse_value_and_grad(*args, **kwargs):
-    """The chunked pooled-mean driver of textured gradients at spp > 32
-    (``_chunked_mse_value_and_grad`` in the JAX package)."""
-    raise _not_ported("the chunked textured-gradient driver", "12")
+def chunk_plan(spp: int, budget: int | None, max_bounces: int
+               ) -> list[tuple[int, int]]:
+    """(samples, budget) of each chunk of the chunked driver: chunks of
+    MAX_TEX_SPP samples and the remainder, each with the default budget of
+    its samples, or the caller's budget shared out by samples (rounded up,
+    at least 1), as ``_chunked_mse_value_and_grad`` does."""
+    sizes = [MAX_TEX_SPP] * (spp // MAX_TEX_SPP) + (
+        [spp % MAX_TEX_SPP] if spp % MAX_TEX_SPP else [])
+    return [(c, default_budget(c, max_bounces) if budget is None
+             else max(1, -(-budget * c // spp))) for c in sizes]
+
+
+def chunked_mse_value_and_grad(
+    scene: Scene,
+    camera,
+    seed: Sequence[int],
+    iteration: int,
+    target: Tensor,
+    *,
+    spp: int,
+    budget: int | None = None,
+    max_bounces: int = 10,
+    rr_start: int = 3,
+    tile_rows: int = 32,
+    use_nee: bool = False,
+    strat_k: int = 2,
+    uniforms: Sequence[Tensor] | None = None,
+) -> tuple[Tensor, dict, Tensor]:
+    """Fused gradients of a textured scene with spp > 32 (the JAX
+    package's ``_chunked_mse_value_and_grad``), by the pooled mean.
+
+    The samples are split by ``chunk_plan``: chunk r walks its own draws at
+    iteration ``iteration * n_chunks + r`` with phase "adjoint" (raw
+    per-lane GA/GI sums and C_tot records). The MSE of the pooled mean
+    (sum L / sum n over the chunks) is the loss; its lane-local cotangent
+    is dotted with the summed GA/GI lanes, and fed to one phase "scatter"
+    walk per chunk for the atlas. The JAX kernel caps a launch at 32
+    samples because its 3*spp C_tot planes live in VMEM; here the records
+    are planes in device memory and need no cap, but the cap stays: it
+    decides which samples (chunk draws and budgets) a spp > 32 gradient
+    takes, and the port takes the same ones. ``uniforms`` (test mode) is
+    one block per chunk. Returns (loss, grads, live_rays)."""
+    w, h = camera.width, camera.height
+    rows_total, n_lanes = pixel_lanes_layout(w, h, tile_rows)
+    aux = target_to_lanes(target, rows_total)
+    cp = pack_camera(camera)
+    plan = chunk_plan(spp, budget, max_bounces)
+    if uniforms is not None and len(uniforms) != len(plan):
+        raise ValueError(f"{len(plan)} chunks need {len(plan)} uniform "
+                         f"blocks, got {len(uniforms)}")
+    chunks, L_tot, n_tot, nrays, gaL, giL = [], 0.0, 0, 0, 0.0, 0.0
+    for r, (c_spp, c_budget) in enumerate(plan):
+        kw = dict(spp=c_spp, budget=c_budget, width=w, height=h,
+                  max_bounces=max_bounces, rr_start=rr_start,
+                  tile_rows=tile_rows, use_nee=use_nee,
+                  use_dof=camera.use_dof, strat_k=strat_k,
+                  uniforms=None if uniforms is None else uniforms[r])
+        it_r = iteration * len(plan) + r
+        L, ns, ga, gi, nr, ct = persistent_replay_call(
+            scene, cp, seed, it_r, aux, phase="adjoint", **kw)
+        chunks.append((it_r, kw, ns, ct))
+        L_tot, n_tot, nrays = L_tot + L, n_tot + ns, nrays + nr
+        gaL, giL = gaL + ga, giL + gi
+
+    # the pooled-mean MSE and its lane-local cotangent (JAX :1656-1676)
+    lane = torch.arange(rows_total * LANES, device=aux.device).reshape(
+        rows_total, LANES)
+    havef = ((n_tot > 0) & (lane < n_lanes)).to(torch.float32)
+    inv_n = havef / torch.clamp_min(n_tot.to(torch.float32), 1.0)
+    n3 = w * h * 3
+    d = torch.stack([(L_tot[..., c] * inv_n - aux[..., c]) * havef
+                     for c in range(3)])
+    loss = (d * d).sum() / n3
+    g = d * (2.0 / n3) * inv_n
+    gA_raw = (g * gaL).sum((-2, -1))
+    gI_raw = (g * giL).sum((-2, -1))
+    gT = torch.zeros_like(scene.textures) if tex_route(scene) else None
+    for it_r, kw, ns_r, ct_r in chunks if gT is not None else ():
+        gT = gT + persistent_replay_call(
+            scene, cp, seed, it_r, aux, phase="scatter", ext_g=g,
+            ext_ct=ct_r, ext_ns=ns_r, **kw)
+    return loss, _param_grads(scene, gA_raw, gI_raw, gT), nrays

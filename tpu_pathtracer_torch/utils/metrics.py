@@ -119,19 +119,43 @@ def _plane_agreement(La, na, Lb, nb, planes, n, tol=L_TOL) -> dict:
 def grad_lane_agreement(a, b, width: int, height: int) -> dict:
     """How closely two phase-"adjoint" outputs of the gradient walk agree
     lane for lane. ``a`` and ``b`` are (L_lanes (rows, 128, 3), n_samp
-    (rows, 128), ga_lanes (M, 3, rows, 128), gi_lanes (NL, 3, rows, 128));
-    ``a`` is the reference. Returns the fractions of real lanes that agree
-    on the sample count (``"n_samp"``), on radiance (``"L"``) and on each
-    GA/GI plane (``"planes"``, by name), the largest radiance and plane
-    differences (``"max_abs_err"``), and ``"mask"``, the (rows, 128) lanes
-    on which all of them agree, on the CPU (the bar is
-    ``lane_agreement``'s)."""
-    La, na, gaa, gia = (x.double().cpu() for x in a)
-    Lb, nb, gab, gib = (x.double().cpu() for x in b)
+    (rows, 128), ga_lanes (M, 3, rows, 128), gi_lanes (NL, 3, rows, 128)),
+    and optionally, fifth, the C_tot records (3*spp, rows, 128) of a
+    textured walk (None: none); ``a`` is the reference. Returns the
+    fractions of real lanes that agree on the sample count (``"n_samp"``),
+    on radiance (``"L"``) and on each GA/GI plane and C_tot plane
+    (``"planes"``, by name), the largest radiance and plane differences
+    (``"max_abs_err"``), and ``"mask"``, the (rows, 128) lanes on which all
+    of them agree, on the CPU (the bar is ``lane_agreement``'s)."""
+    La, na, gaa, gia = (x.double().cpu() for x in a[:4])
+    Lb, nb, gab, gib = (x.double().cpu() for x in b[:4])
     planes = [(f"{name}[{k}][{'rgb'[c]}]", xa[k, c], xb[k, c])
               for name, xa, xb in (("GA", gaa, gab), ("GI", gia, gib))
               for k in range(xa.shape[0]) for c in range(3)]
+    if len(a) > 4 and a[4] is not None:
+        cta, ctb = a[4].double().cpu(), b[4].double().cpu()
+        planes += [(f"C_tot[{k // 3}][{'rgb'[k % 3]}]", cta[k], ctb[k])
+                   for k in range(cta.shape[0])]
     return _plane_agreement(La, na, Lb, nb, planes, width * height)
+
+
+# The atlas gradient of the scatter walk (phase "scatter"). Kernel against
+# plain: both take the same cotangent planes, zeroed on the lanes where the
+# two walks disagree, and the atlases agree within ATLAS_RTOL * max|gT|.
+# Two kernel launches on the same inputs: the float atomics add in another
+# order, and two f32 sums of n terms differ by at most 2 (n - 1) 2^-24 sum|x|;
+# every cell is held within ATOMIC_RTOL * (the same scatter of |g|), which
+# is sum|x| of that cell (every term's sign is g's: C_tot - C, the NEE term,
+# the texel and the weights are >= 0). 1e-4 covers 838 terms in the worst
+# case, and the error of a sum in random order grows as sqrt(n).
+ATLAS_RTOL = 2e-3
+ATOMIC_RTOL = 1e-4
+
+
+def atlas_gap(k: "torch.Tensor", r: "torch.Tensor") -> float:
+    """max |k - r| / max |r| of two atlas gradients (r the reference)."""
+    return float((k.double() - r.double()).abs().max()
+                 / r.double().abs().max().clamp_min(1e-300))
 
 
 def tangent_lane_agreement(a, b, width: int, height: int,
