@@ -172,7 +172,36 @@ print one line; any failure exits non-zero:
 31. the textured gradient's times on terrain32 at 640x480, spp 4, NEE:
    end to end with and without the atlas gradient (slope, median of REPS),
    each launch's kernel ms and the idle share (one trace), the plain
-   version's ms per launch and each launch's bound (a lower bound).
+   version's ms per launch and each launch's bound (a lower bound);
+32. the per-sample forward kernel (kernel 8, csrc/trace.cu) against
+   trace_lanes_ref on the card at 160x120, spp 4, 10 bounces:
+   cornell_spheres brute force and NEE, the point-light scene with NEE,
+   injected and Philox; phase 3's bars (>= 98% of lanes or the CPU floor,
+   rays within 1%, the sign test);
+33. the pallas_render main path on cornell 640x480, spp 4, brute force and
+   NEE, two frames each: launches counted, each launch replayed bit for bit
+   and held to the plain version on the card; then the JAX suite's
+   TPU-only tests of tests/test_pallas_kernel.py against the port's
+   wavefront: the mean ratios within 3% (brute force, cornell 64x48, 15
+   iterations) and 5% (NEE, single-sphere and small, 30 iterations),
+   determinism, iteration decorrelation, tile-size invariance within 5%,
+   the point light;
+34. the per-sample gradient kernel (kernel 7, csrc/replay.cu) against
+   replay_call_ref on the card at 160x120, 10 bounces: modes "mse" and
+   "vjp", brute force and NEE, with and without the lens, spp 1, 4, 16 (the
+   warp-shuffle pixel mean) and 64 (the shared-memory one), injected and
+   Philox; >= 98% of lanes (or the CPU floor), rays within 1%, mode "mse"
+   equal to the fold of its own lanes through mode "vjp" (rtol 1e-4), the
+   loss (rtol 1e-4) and gradients (2e-3) over the pixels whose lanes agree,
+   the sign test;
+35. the engine="sample" trainer at config 5 (cornell 640x480, spp 4, 10
+   bounces, strat_k 2), brute force then NEE: the target from
+   render_target_kernel(engine="sample"), 5 same-seed Adam steps from phase
+   8's perturbed parameters; the loss falls, 1 + 5 launches of kernel 7 and
+   none of another kernel, the last launch replayed bit for bit and held to
+   the plain version by phase 34's checks; then the times of both kernels
+   by phase 6's and 10's protocol (slope ms, kernel ms and idle share from
+   one trace, bound, plain ms).
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -180,9 +209,9 @@ is the larger of its f32 operations over 67 TFLOP/s and its bytes over
 work (see ``OPS``) and multiplied by the work this run's launches did; the
 bytes are each input read once and each output written once.
 
-The line before the last prints one JSON object {"kernels": [...]}, with
-the scatter launch of kernel 3 as an entry of its own, and the
-card's name and power limit precede it. The last line of standard output
+The line before the last prints one JSON object {"kernels": [...]}, nine
+entries with the scatter launch of kernel 3 as one of its own, and the
+card's name and power limit, as nvidia-smi prints them, precede it. The last line of standard output
 is ``{"ok": true, "device": {...}}``. Run it with no arguments from the
 repository root: ``python3 chip_smoke.py``.
 
@@ -902,6 +931,30 @@ def _profile(run, k, kernel_name, tag, start=None):
     busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in events)
     return (sum(e["dur"] for e in kern) / k / 1e3, busy / k / 1e3,
             window / k, by_name)
+
+
+def _slope_ms(call, k=24, reps=REPS):
+    """ms per call by the CUDA-event slope between 1 and k calls (host
+    work included) after a warm pair, median of reps, and the reps;
+    ``call(salt, i)`` with a salt of its own for every timed run."""
+    import torch
+
+    def timed(n, salt):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for i in range(n):
+            call(salt, i)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    timed(2, 90)  # warm
+    ms = []
+    for rep in range(reps):
+        t1 = timed(1, 100 + rep)
+        ms.append((timed(k, 200 + rep) - t1) / (k - 1))
+    return statistics.median(ms), ms
 
 
 def _bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -1874,22 +1927,7 @@ def phase_jvp_times(smi):
                 cj.ior_mse_grad(scene, cam, (salt, i), weights,
                                 use_nee=use_nee, **kw)
 
-        def timed(k, salt, grad=grad):
-            torch.cuda.synchronize()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-            for i in range(k):
-                grad(salt, i)
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end)
-
-        timed(2, 90)  # warm
-        ms = []
-        for rep in range(REPS):
-            t1, tk = timed(1, 100 + rep), timed(K, 200 + rep)
-            ms.append((tk - t1) / (K - 1))
+        grad_ms, ms = _slope_ms(grad, K)
         dcam = _position_rows("cuda") if kind == "pos" else cp.new_zeros(
             (0, 24))
         counts = {}
@@ -1909,7 +1947,7 @@ def phase_jvp_times(smi):
             fail(f"{key}: device busy {busy} ms per gradient exceeds the "
                  f"window's {window} ms")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
-        out[key] = dict(grad_ms=statistics.median(ms), reps=ms,
+        out[key] = dict(grad_ms=grad_ms, reps=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                         kernel_ms=kernel_ms, busy_ms=busy, window_ms=window,
                         idle_share=1.0 - busy / window, n_tan=n_tan,
@@ -2292,26 +2330,6 @@ def phase_wavefront_vs_persistent():
     return m_w, m_p
 
 
-def _frame_ms(r, k, reps=REPS):
-    """CUDA-event ms per frame by the slope between 1 and k frames, median
-    of reps, and the spread."""
-    import torch
-
-    def run(n):
-        torch.cuda.synchronize()
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        for _ in range(n):
-            r.step()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b)
-
-    run(1)  # warm
-    slopes = [(run(k) - run(1)) / (k - 1) for _ in range(reps)]
-    return statistics.median(slopes), slopes
-
-
 def _wavefront_profile(r, frames, tag):
     """One torch.profiler trace of ``frames`` frames: device ms per frame
     by kernel group, ms per launch of kernels 5 and 6, and the idle share
@@ -2452,7 +2470,7 @@ def phase_wavefront_times(smi, r2):
         dataclasses.replace(r2.scene, mesh_packed_coarse=None), r2.camera,
         r2.config, seed=4, device="cuda")
     for mode, r in (("two_pass", r2), ("single_pass", r1)):
-        ms, slopes = _frame_ms(r, 3)
+        ms, slopes = _slope_ms(lambda salt, i: r.step(), 3)
         o = dict(frame_ms=ms, frame_ms_reps=slopes)
         o.update(_wavefront_profile(r, 2, mode))
         o.update(_kernel_work(r, mode))
@@ -2979,30 +2997,6 @@ def phase_tex_chunked():
     return dict(loss_gap=loss_gap, **gaps)
 
 
-def _time_tex(scene, cam, cp, target, k, salt, tex_grad=True):
-    """CUDA-event ms of k textured gradients at config 5's workload (host
-    wrapper included), on seeds (salt, 0) .. (salt, k - 1): the atlas
-    gradient (two launches) or, with ``tex_grad`` false, the same call
-    without it (one launch)."""
-    import torch
-
-    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
-
-    rows, _ = rp.pixel_lanes_layout(W, H, TR)
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for i in range(k):
-        rp.persistent_replay_call(
-            scene, cp, (salt, i), 0, rp.target_to_lanes(target, rows),
-            spp=SPP, budget=rp.default_budget(SPP, MB), width=W, height=H,
-            max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=True,
-            compute_tex_grad=tex_grad)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
-
-
 def phase_tex_grad_times(smi):
     """31: the textured gradient on terrain32 at 640x480, spp 4, 10 bounces,
     budget 26, NEE (BASELINE's texture-gradient row at spp 4): ms per
@@ -3025,13 +3019,13 @@ def phase_tex_grad_times(smi):
     K = 12
     out = {}
     for tex_grad in (True, False):
-        _time_tex(scene, cam, cp, target, 2, 90, tex_grad)  # warm
-        ms = []
-        for rep in range(REPS):
-            t1 = _time_tex(scene, cam, cp, target, 1, 100 + rep, tex_grad)
-            tk = _time_tex(scene, cam, cp, target, K, 200 + rep, tex_grad)
-            ms.append((tk - t1) / (K - 1))
-        out[tex_grad] = dict(grad_ms=statistics.median(ms), reps=ms)
+        # the atlas gradient (two launches) or the same call without it
+        grad_ms, ms = _slope_ms(
+            lambda salt, i, tex_grad=tex_grad: rp.persistent_replay_call(
+                scene, cp, (salt, i), 0, tgt, spp=SPP, budget=budget,
+                width=W, height=H, max_bounces=MB, rr_start=3, tile_rows=TR,
+                use_nee=True, compute_tex_grad=tex_grad), K)
+        out[tex_grad] = dict(grad_ms=grad_ms, reps=ms)
 
     kw = dict(spp=SPP, budget=budget, width=W, height=H, max_bounces=MB,
               rr_start=3, tile_rows=TR, use_nee=True)
@@ -3111,6 +3105,600 @@ def phase_tex_grad_times(smi):
           f"shadow segments, {texels} texel fetches, {scattered} scattered "
           f"vertices)", flush=True)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 32-35: the per-sample kernels (kernel 8, csrc/trace.cu; kernel 7,
+# csrc/replay.cu)
+# ---------------------------------------------------------------------------
+
+SAMPLE_W, SAMPLE_H, SAMPLE_TR = 160, 120, 16
+
+
+def _sample_floor(fn, args, kw, ref_L, n_lanes):
+    """The plain version on the CPU against itself on the card, on one
+    launch's inputs: its lane agreement (the floor of f32 chaos)."""
+    from tpu_pathtracer_torch.utils.metrics import sample_lane_agreement
+
+    scene, cp, *rest = args
+    kw_cpu = dict(kw, uniforms=None if kw.get("uniforms") is None
+                  else kw["uniforms"].cpu())
+    rest = [r.cpu() if hasattr(r, "cpu") else r for r in rest]
+    cpu = fn(scene.to("cpu"), cp.cpu(), *rest, **kw_cpu)
+    return sample_lane_agreement(cpu[0], ref_L, n_lanes)[0]
+
+
+def _check_trace_launch(label, scene, cp, seed3, kw, w, h, main=None):
+    """Kernel 8 against its plain version on the card from the same
+    inputs: >= 98% of lanes (or the plain version's CPU-vs-card floor),
+    rays within 1%, the sign test on the lanes that differ. ``main``, if
+    given, is the (image, rays) the main path's launch returned from these
+    inputs, which the replayed launch must equal bit for bit."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+    from tpu_pathtracer_torch.utils.metrics import (
+        AGREE, sample_lane_agreement,
+    )
+
+    n = w * h * kw["spp"]
+    Lk, nk = tk.trace_lanes(scene, cp, seed3, **kw)
+    counts = {}
+    Lr, nr = tk.trace_lanes_ref(scene, cp, seed3, counts=counts, **kw)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(Lk).all() and torch.isfinite(Lr).all()):
+        fail(f"{label}: non-finite radiance")
+    if main is not None:
+        img = Lk.reshape(-1, 3)[:n].reshape(h, w, kw["spp"], 3).mean(2)
+        if not (torch.equal(img, main[0]) and int(nk) == int(main[1])):
+            fail(f"{label}: the replayed launch is not the main path's")
+    frac, dmax, _ = sample_lane_agreement(Lk, Lr, n)
+    floor = None
+    if frac < AGREE:
+        floor = _sample_floor(tk.trace_lanes_ref, (scene, cp, seed3), kw,
+                              Lr, n)
+        if frac < floor:
+            fail(f"{label}: kernel vs plain agreement {frac} is below both "
+                 f"{AGREE} and the plain version's CPU-vs-card floor {floor}")
+    rays_k, rays_r = int(nk), int(nr)
+    if abs(rays_k - rays_r) > RAY_TOL * max(rays_r, 1):
+        fail(f"{label}: rays {rays_k} vs plain {rays_r}")
+    sign, n_off = _sign_balance([(Lk.permute(2, 0, 1), Lr.permute(2, 0, 1))],
+                                n)
+    if sign > 1.0:
+        fail(f"{label}: the lanes that differ lean one way, {sign} times "
+             f"the bar ({n_off} lanes)")
+    return dict(l_agree=frac, floor=floor, max_abs_err=dmax, sign=sign,
+                n_off=n_off, rays=(rays_k, rays_r), shadows=counts["shadow"])
+
+
+def _fmt_sample(c) -> str:
+    floor = "" if c["floor"] is None else f" (cpu floor {c['floor']:.4f})"
+    return (f"L {c['l_agree']:.4f}{floor} max|dL| {c['max_abs_err']:.3g} "
+            f"rays {c['rays'][0]}/{c['rays'][1]} sign balance "
+            f"{c['sign']:.3f} of its bar ({c['n_off']} lanes)")
+
+
+def _worst_sample(checks) -> dict:
+    return dict(l_agree=min(c["l_agree"] for c in checks),
+                max_abs_err=max(c["max_abs_err"] for c in checks),
+                sign_balance=max(c["sign"] for c in checks),
+                floor=min((c["floor"] for c in checks
+                           if c["floor"] is not None), default=None))
+
+
+def phase_trace_compare():
+    """32: kernel 8 against trace_lanes_ref on the card at 160x120, spp 4,
+    10 bounces: cornell_spheres brute force and NEE, the point-light scene
+    with NEE, each on injected uniforms and on Philox; phase 3's bars."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+
+    w, h, tr = SAMPLE_W, SAMPLE_H, SAMPLE_TR
+    gen = torch.Generator(device="cuda").manual_seed(3232)
+    rows, _ = tk.lanes_layout(w, h, SPP, tr)
+    parts, checks = [], []
+    for name, build, use_nee in (("cornell", _cornell, False),
+                                 ("cornell", _cornell, True),
+                                 ("point", _point, True)):
+        scene, _, cp = build(w, h, "cuda")
+        for injected in (True, False):
+            u = (torch.rand((rows * tk.sample_n_draws(MB, use_nee), 128),
+                            generator=gen, device="cuda")
+                 if injected else None)
+            kw = dict(spp=SPP, width=w, height=h, max_bounces=MB,
+                      rr_start=3, tile_rows=tr, use_nee=use_nee, uniforms=u)
+            case = (f"{name}-{'nee' if use_nee else 'brute'}-"
+                    f"{'injected' if injected else 'philox'}")
+            c = _check_trace_launch(case, scene, cp, (5, 1, 2), kw, w, h)
+            checks.append(c)
+            parts.append(f"{case}: {_fmt_sample(c)}")
+    print(f"[32 trace kernel vs plain] {w}x{h} spp {SPP}, {MB} bounces: "
+          + " | ".join(parts), flush=True)
+    return _worst_sample(checks)
+
+
+def _pallas_tpu_tests():
+    """The TPU-only tests of tests/test_pallas_kernel.py, on the card,
+    against the port's wavefront (models/integrator.py::render_image):
+    mean ratios, determinism, iteration decorrelation, tile-size invariance
+    and the point light. Returns the printed numbers."""
+    import torch
+
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.models.integrator import (
+        RenderConfig, render_image,
+    )
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
+        pack_camera, pallas_render,
+    )
+
+    def cam_of(cs, w, h):
+        return cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h,
+                              cs["fov"], device="cuda")
+
+    out = {}
+    # test_matches_xla_integrator_in_distribution: cornell 64x48, 15 its
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cam_of(cs, 64, 48)
+    acc_p = acc_x = 0.0
+    for it in range(15):
+        ip, _ = pallas_render(scene, pack_camera(cam), (0, it, 7), spp=4,
+                              width=64, height=48, max_bounces=10)
+        acc_p += float(ip.mean())
+        acc_x += float(render_image(scene, cam, 0,
+                                    RenderConfig(spp=4, max_bounces=10),
+                                    iteration=it).mean())
+    out["brute_ratio"] = acc_p / acc_x
+    if not abs(out["brute_ratio"] - 1.0) < 0.03:
+        fail(f"pallas_render vs the wavefront: mean ratio "
+             f"{out['brute_ratio']} (bar 3%)")
+    # test_deterministic_and_iteration_decorrelated: single sphere 32x32
+    s1, cs1 = sc.single_sphere(device="cuda")
+    cp1 = pack_camera(cam_of(cs1, 32, 32))
+    kw = dict(spp=4, width=32, height=32, max_bounces=3)
+    a, na = pallas_render(s1, cp1, (0, 0, 7), **kw)
+    b, _ = pallas_render(s1, cp1, (0, 0, 7), **kw)
+    c, _ = pallas_render(s1, cp1, (0, 1, 7), **kw)
+    if not (torch.equal(a, b) and not torch.equal(a, c)
+            and int(na) >= 32 * 32 * 4):
+        fail("pallas_render: not deterministic, not decorrelated across "
+             "iterations, or fewer rays than primaries")
+    # test_tile_size_invariance: cornell 64x48, tile_rows 8 and 32
+    means = []
+    for rows in (8, 32):
+        acc = 0.0
+        for it in range(10):
+            img, _ = pallas_render(scene, pack_camera(cam), (0, it, 7),
+                                   spp=4, width=64, height=48,
+                                   max_bounces=10, tile_rows=rows)
+            acc += float(img.mean())
+        means.append(acc / 10)
+    out["tile_ratio"] = means[0] / means[1]
+    if not abs(out["tile_ratio"] - 1.0) < 0.05:
+        fail(f"pallas_render: tile_rows 8 vs 32 mean ratio "
+             f"{out['tile_ratio']} (bar 5%)")
+    # test_nee_kernel_matches_xla_nee: single-sphere and small, 48x36, 30 its
+    for name in ("single-sphere", "small"):
+        sn, csn = sc.BUILTIN_SCENES[name](device="cuda")
+        camn = cam_of(csn, 48, 36)
+        acc_p = acc_x = 0.0
+        for it in range(30):
+            ip, _ = pallas_render(sn, pack_camera(camn), (91, it, 7), spp=4,
+                                  width=48, height=36, max_bounces=5,
+                                  use_nee=True)
+            acc_p += float(ip.mean())
+            acc_x += float(render_image(
+                sn, camn, 91, RenderConfig(spp=4, max_bounces=5,
+                                           use_nee=True),
+                iteration=it).mean())
+        out[f"nee_ratio_{name}"] = acc_p / acc_x
+        if not abs(acc_p / acc_x - 1.0) < 0.05:
+            fail(f"pallas_render NEE vs the wavefront on {name}: mean ratio "
+                 f"{acc_p / acc_x} (bar 5%)")
+    # test_nee_kernel_point_light
+    sp = sc.make_scene([sc.sphere([0, -1e4 - 1, 0], 1e4, 0)],
+                       [sc.diffuse([0.7, 0.7, 0.7])],
+                       [sc.point_light([0, 3, 0], [40.0, 40.0, 40.0])],
+                       device="cuda")
+    camp = cm.make_camera([0, 2, 8], [0, 0, 0], [0, 1, 0], 32, 32, 60.0,
+                          device="cuda")
+    img, _ = pallas_render(sp, pack_camera(camp), (17, 0, 7), spp=4,
+                           width=32, height=32, max_bounces=3, use_nee=True)
+    out["point_max"] = float(img.max())
+    if not out["point_max"] > 0.1:
+        fail(f"pallas_render: the point light is not seen ({out})")
+    return out
+
+
+def phase_trace_main():
+    """33: the pallas_render main path on cornell_spheres at 640x480, spp
+    4, 10 bounces, brute force then NEE, two frames each (iterations 0 and
+    1): finite images, launches counted; each launch replayed from its own
+    inputs, bit for bit, and held to the plain version on the card by phase
+    32's bars. Then the JAX suite's TPU-only tests of the kernel against
+    the port's wavefront (``_pallas_tpu_tests``)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+
+    scene, _, cp = _cornell(W, H, "cuda")
+    kw = dict(spp=SPP, width=W, height=H, max_bounces=MB, rr_start=3,
+              tile_rows=SAMPLE_TR)
+    frames = {}
+    tk.launches = 0
+    for use_nee in (False, True):
+        for it in range(2):
+            frames[(use_nee, it)] = tk.pallas_render(
+                scene, cp, (17, it, 0), use_nee=use_nee, **kw)
+    torch.cuda.synchronize()
+    launches = tk.launches
+    if launches != len(frames):
+        fail(f"trace main path: {launches} kernel launches for "
+             f"{len(frames)} frames")
+    parts, checks = [], []
+    for (use_nee, it), (img, rays) in frames.items():
+        mode = "nee" if use_nee else "brute"
+        if tuple(img.shape) != (H, W, 3) or not torch.isfinite(img).all():
+            fail(f"trace main path ({mode}, iteration {it}): bad image")
+        c = _check_trace_launch(f"trace main path ({mode}, iteration {it})",
+                                scene, cp, (17, it, 0),
+                                dict(kw, use_nee=use_nee), W, H,
+                                main=(img, rays))
+        checks.append(c)
+        parts.append(f"{mode} iteration {it}: mean {float(img.mean()):.5f}, "
+                     f"{int(rays)} rays; vs plain {_fmt_sample(c)}")
+    tpu = _pallas_tpu_tests()
+    print(f"[33 trace main path] cornell {W}x{H} spp {SPP}, {MB} bounces: "
+          f"{launches} launches; " + " | ".join(parts)
+          + f"; the JAX suite's TPU-only tests against the wavefront: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in tpu.items())}", flush=True)
+    return launches, _worst_sample(checks), tpu
+
+
+def _pixels_agree(k_L, r_L, spp, n_lanes):
+    """(rows, 128) mask, float: 1 on the lanes of the pixels whose every
+    lane agrees (``sample_lane_agreement``'s bar), else 0."""
+    import torch
+
+    from tpu_pathtracer_torch.utils.metrics import sample_lane_agreement
+
+    ok = sample_lane_agreement(k_L, r_L, n_lanes)[2]
+    return ok.reshape(-1, spp).all(-1).repeat_interleave(spp).reshape(
+        ok.shape).to(device=k_L.device, dtype=torch.float32)
+
+
+def _mse_of(L, tgt, spp, w, h, keep=None):
+    """MSE of the pixel means of (rows, 128, 3) lanes against the broadcast
+    target, in float64, over the lanes of ``keep`` (all by default)."""
+    n = w * h * spp
+    img = L.double().reshape(-1, 3)[:n].reshape(-1, spp, 3).mean(1)
+    t = tgt.double().reshape(-1, 3)[:n:spp]
+    d = (img - t) ** 2
+    if keep is not None:
+        d = d * keep.reshape(-1)[:n:spp, None].double()
+    return float(d.sum() / (w * h * 3))
+
+
+def _check_replay_launch(label, scene, cp, seed, it, tgt, kw, w, h,
+                         main_loss=None):
+    """Kernel 7 against its plain version on the card from the same inputs,
+    in both modes: mode "mse" lane for lane (>= 98% or the CPU floor, rays
+    within 1%, the sign test); its loss against the MSE of its own lanes
+    and its gradients against mode "vjp" fed its own lanes' cotangent
+    (rtol FOLD_RTOL: the fold of phase 7); then mode "vjp" on both sides
+    with the plain lanes' cotangent zeroed on the pixels whose lanes
+    disagree (gradients rtol GRAD_RTOL) and the loss over those pixels
+    (rtol LOSS_RTOL). ``main_loss``, if given, is the loss the main path's
+    launch returned from these inputs, which the replay must equal bit for
+    bit."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+    from tpu_pathtracer_torch.utils.metrics import (
+        AGREE, sample_lane_agreement,
+    )
+
+    spp = kw["spp"]
+    n = w * h * spp
+    args = (scene, cp, seed, it)
+    k = rk.replay_call(*args, tgt, mode="mse", **kw)
+    counts = {}
+    r = rk.replay_call_ref(*args, tgt, mode="mse", counts=counts, **kw)
+    torch.cuda.synchronize()
+    if main_loss is not None and not torch.equal(k[1], main_loss):
+        fail(f"{label}: the replayed launch's loss {float(k[1])} is not the "
+             f"main path's {float(main_loss)}")
+    if not all(bool(torch.isfinite(x).all()) for x in (*k[:4], *r[:4])):
+        fail(f"{label}: non-finite outputs")
+    frac, dmax, _ = sample_lane_agreement(k[0], r[0], n)
+    floor = None
+    if frac < AGREE:
+        floor = _sample_floor(rk.replay_call_ref, (*args, tgt),
+                              dict(kw, mode="mse"), r[0], n)
+        if frac < floor:
+            fail(f"{label}: kernel vs plain agreement {frac} is below both "
+                 f"{AGREE} and the plain version's CPU-vs-card floor {floor}")
+    rays_k, rays_r = int(k[4]), int(r[4])
+    if abs(rays_k - rays_r) > RAY_TOL * max(rays_r, 1):
+        fail(f"{label}: rays {rays_k} vs plain {rays_r}")
+    # the fold: mode "mse" is mode "vjp" on its own lanes' cotangent
+    scale = float(k[2].abs().max())
+    g_own = rk.lane_cotangent(k[0], tgt, spp, w, h)
+    kv = rk.replay_call(*args, g_own, mode="vjp", **kw)
+    if not (_close(k[1], k[1].new_tensor(_mse_of(k[0], tgt, spp, w, h)),
+                   FOLD_RTOL)
+            and _close(k[2], kv[2], FOLD_RTOL, 1e-6 * scale)
+            and _close(k[3], kv[3], FOLD_RTOL, 1e-6 * scale)):
+        fail(f"{label}: mode mse {k[1:4]} is not the fold of its lanes "
+             f"{kv[1:4]}")
+    # kernel against plain over the agreeing pixels
+    keep = _pixels_agree(k[0], r[0], spp, n)
+    g = rk.lane_cotangent(r[0], tgt, spp, w, h) * keep[..., None]
+    km = rk.replay_call(*args, g.contiguous(), mode="vjp", **kw)
+    rm = rk.replay_call_ref(*args, g.contiguous(), mode="vjp", **kw)
+    loss_k = _mse_of(k[0], tgt, spp, w, h, keep)
+    loss_r = _mse_of(r[0], tgt, spp, w, h, keep)
+    if not (abs(loss_k - loss_r) <= LOSS_RTOL * abs(loss_r)
+            and _close(km[2], rm[2], GRAD_RTOL, 1e-6 * scale)
+            and _close(km[3], rm[3], GRAD_RTOL, 1e-6 * scale)):
+        fail(f"{label}: over the agreeing pixels, loss {loss_k} vs plain "
+             f"{loss_r}, gradients {km[2:4]} vs plain {rm[2:4]}")
+    sign, n_off = _sign_balance([(k[0].permute(2, 0, 1),
+                                  r[0].permute(2, 0, 1))], n)
+    if sign > 1.0:
+        fail(f"{label}: the lanes that differ lean one way, {sign} times the "
+             f"bar ({n_off} lanes)")
+    loss_gap = abs(float(k[1]) - float(r[1])) / max(abs(float(r[1])), 1e-30)
+    grad_gap = float((k[2] - r[2]).abs().max()
+                     / r[2].abs().max().clamp_min(1e-30))
+    return dict(l_agree=frac, floor=floor, max_abs_err=dmax, sign=sign,
+                n_off=n_off, rays=(rays_k, rays_r),
+                pixels=float(keep.reshape(-1)[:n].mean()), loss=float(k[1]),
+                loss_gap=loss_gap, grad_gap=grad_gap,
+                shadows=counts["shadow"])
+
+
+def _fmt_replay(c) -> str:
+    return (f"{_fmt_sample(c)}; agreeing pixels {c['pixels']:.4f}; whole "
+            f"image, relative gaps: loss {c['loss_gap']:.3g}, gradient "
+            f"{c['grad_gap']:.3g}")
+
+
+REPLAY_CASES = [
+    # (spp, use_nee, lens, injected): the warp path (spp <= 32) and the
+    # shared-memory path (spp 64)
+    (4, False, False, True), (4, True, False, True), (4, True, False, False),
+    (4, False, True, True), (4, True, True, False), (1, True, False, False),
+    (16, False, False, True), (64, True, False, False),
+]
+
+
+def phase_replay_compare():
+    """34: kernel 7 against replay_call_ref on the card at 160x120, 10
+    bounces (``_check_replay_launch``: modes "mse" and "vjp"), brute force
+    and NEE, with and without the lens, spp 1, 4, 16 and 64, injected and
+    Philox."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+
+    w, h, tr = SAMPLE_W, SAMPLE_H, SAMPLE_TR
+    gen = torch.Generator(device="cuda").manual_seed(3434)
+    target = torch.rand((h, w, 3), generator=gen, device="cuda")
+    parts, checks = [], []
+    for spp, use_nee, lens, injected in REPLAY_CASES:
+        scene, _, cp = _scene("cornell", w, h, "cuda", LENS if lens else None)
+        rows, _ = rk.lanes_layout(w, h, spp, tr)
+        u = (torch.rand((rows * tk.sample_n_draws(MB, use_nee, lens), 128),
+                        generator=gen, device="cuda") if injected else None)
+        kw = dict(spp=spp, width=w, height=h, max_bounces=MB, rr_start=3,
+                  tile_rows=tr, use_nee=use_nee, use_dof=lens, uniforms=u)
+        case = (f"spp{spp}-{'nee' if use_nee else 'brute'}"
+                f"{'-lens' if lens else ''}-"
+                f"{'injected' if injected else 'philox'}")
+        c = _check_replay_launch(
+            case, scene, cp, (5, 2), 3,
+            rk.broadcast_pixels_to_lanes(target, spp, rows), kw, w, h)
+        checks.append(c)
+        parts.append(f"{case}: {_fmt_replay(c)}")
+    print(f"[34 replay kernel vs plain] {w}x{h}, {MB} bounces: "
+          + " | ".join(parts), flush=True)
+    return _worst_sample(checks)
+
+
+def phase_sample_trainer(steps=5):
+    """35: the engine="sample" trainer at BASELINE config 5 (cornell
+    640x480, spp 4, 10 bounces, strat_k 2), brute force then NEE: the
+    target from render_target_kernel(engine="sample"), then ``steps``
+    same-seed Adam steps from phase 8's perturbed parameters; the loss
+    falls, 1 + steps launches of kernel 7 and none of another kernel; the
+    last launch replayed bit for bit and held to the plain version by
+    phase 34's checks."""
+    import torch
+
+    from tpu_pathtracer_torch.diff import inverse
+    from tpu_pathtracer_torch.models.integrator import RenderConfig
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+
+    scene, cam, cp = _cornell(W, H, "cuda")
+    rows, _ = rk.lanes_layout(W, H, SPP, SAMPLE_TR)
+    seed, mat = (17, 0), 3
+    parts, launches, checks = [], {}, []
+    for use_nee in (False, True):
+        mode = "nee" if use_nee else "brute"
+        config = RenderConfig(spp=SPP, max_bounces=MB, rr_start=3,
+                              use_nee=use_nee)
+        p0 = inverse.params_of(scene)
+        p0["mat_color"][mat] = 0.3
+        p0["light_intensity"] *= 0.5
+        state = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
+        step = inverse.make_kernel_train_step(scene, cam, config,
+                                              fixed_iteration=0,
+                                              engine="sample")
+        pk.launches = rp.launches = rk.launches = tk.launches = 0
+        target = inverse.render_target_kernel(scene, cam, seed, config,
+                                              engine="sample")
+        losses = []
+        for _ in range(steps):
+            last = {k: v.detach().clone() for k, v in state.params.items()}
+            state, loss = step(state, target, seed)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        launches[mode] = rk.launches
+        if rk.launches != 1 + steps or pk.launches or rp.launches \
+                or tk.launches:
+            fail(f"sample trainer ({mode}): {rk.launches} launches of kernel "
+                 f"7 and {pk.launches + rp.launches + tk.launches} of others "
+                 f"for 1 target and {steps} steps")
+        vals = [float(x) for x in losses]
+        if tuple(target.shape) != (W * H, 3) or not (
+                bool(torch.isfinite(target).all())
+                and all(map(math.isfinite, vals))
+                and all(bool(torch.isfinite(v.detach()).all())
+                        for v in state.params.values())):
+            fail(f"sample trainer ({mode}): non-finite or misshapen results")
+        if not vals[-1] < vals[0]:
+            fail(f"sample trainer ({mode}): loss {vals[0]} -> {vals[-1]} did "
+                 "not fall")
+        c = _check_replay_launch(
+            f"sample trainer ({mode}) last launch",
+            inverse.apply_params(scene, last), cp, seed, 0,
+            rk.broadcast_pixels_to_lanes(target.reshape(H, W, 3), SPP, rows),
+            dict(spp=SPP, width=W, height=H, max_bounces=MB, rr_start=3,
+                 tile_rows=SAMPLE_TR, use_nee=use_nee, use_dof=False), W, H,
+            main_loss=losses[-1])
+        checks.append(c)
+        alb = state.params["mat_color"][mat].detach().cpu().tolist()
+        parts.append(
+            f"{mode}: loss {' '.join(f'{v:.6g}' for v in vals)}; albedo "
+            f"{mat} {[round(a, 4) for a in alb]} (true "
+            f"{[round(a, 4) for a in scene.mat_color[mat].tolist()]}); "
+            f"launches {launches[mode]} = 1 + {steps}; last launch vs plain: "
+            f"{_fmt_replay(c)}")
+    print(f"[35 sample trainer main path] cornell {W}x{H} spp {SPP}, {MB} "
+          f"bounces, strat_k 2, lr {LR}: " + " | ".join(parts), flush=True)
+    return launches, _worst_sample(checks)
+
+
+def _sample_bound(scene, segments, paths, shadows, shadow_prims, lanes,
+                  nbytes, adjoint=None, lens=False):
+    """Bound of a per-sample launch from this run's work: per segment the
+    closest hit over every prim and the shading (OPS "quadratic",
+    "segment"), per path its camera ray ("path", and "lens" with the thin
+    lens), per NEE sample the light sample ("shadow") and per sphere its
+    sweep tests ("shadow_prim", ``shadow_prims`` in all: kernel 8 tests
+    every prim, kernel 7 every prim but the sampled light sphere); with
+    ``adjoint`` = (slots, lights), the adjoint per segment and the
+    cotangent per lane ("adjoint_segment", "adjoint_flush_slot",
+    "adjoint_flush_light")."""
+    p = int(scene.num_prims)
+    ops = (segments * (OPS["quadratic"] * p + OPS["segment"])
+           + paths * (OPS["path"] + (OPS["lens"] if lens else 0))
+           + shadows * OPS["shadow"] + shadow_prims * OPS["shadow_prim"])
+    if adjoint is not None:
+        ops += (segments * OPS["adjoint_segment"]
+                + lanes * (OPS["adjoint_flush_slot"] * adjoint[0]
+                           + OPS["adjoint_flush_light"] * adjoint[1]))
+    return _bound(ops, nbytes)
+
+
+def phase_sample_times(smi):
+    """35 times, by phase 6's and 10's protocol: kernel 8 (pallas_render
+    at 640x480, spp 4, 10 bounces) and kernel 7 (mse_value_and_grad at
+    config 5), brute force and NEE: ms per call by the CUDA-event slope
+    (median of REPS), the kernel's device ms per launch and the device's
+    idle share from one torch.profiler trace of 10 calls, the bound from
+    this run's work (the plain version's counts on the same seed) and the
+    plain version's ms."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+
+    scene, cam, cp = _cornell(W, H, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    target = torch.rand((H, W, 3), generator=gen, device="cuda")
+    rows, n = tk.lanes_layout(W, H, SPP, SAMPLE_TR)
+    lanes = rows * 128
+    n_slots = len(rk.material_slots(scene)[0])
+    n_l = len(scene.light_structure)
+    aux = rk.broadcast_pixels_to_lanes(target, SPP, rows)
+    out = {}
+    for use_nee in (False, True):
+        mode = "nee" if use_nee else "brute"
+        kw8 = dict(spp=SPP, width=W, height=H, max_bounces=MB, rr_start=3,
+                   tile_rows=SAMPLE_TR, use_nee=use_nee)
+        kw7 = dict(spp=SPP, max_bounces=MB, rr_start=3, tile_rows=SAMPLE_TR,
+                   use_nee=use_nee)
+        o8, o7 = {}, {}
+        o8["call_ms"], o8["reps"] = _slope_ms(
+            lambda salt, i: tk.pallas_render(scene, cp, (salt, i, 0), **kw8))
+        o7["call_ms"], o7["reps"] = _slope_ms(
+            lambda salt, i: rk.mse_value_and_grad(scene, cam, (salt, i), 0,
+                                                  target, **kw7))
+        # the plain versions: their ms and this run's work on seed 300
+        c8, c7 = {}, {}
+        a, b, c = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        a.record()
+        _, rays_r = tk.trace_lanes_ref(scene, cp, (300, 0, 0), counts=c8,
+                                       **kw8)
+        b.record()
+        out7 = rk.replay_call_ref(scene, cp, (300, 0), 0, aux, width=W,
+                                  height=H, counts=c7, **kw7)
+        c.record()
+        torch.cuda.synchronize()
+        o8["plain_ms"], o7["plain_ms"] = a.elapsed_time(b), b.elapsed_time(c)
+        _, rays_k = tk.trace_lanes(scene, cp, (300, 0, 0), **kw8)
+        segs7 = int(rk.replay_call(scene, cp, (300, 0), 0, aux, width=W,
+                                   height=H, **kw7)[4])
+        o8["bound_ms"], o8["bound_by"] = _sample_bound(
+            scene, int(rays_k), n, int(c8["shadow"]),
+            int(c8["shadow"]) * int(scene.num_prims), lanes,
+            lanes * 12 + rows * 4)
+        k_part = 3 * n_slots + 3 * n_l + 1
+        o7["bound_ms"], o7["bound_by"] = _sample_bound(
+            scene, segs7, n, int(c7["shadow"]), int(c7["shadow_prims"]),
+            lanes, lanes * 24 + rows * (4 * k_part + 4),
+            adjoint=(n_slots, n_l))
+        o8["work"] = (int(rays_k), n, int(c8["shadow"]))
+        o7["work"] = (segs7, n, int(c7["shadow"]))
+        del out7, rays_r
+        for o, name, run in (
+                (o8, "trace_kernel",
+                 lambda i: tk.pallas_render(scene, cp, (400, i, 0), **kw8)),
+                (o7, "replay_kernel",
+                 lambda i: rk.mse_value_and_grad(scene, cam, (400, i), 0,
+                                                 target, **kw7))):
+            o["kernel_ms"], busy, window, _ = _profile(
+                run, 10, name, f"{name}_{mode}")
+            o["idle_share"] = 1.0 - busy / window
+            o["busy_ms"], o["window_ms"] = busy, window
+            if o["idle_share"] < 0.0:
+                fail(f"{name} {mode}: device busy {busy} ms exceeds the "
+                     f"window's {window} ms")
+        out[mode] = {"trace": o8, "replay": o7}
+    parts = []
+    for mode, d in out.items():
+        for name, o in d.items():
+            parts.append(
+                f"{name} {mode}: {o['call_ms']:.4f} ms per call (median of "
+                f"{REPS}; {', '.join(f'{v:.4f}' for v in o['reps'])}); "
+                f"kernel {o['kernel_ms']:.4f} ms/launch, bound "
+                f"{o['bound_ms']:.5f} ms by {o['bound_by']} ({o['work'][0]} "
+                f"segments, {o['work'][1]} paths, {o['work'][2]} shadow "
+                f"sweeps); profiled window {o['window_ms']:.4f} ms, device "
+                f"busy {o['busy_ms']:.4f} ms, idle share "
+                f"{o['idle_share']:.3f}; plain {o['plain_ms']:.2f} ms")
+    print(f"[35 sample times] cornell {W}x{H} spp {SPP}, {MB} bounces, "
+          f"tile_rows {SAMPLE_TR} on {smi}: " + " | ".join(parts), flush=True)
+    return out
 
 
 AB_FORWARD = [("cornell", False), ("cornell", True), ("cornell-boxes", False),
@@ -3380,6 +3968,18 @@ def main() -> int:
     laps.append(('30', _lap()))
     tg_times = phase_tex_grad_times(smi)
     laps.append(('31', _lap()))
+    # the per-sample kernels: kernel 8 (pallas_render) and kernel 7 (the
+    # engine="sample" trainer)
+    s_worst = phase_trace_compare()
+    laps.append(('32', _lap()))
+    s_launches, s_worst_main, s_tpu = phase_trace_main()
+    laps.append(('33', _lap()))
+    r_worst = phase_replay_compare()
+    laps.append(('34', _lap()))
+    r_launches, r_worst_main = phase_sample_trainer()
+    laps.append(('35', _lap()))
+    s_times = phase_sample_times(smi)
+    laps.append(('35 times', _lap()))
 
     forward = {
         "name": "persistent_step",
@@ -3746,18 +4346,88 @@ def main() -> int:
         "note": "per wave of the main path (config 4, two-pass); the "
                 "single-pass traversal launches no bin kernel",
     }
+    tb, tn = s_times["brute"]["trace"], s_times["nee"]["trace"]
+    trace = {
+        "name": "trace_kernel",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/trace.cu",
+        "replaces": "tpu_pathtracer/ops/pallas/trace_kernel.py:98",
+        "launches": s_launches,
+        "max_abs_err": max(s_worst["max_abs_err"],
+                           s_worst_main["max_abs_err"]),
+        "ms": tb["kernel_ms"],
+        "plain_ms": tb["plain_ms"],
+        "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"],
+        "library_ms": None,
+        "tolerance": f">= {AGREE} of lanes within {L_TOL} * max(1, |L|) "
+                     f"(or the plain version's CPU-vs-card floor), rays "
+                     f"within {RAY_TOL}; of the n lanes that differ, one "
+                     f"sign in excess by <= {IMAGE_Z} * sqrt(n)",
+        "l_agree": min(s_worst["l_agree"], s_worst_main["l_agree"]),
+        "floor": min((x for x in (s_worst["floor"], s_worst_main["floor"])
+                      if x is not None), default=None),
+        "sign_balance": max(s_worst["sign_balance"],
+                            s_worst_main["sign_balance"]),
+        "ms_nee": tn["kernel_ms"], "plain_ms_nee": tn["plain_ms"],
+        "bound_ms_nee": tn["bound_ms"], "bound_by_nee": tn["bound_by"],
+        "call_ms_brute": tb["call_ms"], "call_ms_nee": tn["call_ms"],
+        "idle_share_brute": tb["idle_share"],
+        "idle_share_nee": tn["idle_share"],
+        "tpu_only_tests": s_tpu,
+        "note": "ms, plain_ms and bound_ms at the main path's shapes "
+                "(pallas_render on cornell 640x480, spp 4, 10 bounces, "
+                "brute force; *_nee with NEE); launches are phase 33's "
+                "main path",
+    }
+    rb, rn = s_times["brute"]["replay"], s_times["nee"]["replay"]
+    replay = {
+        "name": "replay_kernel",
+        "route": "cuda",
+        "source": "tpu_pathtracer_torch/csrc/replay.cu",
+        "replaces": "tpu_pathtracer/ops/pallas/replay_kernel.py:61",
+        "launches": sum(r_launches.values()),
+        "max_abs_err": max(r_worst["max_abs_err"],
+                           r_worst_main["max_abs_err"]),
+        "ms": rb["kernel_ms"],
+        "plain_ms": rb["plain_ms"],
+        "bound_ms": rb["bound_ms"],
+        "bound_by": rb["bound_by"],
+        "library_ms": None,
+        "tolerance": f">= {AGREE} of lanes within {L_TOL} * max(1, |L|) "
+                     f"(or the CPU-vs-card floor), rays within {RAY_TOL}; "
+                     f"mode mse equal to the fold of its own lanes (rtol "
+                     f"{FOLD_RTOL}); over the agreeing pixels, loss rtol "
+                     f"{LOSS_RTOL} and gradients rtol {GRAD_RTOL} against "
+                     f"the plain version; the sign test",
+        "l_agree": min(r_worst["l_agree"], r_worst_main["l_agree"]),
+        "floor": min((x for x in (r_worst["floor"], r_worst_main["floor"])
+                      if x is not None), default=None),
+        "sign_balance": max(r_worst["sign_balance"],
+                            r_worst_main["sign_balance"]),
+        "ms_nee": rn["kernel_ms"], "plain_ms_nee": rn["plain_ms"],
+        "bound_ms_nee": rn["bound_ms"], "bound_by_nee": rn["bound_by"],
+        "grad_ms_brute": rb["call_ms"], "grad_ms_nee": rn["call_ms"],
+        "idle_share_brute": rb["idle_share"],
+        "idle_share_nee": rn["idle_share"],
+        "note": "ms, plain_ms and bound_ms at config 5 "
+                "(mse_value_and_grad on cornell 640x480, spp 4, 10 bounces, "
+                "brute force; *_nee with NEE); launches are phase 35's "
+                "trainer (target + 5 steps per mode)",
+    }
     for entry, kernel in ((forward, "persistent_kernel"),
                           (gradient, "replay_persistent_kernel"),
                           (scatter, "replay_scatter_kernel"),
                           (jvp, "camera_jvp_kernel"),
-                          (packet, "packet_kernel"), (binning, "bin_kernel")):
+                          (packet, "packet_kernel"), (binning, "bin_kernel"),
+                          (trace, "trace_kernel"), (replay, "replay_kernel")):
         entry["ptxas"] = {k: v for k, v in builds.items()
                           if k.split("<")[0] == kernel}
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in laps)
           + f"; total {sum(v for _, v in laps):.1f}", flush=True)
-    print(json.dumps({"kernels": [forward, gradient, scatter, walk, jvp,
-                                  packet, binning]}))
     print(smi)
+    print(json.dumps({"kernels": [forward, gradient, scatter, walk, jvp,
+                                  packet, binning, trace, replay]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -650,3 +650,76 @@ def test_wavefront_renders_through_the_kernels_on_gpu():
     assert mk.packet_launches - p0 == 16 and mk.bin_launches - b0 == 16
     img = r.image()
     assert torch.isfinite(img).all() and float(img.mean()) > 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True])
+@pytest.mark.parametrize("injected", [True, False])
+def test_trace_kernel_matches_plain_on_gpu(use_nee, injected):
+    """The per-sample forward kernel (kernel 8) against trace_lanes_ref on
+    the same uniforms: >= 98% of lanes, rays within 1%, one launch per
+    render, a render that replays bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+    from tpu_pathtracer_torch.utils.metrics import sample_lane_agreement
+
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda")
+    rows, n = tk.lanes_layout(W, H, 4, TR)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    u = (torch.rand((rows * tk.sample_n_draws(MB, use_nee), LANES),
+                    generator=gen, device="cuda") if injected else None)
+    kw = dict(spp=4, width=W, height=H, max_bounces=MB, tile_rows=TR,
+              use_nee=use_nee, uniforms=u)
+    launches = tk.launches
+    Lk, nk = tk.trace_lanes(scene, pack_camera(cam), (3, 1, 2), **kw)
+    Lk2, _ = tk.trace_lanes(scene, pack_camera(cam), (3, 1, 2), **kw)
+    Lr, nr = tk.trace_lanes_ref(scene, pack_camera(cam), (3, 1, 2), **kw)
+    assert tk.launches == launches + 2 and torch.equal(Lk, Lk2)
+    assert sample_lane_agreement(Lk, Lr, n)[0] >= AGREE
+    assert abs(int(nk) - int(nr)) <= 0.01 * int(nr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp,use_nee,lens", [(4, False, False),
+                                              (4, True, True),
+                                              (16, True, False),
+                                              (64, False, False)])
+def test_replay_kernel_matches_plain_on_gpu(spp, use_nee, lens):
+    """The per-sample value-and-grad kernel (kernel 7) against
+    replay_call_ref on Philox draws, through the warp-shuffle (spp <= 32)
+    and shared-memory pixel means: >= 98% of lanes, rays within 1%; mode
+    "mse" equals mode "vjp" on its own lanes' cotangent; a launch replays
+    bit for bit; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+    from tpu_pathtracer_torch.utils.metrics import sample_lane_agreement
+
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda",
+                         **(dict(lens_radius=4.0, focal_distance=60.0)
+                            if lens else {}))
+    cp = pack_camera(cam)
+    rows, n = rk.lanes_layout(W, H, spp, TR)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tgt = rk.broadcast_pixels_to_lanes(
+        torch.rand((H, W, 3), generator=gen, device="cuda"), spp, rows)
+    kw = dict(spp=spp, width=W, height=H, max_bounces=MB, tile_rows=TR,
+              use_nee=use_nee, use_dof=lens)
+    launches = rk.launches
+    k = rk.replay_call(scene, cp, (2, 5), 1, tgt, **kw)
+    k2 = rk.replay_call(scene, cp, (2, 5), 1, tgt, **kw)
+    r = rk.replay_call_ref(scene, cp, (2, 5), 1, tgt, **kw)
+    g = rk.lane_cotangent(k[0], tgt, spp, W, H)
+    kv = rk.replay_call(scene, cp, (2, 5), 1, g, mode="vjp", **kw)
+    assert rk.launches == launches + 3
+    assert all(torch.equal(a, b) for a, b in zip(k, k2))
+    assert sample_lane_agreement(k[0], r[0], n)[0] >= AGREE
+    assert abs(int(k[4]) - int(r[4])) <= 0.01 * int(r[4])
+    for i in (2, 3):
+        torch.testing.assert_close(kv[i], k[i], rtol=1e-4,
+                                   atol=1e-6 * float(k[i].abs().max()))

@@ -5,7 +5,7 @@ the fused kernel in interpret mode on its external uniforms) against the
 port's step from the same parameters and Adam state, carried across with
 ``train_state_from_numpy``, on the same uniforms. Adam alone is checked
 against ``optax.adam`` on the same numpy gradients. The rest checks the
-port's own contracts: ``PersistentMSE``'s backward, the routes that are not
+port's own contracts: ``KernelMSE``'s backward, the routes that are not
 ported, the refusal to fall back from the card, and import without JAX.
 """
 from __future__ import annotations
@@ -179,8 +179,9 @@ def cornell():
 
 
 def test_persistent_mse_backward_scales_saved_grads(cornell):
-    """PersistentMSE's backward is the cotangent times the gradients of
-    kernel_loss_and_grads, and its forward is the same loss."""
+    """KernelMSE's backward (engine "persistent") is the cotangent times
+    the gradients of kernel_loss_and_grads, and its forward is the same
+    loss."""
     scene, cam = cornell
     target = torch.rand((H, W, 3), generator=torch.Generator().manual_seed(2))
     params = tinv.params_of(scene)
@@ -188,8 +189,9 @@ def test_persistent_mse_backward_scales_saved_grads(cornell):
     loss, grads = tinv.kernel_loss_and_grads(params, scene, cam, target,
                                              (3, 1), 0, **kw)
     leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    fwd = dict(kw, rr_start=3, use_nee=False, strat_k=2, uniforms=None)
-    out = tinv.PersistentMSE.apply(leaves["mat_color"],
+    fwd = dict(kw, engine="persistent", rr_start=3, use_nee=False,
+               strat_k=2, uniforms=None)
+    out = tinv.KernelMSE.apply(leaves["mat_color"],
                                    leaves["light_intensity"], scene, cam,
                                    target, (3, 1), 0, fwd)
     assert torch.equal(out, loss)
@@ -223,9 +225,11 @@ def test_unported_routes_raise(cornell):
     target = torch.zeros((H, W, 3))
     params = tinv.params_of(scene)
     cfg = RenderConfig(spp=1, max_bounces=1)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tinv.kernel_loss_and_grads(params, scene, cam, target, (0, 0), 0,
-                                   spp=1, engine="sample")
+    # the per-sample engine traces spheres only, as in JAX
+    boxes, _ = tsc.cornell_boxes(device="cpu")
+    with pytest.raises(ValueError, match="engine='sample' does not trace"):
+        tinv.kernel_loss_and_grads(tinv.params_of(boxes), boxes, cam, target,
+                                   (0, 0), 0, spp=1, engine="sample")
     with pytest.raises(NotImplementedError, match="item 15"):
         tinv.make_kernel_train_step(scene, cam, cfg, mesh=object())
     # textures are ported: on a scene with no mesh no atlas gradient can be

@@ -107,7 +107,8 @@ def test_build_command_targets_hopper(tmp_path):
     srcs = _build.sources()
     assert [s.name for s in srcs] == ["bin.cu", "camera_jvp.cu",
                                       "packet.cu", "persistent.cu",
-                                      "replay_persistent.cu"]
+                                      "replay.cu", "replay_persistent.cu",
+                                      "trace.cu"]
     obj = tmp_path / "a.o"
     cmd = _build.nvcc_command("nvcc", srcs[1], obj)
     assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
@@ -115,7 +116,7 @@ def test_build_command_targets_hopper(tmp_path):
         assert flag in cmd
     assert cmd[cmd.index("-o") + 1] == str(obj) and cmd[-1] == str(srcs[1])
     # the tangent, packet and bin kernels are built without FMA
-    # contraction, the persistent kernels with it
+    # contraction, the persistent and per-sample kernels with it
     assert [s.name for s in srcs
             if "-fmad=false" in _build.nvcc_command("nvcc", s, obj)] == [
                 "bin.cu", "camera_jvp.cu", "packet.cu"]

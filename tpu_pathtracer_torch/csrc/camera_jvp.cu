@@ -71,7 +71,6 @@
 namespace {
 
 constexpr int MAX_TAN = 4;
-constexpr uint32_t STREAM = 0x20000u;
 
 __constant__ float c_prims[MAX_PRIMS * 12];  // pack_prims layout
 __constant__ float c_lights[MAX_LIGHTS * 8];  // pack_lights layout
@@ -91,15 +90,6 @@ struct Params {
   int pinfo[MAX_PRIMS];   // bit 0 emissive, bits 1-2 type, bits 3+ material
   int lstruct[MAX_LIGHTS * LS];  // light structure (pt_common.cuh)
 };
-
-__device__ __forceinline__ int block_sum_int(int v, int* scratch) {
-  v = __reduce_add_sync(0xffffffffu, v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return threadIdx.x == 0 ? scratch[0] + scratch[1] + scratch[2] + scratch[3]
-                          : 0;
-}
 
 // Tangent of cone_pdf(LP, o) along the previous vertex's tangent `to`
 // (camera_jvp.py:423-455).
@@ -298,7 +288,8 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
   for (int it = 0; it < p.budget; ++it) {
     float u[8];
     draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
-                  col, lane, p.iteration, p.seed, p.salt, STREAM);
+                  col, lane, p.iteration, p.seed, p.salt,
+                  STREAM_TANGENT);
     const float u1 = u[2], u2 = u[3], u3 = u[4];
     const float ul1 = u[5], ul2 = u[6], usel = u[7];
 

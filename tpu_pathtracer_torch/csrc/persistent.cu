@@ -126,7 +126,7 @@ persistent_kernel(State s, Params p) {
     // [ul1 ul2 usel]
     float u[DOF ? 12 : 8];
     draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
-                  col, lane, p.frame, p.seed, p.salt, 0u);
+                  col, lane, p.frame, p.seed, p.salt, STREAM_FORWARD);
     const float u1 = u[U1], u2 = u[U1 + 1], u3 = u[U1 + 2];
     const float ul1 = u[U1 + 3], ul2 = u[U1 + 4], usel = u[U1 + 5];
 

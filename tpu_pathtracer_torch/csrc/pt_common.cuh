@@ -1,16 +1,18 @@
-// Device math shared by the persistent forward kernel (persistent.cu) and the
-// persistent fused value-and-grad kernel (replay_persistent.cu).
+// Device math shared by the persistent forward kernel (persistent.cu), the
+// persistent fused value-and-grad kernel (replay_persistent.cu), the tangent
+// kernel (camera_jvp.cu) and the per-sample kernels (trace.cu, replay.cu).
 //
-// Only code that is the same math in both TPU kernels lives here: the
-// uniforms of one wavefront iteration, the camera ray of a regenerated path
-// and its thin lens, the three BSDF lobes, the NEE light samples (point
-// light, cone sampling of a sphere light, area sampling of a triangle
-// light), the MIS pdfs of sphere and triangle emitter hits, the BVH walk
-// over a packed mesh (with the hit's texture uv on request) and the bilinear
-// texel of the texture atlas. The
-// sphere closest-hit loops and the sphere shadow tests differ between the
-// two TPU kernels (tie rule, segment-ball vs quadratic occlusion) and stay
-// in each kernel.
+// Only code that is the same math in the TPU kernels that use it lives here:
+// the uniforms of one wavefront iteration and of one per-sample lane, the
+// camera ray of a path and its thin lens, the three BSDF lobes (the diffuse
+// one through the polar disk map, and through the concentric map for the
+// per-sample forward kernel), the NEE light samples (point light, cone
+// sampling of a sphere light, area sampling of a triangle light), the MIS
+// pdfs of sphere and triangle emitter hits, the BVH walk over a packed mesh
+// (with the hit's texture uv on request) and the bilinear texel of the
+// texture atlas, and the per-sample kernels' sphere closest hit and
+// quadratic shadow test. The persistent kernels' sphere loops differ from
+// those (tie rule, segment-ball occlusion) and stay in each kernel.
 //
 // Everything is in an anonymous namespace: each translation unit gets its
 // own copy and no symbol of this header reaches the library's interface.
@@ -86,6 +88,16 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t x) {
   return (float)(x >> 8) * (1.0f / 16777216.0f);
 }
 
+// Philox stream tags, the high half of the counter's last word: each kernel
+// draws under its own, so that no two of them replay each other's paths.
+// The plain PyTorch versions use the same tags (utils/rng.py lists them).
+constexpr uint32_t STREAM_FORWARD = 0x00000u;    // persistent.cu
+constexpr uint32_t STREAM_GRADIENT = 0x10000u;   // replay_persistent.cu
+constexpr uint32_t STREAM_TANGENT = 0x20000u;    // camera_jvp.cu
+// 0x30000: the wavefront's draws (utils/rng.py, no kernel)
+constexpr uint32_t STREAM_TRACE = 0x40000u;      // trace.cu
+constexpr uint32_t STREAM_REPLAY = 0x50000u;     // replay.cu
+
 // The n_draw uniforms of one wavefront iteration, in the TPU kernels' order
 // u_cam v_cam [u_lens v_lens] u1 u2 u3 [ul1 ul2 usel] (the lens pair with a
 // thin lens, the last three with NEE); N, 8 or 12, bounds n_draw. Test mode
@@ -119,6 +131,17 @@ __device__ __forceinline__ void draw_uniforms(
   }
 }
 
+// Pinhole ray direction through the image-plane point (sx, sy), in pixels
+// (cam: pack_camera layout).
+__device__ __forceinline__ void pinhole_dir(const float* cam, float sx,
+                                            float sy, float& dx, float& dy,
+                                            float& dz) {
+  dx = cam[0] - cam[6] * sy + cam[3] * sx;
+  dy = cam[1] - cam[7] * sy + cam[4] * sx;
+  dz = cam[2] - cam[8] * sy + cam[5] * sx;
+  normalize3(dx, dy, dz);
+}
+
 // Primary ray direction of a regenerated path: stratified jitter over
 // strat_k^2 cells picked by n_samp % strat_k^2 (cam: pack_camera layout).
 __device__ __forceinline__ void camera_dir(const float* cam, float px,
@@ -135,12 +158,49 @@ __device__ __forceinline__ void camera_dir(const float* cam, float px,
     jx = u_cam - 0.5f;
     jy = v_cam - 0.5f;
   }
-  const float sx = px + jx, sy = py + jy;
-  dx = cam[0] - cam[6] * sy + cam[3] * sx;
-  dy = cam[1] - cam[7] * sy + cam[4] * sx;
-  dz = cam[2] - cam[8] * sy + cam[5] * sx;
-  normalize3(dx, dy, dz);
+  pinhole_dir(cam, px + jx, py + jy, dx, dy, dz);
 }
+
+// Sub-pixel jitter of a per-sample lane (trace_kernel.py:148-156,
+// replay_kernel.py:190-195): cell `cell` of a k x k grid, divided by k as
+// those TPU kernels divide (the persistent kernels multiply by 1/k, which
+// rounds otherwise when k is not a power of two). k = 1 is plain jitter.
+__device__ __forceinline__ void jitter_div(int cell, int k, float u, float v,
+                                           float& jx, float& jy) {
+  jx = ((float)(cell % k) + u) / (float)k - 0.5f;
+  jy = ((float)(cell / k) + v) / (float)k - 0.5f;
+}
+
+// The uniforms of one per-sample lane (trace.cu, replay.cu): draw j of the
+// lane's n_draw, in the TPU kernels' order u_cam v_cam [u_lens v_lens], then
+// per bounce u1 u2 u3 [ul1 ul2 usel]. Test mode (`ub` non-NULL) reads the
+// TPU kernels' external block, (n_draw, tile_rows, 128) per tile: `ub` is
+// this lane's first draw and `stride` = tile_rows * 128. Production mode
+// draws Philox4x32-10 keyed on (seed, salt) and countered on (global lane,
+// iteration, 0, stream | j / 4), word j % 4 of that group. The walks take
+// draws in increasing j, so each group is computed once.
+struct SampleDraws {
+  const float* ub;
+  int stride;
+  uint32_t lane, iteration, seed, salt, stream;
+  int group;
+  uint4 words;
+
+  __device__ __forceinline__ float operator()(int j) {
+    if (ub) return ub[(size_t)j * stride];
+    if ((j >> 2) != group) {
+      group = j >> 2;
+      words = philox4x32_10(
+          make_uint4(lane, iteration, 0u, stream | (uint32_t)group), seed,
+          salt);
+    }
+    const int w = j & 3;
+    return bits_to_uniform(w == 0 ? words.x
+                           : w == 1 ? words.y
+                           : w == 2 ? words.z
+                                    : words.w);
+  }
+};
 
 // Thin lens of a regenerated path (TPU kernels: persistent.py:569-587,
 // replay_persistent.py:512-527). On entry (o, d) is the pinhole ray; the
@@ -546,6 +606,144 @@ __device__ __forceinline__ Lobe sample_lobe(bool is_s, bool is_t, float nx,
   return l;
 }
 
+// The diffuse lobe of the per-sample forward kernel (trace_kernel.py:
+// 385-420, 487-488): the concentric disk map (Shirley-Chiu) with its
+// degenerate centre and the zero-safe divides, lifted to the cosine
+// hemisphere in the frame of n, re-normalized, and weighted by cos / pdf as
+// computed (no wgt = pi shortcut: the re-normalized direction's cosine is
+// not exactly the disk's z).
+__device__ __forceinline__ Lobe sample_diffuse_concentric(
+    float nx, float ny, float nz, float wox, float woy, float woz, float ar,
+    float ag, float ab, float u1, float u2) {
+  const float sx = 2.f * u1 - 1.f, sy = 2.f * u2 - 1.f;
+  const bool in_r12 = sx >= -sy;
+  const bool in_r1 = in_r12 && sx > sy;
+  const bool in_r2 = in_r12 && !in_r1;
+  const bool in_r3 = !in_r12 && sx <= sy;
+  // a / b with b replaced by 1 where it is 0
+  const float sy_sx = sy / (fabsf(sx) > 0.f ? sx : 1.f);
+  const float sx_sy = sx / (fabsf(sy) > 0.f ? sy : 1.f);
+  const float rr = in_r1 ? sx : in_r2 ? sy : in_r3 ? -sx : -sy;
+  float th = in_r1 ? sy_sx
+             : in_r2 ? 2.f - sx_sy
+             : in_r3 ? 4.f + sy_sx
+                     : 6.f - sx_sy;
+  th = th * (PI_F / 4.f);
+  const bool degen = sx == 0.f && sy == 0.f;
+  const float ldx = degen ? 0.f : rr * cosf(th);
+  const float ldy = degen ? 0.f : rr * sinf(th);
+  // both products fused, as XLA computes it: at the disk's rim the rounded
+  // form gives 0 where XLA gives ~3e-8, and the lobe's pdf flips to 0
+  const float ldz = sqrtf(fmaxf(fmaf(-ldy, ldy, fmaf(-ldx, ldx, 1.f)), 0.f));
+  const bool use_x = fabsf(nx) > fabsf(nz);
+  float ux = use_x ? -ny : 0.f, uy = use_x ? nx : -nz, uz = use_x ? 0.f : ny;
+  normalize3(ux, uy, uz);
+  const float vx = ny * uz - nz * uy;
+  const float vy = nz * ux - nx * uz;
+  const float vz = nx * uy - ny * ux;
+  Lobe l;
+  l.wix = ux * ldx + vx * ldy + nx * ldz;
+  l.wiy = uy * ldx + vy * ldy + ny * ldz;
+  l.wiz = uz * ldx + vz * ldy + nz * ldz;
+  normalize3(l.wix, l.wiy, l.wiz);
+  const float cos_d = fabsf(dot3(l.wix, l.wiy, l.wiz, nx, ny, nz));
+  l.pdf = dot3(wox, woy, woz, l.wix, l.wiy, l.wiz) < 0.f ? cos_d * INV_PI
+                                                         : 0.f;
+  l.fr = ar * INV_PI;
+  l.fg = ag * INV_PI;
+  l.fb = ab * INV_PI;
+  l.wgt = cos_d / fmaxf(l.pdf, 1e-20f);
+  return l;
+}
+
+// A closest sphere hit of the per-sample kernels (trace.cu, replay.cu):
+// the hit point and normal, the material and the emission of its prim.
+struct SphereHit {
+  bool hit, emissive;
+  int prim, mtype;
+  float hx, hy, hz, nx, ny, nz, ar, ag, ab, coef, er, eg, eb;
+};
+
+// Closest sphere hit over the pack_prims table `prims` (flags `pflags`:
+// bit 0 emissive, bits 1-2 type) with the primitive.h:44 roots: t0 = b - sq
+// if t0 > tmin, else b + sq; the strict < keeps the first prim on an exact
+// tie. The normal multiplies by the radius's reciprocal (RECIP, as
+// replay_kernel.py:159 does) or divides by the radius (trace_kernel.py:
+// 200-202).
+template <bool RECIP>
+__device__ __forceinline__ SphereHit closest_sphere(
+    const float* prims, const int* pflags, int n_prims, float ox, float oy,
+    float oz, float dx, float dy, float dz) {
+  float best_t = BIG;
+  int best_p = 0;
+  for (int q = 0; q < n_prims; ++q) {
+    const float* P = prims + q * 12;
+    const float opx = P[0] - ox, opy = P[1] - oy, opz = P[2] - oz;
+    const float r = P[3];
+    const float b = dot3_fma(opx, opy, opz, dx, dy, dz);
+    const float det =
+        fmaf(r, r, fmaf(b, b, -dot3_fma(opx, opy, opz, opx, opy, opz)));
+    const float sq = sqrtf(fmaxf(det, 0.f));
+    const float t0 = b - sq;
+    const float t = t0 > TMIN ? t0 : b + sq;
+    if (det >= 0.f && t > TMIN && t < best_t) {
+      best_t = t;
+      best_p = q;
+    }
+  }
+  SphereHit h;
+  h.hit = best_t < 0.5f * BIG;
+  h.prim = best_p;
+  if (!h.hit) return h;
+  const float* HP = prims + best_p * 12;
+  const int pflag = pflags[best_p];
+  h.hx = fmaf(dx, best_t, ox);
+  h.hy = fmaf(dy, best_t, oy);
+  h.hz = fmaf(dz, best_t, oz);
+  if (RECIP) {
+    const float inv_r = 1.0f / HP[3];
+    h.nx = (h.hx - HP[0]) * inv_r;
+    h.ny = (h.hy - HP[1]) * inv_r;
+    h.nz = (h.hz - HP[2]) * inv_r;
+  } else {
+    h.nx = (h.hx - HP[0]) / HP[3];
+    h.ny = (h.hy - HP[1]) / HP[3];
+    h.nz = (h.hz - HP[2]) / HP[3];
+  }
+  h.ar = HP[4];
+  h.ag = HP[5];
+  h.ab = HP[6];
+  h.mtype = (pflag >> 1) & 3;
+  h.coef = h.mtype == SPECULAR || h.mtype == TRANSMISSIVE ? HP[7] : 0.f;
+  h.emissive = pflag & 1;
+  h.er = h.emissive ? HP[9] : 0.f;
+  h.eg = h.emissive ? HP[10] : 0.f;
+  h.eb = h.emissive ? HP[11] : 0.f;
+  return h;
+}
+
+// Shadow any-hit of the per-sample kernels (scene.h:101-108): does any
+// sphere of `prims` but `skip` (-1: none) have a quadratic root in
+// (tmin, smax) along w from h? Stops at the first occluder.
+__device__ __forceinline__ bool sphere_occluded(const float* prims,
+                                                int n_prims, int skip,
+                                                float hx, float hy, float hz,
+                                                float wx, float wy, float wz,
+                                                float smax) {
+  for (int q = 0; q < n_prims; ++q) {
+    if (q == skip) continue;
+    const float* P = prims + q * 12;
+    const float sx = P[0] - hx, sy = P[1] - hy, sz = P[2] - hz;
+    const float rb = dot3_fma(sx, sy, sz, wx, wy, wz);
+    const float rdet =
+        fmaf(P[3], P[3], fmaf(rb, rb, -dot3_fma(sx, sy, sz, sx, sy, sz)));
+    const float rsq = sqrtf(fmaxf(rdet, 0.f));
+    const float rt = rb - rsq > TMIN ? rb - rsq : rb + rsq;
+    if (rdet >= 0.f && rt > TMIN && rt < smax) return true;
+  }
+  return false;
+}
+
 // Per-block sum of one value over the block's 128 threads, in a fixed
 // order (warp shuffle tree, then the four warp sums in order), so the result
 // does not depend on scheduling. `scratch` holds 4 floats of shared memory;
@@ -560,6 +758,16 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   return threadIdx.x == 0 ? ((scratch[0] + scratch[1]) + scratch[2]) + scratch[3]
                           : 0.f;
+}
+
+// block_sum of an int (exact, so any order gives the same sum).
+__device__ __forceinline__ int block_sum_int(int v, int* scratch) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
+  __syncthreads();
+  return threadIdx.x == 0 ? scratch[0] + scratch[1] + scratch[2] + scratch[3]
+                          : 0;
 }
 
 }  // namespace

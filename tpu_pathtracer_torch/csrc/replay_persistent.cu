@@ -112,7 +112,6 @@ namespace {
 constexpr int MAX_SLOTS = 16;        // materials on a surface
 constexpr int MAX_GRAD_LIGHTS = 16;  // lights with an intensity adjoint
 constexpr int MAX_MATS = 256;        // materials a mesh triangle may use
-constexpr uint32_t STREAM = 0x10000u;
 
 __constant__ float c_prims[MAX_PRIMS * 12];  // pack_prims layout
 __constant__ int c_pflags[MAX_PRIMS];        // bit 0 emissive, bits 1-2 type
@@ -143,15 +142,6 @@ struct Params {
   const int* nsf;         // scatter: launch 1's final sample counts
   float* gT;              // scatter: (tex_k, tex_th, tex_tw, 3) atlas gradient
 };
-
-__device__ __forceinline__ int block_sum_int(int v, int* scratch) {
-  v = __reduce_add_sync(0xffffffffu, v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return threadIdx.x == 0 ? scratch[0] + scratch[1] + scratch[2] + scratch[3]
-                          : 0;
-}
 
 // The walk of both launches. SCATTER (launch 2, with MESH and TEX) replays
 // launch 1's walk without the adjoint sums and scatters the atlas gradient.
@@ -194,7 +184,8 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
   for (int it = 0; it < p.budget; ++it) {
     float u[DOF ? 12 : 8];
     draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
-                  col, lane, p.iteration, p.seed, p.salt, STREAM);
+                  col, lane, p.iteration, p.seed, p.salt,
+                  STREAM_GRADIENT);
     const float u1 = u[U1], u2 = u[U1 + 1], u3 = u[U1 + 2];
     const float ul1 = u[U1 + 3], ul2 = u[U1 + 4], usel = u[U1 + 5];
 

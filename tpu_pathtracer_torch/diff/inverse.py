@@ -1,6 +1,6 @@
 """Inverse rendering: recover scene parameters by gradient descent.
 
-Counterpart of the single-device persistent route of
+Counterpart of the single-device kernel routes of
 ``tpu_pathtracer/diff/inverse.py`` (BASELINE config 5): optimize the
 material colours and light intensities of a sphere or mesh scene, the
 texture atlas of a textured mesh scene (``params_of`` includes
@@ -8,22 +8,27 @@ texture atlas of a textured mesh scene (``params_of`` includes
 ior=True)`` the index of refraction of its transmissive materials
 (``mat_coef``; not with textures, as in the JAX package), to match a target
 image. A mesh scene must come packed (``models.scene.with_packet_mesh``),
-as in the JAX package. Each step is ONE launch of the fused value-and-grad
-kernel (``ops/kernels/replay_persistent.py``), which returns the loss and
-the colour and intensity gradients from a single path walk, plus the
-scatter launch for the atlas gradient on a textured scene (chunks of 32
-samples above spp 32), or with ``mat_coef`` one tangent walk
-(``ops/kernels/camera_jvp.py::ior_mse_grad``), then one Adam update. ``torch.optim.Adam`` has optax's ``adam`` update
-(bias-corrected moments, eps outside the square root).
+as in the JAX package. Each step is ONE launch of a fused value-and-grad
+kernel, which returns the loss and the colour and intensity gradients from
+a single path walk: with ``engine="persistent"`` (the default) the
+persistent kernel (``ops/kernels/replay_persistent.py``), plus the scatter
+launch for the atlas gradient on a textured scene (chunks of 32 samples
+above spp 32); with ``engine="sample"`` the per-sample kernel
+(``ops/kernels/replay_kernel.py``, lane = (pixel, sample), sphere scenes
+only: a mesh scene raises ValueError, as in JAX), the JAX package's
+cross-check oracle of the persistent one. With ``mat_coef`` one tangent
+walk follows (``ops/kernels/camera_jvp.py::ior_mse_grad``), on either
+engine; then one Adam update. ``torch.optim.Adam`` has optax's ``adam``
+update (bias-corrected moments, eps outside the square root).
 
-The gradient enters autograd through ``PersistentMSE``: its forward launches
+The gradient enters autograd through ``KernelMSE``: its forward launches
 the kernels and saves the gradients, its backward scales them by the
 incoming cotangent. A train step is ``loss.backward()``,
 ``optimizer.step()`` and the physical clamps under ``no_grad``.
 
-Not ported yet: ``engine="sample"`` (ROADMAP Queue 1 item 18), device meshes
-(item 15) and the XLA-side estimators (``sharded_loss``,
-``make_train_step``, ``render_target``; item 14).
+Not ported yet: device meshes (ROADMAP Queue 1 item 15) and the XLA-side
+estimators (``sharded_loss``, ``make_train_step``, ``render_target``; item
+14).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ from torch import Tensor
 from tpu_pathtracer_torch.models.camera import Camera
 from tpu_pathtracer_torch.models.integrator import RenderConfig
 from tpu_pathtracer_torch.models.scene import Scene
+from tpu_pathtracer_torch.ops.kernels import replay_kernel
 from tpu_pathtracer_torch.ops.kernels.camera_jvp import ior_mse_grad
 from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
     _not_ported, default_budget, persistent_mse_value_and_grad,
@@ -45,6 +51,7 @@ from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
 
+ENGINES = ("persistent", "sample")
 PARAMS = ("mat_color", "light_intensity")
 TEX = "textures"  # the atlas, in params_of when the scene has one
 IOR = "mat_coef"  # optional: the index of refraction, params_of(ior=True)
@@ -155,14 +162,15 @@ def train_state_to_numpy(state: TrainState
 
 
 def _check_route(scene: Scene, mesh, engine: str) -> None:
-    if engine == "sample":
-        raise _not_ported('engine="sample" (the per-sample fused kernel)',
-                          "18")
-    if engine != "persistent":
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if mesh is not None:
         raise _not_ported("gradients sharded over a device mesh (mesh=)",
                           "15")
+    if engine == "sample" and scene.mesh is not None:
+        raise ValueError(
+            "engine='sample' does not trace mesh geometry; use "
+            "engine='persistent' (in-kernel BVH walk) for mesh scenes")
     if scene.mesh is not None and scene.mesh_packed is None:
         raise ValueError(
             "engine='persistent' walks the packed mesh in-kernel: pack it "
@@ -190,27 +198,39 @@ def _check_texture_rules(scene_p: Scene, names, engine: str) -> None:
 def _loss_and_grads(scene_p: Scene, camera: Camera, target: Tensor,
                     seed: Sequence[int], iteration: int, kw: dict,
                     ior: bool) -> tuple[Tensor, dict]:
-    """The fused kernel's loss and colour and intensity gradients, and the
-    atlas gradient on a textured mesh scene; with ``ior``, the ``mat_coef``
-    gradient from one tangent walk on the same seed and iteration (its own
-    uniform block in test mode)."""
+    """The fused kernel's loss and colour and intensity gradients (the
+    engine in ``kw``), and the atlas gradient on a textured mesh scene;
+    with ``ior``, the ``mat_coef`` gradient from one tangent walk on the
+    same seed and iteration (its own uniform block in test mode), its
+    tile_rows 32 unless given, as in JAX."""
     kw = dict(kw)
     ior_uniforms = kw.pop("ior_uniforms", None)
-    loss, grads, _ = persistent_mse_value_and_grad(
-        scene_p, camera, seed, iteration, target, **kw)
+    engine, tile_rows = kw.pop("engine"), kw.pop("tile_rows")
+    budget = kw.pop("budget")
+    if engine == "sample":
+        loss, grads, _ = replay_kernel.mse_value_and_grad(
+            scene_p, camera, seed, iteration, target,
+            tile_rows=16 if tile_rows is None else tile_rows, **kw)
+    else:
+        loss, grads, _ = persistent_mse_value_and_grad(
+            scene_p, camera, seed, iteration, target, budget=budget,
+            tile_rows=32 if tile_rows is None else tile_rows, **kw)
     if ior:
         kw["uniforms"] = ior_uniforms
-        grads[IOR] = ior_mse_grad(scene_p, camera, seed, target,
-                                  iteration=iteration, **kw)
+        grads[IOR] = ior_mse_grad(
+            scene_p, camera, seed, target, iteration=iteration,
+            budget=budget, tile_rows=32 if tile_rows is None else tile_rows,
+            **kw)
     return loss, grads
 
 
-class PersistentMSE(torch.autograd.Function):
-    """MSE loss of the fused kernel's render against a target, as a function
+class KernelMSE(torch.autograd.Function):
+    """MSE loss of a fused kernel's render against a target, as a function
     of (mat_color, light_intensity) and, if given, mat_coef and the texture
-    atlas. The forward launches the kernels and saves the gradients (the
-    colour and intensity ones already divided by the clamped parameters,
-    the atlas one final); the backward scales them by the cotangent."""
+    atlas. The forward launches the kernels of the engine in ``kw`` and
+    saves the gradients (the colour and intensity ones already divided by
+    the clamped parameters, the atlas one final); the backward scales them
+    by the cotangent."""
 
     @staticmethod
     def forward(ctx, mat_color: Tensor, light_intensity: Tensor,
@@ -225,7 +245,7 @@ class PersistentMSE(torch.autograd.Function):
                 params[k] = v.detach()
         names = _names(params)
         scene_p = apply_params(scene, params)
-        _check_texture_rules(scene_p, names, "persistent")
+        _check_texture_rules(scene_p, names, kw["engine"])
         loss, grads = _loss_and_grads(scene_p, camera, target, seed,
                                       iteration, kw, mat_coef is not None)
         ctx.names = names
@@ -240,15 +260,14 @@ class PersistentMSE(torch.autograd.Function):
                 None, None, g.get(IOR), g.get(TEX))
 
 
-def _kernel_kw(spp, max_bounces, rr_start, tile_rows, use_nee, strat_k,
-               budget, uniforms, ior_uniforms) -> dict:
-    """persistent_mse_value_and_grad's keywords (tile_rows 32 unless
-    given), and the tangent walk's own uniform block."""
-    return dict(spp=spp, budget=budget, max_bounces=max_bounces,
-                rr_start=rr_start,
-                tile_rows=32 if tile_rows is None else tile_rows,
-                use_nee=use_nee, strat_k=strat_k, uniforms=uniforms,
-                ior_uniforms=ior_uniforms)
+def _kernel_kw(engine, spp, max_bounces, rr_start, tile_rows, use_nee,
+               strat_k, budget, uniforms, ior_uniforms) -> dict:
+    """The engine, its kernel's keywords (tile_rows None: each kernel's
+    default) and the tangent walk's own uniform block."""
+    return dict(engine=engine, spp=spp, budget=budget,
+                max_bounces=max_bounces, rr_start=rr_start,
+                tile_rows=tile_rows, use_nee=use_nee, strat_k=strat_k,
+                uniforms=uniforms, ior_uniforms=ior_uniforms)
 
 
 def kernel_loss_and_grads(
@@ -275,18 +294,21 @@ def kernel_loss_and_grads(
     the scatter launch for ``textures``, the atlas gradient), and with
     ``mat_coef`` in ``params`` one tangent walk for its gradient on the
     same seed and iteration (``ior_mse_grad``). ``seed`` is ``(seed,
-    salt)``; ``uniforms`` and ``ior_uniforms`` (test mode) are the JAX
+    salt)``; ``engine`` "persistent" (tile_rows 32 unless given) or
+    "sample" (tile_rows 16 unless given; ``budget`` is the tangent walk's
+    only); ``uniforms`` and ``ior_uniforms`` (test mode) are the JAX
     kernels' external uniform blocks of the two walks (at spp > 32 on a
     textured scene, ``uniforms`` is one block per chunk). Raises
-    ValueError, as the JAX trainer does, for ``mat_coef`` on a textured
-    scene and for ``textures`` where no atlas gradient can be made."""
+    ValueError, as the JAX trainer does, for a mesh scene on the sample
+    engine, for ``mat_coef`` on a textured scene and for ``textures``
+    where no atlas gradient can be made."""
     _check_route(scene, mesh, engine)
     scene_p = apply_params(scene, params)
     _check_texture_rules(scene_p, _names(params), engine)
     return _loss_and_grads(
         scene_p, camera, target, seed, iteration,
-        _kernel_kw(spp, max_bounces, rr_start, tile_rows, use_nee, strat_k,
-                   budget, uniforms, ior_uniforms), IOR in params)
+        _kernel_kw(engine, spp, max_bounces, rr_start, tile_rows, use_nee,
+                   strat_k, budget, uniforms, ior_uniforms), IOR in params)
 
 
 def make_kernel_train_step(
@@ -302,10 +324,10 @@ def make_kernel_train_step(
     uniforms: Tensor | None = None,
     ior_uniforms: Tensor | None = None,
 ) -> Callable[[TrainState, Tensor, Sequence[int]], tuple[TrainState, Tensor]]:
-    """A train step over the fused kernel: one launch (loss and gradients;
-    with the atlas a parameter, the scatter launch too), one tangent walk
-    if ``mat_coef`` is a parameter, then the Adam update
-    and the clamps. ``train_step(state, target, seed)`` updates ``state`` in
+    """A train step over a fused kernel (``engine``, as in
+    ``kernel_loss_and_grads``): one launch (loss and gradients; with the
+    atlas a parameter, the scatter launch too), one tangent walk if
+    ``mat_coef`` is a parameter, then the Adam update and the clamps. ``train_step(state, target, seed)`` updates ``state`` in
     place and returns it with the loss of the parameters it started from.
     The RNG frame is the step counter, or ``fixed_iteration`` for same-seed
     optimization (pass the iteration the target was rendered with: the loss
@@ -313,7 +335,7 @@ def make_kernel_train_step(
     ``state`` carries (JAX's ``optimizer`` argument has no counterpart
     here)."""
     _check_route(scene, mesh, engine)
-    kw = _kernel_kw(config.spp, config.max_bounces, config.rr_start,
+    kw = _kernel_kw(engine, config.spp, config.max_bounces, config.rr_start,
                     tile_rows, config.use_nee, 2, budget, uniforms,
                     ior_uniforms)
     h, w = camera.height, camera.width
@@ -322,7 +344,7 @@ def make_kernel_train_step(
                    ) -> tuple[TrainState, Tensor]:
         it = state.step if fixed_iteration is None else fixed_iteration
         state.optimizer.zero_grad(set_to_none=True)
-        loss = PersistentMSE.apply(
+        loss = KernelMSE.apply(
             state.params["mat_color"], state.params["light_intensity"],
             scene, camera, target.reshape(h, w, 3), seed, it, kw,
             state.params.get(IOR), state.params.get(TEX))
@@ -346,9 +368,26 @@ def render_target_kernel(
     """(H*W, 3) target rendered by the fused kernel's own forward walk (no
     atlas gradient, so one launch on a textured scene too), for same-seed
     inverse rendering with ``make_kernel_train_step`` at the same fixed
-    iteration."""
+    iteration and engine. ``engine="sample"`` launches the per-sample
+    kernel in mode "vjp" with g = 0 and averages each pixel's samples (JAX
+    ``diff/inverse.py:531-547``); a mesh scene raises ValueError there (the
+    JAX function traces its spheres alone)."""
     _check_route(scene, None, engine)
     w, h = camera.width, camera.height
+    if engine == "sample":
+        tr = 16 if tile_rows is None else tile_rows
+        rows_total, n_lanes = replay_kernel.lanes_layout(w, h, config.spp,
+                                                         tr)
+        aux0 = torch.zeros((rows_total, 128, 3), dtype=torch.float32,
+                           device=scene.device)
+        L_lanes, *_ = replay_kernel.replay_call(
+            scene, pack_camera(camera), seed, iteration, aux0,
+            spp=config.spp, width=w, height=h,
+            max_bounces=config.max_bounces, rr_start=config.rr_start,
+            use_nee=config.use_nee, use_dof=camera.use_dof, tile_rows=tr,
+            mode="vjp", uniforms=uniforms)
+        lanes = L_lanes.reshape(-1, 3)[:n_lanes]
+        return lanes.reshape(h * w, config.spp, 3).mean(dim=1)
     tr = 32 if tile_rows is None else tile_rows
     rows_total, n_lanes = pixel_lanes_layout(w, h, tr)
     aux0 = torch.zeros((rows_total, 128, 3), dtype=torch.float32,

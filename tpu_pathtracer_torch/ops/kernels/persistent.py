@@ -248,7 +248,14 @@ def camera_rays(cam, px, py, n_samp, strat_k, u_cam, v_cam, lens=None):
     dx, dy, dz = camera_dirs(cam, px, py, n_samp, strat_k, u_cam, v_cam)
     if lens is None:
         return cam[9], cam[10], cam[11], dx, dy, dz
-    u_lens, v_lens = lens
+    return thin_lens(cam, *lens, dx, dy, dz)
+
+
+def thin_lens(cam, u_lens, v_lens, dx, dy, dz):
+    """The thin lens of the TPU kernels (``pt_common.cuh::thin_lens``): the
+    pinhole direction d from the eye becomes a ray (ox, oy, oz, dx, dy, dz)
+    from a point of the lens disk by the polar map, aimed at the pinhole
+    ray's point on the plane of focus."""
     lens_r = cam[12] * torch.sqrt(u_lens)
     phi = (2.0 * math.pi) * v_lens
     ldu = lens_r * torch.cos(phi)

@@ -90,6 +90,21 @@ def lane_agreement(a, b, width: int, height: int
             d.max().item())
 
 
+def sample_lane_agreement(a, b, n_lanes: int) -> tuple:
+    """How closely two per-sample walks' (rows, 128, 3) radiance agree,
+    ``b`` the reference (kernels 7 and 8): the fraction of the first
+    ``n_lanes`` lanes whose every channel is within ``L_TOL * max(1,
+    |L|)`` (``lane_agreement``'s bar), the largest difference, and the
+    (rows, 128) mask of agreeing lanes (padding lanes agree), on the CPU."""
+    a = a.double().cpu().reshape(-1, 3)
+    b = b.double().cpu().reshape(-1, 3)
+    d = (a - b).abs()
+    ok = (d <= L_TOL * b.abs().clamp_min(1.0)).all(-1)
+    ok[n_lanes:] = True
+    return (ok[:n_lanes].double().mean().item(), d[:n_lanes].max().item(),
+            ok.reshape(-1, 128))
+
+
 def _close(x, y, tol=L_TOL):
     """Elementwise |x - y| < tol * max(1, |x|) (x is the reference)."""
     return (x - y).abs() < tol * torch.clamp_min(x.abs(), 1.0)

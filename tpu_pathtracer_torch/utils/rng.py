@@ -32,8 +32,12 @@ CAMERA_STREAM = 0
 BOUNCE_STREAM = 1
 LIGHT_STREAM = 2
 LENS_STREAM = 3
-# Counter tag of the wavefront's draws; the persistent kernels use 0, 0x10000
-# and 0x20000.
+# Philox stream tags, the high half of the counter's last word (the kernels'
+# list is csrc/pt_common.cuh's STREAM_*): 0 the persistent forward kernel,
+# 0x10000 the persistent gradient kernel, 0x20000 the tangent kernel,
+# 0x30000 the wavefront's draws here, 0x40000 the per-sample forward kernel
+# (ops/kernels/trace_kernel.py) and 0x50000 the per-sample gradient kernel
+# (ops/kernels/replay_kernel.py).
 STREAM_TAG = 0x30000
 
 Draws = Callable[[int, int, Tensor, int], Tensor]
