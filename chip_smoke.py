@@ -147,7 +147,9 @@ print one line; any failure exits non-zero:
    middle, bottom of the image), each band also launched alone and equal
    bit for bit to the whole launch's; ms to 2 spp (median of REPS) beside
    phase 21's wavefront frame, the kernel's ms per launch and the idle
-   share from one trace (the bound is a lower bound);
+   share from one trace (the bound is a lower bound: its rays split into
+   path and shadow segments as the bands' plain walks split, no texel
+   fetch counted);
 27. times by phase 6's and 10's protocol: the forward kernel and the
    gradient with the lens on cornell_spheres; the forward kernel on
    terrain32 textured and with its texture stripped;
@@ -206,7 +208,12 @@ print one line; any failure exits non-zero:
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
 3.35 TB/s. The operations are counted from the kernels' source per unit of
-work (see ``OPS``) and multiplied by the work this run's launches did; the
+work (see ``OPS``) and multiplied by the work this run's launches did; a
+mesh walk's box and triangle tests per segment are counted by
+``bvh_walk_ref`` on a sample of the segments that the plain versions walk
+on the same workload (``WalkSample``: the mesh's leaf-<=4 tree walked per
+thread; each mesh workload prints a ``[walk tests]`` line with them beside
+those of the tree the kernels walk and of the 64-triangle-leaf tree); the
 bytes are each input read once and each output written once.
 
 The line before the last prints one JSON object {"kernels": [...]}, nine
@@ -216,9 +223,15 @@ is ``{"ok": true, "device": {...}}``. Run it with no arguments from the
 repository root: ``python3 chip_smoke.py``.
 
 ``python3 chip_smoke.py --ab CHECKOUT`` runs no phase: it compares the
-persistent kernels' device ms per launch, and their outputs bit for bit,
-on the pinhole, untextured workloads of phases 6, 10, 12 and 13, between
-this checkout and another (``ab``), about two minutes with the builds.
+persistent kernels' device ms per launch between this checkout and
+another (``ab``), A B B A, on the pinhole workloads of phases 6, 10, 12,
+13, 16, 26, 27 and 31 (spheres, cornell_boxes, cornell_quad and terrain32
+forward; spheres, cornell_boxes, cornell_quad and textured terrain32
+gradients, the scatter launch apart; the tangent kernel on cornell_quad;
+config 4's launch), and the sphere workloads' outputs bit for bit.
+``python3 chip_smoke.py --leaf-cutoff`` runs no phase either: it times the
+forward kernel on small meshes packed as one leaf and as the mesh's
+leaf-<=4 tree (``leaf_cutoff``), the measurement behind ``BVH_MAX_LEAF``.
 """
 from __future__ import annotations
 
@@ -234,6 +247,9 @@ ROOT = Path(__file__).resolve().parent
 MEAN_TOL = 0.03
 RAY_TOL = 0.01
 REPS = 5
+# segments of the plain versions' mesh walks sampled per mode and mesh, and
+# taken from each call, to count the kernels' box and triangle tests
+WALK_SAMPLE, WALK_TAKE = 2048, 64
 W, H, TR = 640, 480, 32
 SPP, MB = 4, 10  # BASELINE config 5 and bench.py's workload
 LOSS_RTOL, GRAD_RTOL, FOLD_RTOL = 1e-4, 2e-3, 1e-4
@@ -245,7 +261,8 @@ LOSS_RTOL, GRAD_RTOL, FOLD_RTOL = 1e-4, 2e-3, 1e-4
 # IMAGE_Z * sqrt(n) (P < 3e-8 for a fair coin, by Hoeffding's bound), so a
 # one-sided fault fails once it touches more than ~36 lanes.
 IMAGE_Z = 6.0
-PROFILE_ATTEMPTS = 3  # see _traced
+PROFILE_ATTEMPTS = 5  # see _traced
+SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's clock, see _traced
 TRAIN_STEPS, LR = 6, 5e-2
 F32_PEAK = 67e12  # H100 SXM, f32 outside the tensor cores (data sheet)
 HBM_RATE = 3.35e12  # bytes/s
@@ -591,7 +608,7 @@ def _bands(state, bands):
                       for t0, nt in bands]) for f in pk.STATE_FIELDS})
 
 
-def _replay_bands(main, bands):
+def _replay_bands(main, bands, walks=None):
     """``_replay_per_step`` for a main path too large for the plain version
     over every lane: the same replay, but each launch is checked on the
     bands of tiles ``bands`` ((first tile, tiles) pairs) alone. From each
@@ -602,8 +619,9 @@ def _replay_bands(main, bands):
     list of tiles: its per-tile walk costs about as much for three tiles as
     for one); its live rays are held to the band launches' and its lanes to
     the whole launch's, band by band. The plain version on the CPU, the
-    floor, runs only for a launch below the 98% bar. Returns one dict per
-    launch and band and the plain version's seconds per launch; fails
+    floor, runs only for a launch below the 98% bar. The plain version on
+    the card samples its walks' segments into ``walks``. Returns one dict
+    per launch and band and the plain version's seconds per launch; fails
     unless the replay ends in main's exact state."""
     import dataclasses
 
@@ -643,7 +661,8 @@ def _replay_bands(main, bands):
         t_start = time.perf_counter()
         ref, rays_r = pk.persistent_step_ref(scene, cp, (r.seed, 0),
                                              _bands(before, bands),
-                                             tile_offset=tiles, **kw)
+                                             tile_offset=tiles, walks=walks,
+                                             **kw)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t_start)
         ray_err = abs(k_rays - int(rays_r)) / max(int(rays_r), 1)
@@ -829,11 +848,14 @@ def _busy_us(intervals) -> float:
     return busy
 
 
-def _profile_steps(scene, cp, use_nee, k=10, tag="", use_dof=False):
+def _profile_steps(scene, cp, use_nee, k=10, tag="", use_dof=False,
+                   walks=None):
     """One torch.profiler trace of k steps from a fresh state (``_profile``'s
     numbers), and the work per launch: rays, paths started and lanes; on a
     textured scene also the texel fetches, from the plain version's first
-    launch on the same seed, scaled to the kernel's rays per launch."""
+    launch on the same seed, scaled to the kernel's rays per launch. That
+    plain launch also runs, untimed, on a mesh scene, where it samples its
+    walks' segments into ``walks``."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
@@ -859,12 +881,13 @@ def _profile_steps(scene, cp, use_nee, k=10, tag="", use_dof=False):
     work = dict(rays=int(torch.stack(rays).sum()) / k,
                 paths=int(st.n_samp.sum() + st.alive.sum()) / k,
                 lanes=st.lr.numel(), texel=0.0)
-    if scene.textured:
+    if scene.textured or walks is not None:
         counts = {}
         _, nr = pk.persistent_step_ref(
             scene, cp, (400, 0), pk.init_state(W, H, TR, device="cuda"),
             budget=16, width=W, height=H, max_bounces=10, rr_start=3,
-            tile_rows=TR, use_nee=use_nee, use_dof=use_dof, counts=counts)
+            tile_rows=TR, use_nee=use_nee, use_dof=use_dof, counts=counts,
+            walks=walks)
         work["texel"] = counts.get("texel", 0) / max(int(nr), 1) \
             * work["rays"]
     return kernel_ms, busy, window, by_name, work
@@ -876,7 +899,13 @@ def _traced(run, k, tag, complete, start=None):
     events. The profiler on the card sometimes drops activity records (a
     whole first window, or one launch of ten), so a trace whose events fail
     ``complete`` is taken again, up to PROFILE_ATTEMPTS times in all;
-    ``start`` resets the caller's state before each attempt."""
+    ``start`` resets the caller's state before each attempt. A spin kernel
+    of ~20 ms on either side keeps the window's launches away from the
+    session's ends: without them, late in the script the tracer dropped one
+    launch of ten on each of 5 attempts of phase 35's traces (never in a
+    fresh process); with them, a record has still been dropped on two
+    attempts in a row, and has come back on the next. Why it drops them is
+    not known."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -890,13 +919,14 @@ def _traced(run, k, tag, complete, start=None):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             # a first record for the tracer, outside the window and left out
-            # of the events below
-            torch.cuda._sleep(1000)
+            # of the events below, and a last one
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
             a.record()
             for i in range(k):
                 run(i)
             b.record()
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(trace))
         events = [e for e in json.loads(trace.read_text())["traceEvents"]
@@ -964,42 +994,163 @@ def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def _walk_ops(scene, segments, paths, shadows, texels=0, lens_paths=0
-              ) -> float:
+class WalkSample:
+    """The segments that the persistent kernels' plain versions walk on one
+    scene's mesh, sampled when it is passed to them as ``walks`` (they call
+    it as ``mesh_walk_ref``'s ``record``): the origin, direction and t_init
+    of up to WALK_SAMPLE live lanes per mode (closest hit, occlusion),
+    WALK_TAKE at random from each walk, so that a run's sample spans its
+    iterations. Only untimed plain runs take it, but for phase 26's, whose
+    one plain run is also timed: ``seconds`` is its own wall time.
+    ``rates`` counts the box and triangle tests per segment on the sample:
+    of the mesh's leaf-<=4 tree (``pack_bvh(mesh, one_leaf=0)``), which the
+    bounds take, of the tree the kernels walk (``scene.mesh_bvh``: one leaf
+    for a mesh of <= BVH_MAX_LEAF triangles, else the same tree), both per
+    thread (``bvh_walk_ref``; a shadow walk stops at its first occluder),
+    and of the 64-triangle-leaf tree walked per thread (``mesh_walk_ref``,
+    one live lane per tile), and prints them."""
+
+    def __init__(self, scene, label):
+        self.scene, self.label = scene, label
+        self.sample = dict(closest=[], occlusion=[])
+        self.walked = dict(closest=0, occlusion=0)
+        self.seconds = 0.0
+        self.out = None
+
+    def __call__(self, occlusion, planes):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mode = "occlusion" if occlusion else "closest"
+        live = torch.nonzero(planes[6].reshape(-1) > 0.0)[:, 0]
+        self.walked[mode] += len(live)
+        if sum(len(x[0]) for x in self.sample[mode]) < WALK_SAMPLE:
+            gen = torch.Generator().manual_seed(len(self.sample[mode]))
+            take = live[torch.randperm(len(live), generator=gen)[
+                :WALK_TAKE].to(live.device)]
+            self.sample[mode].append([x.reshape(-1)[take].clone()
+                                      for x in planes])
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+
+    def shadow_share(self) -> float:
+        """Occlusion walks among all the walks sampled."""
+        n = self.walked
+        return n["occlusion"] / max(n["closest"] + n["occlusion"], 1)
+
+    def rates(self):
+        """{mode: {"bound", "kernel", "old": (boxes, tris), "n": n}} per
+        segment on the sample."""
+        import torch
+
+        from tpu_pathtracer_torch.ops.kernels._walk import (
+            bvh_walk_ref, mesh_walk_ref,
+        )
+        from tpu_pathtracer_torch.ops.kernels.mesh_kernel import pack_bvh
+
+        if self.out is not None:
+            return self.out
+        scene = self.scene
+        if not self.sample["closest"]:
+            fail(f"{self.label}: no plain walk ran on this scene's mesh, so "
+                 "the bound has no segments to count the walk's tests on")
+        trees = dict(bound=pack_bvh(scene.mesh, one_leaf=0),
+                     kernel=scene.mesh_bvh)
+        out = {}
+        for mode, chunks in self.sample.items():
+            if not chunks:
+                continue
+            occ = mode == "occlusion"
+            o = [torch.cat([c[k] for c in chunks]) for k in range(7)]
+            n = len(o[0])
+            r = dict(n=n)
+            for key, bvh in trees.items():
+                c = {}
+                bvh_walk_ref(bvh, *o, occlusion=occ, counts=c)
+                r[key] = (c["boxes"] / n, c["tris"] / n)
+            one = torch.zeros((n, 128), device=o[0].device)
+
+            def tile(x, one=one):  # one live lane per 128-lane tile
+                t = one.clone()
+                t[:, 0] = x
+                return t
+
+            c = {}
+            mesh_walk_ref(scene.mesh_packed, *(tile(x) for x in o),
+                          tile_rows=1, occlusion=occ, counts=c)
+            r["old"] = (c["boxes"] / n, c["tris"] / n)
+            out[mode] = r
+        self.out = out
+        nodes = {k: t.num_nodes for k, t in trees.items()}
+        print(f"[walk tests] {self.label}: box / triangle tests per "
+              f"segment, per thread, on the leaf-<=4 tree ({nodes['bound']} "
+              f"nodes; the bounds') | the kernels' tree ({nodes['kernel']} "
+              f"nodes) | the 64-triangle-leaf tree: " + "; ".join(
+                  f"{mode} ({r['n']} sampled segments) " + " | ".join(
+                      f"{r[k][0]:.2f} / {r[k][1]:.2f}"
+                      for k in ("bound", "kernel", "old"))
+                  for mode, r in out.items())
+              + f"; the sampler's own time in the plain runs "
+              f"{self.seconds:.3f} s", flush=True)
+        return out
+
+
+def _walk_ops(scene, segments, paths, shadows, texels=0, lens_paths=0,
+              walks=None) -> float:
     """f32 operations of a persistent walk: closest hit and shading per
     segment, a camera ray per path (its thin lens for ``lens_paths`` of
     them), a light sample and the shadow sweep per shadow segment, the uv
-    and the four bilinear taps per texel fetch. With a mesh, every segment also walks the BVH: a packed
-    tree of one leaf (the mesh scenes here) is one slab test and all T
-    triangles per segment; a deeper tree counts its root alone (a lower
-    bound). A shadow walk stops at its first occluder, so it counts its
-    root's slab test only (a lower bound too)."""
+    and the four bilinear taps per texel fetch. With a mesh, every segment
+    and shadow segment also walks the BVH (``_mesh_walk_ops``)."""
     n_prims = int(scene.num_prims)
     ops = (segments * (OPS["quadratic"] * n_prims + OPS["segment"])
            + paths * OPS["path"]
            + shadows * (OPS["shadow"]
                         + OPS["shadow_prim"] * max(n_prims - 1, 0)))
-    pm = scene.mesh_packed
-    if pm is not None:
-        tris = pm.leaf_size if pm.num_nodes == 1 else 0
-        ops += (segments * (OPS["walk"] + OPS["slab"] + OPS["tri"] * tris)
-                + shadows * (OPS["walk"] + OPS["slab"]))
+    if scene.mesh_packed is not None:
+        ops += _mesh_walk_ops(walks, segments, shadows)
     return (ops + texels * (OPS["uv"] + OPS["texel"])
             + lens_paths * OPS["lens"])
 
 
-def forward_bound(scene, work_brute, work, use_dof=False):
+def _mesh_walk_ops(walks, segments, shadows) -> float:
+    """The mesh walk's part of ``_walk_ops``: per segment the reciprocal
+    direction, and the box and triangle tests that the mesh's leaf-<=4 tree
+    needs on this workload's segments, counted by ``bvh_walk_ref`` on the
+    sample ``walks`` (``WalkSample.rates``; a shadow walk stops at its
+    first occluder, as the kernel's)."""
+    if walks is None:
+        fail("a mesh bound needs a WalkSample of the workload's segments")
+    rates = walks.rates()
+    ops = 0.0
+    for mode, n in (("closest", segments), ("occlusion", shadows)):
+        if n:
+            boxes, tris = rates[mode]["bound"]
+            ops += n * (OPS["walk"] + OPS["slab"] * boxes + OPS["tri"] * tris)
+    return ops
+
+
+def _mesh_bytes(scene) -> int:
+    """Bytes of the tree the kernels walk (nodes and triangle slots), read
+    once; 0 without a mesh."""
+    bvh = scene.mesh_bvh
+    return 0 if bvh is None else 4 * (bvh.nodes.numel() + bvh.tris.numel())
+
+
+def forward_bound(scene, work_brute, work, use_dof=False, walks=None):
     """Bound of one forward launch. The NEE walk traces the brute-force
     walk's path segments on the same Philox draws (NEE never changes a
     path's throughput or direction), so its shadow segments are its rays
     less the brute-force run's. A textured scene adds the texture atlas to
-    the bytes (read once)."""
+    the bytes, a mesh its tree (each read once)."""
     shadows = work["rays"] - work_brute["rays"]
     ops = _walk_ops(scene, work_brute["rays"], work["paths"], shadows,
                     work.get("texel", 0.0),
-                    work["paths"] if use_dof else 0)
+                    work["paths"] if use_dof else 0, walks)
     atlas = scene.textures.numel() * 4 if scene.textured else 0
-    return _bound(ops, 20 * 4 * 2 * work["lanes"] + atlas)
+    return _bound(ops, 20 * 4 * 2 * work["lanes"] + atlas
+                  + _mesh_bytes(scene))
 
 
 def phase_times(smi, name="cornell", label="6 times", lens=None):
@@ -1016,6 +1167,8 @@ def phase_times(smi, name="cornell", label="6 times", lens=None):
     tag = ("" if name == "cornell" else f"{name}_") + ("lens_" if dof else "")
     step_k = functools.partial(pk.persistent_step, use_dof=dof)
     step_r = functools.partial(pk.persistent_step_ref, use_dof=dof)
+    walks = (WalkSample(scene, f"{label} {name}") if scene.mesh is not None
+             else None)
     K = 24
     out = {}
     for use_nee in (False, True):
@@ -1034,7 +1187,7 @@ def phase_times(smi, name="cornell", label="6 times", lens=None):
                          plain_ms=t2 / 2)
     for mode, o in out.items():
         o["kernel_ms"], busy, window, by_name, o["work"] = _profile_steps(
-            scene, cp, mode == "nee", tag=tag, use_dof=dof)
+            scene, cp, mode == "nee", tag=tag, use_dof=dof, walks=walks)
         o["busy_ms"], o["window_ms"] = busy, window
         o["idle_share"] = 1.0 - busy / window
         if o["idle_share"] < 0.0:
@@ -1044,7 +1197,13 @@ def phase_times(smi, name="cornell", label="6 times", lens=None):
         o["top"] = "; ".join(f"{n[:48]} {ms:.4f}" for n, ms in top)
     for o in out.values():
         o["bound_ms"], o["bound_by"] = forward_bound(
-            scene, out["brute"]["work"], o["work"], dof)
+            scene, out["brute"]["work"], o["work"], dof, walks)
+        if walks is not None:
+            # the mesh walk's own part of the launch (kernel 2's bound)
+            segments = out["brute"]["work"]["rays"]
+            o["walk_bound_ms"], o["walk_bound_by"] = _bound(
+                _mesh_walk_ops(walks, segments, o["work"]["rays"] - segments),
+                _mesh_bytes(scene))
     parts = [
         f"{mode}: step {o['step_ms']:.4f} ms, {o['rays_per_s']:.6g} rays/s "
         f"(median of {REPS}: {', '.join(f'{r:.6g}' for r in o['reps'])}), "
@@ -1362,10 +1521,11 @@ def phase_cli_invert():
 
 
 def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False,
-                counts=None):
+                counts=None, walks=None):
     """CUDA-event time of k gradients at config 5 (host wrapper included)
     and the live rays they traced, on seeds (salt, 0) .. (salt, k - 1).
-    ``plain`` times the plain version, which fills ``counts``."""
+    ``plain`` times the plain version, which fills ``counts`` and samples
+    its walks' segments into ``walks``."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
@@ -1382,7 +1542,7 @@ def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False,
             out = rp.persistent_replay_ref(
                 scene, cp, (salt, i), 0,
                 rp.target_to_lanes(target, rows), width=W, height=H,
-                use_dof=cam.use_dof, counts=counts, **kw)
+                use_dof=cam.use_dof, counts=counts, walks=walks, **kw)
             rays.append(out[5])
         else:
             rays.append(rp.persistent_mse_value_and_grad(
@@ -1392,7 +1552,8 @@ def _time_grads(scene, cam, cp, target, use_nee, k, salt, plain=False,
     return start.elapsed_time(end), int(torch.stack(rays).sum())
 
 
-def grad_bound(scene, cp, target, use_nee, seed, shadows, use_dof=False):
+def grad_bound(scene, cp, target, use_nee, seed, shadows, use_dof=False,
+               walks=None):
     """Bound of one gradient launch at config 5, from the work of the
     kernel's launch on ``seed``: its path segments and completed paths, and
     ``shadows``, the NEE shadow segments the plain version traced on the
@@ -1410,13 +1571,13 @@ def grad_bound(scene, cp, target, use_nee, seed, shadows, use_dof=False):
     n_l = len(scene.light_structure)
     segments, paths = int(out[5]), int(out[1].sum())
     ops = (_walk_ops(scene, segments, paths, shadows,
-                     lens_paths=paths if use_dof else 0)
+                     lens_paths=paths if use_dof else 0, walks=walks)
            + segments * OPS["adjoint_segment"]
            + paths * (OPS["adjoint_flush_slot"] * n_slots
                       + OPS["adjoint_flush_light"] * n_l))
     lanes = rows * 128
     k = 3 * n_slots + 3 * n_l + 1
-    nbytes = lanes * (12 + 12 + 4) + rows * (4 * k + 4)
+    nbytes = lanes * (12 + 12 + 4) + rows * (4 * k + 4) + _mesh_bytes(scene)
     bound_ms, by = _bound(ops, nbytes)
     return dict(bound_ms=bound_ms, bound_by=by, segments=segments,
                 shadows=shadows, paths=paths)
@@ -1442,6 +1603,8 @@ def phase_grad_times(smi, name="cornell", modes=(False, True),
     out = {}
     for use_nee in modes:
         mode = "nee" if use_nee else "brute"
+        walks = (WalkSample(scene, f"{label} {name} {mode}")
+                 if scene.mesh is not None else None)
         _time_grads(scene, cam, cp, target, use_nee, 2, 90)  # warm
         ms, rates = [], []
         for rep in range(REPS):
@@ -1454,11 +1617,15 @@ def phase_grad_times(smi, name="cornell", modes=(False, True),
         counts = {}
         t_plain, _ = _time_grads(scene, cam, cp, target, use_nee, 1, 300,
                                  plain=True, counts=counts)
+        if walks is not None:  # untimed, on the same seed
+            _time_grads(scene, cam, cp, target, use_nee, 1, 300, plain=True,
+                        walks=walks)
         out[mode] = dict(grad_ms=statistics.median(ms),
                          rays_per_s=statistics.median(rates), reps=ms,
                          plain_ms=t_plain,
                          **grad_bound(scene, cp, target, use_nee, (300, 0),
-                                      int(counts["shadow"]), cam.use_dof))
+                                      int(counts["shadow"]), cam.use_dof,
+                                      walks))
     for mode, o in out.items():
         def run(i, use_nee=(mode == "nee")):
             rp.persistent_mse_value_and_grad(
@@ -1870,19 +2037,20 @@ def phase_ior_trainer(steps=5):
     return launches, _worst([c])
 
 
-def _jvp_bound(scene, counts, n_tan, rows):
+def _jvp_bound(scene, counts, n_tan, rows, walks=None):
     """Bound of one tangent launch from the plain version's work on the same
     seed (the kernel does not count it): the primal walk (``_walk_ops``)
     plus, per tangent, its path, segment and lit-shadow tangents, plus the
     score vertices; bytes are the 3 + 3T output planes, n_samp and the row
     counts written once."""
     ops = (_walk_ops(scene, counts["segments"], counts["paths"],
-                     counts["shadow"])
+                     counts["shadow"], walks=walks)
            + n_tan * (counts["paths"] * OPS["tangent_path"]
                       + counts["segments"] * OPS["tangent_segment"]
                       + counts["lit"] * OPS["tangent_shadow"])
            + counts["score"] * OPS["score"])
-    return _bound(ops, rows * 128 * 4 * (4 + 3 * n_tan) + rows * 4)
+    return _bound(ops, rows * 128 * 4 * (4 + 3 * n_tan) + rows * 4
+                  + _mesh_bytes(scene))
 
 
 JVP_TIMES = [
@@ -1938,8 +2106,14 @@ def phase_jvp_times(smi):
                           **kw)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        walks = None
+        if scene.mesh is not None:  # untimed, on the same seed
+            walks = WalkSample(scene, f"16 tangent times {key}")
+            cj.camera_jvp_ref(scene, cp, dcam, (300, 0), 0, width=W,
+                              height=H, use_nee=use_nee, coef_mats=glass,
+                              walks=walks, **kw)
         n_tan = dcam.shape[0] + len(glass)
-        bound_ms, by = _jvp_bound(scene, counts, n_tan, rows)
+        bound_ms, by = _jvp_bound(scene, counts, n_tan, rows, walks)
         kernel_ms, busy, window, by_name = _profile(
             lambda i, grad=grad: grad(400, i), 10, "camera_jvp_kernel",
             f"jvp_{key}")
@@ -2656,7 +2830,11 @@ def phase_c4_persistent(smi, wf_renderer, wf_times):
     n_tiles = r.state.lr.shape[0] // TR
     bands = [(int(n_tiles * f), C4_BAND_TILES)
              for f in (1 / 6, 1 / 2, 5 / 6)]
-    checks, plain_s = _replay_bands(r, bands)
+    # the plain version's one run samples the segments for the bound (its
+    # seconds include the sampler's, printed on the [walk tests] line)
+    sample = WalkSample(r.scene,
+                        "26 config 4 persistent, the bands' segments")
+    checks, plain_s = _replay_bands(r, bands, sample)
     for c in checks:
         if c["n_agree"] < min(AGREE, c["n_floor"]) \
                 or c["l_agree"] < min(AGREE, c["l_floor"]) \
@@ -2686,17 +2864,20 @@ def phase_c4_persistent(smi, wf_renderer, wf_times):
                                           "persistent_kernel",
                                           "c4_persistent", start=r.reset)
     pm = r.scene.mesh_packed
-    # a lower bound: every counted ray priced as a path segment, the root's
-    # slab test only, no texel fetch (no plain run counts them at this size)
-    ops = _walk_ops(r.scene, rays / steps, paths / steps, 0)
-    nbytes = (20 * 4 * 2 * r.state.lr.numel()
-              + 4 * (pm.tri_rows.numel() + pm.boxes.numel()
-                     + pm.meta.numel() + scene.textures.numel()))
+    # the counted rays split into path and shadow segments as the plain
+    # version's walks on the three bands split; no texel fetch is counted
+    # (no plain run counts them at this size), so a lower bound
+    shadow = sample.shadow_share()
+    ops = _walk_ops(r.scene, rays / steps * (1.0 - shadow), paths / steps,
+                    rays / steps * shadow, walks=sample)
+    nbytes = (20 * 4 * 2 * r.state.lr.numel() + _mesh_bytes(r.scene)
+              + 4 * scene.textures.numel())
     bound_ms, bound_by = _bound(ops, nbytes)
     frame = wf_times["two_pass"]["frame_ms"]
     print(f"[26 config 4 persistent] terrain {C4_W}x{C4_H}, {C4_MB} bounces, "
           f"NEE, PersistentRenderer budget {r.budget} on {smi} (scene set-up "
-          f"{setup_s:.1f} s, {pm.num_nodes} nodes): {launches} launches = "
+          f"{setup_s:.1f} s, the kernel's tree {r.scene.mesh_bvh.num_nodes} "
+          f"nodes, the plain version's {pm.num_nodes}): {launches} launches = "
           f"{steps} steps to {C4_SPP} spp (min spp {r.min_samples}), "
           f"{rays} rays, mean {m_p:.6f} vs the wavefront's {m_w:.6f} (gap "
           f"{abs(m_p - m_w) / m_w:.4f}, bar {MEAN_TOL}), checker modes green "
@@ -3005,7 +3186,8 @@ def phase_tex_grad_times(smi):
     each launch's kernel ms and the idle share; the plain version's ms per
     launch; each launch's bound from this run's work (the plain version's
     counts of shadow segments, texel fetches and scattered vertices on the
-    same seed; the root-only mesh walk makes it a lower bound)."""
+    same seed; the mesh walk's box and triangle tests counted on a sample
+    of its segments, ``WalkSample``)."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
@@ -3045,13 +3227,15 @@ def phase_tex_grad_times(smi):
     end.record()
     torch.cuda.synchronize()
     plain1_ms, plain2_ms = start.elapsed_time(mid), mid.elapsed_time(end)
+    walks = WalkSample(scene, "31 textured gradient times terrain32")
+    rp.persistent_replay_ref(*args, phase="adjoint", walks=walks, **kw)
     k_adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
     n_slots = len(rp.material_slots(scene)[0])
     n_l = len(scene.light_structure)
     segments, paths = int(k_adj[4]), int(k_adj[1].sum())
     shadows, texels = int(counts["shadow"]), int(counts["texel"])
     scattered = int(counts["scatter"])
-    walk = _walk_ops(scene, segments, paths, shadows, texels)
+    walk = _walk_ops(scene, segments, paths, shadows, texels, walks=walks)
     lanes = rows * 128
     atlas = scene.textures.numel() * 4
     k_part = 3 * n_slots + 3 * n_l + 1
@@ -3101,7 +3285,7 @@ def phase_tex_grad_times(smi):
           f"{busy:.4f} ms, idle share {idle:.3f}; plain launch 1 "
           f"{plain1_ms:.2f} ms, scatter {plain2_ms:.2f} ms; bound launch 1 "
           f"{b1[0]:.5f} ms by {b1[1]}, scatter {b2[0]:.5f} ms by {b2[1]} "
-          f"(lower bounds: {segments} segments, {paths} paths, {shadows} "
+          f"({segments} segments, {paths} paths, {shadows} "
           f"shadow segments, {texels} texel fetches, {scattered} scattered "
           f"vertices)", flush=True)
     return res
@@ -3702,8 +3886,12 @@ def phase_sample_times(smi):
 
 
 AB_FORWARD = [("cornell", False), ("cornell", True), ("cornell-boxes", False),
-              ("cornell-boxes", True)]
-AB_GRADIENT = [("cornell", False), ("cornell", True), ("cornell-boxes", True)]
+              ("cornell-boxes", True), ("cornell-quad", False),
+              ("cornell-quad", True), ("terrain32", False),
+              ("terrain32", True)]
+AB_GRADIENT = [("cornell", False), ("cornell", True), ("cornell-boxes", True),
+               ("cornell-quad", True), ("terrain32", True)]
+AB_EXACT = ("cornell",)  # sphere scenes: outputs compared bit for bit
 
 
 def _digest(tensors) -> str:
@@ -3717,12 +3905,18 @@ def _digest(tensors) -> str:
 
 def ab_worker(root: str) -> dict:
     """With the package of the checkout ``root``: device ms per launch (one
-    ``_profile`` trace of 10 launches) of the forward kernel on phases 6 and
-    12's workloads (cornell_spheres and cornell_boxes, brute force and NEE)
-    and of the gradient kernel on phases 10 and 13's (config 5: spheres
-    brute force and NEE, cornell_boxes NEE), pinhole and untextured, which
-    every checkout since the mesh slice runs through the same calls; a
-    digest of each workload's outputs (the state planes after two forward
+    ``_profile`` trace of 10 launches) of the forward kernel on phases 6,
+    12 and 27's workloads (cornell_spheres, cornell_boxes, cornell_quad and
+    the textured terrain32, brute force and NEE, budget 16), of the
+    gradient kernel at config 5 on phases 10, 13 and 31's (spheres brute
+    force and NEE, cornell_boxes and cornell_quad NEE, terrain32 NEE with
+    the atlas gradient: launch 1 and the scatter), of the tangent kernel on
+    cornell_quad NEE (phase 16, the position's 3 tangents) and of config
+    4's launch through PersistentRenderer (phase 26, the terrain at
+    1024x1024, render_to(2) from a reset), all pinhole, and the plain
+    version's wall ms per step on cornell_boxes brute force, through the
+    calls that every checkout since the texture gradients runs; a digest of
+    each sphere workload's outputs (the state planes after two forward
     launches from a fresh state; the loss and raw gradients of one gradient
     launch; Philox draws, seeds fixed); and the build log."""
     sys.path.insert(0, root)
@@ -3730,8 +3924,10 @@ def ab_worker(root: str) -> dict:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
+    from tpu_pathtracer_torch import PersistentRenderer
     from tpu_pathtracer_torch.models import camera as cm, scene as sc
     from tpu_pathtracer_torch.ops.kernels import _build
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
     from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
     from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
@@ -3742,8 +3938,10 @@ def ab_worker(root: str) -> dict:
     log = _build.library_path().with_suffix(".log").read_text()
     k = 10
     out, digests, scenes = {}, {}, {}
-    for name in ("cornell", "cornell-boxes"):
-        scene, cs = sc.BUILTIN_SCENES[name](device="cuda")
+    for name in dict.fromkeys(n for n, _ in AB_FORWARD + AB_GRADIENT):
+        scene, cs = (sc.BUILTIN_SCENES[name](device="cuda")
+                     if name in sc.BUILTIN_SCENES
+                     else EXTRA_SCENES[name]("cuda"))
         cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
                              cs["fov"], device="cuda")
         scenes[name] = (sc.with_packet_mesh(scene), cam, pack_camera(cam))
@@ -3760,11 +3958,18 @@ def ab_worker(root: str) -> dict:
                 max_bounces=MB, rr_start=3, tile_rows=TR, use_nee=nee)
 
         key = f"forward {name} {'nee' if nee else 'brute'}"
-        start()
-        run(0)
-        run(1)
-        digests[key] = _digest(getattr(st[0], f) for f in pk.STATE_FIELDS)
+        if name in AB_EXACT:
+            start()
+            run(0)
+            run(1)
+            digests[key] = _digest(getattr(st[0], f) for f in pk.STATE_FIELDS)
         out[key] = _profile(run, k, "persistent_kernel", "ab", start)[0]
+    # the plain version's wall ms per step by phase 12's protocol (one warm
+    # step, then two), host work and all
+    scene, _, cp = scenes["cornell-boxes"]
+    _time_steps(scene, cp, False, 1, 98, pk.persistent_step_ref)
+    out["plain forward cornell-boxes brute, wall"] = _time_steps(
+        scene, cp, False, 2, 300, pk.persistent_step_ref)[0] / 2
     gen = torch.Generator(device="cuda").manual_seed(5)
     target = torch.rand((H, W, 3), generator=gen, device="cuda")
     kw = dict(spp=SPP, budget=rp.default_budget(SPP, MB), max_bounces=MB,
@@ -3777,11 +3982,30 @@ def ab_worker(root: str) -> dict:
                                              use_nee=nee, **kw)
 
         key = f"gradient {name} {'nee' if nee else 'brute'}"
-        loss, grads, _ = rp.persistent_mse_value_and_grad(
-            scene, cam, (500, 0), 0, target, use_nee=nee, **kw)
-        digests[key] = _digest([loss, grads["mat_color"],
-                                grads["light_intensity"]])
-        out[key] = _profile(run, k, "replay_persistent_kernel", "ab")[0]
+        if name in AB_EXACT:
+            loss, grads, _ = rp.persistent_mse_value_and_grad(
+                scene, cam, (500, 0), 0, target, use_nee=nee, **kw)
+            digests[key] = _digest([loss, grads["mat_color"],
+                                    grads["light_intensity"]])
+        ms, _, _, by_name = _profile(run, k, "replay_persistent_kernel", "ab")
+        out[key] = ms
+        if scene.textured:  # the scatter launch: one per call
+            out[key + " scatter"] = sum(
+                v for n, v in by_name.items() if "replay_scatter_kernel" in n)
+    scene, cam, _ = scenes["cornell-quad"]
+    weights = torch.rand((H, W, 3), generator=gen, device="cuda")
+    out["tangent cornell-quad nee"] = _profile(
+        lambda i: cj.camera_weighted_grad(scene, cam, (400, i), weights,
+                                          use_nee=True, **kw),
+        k, "camera_jvp_kernel", "ab")[0]
+    scene, cs = sc.terrain_textured(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
+                         cs["fov"], device="cuda")
+    r = PersistentRenderer(scene, cam, _c4_config(), seed=3, device="cuda")
+    r.render_to(C4_SPP)
+    out["config 4 launch"] = _profile(lambda i: r.step(), r.state.frame,
+                                      "persistent_kernel", "ab",
+                                      start=r.reset)[0]
     return dict(ms=out, digests=digests, log=log)
 
 
@@ -3789,10 +4013,11 @@ def ab(other: str) -> int:
     """``ab_worker`` in one process per checkout, in the order other, this,
     this, other (A B B A, so that a drift of the card's clocks over the call
     shows as a gap between the two runs of one checkout). Prints each
-    checkout's ptxas registers, stack and spills per build of the two
-    kernels, each run's device ms per launch, then per workload the two runs
-    of each checkout, the change against the other checkout's mean, and
-    whether the outputs are equal bit for bit."""
+    checkout's ptxas registers, stack and spills per build of the three
+    persistent kernels, each run's device ms per launch, then per workload
+    the two runs of each checkout, the change against the other checkout's
+    mean, and, on the sphere workloads, whether the outputs are equal bit
+    for bit."""
     sys.path.insert(0, str(ROOT))
     from tpu_pathtracer_torch.ops.kernels._build import ptxas_report
 
@@ -3817,16 +4042,91 @@ def ab(other: str) -> int:
         print(f"{tag} ptxas: " + " | ".join(
             f"{k}: {v.get('regs')} regs, {v.get('stack')} B stack, "
             f"{v.get('spill_st')}/{v.get('spill_ld')} B spill st/ld"
-            for k, v in ptxas_report(log).items() if "persistent" in k))
-    print("device ms per launch: workload | other (run 1, run 4) | this "
-          "(run 2, run 3) | this / other - 1 | outputs equal")
+            for k, v in ptxas_report(log).items()
+            if "persistent" in k or "scatter" in k or "camera_jvp" in k))
+    print("device ms per launch (the plain version: wall ms per step): "
+          "workload | other (run 1, run 4) | this (run 2, run 3) | this / "
+          "other - 1 | outputs equal")
+    unequal = 0
     for key in runs[0][1]:
         oth = [r[key] for t, r in runs if t == "other"]
         this = [r[key] for t, r in runs if t == "this"]
         gap = statistics.mean(this) / statistics.mean(oth) - 1.0
-        same = len({d[key] for ds in digests.values() for d in ds}) == 1
+        seen = {d[key] for ds in digests.values() for d in ds if key in d}
+        same = "-" if not seen else "yes" if len(seen) == 1 else "NO"
+        unequal += same == "NO"
         print(f"{key} | {oth[0]:.4f}, {oth[1]:.4f} | {this[0]:.4f}, "
-              f"{this[1]:.4f} | {gap:+.4f} | {'yes' if same else 'NO'}")
+              f"{this[1]:.4f} | {gap:+.4f} | {same}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip())
+    return 1 if unequal else 0
+
+
+# --leaf-cutoff: small meshes, the one leaf against the leaf-<=4 tree
+CUTOFF_MESHES = [("cornell_boxes", None), ("terrain_textured", 6),
+                 ("terrain_textured", 7), ("terrain_textured", 8)]
+
+
+def leaf_cutoff() -> int:
+    """Kernel 1's device ms per forward launch (one ``_profile`` trace of 10
+    launches; 640x480, budget 16, brute force and NEE) on small meshes
+    packed two ways: as one leaf and as the mesh's leaf-<=4 tree
+    (``pack_bvh`` with ``one_leaf`` its triangle count, or 0), A B B A in
+    one process; cornell_boxes (36 triangles) and terrain_textured at
+    n = 6, 7 and 8 (50, 72 and 98 triangles), which lie between the meshes
+    that set ``BVH_MAX_LEAF``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels.mesh_kernel import pack_bvh
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
+    print("device ms per forward launch: mesh (triangles) mode | one leaf "
+          "(runs 1, 4) | leaf-<=4 tree, nodes (runs 2, 3) | tree / one "
+          "leaf - 1", flush=True)
+    for name, n in CUTOFF_MESHES:
+        build = getattr(sc, name)
+        scene, cs = build(device="cuda") if n is None else build(
+            n=n, device="cuda")
+        scene = sc.with_packet_mesh(scene, two_pass=False)
+        cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                             cs["fov"], device="cuda")
+        cp = pack_camera(cam)
+        T = scene.mesh.num_tris
+        packs = {"one": dataclasses.replace(
+                     scene, mesh_bvh=pack_bvh(scene.mesh, one_leaf=T)),
+                 "tree": dataclasses.replace(
+                     scene, mesh_bvh=pack_bvh(scene.mesh, one_leaf=0))}
+        for use_nee in (False, True):
+            ms = {"one": [], "tree": []}
+            for key in ("one", "tree", "tree", "one"):
+                st = [None]
+
+                def start():
+                    st[0] = pk.init_state(W, H, TR, device="cuda")
+
+                def run(i, sc_=packs[key]):
+                    st[0], _ = pk.persistent_step(
+                        sc_, cp, (400, i), st[0], budget=16, width=W,
+                        height=H, max_bounces=10, rr_start=3, tile_rows=TR,
+                        use_nee=use_nee)
+
+                ms[key].append(_profile(run, 10, "persistent_kernel",
+                                        "cutoff", start=start)[0])
+            gap = statistics.mean(ms["tree"]) / statistics.mean(ms["one"]) - 1
+            print(f"{name}{'' if n is None else f'({n})'} ({T}) "
+                  f"{'nee' if use_nee else 'brute'} | {ms['one'][0]:.4f}, "
+                  f"{ms['one'][1]:.4f} | {ms['tree'][0]:.4f}, "
+                  f"{ms['tree'][1]:.4f}, {packs['tree'].mesh_bvh.num_nodes} "
+                  f"nodes | {gap:+.4f}", flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -4201,8 +4501,9 @@ def main() -> int:
                 "the atlas gradient into its four bilinear taps with float "
                 "atomics; launches are the textured trainer's 5 steps "
                 "(phase 29); ms, plain_ms and bound_ms on terrain32 "
-                "640x480 spp 4 NEE (phase 31, a lower bound: the mesh walk "
-                "counts the root only)",
+                "640x480 spp 4 NEE (phase 31; the walk's tests counted on "
+                "the mesh's leaf-<=4 tree by bvh_walk_ref on a sample of "
+                "the segments)",
     }
     boxes = m_times["cornell-boxes"]["brute"]
     textured = t_times["terrain32"]["nee"]
@@ -4219,23 +4520,28 @@ def main() -> int:
                            forward["max_abs_err_config4_bands"]),
         "ms": boxes["kernel_ms"],
         "plain_ms": boxes["plain_ms"],
-        "bound_ms": boxes["bound_ms"],
-        "bound_by": boxes["bound_by"],
+        "bound_ms": boxes["walk_bound_ms"],
+        "bound_by": boxes["walk_bound_by"],
         "library_ms": None,
         "ms_textured_nee": textured["kernel_ms"],
         "plain_ms_textured_nee": textured["plain_ms"],
-        "bound_ms_textured_nee": textured["bound_ms"],
-        "bound_by_textured_nee": textured["bound_by"],
-        "note": "a __device__ function inside persistent_step and "
-                "persistent_replay_call, with no launch of its own: "
-                "launches are those of the persistent kernels (the "
-                "scatter walk included) on mesh scenes in the mesh main "
-                "paths (the lens, textured, config-4 and textured-trainer "
-                "paths included); ms, plain_ms and bound_ms are those of "
-                "the cornell_boxes brute-force forward launch that runs it, "
-                "the *_textured_* keys those of terrain32 NEE with the uv "
-                "tracked; held against mesh_walk_ref through both kernels' "
-                "mesh checks",
+        "bound_ms_textured_nee": textured["walk_bound_ms"],
+        "bound_by_textured_nee": textured["walk_bound_by"],
+        "note": "bvh_walk, a __device__ function inside persistent_step "
+                "and persistent_replay_call (and the tangent walk), with no "
+                "launch of its own: launches are those of the persistent "
+                "kernels (the scatter walk included) on mesh scenes in the "
+                "mesh main paths (the lens, textured, config-4 and "
+                "textured-trainer paths included); ms and plain_ms are "
+                "those of the cornell_boxes brute-force forward launch "
+                "that runs it, bound_ms the walk's own part of that "
+                "launch (the box and triangle tests that the mesh's "
+                "leaf-<=4 tree needs on its segments, counted by "
+                "bvh_walk_ref on a sample of them, and the bytes of the "
+                "tree the kernels walk), the *_textured_* "
+                "keys the same for terrain32 NEE with the uv tracked; "
+                "held against the plain versions' mesh_walk_ref through "
+                "the persistent kernels' mesh checks",
     }
     main_t = j_times["ior_cornell_nee"]
     jvp = {
@@ -4442,8 +4748,14 @@ if __name__ == "__main__":
                     help="instead of the smoke run, time the persistent "
                     "kernels per launch against another checkout's (ab)")
     ap.add_argument("--ab-worker", help=argparse.SUPPRESS)
+    ap.add_argument("--leaf-cutoff", action="store_true",
+                    help="instead of the smoke run, time the forward kernel "
+                    "on small meshes as one leaf and as a tree "
+                    "(leaf_cutoff)")
     args = ap.parse_args()
     if args.ab_worker:
         print(json.dumps(ab_worker(args.ab_worker)))
         sys.exit(0)
+    if args.leaf_cutoff:
+        sys.exit(leaf_cutoff())
     sys.exit(ab(args.ab) if args.ab else main())

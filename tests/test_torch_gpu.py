@@ -245,6 +245,61 @@ def test_textured_kernel_matches_plain_on_gpu():
 
 
 @pytest.mark.gpu
+def test_quad_diagonal_tie_on_gpu():
+    """Rays straight down onto the shared diagonal of a quad whose two
+    triangles carry a red and a green material hit both triangles at the
+    same t (exact arithmetic here, in both versions): the forward kernel's
+    walk and its plain version give the hit to the lower triangle index
+    (the tie rule), so after one iteration every lane's throughput is that
+    triangle's colour in both, with the same normal (the same bounce)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.quad([-10, 0, -10], [-10, 0, 10], [10, 0, 10],
+                           [10, 0, -10])
+    mesh = build_bvh(v, f, uv, np.array([0, 1]), device="cuda")
+    colours = [[0.9, 0.1, 0.1], [0.1, 0.9, 0.1]]
+    scene = sc.with_packet_mesh(sc.make_scene(
+        [], [sc.diffuse(c) for c in colours],
+        [sc.point_light([0.0, 8.0, 0.0], [60.0, 60.0, 60.0])], mesh=mesh,
+        device="cuda"))
+    w, h = 128, 8
+    cam = cm.make_camera([0, 14, 9], [0, 0, 0], [0, 1, 0], w, h, 60.0,
+                         device="cuda")
+    st = pk.init_state(w, h, tile_rows=TR, device="cuda")
+    # lane i: from (s, 10, s) straight down, s = (i - 512) / 64, exact
+    s_ = (torch.arange(st.lr.numel(), device="cuda", dtype=torch.float32)
+          .reshape(st.lr.shape) - 512.0) / 64.0
+    for name, val in (("ox", s_), ("oy", 10.0), ("oz", s_), ("dy", -1.0),
+                      ("tr", 1.0), ("tg", 1.0), ("tb", 1.0),
+                      ("prev_pdf", 1.0)):
+        getattr(st, name)[:] = val
+    st.alive[:] = 1
+    st.prev_delta[:] = 1
+    kw = dict(budget=1, width=w, height=h, max_bounces=4, tile_rows=TR)
+    u = torch.rand((st.lr.shape[0] * pk.n_draws(False), LANES),
+                   generator=torch.Generator(device="cuda").manual_seed(3),
+                   device="cuda")
+    st_r, _ = pk.persistent_step_ref(scene, pack_camera(cam), (1, 1),
+                                     st.clone(), uniforms=u, **kw)
+    st_k, _ = pk.persistent_step(scene, pack_camera(cam), (1, 1),
+                                 st.clone(), uniforms=u, **kw)
+    want = torch.tensor(colours[int(mesh.material_id[0])], device="cuda")
+    for got in (st_r, st_k):
+        thr = torch.stack([got.tr, got.tg, got.tb], -1).reshape(-1, 3)
+        torch.testing.assert_close(thr, want.expand_as(thr), rtol=1e-5,
+                                   atol=0)
+        torch.testing.assert_close(got.oy, torch.zeros_like(got.oy))
+    for name in ("ox", "oz", "dx", "dy", "dz"):
+        torch.testing.assert_close(getattr(st_k, name), getattr(st_r, name),
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
 def test_texture_id_past_the_atlas_is_black_on_gpu():
     """A material whose texture id is past the atlas takes a zero texel in
     the kernel and in its plain version, as in the TPU kernel: the quad lit

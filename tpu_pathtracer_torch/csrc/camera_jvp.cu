@@ -45,9 +45,11 @@
 //    __launch_bounds__;
 //  * MESH is a template argument too, so a sphere scene does not carry the
 //    BVH walk's registers;
-//  * the primal reuses pt_common.cuh (uniforms, BVH walk, light samples,
-//    emitter pdfs); the tangent helpers recompute the intermediates they
-//    need from the same inputs, which the compiler folds into the primal's;
+//  * the primal reuses pt_common.cuh (uniforms, the BVH walk bvh_walk over
+//    pack_bvh's tree, light samples, emitter pdfs), built here without FMA
+//    contraction like the rest of the file; the tangent helpers recompute
+//    the intermediates they need from the same inputs, which the compiler
+//    folds into the primal's;
 //  * the per-row ray count is a fixed block reduction with no atomics, so a
 //    launch replays bit for bit;
 //  * nvcc builds this file without FMA contraction (-fmad=false, see
@@ -364,11 +366,11 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
         best_p = q;
       }
     }
-    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f;
+    float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f, hu, hv;
     int mmat = -1;
     if (MESH)
-      tm = mesh_walk<false>(p.mesh, ox, oy, oz, dx, dy, dz, best_t, gnx, gny,
-                            gnz, mmat);
+      tm = bvh_walk<false, false>(p.mesh, ox, oy, oz, dx, dy, dz, best_t,
+                                  gnx, gny, gnz, mmat, hu, hv);
     const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
     if (!mesh_hit && !(best_t < 0.5f * BIG)) {
       // miss: the path ends and flushes, its score suffix included
@@ -555,12 +557,8 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
                                  dot3_fma(sx2, sy2, sz2, sx2, sy2, sz2));
           occ = d2s < __fmul_rn(P[3], P[3]);
         }
-        if (MESH && !occ && smax > 0.f) {
-          float sx, sy, sz;
-          int sm;
-          occ = mesh_walk<true>(p.mesh, hx, hy, hz, wlx, wly, wlz, smax, sx,
-                                sy, sz, sm) == 0.f;
-        }
+        if (MESH && !occ && smax > 0.f)
+          occ = bvh_occluded(p.mesh, hx, hy, hz, wlx, wly, wlz, smax);
         if (occ) continue;
         float fac = 1.f, dwlx[T], dwly[T], dwlz[T], dpdf[T], dfac[T];
 #pragma unroll
@@ -889,7 +887,7 @@ int tpt_camera_jvp(const float* prims, const int* pinfo, int n_prims,
                    const float* lights, const int* lstruct, int n_lights,
                    const float* cam, const float* dcam, const int* tan_mats,
                    int n_tan, const float* uniforms, float* out, int* n_samp,
-                   int* nrays, const float* mesh_boxes, const int* mesh_meta,
+                   int* nrays, const float* mesh_nodes,
                    const float* mesh_tris, const float* mesh_mats,
                    const float* tri_lights, int n_nodes, int rows_total,
                    int tile_rows, int budget, int spp, int width, int n_lanes,
@@ -900,7 +898,7 @@ int tpt_camera_jvp(const float* prims, const int* pinfo, int n_prims,
       n_lights > MAX_LIGHTS || n_tan < 1 || n_tan > MAX_TAN ||
       rows_total <= 0 || tile_rows <= 0 || rows_total % tile_rows != 0 ||
       width <= 0 || strat_k < 1 || n_nodes < 0 ||
-      (n_nodes > 0 && !(mesh_boxes && mesh_meta && mesh_tris && mesh_mats &&
+      (n_nodes > 0 && !(mesh_nodes && mesh_tris && mesh_mats &&
                         tri_lights)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -940,8 +938,7 @@ int tpt_camera_jvp(const float* prims, const int* pinfo, int n_prims,
   p.out = out;
   p.n_samp = n_samp;
   p.nrays = nrays;
-  p.mesh.boxes = mesh_boxes;
-  p.mesh.meta = mesh_meta;
+  p.mesh.nodes = reinterpret_cast<const float4*>(mesh_nodes);
   p.mesh.tris = mesh_tris;
   p.mesh.mats = mesh_mats;
   p.mesh.tl = tri_lights;

@@ -5,7 +5,8 @@
 // brute force and NEE+MIS with point, sphere-area and triangle (TRI_LIGHT)
 // lights, pinhole and thin-lens cameras (DOF), and textured mesh materials.
 // The in-kernel BVH walk of ops/pallas/_walk.py is pt_common.cuh's
-// mesh_walk_uv, which also returns the hit's uv on a textured scene.
+// bvh_walk over pack_bvh's tree, which also returns the hit's uv on a
+// textured scene.
 //
 // What bounds it on this card: it is a long, divergent, register-heavy ALU
 // state machine. Each lane does per-prim quadratics, transcendentals and
@@ -25,9 +26,13 @@
 //  * lanes branch per lobe and per light instead of evaluating every lobe
 //    under masks: a lane pays only for the lobe it took;
 //  * a mesh is walked per thread after the sphere pass, from the sphere t,
-//    so boxes behind the sphere hit are never entered; the packed node and
-//    triangle tables are read from global memory through the read-only
-//    cache (every lane of a warp mostly reads the same node);
+//    so boxes behind the sphere hit are never entered. The tree is not the
+//    TPU's (64-triangle leaves, for a walk shared by a whole tile) but the
+//    mesh's own small-leaf tree (pack_bvh; one leaf for a mesh of at most
+//    64 triangles), walked stacklessly through skip links
+//    (pt_common.cuh::bvh_walk): a terrain segment tests ~10 triangles
+//    instead of ~90. Its 32-byte nodes and the triangles are read from
+//    global memory through the read-only cache;
 //  * a textured mesh hit reads its four bilinear taps from the atlas in
 //    device memory through the read-only cache (the TPU kernel's soft
 //    two-hot MXU contraction stands in for a per-lane gather, which Hopper
@@ -91,8 +96,13 @@ struct Params {
   int tex_k, tex_th, tex_tw;
 };
 
+// Six blocks of 128 threads per SM, so at most 80 registers: left to
+// itself ptxas gives the textured mesh build 88 (five blocks per SM) and
+// the untextured one 16 B of spills, and both ran 4-9% slower on terrain32
+// and config 4 than with this bound (PERF.md, Findings). The sphere builds
+// take 80 either way.
 template <bool MESH, bool TEX, bool DOF>
-__global__ void __launch_bounds__(LANES)
+__global__ void __launch_bounds__(LANES, 6)
 persistent_kernel(State s, Params p) {
   static_assert(MESH || !TEX, "textures live on mesh materials");
   const int row = blockIdx.x;  // one block per 128-lane row
@@ -175,8 +185,8 @@ persistent_kernel(State s, Params p) {
     float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f, hu = 0.f, hv = 0.f;
     int mmat = -1;
     if (MESH)
-      tm = mesh_walk_uv<false, TEX>(p.mesh, ox, oy, oz, dx, dy, dz, best_t,
-                                    gnx, gny, gnz, mmat, hu, hv);
+      tm = bvh_walk<false, TEX>(p.mesh, ox, oy, oz, dx, dy, dz, best_t,
+                                gnx, gny, gnz, mmat, hu, hv);
     const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
     if (!mesh_hit && !(best_t < 0.5f * BIG)) {
       // miss: the path ends here and flushes into the pixel sum
@@ -323,12 +333,8 @@ persistent_kernel(State s, Params p) {
                                  dot3_fma(sx2, sy2, sz2, sx2, sy2, sz2));
           occ = d2s < __fmul_rn(P[3], P[3]);
         }
-        if (MESH && !occ && smax > 0.f) {
-          float sx, sy, sz;
-          int sm;
-          occ = mesh_walk<true>(p.mesh, hx, hy, hz, wlx, wly, wlz, smax, sx,
-                                sy, sz, sm) == 0.f;
-        }
+        if (MESH && !occ && smax > 0.f)
+          occ = bvh_occluded(p.mesh, hx, hy, hz, wlx, wly, wlz, smax);
         if (occ) continue;
         // squared power heuristic against BSDF sampling; a point light is a
         // delta light with weight 1
@@ -422,8 +428,8 @@ int tpt_persistent_step(void* const* state, const float* prims,
                         const int* pflags, int n_prims, const float* lights,
                         const int* lstruct, int n_lights, const float* cam,
                         const float* uniforms, int* nrays,
-                        const float* mesh_boxes, const int* mesh_meta,
-                        const float* mesh_tris, const float* mesh_mats,
+                        const float* mesh_nodes, const float* mesh_tris,
+                        const float* mesh_mats,
                         const float* tri_lights, int n_nodes,
                         const float* atlas, int tex_k, int tex_th, int tex_tw,
                         int rows_total, int tile_rows, int budget, int width,
@@ -435,7 +441,7 @@ int tpt_persistent_step(void* const* state, const float* prims,
       n_lights > MAX_LIGHTS || rows_total <= 0 || tile_rows <= 0 ||
       rows_total % tile_rows != 0 || width <= 0 || strat_k < 1 ||
       n_nodes < 0 ||
-      (n_nodes > 0 && !(mesh_boxes && mesh_meta && mesh_tris && mesh_mats &&
+      (n_nodes > 0 && !(mesh_nodes && mesh_tris && mesh_mats &&
                         tri_lights)) ||
       (atlas && (n_nodes == 0 || tex_k <= 0 || tex_th <= 0 || tex_tw <= 0)))
     return (int)cudaErrorInvalidValue;
@@ -501,8 +507,7 @@ int tpt_persistent_step(void* const* state, const float* prims,
   p.frame = frame;
   p.uniforms = uniforms;
   p.nrays = nrays;
-  p.mesh.boxes = mesh_boxes;
-  p.mesh.meta = mesh_meta;
+  p.mesh.nodes = reinterpret_cast<const float4*>(mesh_nodes);
   p.mesh.tris = mesh_tris;
   p.mesh.mats = mesh_mats;
   p.mesh.tl = tri_lights;

@@ -8,8 +8,8 @@
 // one through the polar disk map, and through the concentric map for the
 // per-sample forward kernel), the NEE light samples (point light, cone
 // sampling of a sphere light, area sampling of a triangle light), the MIS
-// pdfs of sphere and triangle emitter hits, the BVH walk over a packed mesh
-// (with the hit's texture uv on request) and the bilinear texel of the
+// pdfs of sphere and triangle emitter hits, the BVH walk over pack_bvh's
+// tree (with the hit's texture uv on request) and the bilinear texel of the
 // texture atlas, and the per-sample kernels' sphere closest hit and
 // quadratic shadow test. The persistent kernels' sphere loops differ from
 // those (tie rule, segment-ball occlusion) and stay in each kernel.
@@ -373,67 +373,91 @@ __device__ __forceinline__ float tri_light_pdf(float t, float cos_l,
   return tc * tc / fmaxf(fabsf(cos_l), 1e-9f) * (sel / fmaxf(area, 1e-20f));
 }
 
-// A mesh packed by ops/kernels/mesh_kernel.py::pack_mesh, with the tables
+// A mesh packed by ops/kernels/mesh_kernel.py::pack_bvh, with the tables
 // the kernels read at mesh hits. n_nodes == 0: the scene has no mesh.
 struct MeshView {
-  const float* boxes;  // (n_nodes, 6) node AABBs: min3 max3
-  const int* meta;     // (n_nodes, 3): skip, first slot, triangle count
-  const float* tris;   // packed triangle slots: v0 e1 e2 mat uv0 uv_e1 uv_e2
-  const float* mats;   // (n_mats, MAT_STRIDE): r g b coef type texture
-  const float* tl;     // triangle-light rows (TL_STRIDE floats each)
+  const float4* nodes;  // (n_nodes, 2): min3 skip, max3 leaf
+  const float* tris;    // (T, TRI_STRIDE) slots in MeshData triangle order:
+                        // v0 e1 e2 mat uv0 uv_e1 uv_e2
+  const float* mats;    // (n_mats, MAT_STRIDE): r g b coef type texture
+  const float* tl;      // triangle-light rows (TL_STRIDE floats each)
   int n_nodes;
 };
+
+// A node's leaf word: first triangle | count << LEAF_BITS (0: inner node).
+constexpr int LEAF_BITS = 24;
+// 1 + 2 gamma(3) (Ize, "Robust BVH ray traversal", JCGT 2013), rounded up to
+// 1 + 4 ulp: the far slab distance is scaled by it, so that rounding never
+// drops a box that holds the hit.
+constexpr float ROBUST = 1.00000047683716f;
+// A box is pruned only when its entry distance is beyond t * PRUNE (1 +
+// 2^-16): a triangle that lies on a box's face (a Cornell box standing on
+// the floor, neighbouring terrain leaves) is hit at a t that rounds a few
+// ulp below the box's entry distance.
+constexpr float PRUNE = 1.0000152587890625f;
 
 __device__ __forceinline__ float safe_inv(float a) {
   return 1.f / (fabsf(a) > 1e-12f ? a : (a >= 0.f ? 1e-12f : -1e-12f));
 }
 
-// Threaded-DFS BVH walk of ONE ray (replaces the TPU kernels' shared
-// make_mesh_walk, ops/pallas/_walk.py:22). From t (> 0), a box is entered
-// only if this ray's slab test hits it closer than t; a leaf tests its
-// triangles in order (Moller-Trumbore, strictly closer wins); then the walk
-// follows the skip link. The TPU walk instead moves a whole tile of lanes
-// through one node sequence, entering a box when ANY lane hits it, and tests
-// a leaf's triangles on every lane of the tile. The results differ only
-// where this ray's slab test misses a box whose triangle the ray hits, an
-// f32 edge case; the lane-agreement bars measure it. The walk keeps no
-// stack. Closest mode (OCCLUSION false) returns the closest t (t itself if
-// none is closer) with the unnormalized normal cross(e1, e2) and the
-// material of the winner, and with TRACK_UV its texture uv, uv0 + u uv_e1 +
-// v uv_e2 at its barycentrics (u, v) (TPU walk: _walk.py:142-157); occlusion
-// mode returns 0 at the first triangle in (TMIN, t) and tracks no uv.
+// The BVH walk of ONE ray over pack_bvh's tree (replaces the TPU kernels'
+// shared make_mesh_walk, ops/pallas/_walk.py:22; plain version
+// ops/kernels/_walk.py::bvh_walk_ref). The TPU walk moves a whole tile of
+// lanes through one node sequence of a tree with 64-triangle leaves, and
+// its MXU tests a leaf for every lane at once. Here each thread walks its
+// own ray, and what bounds it is latency: every node visit is a dependent
+// read from memory, and the lanes of a warp diverge over the tree (the
+// card has no ray-tracing units that the port may use). So the tree is the
+// mesh's own, with leaves of a few triangles (a 64-triangle leaf costs 64
+// tests, 45 operations each, wherever the ray enters its box); a mesh of
+// at most 40 triangles is one leaf, which all lanes of a warp test in step.
+// The walk is stackless, in DFS order through skip links: a node is 32
+// bytes, its box and links read as two float4, and it keeps no state but
+// the node index. (A near-first walk over nodes that hold both children's
+// boxes, with a per-thread stack, tested fewer boxes and triangles but ran
+// slower on the card: PERF.md, Findings.) From t (> 0; the sphere pass's t in
+// the persistent kernels), closest mode (OCCLUSION false) returns the
+// closest t (t itself if none is closer) with the unnormalized normal
+// cross(e1, e2) and the material of the winner, and with TRACK_UV its
+// texture uv, uv0 + u uv_e1 + v uv_e2 at its barycentrics (u, v) (TPU
+// walk: _walk.py:142-157); occlusion mode returns 0 at the first triangle
+// in (TMIN, t). Leaves are visited in triangle order and a hit must be
+// strictly closer, so an equal t goes to the lower triangle index, as in
+// the TPU walk. The box test is robust (ROBUST, PRUNE), so the walk enters
+// every box whose triangle the ray hits.
 template <bool OCCLUSION, bool TRACK_UV>
-__device__ __forceinline__ float mesh_walk_uv(const MeshView& m, float ox,
-                                              float oy, float oz, float dx,
-                                              float dy, float dz, float t,
-                                              float& gnx, float& gny,
-                                              float& gnz, int& mat, float& hu,
-                                              float& hv) {
+__device__ __forceinline__ float bvh_walk(const MeshView& m, float ox,
+                                          float oy, float oz, float dx,
+                                          float dy, float dz, float t,
+                                          float& gnx, float& gny, float& gnz,
+                                          int& mat, float& hu, float& hv) {
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   int node = 0;
   while (node < m.n_nodes) {
-    const float* B = m.boxes + node * 6;
-    const float tx0 = (__ldg(B) - ox) * ix, tx1 = (__ldg(B + 3) - ox) * ix;
-    const float ty0 = (__ldg(B + 1) - oy) * iy, ty1 = (__ldg(B + 4) - oy) * iy;
-    const float tz0 = (__ldg(B + 2) - oz) * iz, tz1 = (__ldg(B + 5) - oz) * iz;
+    const float4 lo = __ldg(m.nodes + 2 * node);
+    const float4 hi = __ldg(m.nodes + 2 * node + 1);
+    const float tx0 = (lo.x - ox) * ix, tx1 = (hi.x - ox) * ix;
+    const float ty0 = (lo.y - oy) * iy, ty1 = (hi.y - oy) * iy;
+    const float tz0 = (lo.z - oz) * iz, tz1 = (hi.z - oz) * iz;
     const float tn =
         fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
     const float tf =
-        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-    const int* N = m.meta + node * 3;
-    const int skip = __ldg(N);
-    if (!(tn <= tf && tf > TMIN && tn < t)) {
-      node = skip;
+        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1)) *
+        ROBUST;
+    if (!(tn <= tf && tf > TMIN && tn <= t * PRUNE)) {
+      node = __float_as_int(lo.w);  // skip the subtree
       continue;
     }
-    const int count = __ldg(N + 2);
-    if (count == 0) {  // inner node: descend
+    const int leaf = __float_as_int(hi.w);
+    if (leaf == 0) {  // inner node: descend to its first child
       ++node;
       continue;
     }
-    const float4* S =
-        reinterpret_cast<const float4*>(m.tris + (size_t)__ldg(N + 1) * TRI_STRIDE);
-    for (int j = 0; j < count; ++j, S += TRI_STRIDE / 4) {
+    // a leaf: Moller-Trumbore on its triangles in order, strictly closer
+    // wins
+    const float4* S = reinterpret_cast<const float4*>(
+        m.tris + (size_t)(leaf & ((1 << LEAF_BITS) - 1)) * TRI_STRIDE);
+    for (int j = leaf >> LEAF_BITS; j > 0; --j, S += TRI_STRIDE / 4) {
       const float4 a = __ldg(S), b = __ldg(S + 1), c = __ldg(S + 2);
       // slot: v0 = a.xyz, e1 = (a.w, b.x, b.y), e2 = (b.z, b.w, c.x), mat c.y
       const float e1x = a.w, e1y = b.x, e1z = b.y;
@@ -460,27 +484,26 @@ __device__ __forceinline__ float mesh_walk_uv(const MeshView& m, float ox,
       gny = e1z * e2x - e1x * e2z;
       gnz = e1x * e2y - e1y * e2x;
       mat = (int)c.y;
-      if (TRACK_UV && !OCCLUSION) {
+      if (TRACK_UV) {
         // uv0 = (c.z, c.w); uv_e1 = (d.x, d.y); uv_e2 = (d.z, d.w)
         const float4 d = __ldg(S + 3);
         hu = c.z + uu * d.x + vv * d.z;
         hv = c.w + uu * d.y + vv * d.w;
       }
     }
-    node = skip;
+    node = __float_as_int(lo.w);
   }
   return t;
 }
 
-template <bool OCCLUSION>
-__device__ __forceinline__ float mesh_walk(const MeshView& m, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz, float t,
-                                           float& gnx, float& gny, float& gnz,
-                                           int& mat) {
-  float hu, hv;
-  return mesh_walk_uv<OCCLUSION, false>(m, ox, oy, oz, dx, dy, dz, t, gnx,
-                                        gny, gnz, mat, hu, hv);
+// Is a triangle of the mesh in (TMIN, tmax) along d from o?
+__device__ __forceinline__ bool bvh_occluded(const MeshView& m, float ox,
+                                             float oy, float oz, float dx,
+                                             float dy, float dz, float tmax) {
+  float gx, gy, gz, hu, hv;
+  int mt;
+  return bvh_walk<true, false>(m, ox, oy, oz, dx, dy, dz, tmax, gx, gy, gz,
+                               mt, hu, hv) == 0.f;
 }
 
 // The bilinear taps of a (th, tw) texture at uv, with the TPU kernel's index

@@ -60,7 +60,9 @@
 //    These per-path and per-lane arrays are indexed by the hit's runtime
 //    slot, so they live in local memory (L1-cached); each vertex touches one
 //    slot, and only path regeneration and completion touch all of them;
-//  * a mesh is walked per thread as in persistent.cu, and the kernel is
+//  * a mesh is walked per thread as in persistent.cu (pt_common.cuh's
+//    bvh_walk over pack_bvh's small-leaf tree, so the scatter
+//    launch replays launch 1's walk bit for bit), and the kernel is
 //    built six times, with and without the mesh code (MESH), the texture
 //    code (TEX, with a mesh only) and the thin lens (DOF), so that a sphere
 //    scene, an untextured scene or a pinhole camera does not carry their
@@ -234,8 +236,8 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
     float tm = BIG, gnx = 0.f, gny = 0.f, gnz = 0.f, hu = 0.f, hv = 0.f;
     int mmat = -1;
     if (MESH)
-      tm = mesh_walk_uv<false, TEX>(p.mesh, ox, oy, oz, dx, dy, dz, best_t,
-                                    gnx, gny, gnz, mmat, hu, hv);
+      tm = bvh_walk<false, TEX>(p.mesh, ox, oy, oz, dx, dy, dz, best_t,
+                                gnx, gny, gnz, mmat, hu, hv);
     const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
     bool alive_next = false;
     if (mesh_hit || best_p >= 0) {
@@ -386,12 +388,9 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
             const float rt = rb - rsq > TMIN ? rb - rsq : rb + rsq;
             occ = rdet >= 0.f && rt > TMIN && rt < smax;
           }
-          if (MESH && !occ && smax > 0.f) {
-            float sx, sy, sz;
-            int sm;
-            occ = mesh_walk<true>(p.mesh, hx, hy, hz, ls.wlx, ls.wly, ls.wlz,
-                                  smax, sx, sy, sz, sm) == 0.f;
-          }
+          if (MESH && !occ && smax > 0.f)
+            occ = bvh_occluded(p.mesh, hx, hy, hz, ls.wlx, ls.wly, ls.wlz,
+                               smax);
           if (occ) continue;
           const float pdf_b = cos_l * INV_PI;
           const float w_mis =
@@ -604,8 +603,8 @@ int tpt_replay_persistent(
     int n_mats, const float* lights, const int* lstruct, int n_lights,
     int n_slots, const float* cam, const float* uniforms, const float* target,
     float* lr, float* lg, float* lb, int* n_samp, int* nrays, float* partials,
-    float* gl, const float* mesh_boxes, const int* mesh_meta,
-    const float* mesh_tris, const float* mesh_mats, const float* tri_lights,
+    float* gl, const float* mesh_nodes, const float* mesh_tris,
+    const float* mesh_mats, const float* tri_lights,
     int n_nodes, const float* atlas, int tex_k, int tex_th, int tex_tw,
     float* ct, const float* g, const float* ct_in, const int* nsf, float* gT,
     int rows_total, int tile_rows, int budget, int spp,
@@ -617,7 +616,7 @@ int tpt_replay_persistent(
       n_slots < 0 || n_slots > MAX_SLOTS || rows_total <= 0 ||
       tile_rows <= 0 || rows_total % tile_rows != 0 || width <= 0 ||
       strat_k < 1 || n_nodes < 0 ||
-      (n_nodes > 0 && !(mesh_boxes && mesh_meta && mesh_tris && mesh_mats &&
+      (n_nodes > 0 && !(mesh_nodes && mesh_tris && mesh_mats &&
                         tri_lights)) ||
       (atlas && (n_nodes == 0 || tex_k <= 0 || tex_th <= 0 || tex_tw <= 0)) ||
       (ct && !atlas) ||
@@ -681,8 +680,7 @@ int tpt_replay_persistent(
   p.nrays = nrays;
   p.partials = partials;
   p.gl = gl;
-  p.mesh.boxes = mesh_boxes;
-  p.mesh.meta = mesh_meta;
+  p.mesh.nodes = reinterpret_cast<const float4*>(mesh_nodes);
   p.mesh.tris = mesh_tris;
   p.mesh.mats = mesh_mats;
   p.mesh.tl = tri_lights;

@@ -90,12 +90,14 @@ class Scene:
     mesh_mats_static: tuple = ()  # material ids used by mesh triangles
     has_tri_lights: bool = False
     mat_textures_static: tuple = ()  # host copy of mat_texture
-    # Triangle mesh + BVH (models/mesh.py), None in sphere-only scenes, its
-    # packed layout for the kernels and the coarse tree of the two-pass
-    # traversal (with_packet_mesh).
+    # Triangle mesh + BVH (models/mesh.py), None in sphere-only scenes, and
+    # (with_packet_mesh) its packed layout for kernel 5 and the plain walks,
+    # the coarse tree of the two-pass traversal, and the small-leaf tree
+    # that the persistent kernels walk.
     mesh: Any = None
     mesh_packed: Any = None
     mesh_packed_coarse: Any = None
+    mesh_bvh: Any = None
     textures: Tensor | None = None  # (K, TH, TW, 3) texture atlas
     # TRI_LIGHT sampling tables (L, K, ...) over the post-BVH triangle
     # order, K the padded largest triangle count (_build_tri_light_tables)
@@ -120,7 +122,8 @@ class Scene:
         moved = {f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
         moved.update({f: getattr(self, f).to(device) for f in TRI_FIELDS
                       if getattr(self, f) is not None})
-        for f in ("mesh", "mesh_packed", "mesh_packed_coarse", "textures"):
+        for f in ("mesh", "mesh_packed", "mesh_packed_coarse", "mesh_bvh",
+                  "textures"):
             if getattr(self, f) is not None:
                 moved[f] = getattr(self, f).to(device)
         return dataclasses.replace(self, **moved)
@@ -137,20 +140,26 @@ def refuse_textures(scene: Scene, who: str, why: str,
 
 def with_packet_mesh(scene: Scene, two_pass: bool = True,
                      coarse_leaf: int = 1024) -> Scene:
-    """Pack the scene's mesh for the kernels (``pack_mesh`` with 64-triangle
-    leaves), the JAX package's defaults. ``two_pass`` also builds the coarse
-    nodes-only tree (``coarse_leaf``-triangle cells, with its map onto the
-    fine tree) that drives the wavefront's two-pass binned traversal; the
-    persistent kernels never read it."""
+    """Pack the scene's mesh for the kernels: ``pack_mesh`` with 64-triangle
+    leaves, the JAX package's defaults, for kernel 5 and the plain versions
+    of the persistent kernels; ``pack_bvh``, the mesh's own small-leaf tree
+    (one leaf for a mesh of at most 40 triangles), for the persistent
+    kernels' per-thread walk. Raises ValueError where ``pack_bvh`` does.
+    ``two_pass`` also builds the coarse nodes-only tree
+    (``coarse_leaf``-triangle cells, with its map onto the fine tree) that
+    drives the wavefront's two-pass binned traversal; the persistent
+    kernels never read it."""
     if scene.mesh is None:
         return scene
-    from tpu_pathtracer_torch.ops.kernels.mesh_kernel import pack_mesh
+    from tpu_pathtracer_torch.ops.kernels.mesh_kernel import (
+        pack_bvh, pack_mesh,
+    )
 
     coarse = (pack_mesh(scene.mesh, collapse_leaf=coarse_leaf,
                         nodes_only=True, fine_leaf=64) if two_pass else None)
     return dataclasses.replace(
         scene, mesh_packed=pack_mesh(scene.mesh, collapse_leaf=64),
-        mesh_packed_coarse=coarse)
+        mesh_packed_coarse=coarse, mesh_bvh=pack_bvh(scene.mesh))
 
 
 @dataclasses.dataclass(frozen=True)

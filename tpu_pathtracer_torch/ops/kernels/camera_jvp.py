@@ -274,6 +274,7 @@ def camera_jvp_ref(
     coef_mats: Sequence[int] = (),
     uniforms: Tensor | None = None,
     counts: dict | None = None,
+    walks=None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of ``camera_jvp_call``: the JAX kernel's lane
     math (``camera_jvp.py:64-1058``), vectorized over all lanes with masked
@@ -282,7 +283,9 @@ def camera_jvp_ref(
     if ``counts`` is a dict it also receives the work done (for the kernel's
     bound): ``"paths"`` started, path ``"segments"``, NEE ``"shadow"``
     segments needed, of them ``"lit"`` (unoccluded), and ``"score"``
-    vertices (IOR-tangent vertices, summed over the tangents)."""
+    vertices (IOR-tangent vertices, summed over the tangents). ``walks``,
+    if given, is called as ``mesh_walk_ref``'s ``record`` on every mesh
+    walk (to sample the segments for the bound's walk tests)."""
     _refuse_textures(scene, "camera_jvp_ref")
     dev = cam_packed.device
     D = tangent_rows(dcam, coef_mats).to(dev)
@@ -425,7 +428,7 @@ def camera_jvp_ref(
         if mesh:
             tm, mnx, mny, mnz, mmat = mesh_walk_ref(
                 pm, ox, oy, oz, dx, dy, dz, where(alive, best_t, 0.0),
-                tile_rows=tile_rows)
+                tile_rows=tile_rows, record=walks)
             mc = alive & (tm < best_t) & (tm < 0.5 * BIG)
             best_t = where(mc, tm, best_t)
         hit = best_t < (0.5 * BIG)
@@ -586,7 +589,8 @@ def camera_jvp_ref(
                 if mesh:
                     occ = occ | mesh_occluded(
                         scene, tile_rows, act & m_l & valid & ~occ
-                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz)
+                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz,
+                        walks)
                 cos_l = dot3(wlx, wly, wlz, nx, ny, nz)
                 support = ((cos_l > 0.0)
                            & (dot3(wox, woy, woz, wlx, wly, wlz) < 0.0)
@@ -830,7 +834,7 @@ def _kernel():
         p, p, ip, i,  # camera, tangent rows (device), their materials, n_tan
         p,  # uniforms (device) or NULL
         p, p, p,  # output planes, n_samp, per-row ray counts (device)
-        p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
+        p, p, p, p, i,  # bvh nodes, tris, mats, tri lights; nodes
         i, i, i, i, i, i,  # rows_total tile_rows budget spp width n_lanes
         i, i, i, i, i,  # max_bounces rr_start use_nee strat_k tile_offset
         u, u, u,  # seed salt iteration

@@ -4,11 +4,17 @@ Counterpart of ``tpu_pathtracer/ops/pallas/mesh_kernel.py``:
 
 * ``PackedMesh`` / ``pack_mesh``: the fine layout (16-float triangle slots
   ``v0 e1 e2 | material | uv0 uv_e1 uv_e2``, 8 slots per 128-float row,
-  every leaf starting on a row, one leaf block of tail padding), which both
-  persistent kernels walk too (``csrc/pt_common.cuh``,
-  ``ops/kernels/_walk.py``); and with ``nodes_only=True`` the coarse tree of
-  the two-pass traversal: its leaf cells as flat tables and, with
-  ``fine_leaf``, each coarse node's subtree as a fine-tree node range;
+  every leaf starting on a row, one leaf block of tail padding), which
+  kernel 5 and the persistent kernels' plain versions walk
+  (``ops/kernels/_walk.py::mesh_walk_ref``); and with ``nodes_only=True``
+  the coarse tree of the two-pass traversal: its leaf cells as flat tables
+  and, with ``fine_leaf``, each coarse node's subtree as a fine-tree node
+  range;
+* ``PackedBvh`` / ``pack_bvh``: the MeshData tree itself (leaves of a few
+  triangles; one leaf for a mesh of at most 40), as 32-byte skip-link
+  nodes and unpadded triangle slots, which the persistent kernels walk per
+  thread (``csrc/pt_common.cuh::bvh_walk``; plain version
+  ``ops/kernels/_walk.py::bvh_walk_ref``);
 * ``intersect_mesh_packet``: the closest-hit or any-hit query of a ray wave,
   with ``t_init`` pruning, the in-call coherence sort, and the two-pass
   binned traversal (``bin_rays`` maps every ray to the coarse cell it enters
@@ -37,6 +43,13 @@ LANES = 128
 BIG = 1e30
 TRIS_PER_ROW = 8
 TRI_STRIDE = 16  # floats per triangle slot
+MAX_NODES = 1 << 24  # node ids travel as exact f32 integers in pack_mesh
+# pack_bvh: a mesh of at most BVH_MAX_LEAF triangles packs as one leaf (on
+# the card one leaf was the faster at 36 triangles, the tree from 50:
+# ``chip_smoke.py --leaf-cutoff``); a leaf's first triangle and count share
+# an int32 (LEAF_BITS and the rest)
+BVH_MAX_LEAF = 40
+LEAF_BITS = 24
 # Lanes per chunk of the plain walk's batched leaf tests (bounds its
 # (lanes, leaf_size, 16) gather).
 _LEAF_CHUNK = 1 << 15
@@ -127,6 +140,26 @@ def _collapse_subtrees(node_start, node_count, node_skip, node_min,
             old2new, np.asarray(kept_orig, np.int64), old_skips)
 
 
+def _tri_slots(mesh: MeshData, tri_ids: np.ndarray) -> np.ndarray:
+    """(len(tri_ids), 16) f32 slots ``v0 e1 e2 | material | uv0 uv_e1
+    uv_e2`` of the mesh's triangles ``tri_ids`` (-1: a zero pad slot)."""
+    v0, e1, e2 = (getattr(mesh, f).cpu().numpy() for f in ("v0", "e1", "e2"))
+    mat = mesh.material_id.cpu().numpy()
+    uv0, uve1, uve2 = (getattr(mesh, f).cpu().numpy()
+                       for f in ("uv0", "uv_e1", "uv_e2"))
+    slots = np.zeros((len(tri_ids), TRI_STRIDE), np.float32)
+    valid = tri_ids >= 0
+    src = np.clip(tri_ids, 0, max(len(v0) - 1, 0))
+    slots[:, 0:3] = np.where(valid[:, None], v0[src], 0.0)
+    slots[:, 3:6] = np.where(valid[:, None], e1[src], 0.0)
+    slots[:, 6:9] = np.where(valid[:, None], e2[src], 0.0)
+    slots[:, 9] = np.where(valid, mat[src].astype(np.float32), 0.0)
+    slots[:, 10:12] = np.where(valid[:, None], uv0[src], 0.0)
+    slots[:, 12:14] = np.where(valid[:, None], uve1[src], 0.0)
+    slots[:, 14:16] = np.where(valid[:, None], uve2[src], 0.0)
+    return slots
+
+
 def pack_mesh(mesh: MeshData, collapse_leaf: int = 64,
               nodes_only: bool = False,
               fine_leaf: int | None = None) -> PackedMesh:
@@ -151,10 +184,6 @@ def pack_mesh(mesh: MeshData, collapse_leaf: int = 64,
         return _pack_coarse(arrays, node_start, node_count, node_skip,
                             node_min, node_max, kept_orig, old_skips,
                             fine_leaf, dev)
-    v0, e1, e2 = (getattr(mesh, f).cpu().numpy() for f in ("v0", "e1", "e2"))
-    mat = mesh.material_id.cpu().numpy()
-    uv0, uve1, uve2 = (getattr(mesh, f).cpu().numpy()
-                       for f in ("uv0", "uv_e1", "uv_e2"))
     M = len(node_start)  # post-collapse node count
     leaf_size = int(node_count.max()) if M else 0
 
@@ -181,16 +210,8 @@ def pack_mesh(mesh: MeshData, collapse_leaf: int = 64,
     tri_ids = np.concatenate([tri_ids, np.full(pad_tail, -1, np.int64)])
     Tp = len(tri_ids)
 
-    slots = np.zeros((Tp, TRI_STRIDE), np.float32)
     valid = tri_ids >= 0
-    src = np.clip(tri_ids, 0, max(len(v0) - 1, 0))
-    slots[:, 0:3] = np.where(valid[:, None], v0[src], 0.0)
-    slots[:, 3:6] = np.where(valid[:, None], e1[src], 0.0)
-    slots[:, 6:9] = np.where(valid[:, None], e2[src], 0.0)
-    slots[:, 9] = np.where(valid, mat[src].astype(np.float32), 0.0)
-    slots[:, 10:12] = np.where(valid[:, None], uv0[src], 0.0)
-    slots[:, 12:14] = np.where(valid[:, None], uve1[src], 0.0)
-    slots[:, 14:16] = np.where(valid[:, None], uve2[src], 0.0)
+    slots = _tri_slots(mesh, tri_ids)
     tri_rows = slots.reshape(Tp // TRIS_PER_ROW, TRIS_PER_ROW * TRI_STRIDE)
 
     nodes = np.zeros((M, 16), np.float32)
@@ -252,6 +273,79 @@ def _pack_coarse(arrays, node_start, node_count, node_skip, node_min,
             .reshape(-1).astype(np.float32), device=dev),
         cell_ids=torch.tensor(leaf_sel.astype(np.int32), device=dev),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedBvh:
+    """The tree that the persistent kernels walk per thread
+    (``csrc/pt_common.cuh::bvh_walk``), packed by ``pack_bvh``: the mesh's
+    own tree in DFS order, a node 32 B, two float4: ``min3 skip`` then
+    ``max3 leaf``, with ``skip`` (the node after its subtree) and ``leaf``
+    int32 bits; ``leaf`` is ``first | count << LEAF_BITS`` for a leaf of
+    ``count`` triangles from slot ``first``, 0 for an inner node (its first
+    child is the next node). Triangles are 16-float slots in MeshData
+    order, unpadded, so a slot's index is its MeshData triangle id."""
+
+    nodes: Tensor  # (N, 8) f32
+    tris: Tensor  # (T, 16) f32
+    num_nodes: int = 0
+    max_leaf: int = 0  # triangles in the largest leaf
+
+    @property
+    def links(self) -> Tensor:
+        """(N, 3) int64: skip, first triangle, triangle count (0: inner)."""
+        bits = self.nodes.view(torch.int32)
+        leaf = bits[:, 7].to(torch.int64)
+        return torch.stack([bits[:, 3].to(torch.int64),
+                            leaf & ((1 << LEAF_BITS) - 1),
+                            leaf >> LEAF_BITS], 1)
+
+    def to(self, device) -> "PackedBvh":
+        return dataclasses.replace(self, nodes=self.nodes.to(device),
+                                   tris=self.tris.to(device))
+
+
+def pack_bvh(mesh: MeshData, one_leaf: int = BVH_MAX_LEAF) -> PackedBvh:
+    """Pack a built MeshData's tree (threaded DFS, leaves of contiguous
+    triangles, a few each) for the kernels' per-thread walk, on the mesh's
+    device. A mesh of at most ``one_leaf`` triangles packs as one leaf:
+    every ray of a warp then tests the same triangles in step, which beats
+    walking its small-leaf tree (the Cornell meshes, 36-38 triangles). A
+    larger mesh, and every mesh with ``one_leaf=0``, keeps its own leaves.
+    Raises ValueError for an empty mesh,
+    ``MAX_NODES`` or more nodes, or a leaf that its int32 cannot hold
+    (first triangle from ``1 << LEAF_BITS``, or 128 triangles or more)."""
+    arrays = [getattr(mesh, f).cpu().numpy() for f in (
+        "node_start", "node_count", "node_skip", "node_min", "node_max")]
+    T = mesh.num_tris
+    if len(arrays[0]) == 0 or T == 0:
+        raise ValueError("pack_bvh: the mesh has no triangles")
+    if T <= one_leaf:
+        arrays = _collapse_subtrees(*arrays, T)[:5]
+    start, count, skip = (np.asarray(a, np.int64) for a in arrays[:3])
+    N = len(start)
+    if N >= MAX_NODES:
+        raise ValueError(f"pack_bvh: the kernels' walk takes fewer than "
+                         f"{MAX_NODES} nodes, got {N}")
+    leaf = count > 0
+    if ((start + count > T) & leaf).any():
+        raise ValueError("pack_bvh: a leaf runs past the triangles")
+    if (leaf & ((start >= 1 << LEAF_BITS)
+                | (count >= 1 << (31 - LEAF_BITS)))).any():
+        raise ValueError(f"pack_bvh: a leaf's first triangle must be below "
+                         f"{1 << LEAF_BITS} and its count below "
+                         f"{1 << (31 - LEAF_BITS)}")
+    nodes = np.zeros((N, 8), np.float32)
+    bits = nodes.view(np.int32)
+    nodes[:, 0:3] = arrays[3]
+    nodes[:, 4:7] = arrays[4]
+    bits[:, 3] = skip
+    bits[:, 7] = np.where(leaf, start | count << LEAF_BITS, 0)
+    dev = mesh.v0.device
+    return PackedBvh(
+        nodes=torch.tensor(nodes, device=dev),
+        tris=torch.tensor(_tri_slots(mesh, np.arange(T)), device=dev),
+        num_nodes=N, max_leaf=int(count.max()))
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ from tpu_pathtracer_torch.models.scene import (
     AREA_LIGHT, EPSILON, SPECULAR, TRANSMISSIVE, TRI_LIGHT, Scene,
 )
 from tpu_pathtracer_torch.ops.kernels._walk import mesh_walk_ref
+from tpu_pathtracer_torch.ops.kernels.mesh_kernel import MAX_NODES
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
     BIG, INV_PI, LANES, pack_lights, pack_prims,
 )
@@ -68,7 +69,6 @@ STATE_FIELDS = (
 )
 MAX_PRIMS = 256  # sizes of the kernel's __constant__ tables
 MAX_LIGHTS = 64
-MAX_NODES = 1 << 24  # node ids travel as exact f32 integers in pack_mesh
 
 # Kernel launches by persistent_step (plain-version calls are not counted),
 # and those of them on a mesh scene (each walks the mesh in-kernel).
@@ -549,7 +549,7 @@ def pack_tri_lights(scene: Scene) -> tuple[Tensor, tuple]:
 
 def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
                best_t, h: dict, MT, tris, Lt, counts: dict | None = None,
-               tex_out: dict | None = None):
+               tex_out: dict | None = None, walks=None):
     """Merge the mesh walk into a sphere hit record (``persistent.py:358-
     397, 498-507``): the walk starts from the sphere t on live lanes; where
     a triangle is strictly closer it wins the hit point (FMA, as the
@@ -562,13 +562,15 @@ def mesh_merge(scene: Scene, tile_rows: int, alive, ox, oy, oz, dx, dy, dz,
     texel (``texel``; JAX ``persistent.py:491-497``), and ``counts``, if
     given, adds the texel fetches to ``"texel"``; ``tex_out``, if given,
     receives the hit's ``"uv"`` and ``"texel"`` (has_tex, (r, g, b)), for
-    the gradient walk's atlas scatter. Returns (mesh_closer, t_mesh,
+    the gradient walk's atlas scatter; ``walks``, if given, is
+    ``mesh_walk_ref``'s ``record``. Returns (mesh_closer, t_mesh,
     material)."""
     where = torch.where
     tex = scene.textured
     tm, mnx, mny, mnz, mmat, *uv = mesh_walk_ref(
         scene.mesh_packed, ox, oy, oz, dx, dy, dz,
-        where(alive, best_t, 0.0), tile_rows=tile_rows, track_uv=tex)
+        where(alive, best_t, 0.0), tile_rows=tile_rows, track_uv=tex,
+        record=walks)
     mc = alive & (tm < best_t) & (tm < 0.5 * BIG)
     inv_len = torch.rsqrt(torch.clamp_min(mnx * mnx + mny * mny + mnz * mnz,
                                           1e-20))
@@ -656,12 +658,13 @@ def sample_tri_light(TL, off, K, sel, hx, hy, hz, ul1, ul2):
 
 
 def mesh_occluded(scene: Scene, tile_rows: int, started, smax, hx, hy, hz,
-                  wlx, wly, wlz):
+                  wlx, wly, wlz, walks=None):
     """Shadow any-hit over the mesh (``persistent.py:816-824``): lanes that
-    start walk from smax and are occluded once a triangle zeroes their t."""
+    start walk from smax and are occluded once a triangle zeroes their t;
+    ``walks`` is ``mesh_walk_ref``'s ``record``."""
     t = mesh_walk_ref(scene.mesh_packed, hx, hy, hz, wlx, wly, wlz,
                       torch.where(started, smax, 0.0), tile_rows=tile_rows,
-                      occlusion=True)
+                      occlusion=True, record=walks)
     return started & (t == 0.0)
 
 
@@ -683,12 +686,15 @@ def persistent_step_ref(
     tile_offset: int | Sequence[int] = 0,
     uniforms: Tensor | None = None,
     counts: dict | None = None,
+    walks=None,
 ) -> tuple[PathState, Tensor]:
     """Plain PyTorch version of ``persistent_step``: the JAX kernel's lane
     math, vectorized over all lanes at once with masked selects. Returns a
     new state (the input is not modified) and the live-ray count; if
     ``counts`` is a dict it also receives ``"texel"``, the texel fetches of
-    textured mesh hits (for the kernel's bound). ``tile_offset`` may also
+    textured mesh hits (for the kernel's bound); ``walks``, if given, is
+    called as ``mesh_walk_ref``'s ``record`` on every mesh walk (to sample
+    the segments for the bound's walk tests). ``tile_offset`` may also
     be a sequence, the image's tile index of each of the state's tiles, so
     that one call steps tiles scattered over the image (a walk costs about
     as much for several tiles as for one)."""
@@ -845,7 +851,7 @@ def persistent_step_ref(
                      er=er, eg=eg, eb=eb)
             mc, tm, mmat = mesh_merge(scene, tile_rows, alive, ox, oy, oz,
                                       dx, dy, dz, best_t, h, MT, tris, Lt,
-                                      counts)
+                                      counts, walks=walks)
             (hit, hx, hy, hz, nx, ny, nz, ar, ag, ab, coef, is_s, is_t,
              er, eg, eb) = h.values()
             # sphere winner masks must not fire on mesh-won lanes
@@ -912,7 +918,8 @@ def persistent_step_ref(
                 if mesh:
                     occ = occ | mesh_occluded(
                         scene, tile_rows, act & m_l & valid & ~occ
-                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz)
+                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz,
+                        walks)
                 cos_l = dot3(wlx, wly, wlz, nx, ny, nz)
                 support = ((cos_l > 0.0)
                            & (dot3(wox, woy, woz, wlx, wly, wlz) < 0.0)
@@ -1013,7 +1020,7 @@ def _kernel():
         p, ip, i,  # prims (device), prim flags (host), n_prims
         p, ip, i,  # lights (device), light structure (host), n_lights
         p, p, p,  # camera (device), uniforms (device or NULL), nrays
-        p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
+        p, p, p, p, i,  # bvh nodes, tris, mats, tri lights; nodes
         p, i, i, i,  # texture atlas (device or NULL), K, TH, TW
         i, i, i, i, i,  # rows_total, tile_rows, budget, width, n_lanes
         i, i, i, i, i, i,  # max_bounces, rr_start, use_nee, use_dof,
@@ -1050,29 +1057,32 @@ def light_structure(scene: Scene, tris) -> list[int]:
 
 def mesh_arguments(scene: Scene, dev) -> tuple[list, list, list]:
     """(pointers, tensors to keep alive, light structure) for a kernel
-    launch: the packed mesh's node boxes, node meta and triangle rows (built
-    once by with_packet_mesh), the material and triangle-light tables (built
-    on the device from the scene's tables), and the node count; NULL
-    pointers and 0 nodes for a sphere-only scene. Raises ValueError past
-    the kernels' limits."""
+    launch: the binary tree's nodes and triangle slots (``pack_bvh``, built
+    once by with_packet_mesh), the material and triangle-light tables
+    (built on the device from the scene's tables), and the node count; NULL
+    pointers and 0 nodes for a sphere-only scene. Raises ValueError for an
+    unpacked mesh and past the kernels' limits."""
     pm = packed_mesh(scene)
     tl, tris = pack_tri_lights(scene)
     lstruct = light_structure(scene, tris)
     if pm is None:
-        return [None] * 5 + [0], [], lstruct
-    if pm.num_nodes >= MAX_NODES or pm.tri_rows.numel() >= 2 ** 31:
+        return [None] * 4 + [0], [], lstruct
+    bvh = scene.mesh_bvh
+    if bvh is None:
+        raise ValueError(
+            "the persistent kernels walk the mesh's binary tree: pack it "
+            "first with models.scene.with_packet_mesh(scene)")
+    if bvh.num_nodes >= MAX_NODES or bvh.tris.numel() >= 2 ** 31:
         raise ValueError(
             f"the kernels' mesh walk takes fewer than {MAX_NODES} nodes and "
-            f"2^31 floats of triangle rows, got {pm.num_nodes} and "
-            f"{pm.tri_rows.numel()}")
+            f"2^31 floats of triangle slots, got {bvh.num_nodes} and "
+            f"{bvh.tris.numel()}")
     mats = pack_materials(scene)
-    keep = [pm.boxes, pm.meta, pm.tri_rows, mats, tl]
-    for t, name, dtype in zip(keep, ("boxes", "meta", "tri_rows", "mats",
-                                     "tri_lights"),
-                              (torch.float32, torch.int32, torch.float32,
-                               torch.float32, torch.float32)):
-        _check(t, name, dtype, tuple(t.shape), dev)
-    return [t.data_ptr() for t in keep] + [pm.num_nodes], keep, lstruct
+    keep = [bvh.nodes, bvh.tris, mats, tl]
+    for t, name in zip(keep, ("bvh nodes", "bvh tris", "mats",
+                              "tri_lights")):
+        _check(t, name, torch.float32, tuple(t.shape), dev)
+    return [t.data_ptr() for t in keep] + [bvh.num_nodes], keep, lstruct
 
 
 def tex_route(scene: Scene) -> bool:

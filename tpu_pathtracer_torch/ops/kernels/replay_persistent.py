@@ -254,6 +254,7 @@ def persistent_replay_ref(
     ext_ct: Tensor | None = None,
     ext_ns: Tensor | None = None,
     counts: dict | None = None,
+    walks=None,
 ):
     """Plain PyTorch version of ``persistent_replay_call``: the JAX kernel's
     lane math, vectorized over all lanes with masked selects, with the
@@ -261,7 +262,10 @@ def persistent_replay_ref(
     returns; if ``counts`` is a dict it also receives ``"shadow"``, the NEE
     shadow segments traced, ``"texel"``, the texel fetches, and from a
     scatter walk ``"scatter"``, the textured vertices scattered into the
-    atlas (for the kernel's bound; the kernel counts none of them)."""
+    atlas (for the kernel's bound; the kernel counts none of them).
+    ``walks``, if given, is called as ``mesh_walk_ref``'s ``record`` on
+    every mesh walk of the adjoint walk (to sample the segments for the
+    bound's walk tests)."""
     tex_grad = _check_route(scene, phase, spp, compute_tex_grad,
                             (ext_g, ext_ct, ext_ns))
     launch = functools.partial(
@@ -269,7 +273,7 @@ def persistent_replay_ref(
         budget=budget, width=width, height=height, max_bounces=max_bounces,
         rr_start=rr_start, tile_rows=tile_rows, use_nee=use_nee,
         use_dof=use_dof, strat_k=strat_k, tile_offset=tile_offset,
-        uniforms=uniforms, counts=counts)
+        uniforms=uniforms, counts=counts, walks=walks)
     return _drive(launch, scene, target_lanes, width, height,
                   tile_offset * tile_rows * LANES, phase, tex_grad,
                   (ext_g, ext_ct, ext_ns))
@@ -317,12 +321,14 @@ def _launcher(scene, cam_packed, seed, iteration, target_lanes, kw):
 def _walk_ref(scene, cam_packed, seed, iteration, target_lanes, kind,
               record_ct, scatter_in, *, spp, budget, width, height,
               max_bounces, rr_start, tile_rows, use_nee, use_dof, strat_k,
-              tile_offset, uniforms, counts):
+              tile_offset, uniforms, counts, walks=None):
     """One plain walk of kind "both", "adjoint" or "scatter" (``_drive``'s
     ``launch``). A scatter walk replays launch 1's schedule without the
     adjoint sums: ``scatter_in`` = (g (3, rows, 128), ct (3*spp, rows, 128),
     launch 1's n_samp); the taps go into the atlas in a fixed order."""
     scatter = kind == "scatter"
+    if scatter:  # it walks launch 1's segments again
+        walks = None
     dev = target_lanes.device
     rows_total = target_lanes.shape[0]
     n_tiles = rows_total // tile_rows
@@ -489,7 +495,8 @@ def _walk_ref(scene, cam_packed, seed, iteration, target_lanes, kind,
                      er=er, eg=eg, eb=eb)
             mc, tm, mmat = mesh_merge(scene, tile_rows, alive, ox, oy, oz,
                                       dx, dy, dz, best_t, h, MT, tris, Lt,
-                                      None if scatter else counts, tex_out)
+                                      None if scatter else counts, tex_out,
+                                      walks)
             (hit, hx, hy, hz, nx, ny, nz, ar, ag, ab, coef, is_s, is_t,
              er, eg, eb) = h.values()
             # the sphere winner fires on no mesh-won lane (emitter pdfs, cI
@@ -560,7 +567,8 @@ def _walk_ref(scene, cam_packed, seed, iteration, target_lanes, kind,
                 if mesh:
                     occ = occ | mesh_occluded(
                         scene, tile_rows, act & m_l & valid & ~occ
-                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz)
+                        & (smax > 0.0), smax, hx, hy, hz, wlx, wly, wlz,
+                        walks)
                 cos_l = dot3(wlx, wly, wlz, nx, ny, nz)
                 support = ((cos_l > 0.0)
                            & (dot3(wox, woy, woz, wlx, wly, wlz) < 0.0)
@@ -731,7 +739,7 @@ def _kernel():
         p, p, p,  # camera, uniforms (or NULL), target (device)
         p, p, p, p, p,  # lr lg lb n_samp nrays (device)
         p, p,  # partials ("both") or gl ("adjoint"), the other NULL
-        p, p, p, p, p, i,  # mesh boxes, meta, tris, mats, tri lights; nodes
+        p, p, p, p, i,  # bvh nodes, tris, mats, tri lights; nodes
         p, i, i, i,  # texture atlas (or NULL), K, TH, TW
         p,  # C_tot records written by launch 1 (or NULL)
         p, p, p, p,  # scatter: g, C_tot records, counts in; atlas grad out
