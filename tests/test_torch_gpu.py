@@ -97,6 +97,54 @@ def test_gradient_kernel_matches_plain_on_gpu(use_nee, injected):
     torch.testing.assert_close(k_both[4], g_i, rtol=1e-5, atol=1e-9)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 4])
+def test_gradient_kernel_at_the_adjoint_limits_on_gpu(spp):
+    """A sphere scene with 16 slots and 16 lights, the gradient kernel's
+    largest shared-memory block, at spp 1 (blocks drain early) and 4 (late),
+    NEE, 3 bounces, the default budget, Philox draws: on n_samp, L and
+    every GA/GI plane the kernel agrees with the plain version on >= 98% of
+    lanes, or on as many as the plain version on the CPU agrees with itself
+    on the card (chip_smoke.py's phase 7 takes the same floor at 10
+    bounces), the ray counts within 1%, and phase "both" equals the
+    cotangent fold over the kernel's own phase "adjoint" lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import grad_lane_agreement
+
+    scene, cs = sc.limit_spheres(device="cuda")
+    assert len(rp.material_slots(scene)[0]) == rp.MAX_SLOTS
+    assert len(scene.light_structure) == rp.MAX_GRAD_LIGHTS
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda")
+    rows, _ = rp.pixel_lanes_layout(W, H, TR)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tgt = rp.target_to_lanes(
+        torch.rand((H, W, 3), generator=gen, device="cuda"), rows)
+    kw = dict(spp=spp, budget=rp.default_budget(spp, 3), width=W, height=H,
+              max_bounces=3, tile_rows=TR, use_nee=True)
+    args = (scene, pack_camera(cam), (4, 9), 0, tgt)
+    k_adj = rp.persistent_replay_call(*args, phase="adjoint", **kw)
+    k_both = rp.persistent_replay_call(*args, **kw)
+    r_adj = rp.persistent_replay_ref(*args, phase="adjoint", **kw)
+    cpu = rp.persistent_replay_ref(scene.to("cpu"), args[1].cpu(), (4, 9), 0,
+                                   tgt.cpu(), phase="adjoint", **kw)
+    torch.cuda.synchronize()
+
+    def worst(a, b):
+        ag = grad_lane_agreement(a[:4], b[:4], W, H)
+        return min(ag["n_samp"], ag["L"], min(ag["planes"].values()))
+
+    bar = min(AGREE, worst(r_adj, cpu))
+    assert worst(r_adj, k_adj) >= bar, (worst(r_adj, k_adj), bar)
+    assert abs(int(k_adj[4]) - int(r_adj[4])) <= 0.01 * int(r_adj[4])
+    loss, g_a, g_i = rp.mse_fold(*k_adj[:4], tgt, W, H)
+    torch.testing.assert_close(k_both[2], loss, rtol=1e-5, atol=0)
+    torch.testing.assert_close(k_both[3], g_a, rtol=1e-5, atol=1e-9)
+    torch.testing.assert_close(k_both[4], g_i, rtol=1e-5, atol=1e-9)
+
+
 def _cornell_quad(w, h):
     scene, cs = sc.cornell_quad(device="cuda")
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h,

@@ -243,3 +243,59 @@ def test_launch_counter_counts_kernel_launches_only(cornell):
     trp.persistent_replay_call(scene, cp, (1, 0), 0, tgt, spp=1, budget=1,
                                width=W, height=H, tile_rows=TR)
     assert trp.launches == before
+
+
+def test_warp_occupancy_counts(cornell):
+    """The plain walk's warp occupancy of the schedule (chip_smoke.py's
+    ``[replay live share]``): every warp-iteration has a live lane or none,
+    packing the live lanes of each row never takes more warps than hold
+    them, and the packed warps hold every live segment."""
+    scene, cp, tgt = cornell
+    counts = {}
+    out = trp.persistent_replay_ref(
+        scene, cp, (8, 3), 0, tgt, spp=SPP, budget=BUDGET, width=W,
+        height=H, max_bounces=MB, tile_rows=TR, counts=counts)
+    rows = tgt.shape[0]
+    assert counts["warp_iters"] == BUDGET * rows * LANES // 32
+    live, packed = int(counts["warp_live"]), int(counts["warp_packed"])
+    assert 0 < packed <= live <= counts["warp_iters"]
+    assert int(out[5]) <= 32 * packed
+
+
+def test_limit_scene_fills_the_adjoint():
+    """limit_spheres sits at the kernel's limits, 16 slots and 16 lights,
+    and every light's intensity adjoint is reached (plain walk, NEE)."""
+    scene, cs = tsc.limit_spheres(device="cpu")
+    assert len(trp.material_slots(scene)[0]) == trp.MAX_SLOTS
+    assert len(scene.light_structure) == trp.MAX_GRAD_LIGHTS
+    cam = tcm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                          cs["fov"], device="cpu")
+    rows, _ = trp.pixel_lanes_layout(W, H, TR)
+    tgt = torch.zeros((rows, LANES, 3))
+    L, ns, ga, gi, _, _ = trp.persistent_replay_call(
+        scene, pack_camera(cam), (1, 2), 0, tgt, spp=2, budget=12, width=W,
+        height=H, tile_rows=TR, use_nee=True, phase="adjoint")
+    assert torch.isfinite(L).all() and int(ns.sum()) > 0
+    assert bool((gi.abs().sum((1, 2, 3)) > 0).all())
+
+
+@pytest.mark.parametrize("n_slots, n_lights, scatter, want", [
+    (5, 1, False, 4 * (LANES * (7 * 5 + 3 * 1 + 3) + 4 * 19)),
+    (16, 16, False, 4 * (LANES * (7 * 16 + 3 * 16 + 3) + 4 * 97)),
+    (16, 16, True, 4 * LANES * 3),
+])
+def test_shared_memory_per_block(n_slots, n_lights, scatter, want):
+    """The kernel's block takes the adjoint sized to the scene: 7 words per
+    slot and 3 per light per lane, the radiance sums and the epilogue's warp
+    sums (cornell_spheres: 5 slots, 1 light, 21 KB; the limits: 16 and 16,
+    83 KB; the scatter walk keeps no adjoint)."""
+    assert trp.replay_smem_bytes(n_slots, n_lights, scatter=scatter) == want
+    assert want <= trp.SMEM_PER_BLOCK
+
+
+def test_shared_memory_past_the_block_is_refused():
+    """A block may take 227 KB on the H100: 50 slots and 50 lights would
+    need more, and the sizing helper refuses them."""
+    with pytest.raises(ValueError, match="shared memory"):
+        trp.replay_smem_bytes(50, 50)
+    assert trp.replay_smem_bytes(50, 50, scatter=True) == 4 * LANES * 3

@@ -27,6 +27,10 @@ namespace {
 constexpr int LANES = 128;
 constexpr int MAX_PRIMS = 256;
 constexpr int MAX_LIGHTS = 64;
+// The gradient kernels' adjoint: materials on a surface ("slots") and
+// lights with an intensity adjoint (replay_persistent.cu, replay.cu).
+constexpr int MAX_SLOTS = 16;
+constexpr int MAX_GRAD_LIGHTS = 16;
 constexpr float BIG = 1e30f;
 constexpr float TMIN = 3e-2f;  // EPSILON, reference globals.h:49
 constexpr float PI_F = 3.14159265358979323846f;
@@ -767,14 +771,22 @@ __device__ __forceinline__ bool sphere_occluded(const float* prims,
   return false;
 }
 
-// Per-block sum of one value over the block's 128 threads, in a fixed
-// order (warp shuffle tree, then the four warp sums in order), so the result
-// does not depend on scheduling. `scratch` holds 4 floats of shared memory;
-// every thread of the block must call it. The sum is valid on thread 0.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
+// Sum of one value over a warp's 32 lanes by a fixed shuffle tree (lane i
+// adds lane i + 16, then i + 8, ... i + 1), valid on lane 0. Every lane of
+// the warp must call it.
+__device__ __forceinline__ float warp_tree(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Per-block sum of one value over the block's 128 threads, in a fixed
+// order (warp_tree, then the four warp sums in order), so the result does
+// not depend on scheduling. `scratch` holds 4 floats of shared memory;
+// every thread of the block must call it. The sum is valid on thread 0.
+__device__ __forceinline__ float block_sum(float v, float* scratch) {
+  v = warp_tree(v);
   const int warp = threadIdx.x >> 5;
   __syncthreads();  // scratch may still be read by the previous call
   if ((threadIdx.x & 31) == 0) scratch[warp] = v;

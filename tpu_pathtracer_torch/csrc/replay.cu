@@ -62,9 +62,6 @@
 
 namespace {
 
-constexpr int MAX_SLOTS = 16;        // materials on a prim
-constexpr int MAX_GRAD_LIGHTS = 16;  // lights with an intensity adjoint
-
 __constant__ float c_prims[MAX_PRIMS * 12];       // pack_prims layout
 __constant__ int c_pflags[MAX_PRIMS];             // bit 0 emissive, 1-2 type
 __constant__ int c_slot[MAX_PRIMS];               // adjoint slot per prim

@@ -43,23 +43,34 @@
 //
 // What bounds it on this card: like the forward kernel, a long, divergent
 // ALU state machine (per-prim quadratics, transcendentals, three lobes, the
-// NEE shadow sweep). Its device-memory traffic is small: the target image is
-// read once, the radiance sums, sample counts and per-block partials (or the
-// per-lane GA/GI planes) are written once; in test mode the uniform block is
-// read too; with textures the atlas is read through the read-only cache, the
-// 3 spp C_tot planes written once by launch 1 and read at textured vertices
-// by the scatter, and the 0.79 MB atlas gradient of a 256^2 texture is
-// added to in L2.
+// NEE shadow sweep), and here also the drain: a launch stops regenerating
+// at spp paths per pixel, so lanes idle once their pixel is done (the live
+// share of lane-iterations is 0.58 on cornell_spheres at config 5, 0.26 on
+// terrain32: PERF.md). Its device-memory traffic is small: the target
+// image is read once, the radiance sums, sample counts and per-block
+// partials (or the per-lane GA/GI planes) are written once; in test mode
+// the uniform block is read too; with textures the atlas is read through
+// the read-only cache, the 3 spp C_tot planes written once by launch 1 and
+// read at textured vertices by the scatter, and the 0.79 MB atlas gradient
+// of a 256^2 texture is added to in L2.
 //
 // What the design does about it:
 //  * one thread per lane, one 128-thread block per 128-lane row of the
-//    layout, the whole walk in registers, as in persistent.cu; the scene
-//    tables sit in __constant__ memory;
+//    layout, the path in registers, as in persistent.cu; the scene tables
+//    sit in __constant__ memory. A warp whose lanes have all drained leaves
+//    the loop (it would only draw uniforms it never uses);
 //  * the adjoint is kept only for the materials that carry prims or mesh
-//    triangles ("slots": 5 of cornell's 8 padded materials) and the lights.
-//    These per-path and per-lane arrays are indexed by the hit's runtime
-//    slot, so they live in local memory (L1-cached); each vertex touches one
-//    slot, and only path regeneration and completion touch all of them;
+//    triangles ("slots": 5 of cornell's 8 padded materials) and the lights,
+//    in dynamic shared memory sized to the launch's slots and lights (7
+//    words per slot and 3 per light per lane, [word][lane] so a warp's
+//    accesses fall in distinct banks; 21 KB per block on cornell_spheres,
+//    83 KB at the limits of 16 slots and 16 lights, which then runs fewer
+//    blocks per SM), with the lane's radiance sums; only the in-flight
+//    path's light sums cI (3 floats per light) stay in a per-thread array.
+//    A path records the slots and lights it reaches in two bit masks; its
+//    completion flushes and clears only those (an unreached slot holds
+//    zeros, whose flush adds +0 to an accumulator that is never -0, so the
+//    sums are the same bits), and regeneration has nothing left to clear;
 //  * a mesh is walked per thread as in persistent.cu (pt_common.cuh's
 //    bvh_walk over pack_bvh's small-leaf tree, so the scatter
 //    launch replays launch 1's walk bit for bit), and the kernel is
@@ -68,11 +79,13 @@
 //    scene, an untextured scene or a pinhole camera does not carry their
 //    registers and spills; the scatter walk is the same template body
 //    (replay_walk) with SCATTER set, built with and without DOF: it drops
-//    the adjoint sums, whose per-slot arrays the compiler then removes;
+//    the adjoint sums and their shared memory;
 //  * the reduction across lanes is deterministic and uses no atomics: each
 //    block writes one row of partials (3 per slot, 3 per light, the loss),
-//    summed by a fixed shuffle tree, and the wrapper sums the rows, as the
-//    JAX code sums its per-tile partials outside the pallas_call;
+//    each summed in block_sum's order (a warp's shuffle tree, then the
+//    four warp sums in order) in one pass with one barrier, and the
+//    wrapper sums the rows, as the JAX code sums its per-tile partials
+//    outside the pallas_call;
 //  * a completed path's C_tot goes straight to its record plane in device
 //    memory (the TPU keeps 3 spp lane tiles in VMEM);
 //  * the scatter adds into the atlas gradient with float atomicAdd
@@ -83,6 +96,11 @@
 //    from launch to launch, so the atlas gradient is not bit for bit
 //    reproducible; everything else of both launches is (ROADMAP,
 //    "Determinism").
+// Packing the acting lanes of a block into its leading warps every
+// iteration (or whenever fewer warps would hold them) was built and
+// measured, and dropped: it gained ~10% on the one-leaf Cornell meshes
+// and lost 5-9% on terrain32 and up to 9% on the sphere builds (PERF.md,
+// Findings).
 //
 // Rounding (REPLAY): the build keeps nvcc's FMA contraction, as the forward
 // kernel's. The scatter launch is another instantiation of the same body,
@@ -105,15 +123,16 @@
 // production mode draws Philox4x32-10 under stream tag 0x10000 in the
 // counter's last word, apart from every draw of the forward kernel.
 //
-// C interface (loaded with ctypes): tpt_replay_persistent.
+// C interface (loaded with ctypes): tpt_replay_persistent,
+// tpt_replay_smem_bytes, tpt_replay_occupancy.
 
 #include "pt_common.cuh"
 
 namespace {
 
-constexpr int MAX_SLOTS = 16;        // materials on a surface
-constexpr int MAX_GRAD_LIGHTS = 16;  // lights with an intensity adjoint
-constexpr int MAX_MATS = 256;        // materials a mesh triangle may use
+constexpr int MAX_MATS = 256;  // materials a mesh triangle may use
+// Shared memory a block may take on the H100 (227 KB, with the opt-in).
+constexpr int MAX_SMEM_BLOCK = 232448;
 
 __constant__ float c_prims[MAX_PRIMS * 12];  // pack_prims layout
 __constant__ int c_pflags[MAX_PRIMS];        // bit 0 emissive, bits 1-2 type
@@ -151,7 +170,6 @@ template <bool MESH, bool TEX, bool DOF, bool SCATTER>
 __device__ __forceinline__ void replay_walk(const Params& p) {
   static_assert(MESH || !TEX, "textures live on mesh materials");
   static_assert(TEX || !SCATTER, "the scatter walk is a textured walk");
-  __shared__ float fscratch[4];
   __shared__ int iscratch[4];
   const int row = blockIdx.x;  // one block per 128-lane row
   const int col = threadIdx.x;
@@ -161,14 +179,11 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
   const int tile_lanes = p.tile_rows * LANES;
   const int lane = idx + p.tile_offset * tile_lanes;  // global lane = pixel
   const bool in_domain = lane < p.n_lanes;
-  const float px = (float)(lane % p.width);
-  const float py = (float)(lane / p.width);
   // draws per iteration, in the TPU kernel's order (pt_common.cuh)
   constexpr int U1 = DOF ? 4 : 2;  // index of u1, after the camera's draws
   const int n_draw = U1 + 3 + (p.use_nee ? 3 : 0);
   const int S = p.n_slots, NL = p.n_lights;
 
-  float Lr = 0.f, Lg = 0.f, Lb = 0.f;
   int n_samp = 0;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
   float Tr = 0.f, Tg = 0.f, Tb = 0.f, Cr = 0.f, Cg = 0.f, Cb = 0.f;
@@ -176,14 +191,31 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
   bool alive = false;
   float prev_pdf = 0.f;
   bool prev_delta = false;
-  // in-flight per-path adjoint, and the completed-path accumulators
-  float nA[MAX_SLOTS], cA[MAX_SLOTS * 3], cI[MAX_GRAD_LIGHTS * 3];
-  float GA[MAX_SLOTS * 3], GI[MAX_GRAD_LIGHTS * 3];
-  for (int k = 0; k < (SCATTER ? 0 : 3 * S); ++k) GA[k] = 0.f;
-  for (int k = 0; k < (SCATTER ? 0 : 3 * NL); ++k) GI[k] = 0.f;
+  // The adjoint in shared memory, word-major ([word][lane], so that the
+  // lanes of a warp touch consecutive banks), sized to the launch (words
+  // of this lane at adj[w * LANES]): the in-flight path's nA (S words, from
+  // 0) and cA (3S, from CA), then the completed-path accumulators GA (3S,
+  // from GA) and GI (3NL, from GI), then the lane's radiance sums (cold:
+  // written at path completion only). The path's light sums cI stay in a
+  // per-thread array: in shared memory their addressing in the light loops
+  // cost the NEE builds registers and time (PERF.md, Findings). A path
+  // records the slots and lights it reaches; its completion flushes and
+  // clears only those.
+  extern __shared__ float smem[];
+  float* const adj = smem + col;
+  auto at = [adj](int w) -> float& { return adj[w * LANES]; };
+  const int CA = S, GA = 4 * S, GI = 7 * S;
+  const int LR = SCATTER ? 0 : 7 * S + 3 * NL;  // Lr, Lg, Lb
+  for (int k = 0; k < LR + 3; ++k) at(k) = 0.f;
+  float cI[MAX_GRAD_LIGHTS * 3];
+  for (int k = 0; k < (SCATTER ? 0 : 3 * NL); ++k) cI[k] = 0.f;
+  unsigned slots_hit = 0u, lights_hit = 0u;  // reached by the path
   int n_live = 0;
 
   for (int it = 0; it < p.budget; ++it) {
+    // a warp whose lanes have all drained stops (its draws are unused)
+    if (!__any_sync(0xffffffffu, alive || (in_domain && n_samp < p.spp)))
+      break;
     float u[DOF ? 12 : 8];
     draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
                   col, lane, p.iteration, p.seed, p.salt,
@@ -193,7 +225,8 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
 
     // ---- regenerate while the pixel has samples left (the launch drains)
     if (!alive && in_domain && n_samp < p.spp) {
-      camera_dir(c_cam, px, py, n_samp, p.strat_k, u[0], u[1], dx, dy, dz);
+      camera_dir(c_cam, (float)(lane % p.width), (float)(lane / p.width),
+                 n_samp, p.strat_k, u[0], u[1], dx, dy, dz);
       ox = c_cam[9];
       oy = c_cam[10];
       oz = c_cam[11];
@@ -204,11 +237,6 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
       prev_pdf = 0.f;
       prev_delta = true;
       alive = true;
-      if (!SCATTER) {
-        for (int k = 0; k < S; ++k) nA[k] = 0.f;
-        for (int k = 0; k < 3 * S; ++k) cA[k] = 0.f;
-        for (int k = 0; k < 3 * NL; ++k) cI[k] = 0.f;
-      }
     }
     if (!alive) continue;  // padding and drained lanes never act
     ++n_live;
@@ -346,6 +374,7 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
           cI[3 * li] += e_r;
           cI[3 * li + 1] += e_g;
           cI[3 * li + 2] += e_b;
+          lights_hit |= 1u << li;
         }
       }
 
@@ -409,6 +438,7 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
             cI[3 * li] += t_r;
             cI[3 * li + 1] += t_g;
             cI[3 * li + 2] += t_b;
+            lights_hit |= 1u << li;
           }
         }
         Cr += nee_r;
@@ -454,20 +484,21 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
       }
 
       // ---- streaming adjoint at this vertex's material
+      if (!SCATTER) slots_hit |= 1u << sl;
       if (step_ok) {
         if (!SCATTER) {
-          nA[sl] += 1.f;
-          cA[3 * sl] += Cr - nee_r;
-          cA[3 * sl + 1] += Cg - nee_g;
-          cA[3 * sl + 2] += Cb - nee_b;
+          at(sl) += 1.f;
+          at(CA + 3 * sl) += Cr - nee_r;
+          at(CA + 3 * sl + 1) += Cg - nee_g;
+          at(CA + 3 * sl + 2) += Cb - nee_b;
         }
         Tr = Tr * lb.fr * lb.wgt;
         Tg = Tg * lb.fg * lb.wgt;
         Tb = Tb * lb.fb * lb.wgt;
       } else if (!SCATTER) {
-        cA[3 * sl] -= nee_r;
-        cA[3 * sl + 1] -= nee_g;
-        cA[3 * sl + 2] -= nee_b;
+        at(CA + 3 * sl) -= nee_r;
+        at(CA + 3 * sl + 1) -= nee_g;
+        at(CA + 3 * sl + 2) -= nee_b;
       }
 
       // ---- Russian roulette once bounce > rr_start, p = min(0.5, max T)
@@ -491,9 +522,9 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
     if (!alive_next) {
       // ---- path completion (a miss, a dead lobe, RR or the bounce cap):
       // flush radiance and the adjoint sums
-      Lr += Cr;
-      Lg += Cg;
-      Lb += Cb;
+      at(LR) += Cr;
+      at(LR + 1) += Cg;
+      at(LR + 2) += Cb;
       if (TEX && !SCATTER && p.ct) {
         // the path's total into its sample slot (replay_persistent.py:
         // 1008-1015); a padding lane never completes a path
@@ -504,17 +535,30 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
         ct[2 * plane] = Cb;
       }
       ++n_samp;
-      for (int k = 0; k < (SCATTER ? 0 : S); ++k) {
-        GA[3 * k] += Cr * nA[k] - cA[3 * k];
-        GA[3 * k + 1] += Cg * nA[k] - cA[3 * k + 1];
-        GA[3 * k + 2] += Cb * nA[k] - cA[3 * k + 2];
+      // flush and clear the slots and lights this path reached (the others
+      // hold zeros, which would add +0 to the accumulators)
+      for (unsigned m = SCATTER ? 0u : slots_hit; m; m &= m - 1) {
+        const int k = __ffs(m) - 1;
+        at(GA + 3 * k) += Cr * at(k) - at(CA + 3 * k);
+        at(GA + 3 * k + 1) += Cg * at(k) - at(CA + 3 * k + 1);
+        at(GA + 3 * k + 2) += Cb * at(k) - at(CA + 3 * k + 2);
+        at(k) = 0.f;
+        at(CA + 3 * k) = at(CA + 3 * k + 1) = at(CA + 3 * k + 2) = 0.f;
       }
-      for (int k = 0; k < (SCATTER ? 0 : 3 * NL); ++k) GI[k] += cI[k];
+      for (unsigned m = SCATTER ? 0u : lights_hit; m; m &= m - 1) {
+        const int l = __ffs(m) - 1;
+        for (int c = 0; c < 3; ++c) {
+          at(GI + 3 * l + c) += cI[3 * l + c];
+          cI[3 * l + c] = 0.f;
+        }
+      }
+      slots_hit = lights_hit = 0u;
     }
     alive = alive_next;
   }
 
   const float dom = in_domain ? 1.f : 0.f;
+  const float Lr = at(LR), Lg = at(LR + 1), Lb = at(LR + 2);
   p.lr[idx] = Lr * dom;
   p.lg[idx] = Lg * dom;
   p.lb[idx] = Lb * dom;
@@ -526,12 +570,15 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
   if (p.gl) {
     // phase "adjoint": raw per-lane accumulators, cotangent applied outside
     const size_t plane = (size_t)gridDim.x * LANES;
-    for (int k = 0; k < 3 * S; ++k) p.gl[k * plane + idx] = GA[k];
-    for (int k = 0; k < 3 * NL; ++k) p.gl[(3 * S + k) * plane + idx] = GI[k];
+    for (int k = 0; k < 3 * S; ++k) p.gl[k * plane + idx] = at(GA + k);
+    for (int k = 0; k < 3 * NL; ++k)
+      p.gl[(3 * S + k) * plane + idx] = at(GI + k);
     return;
   }
 
-  // ---- phase "both": the lane-local MSE cotangent (lane == pixel)
+  // ---- phase "both": the lane-local MSE cotangent (lane == pixel), then
+  // every partial in block_sum's order in one pass: each warp's shuffle
+  // tree over its 32 lanes, then the row's four warp sums in order
   const bool have = n_samp > 0 && in_domain;
   const float havef = have ? 1.f : 0.f;
   const float inv_n = havef / fmaxf((float)n_samp, 1.f);
@@ -544,17 +591,36 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
                       d_g * (2.f * p.inv_loss_n) * inv_n,
                       d_b * (2.f * p.inv_loss_n) * inv_n};
   const int K = 3 * S + 3 * NL + 1;
-  float* part = p.partials + (size_t)row * K;
+  float* ws = smem + LANES * (LR + 3);  // [K][4] warp sums
+  const int warp = col >> 5;
+  const bool lead = (col & 31) == 0;
   for (int k = 0; k < 3 * S; ++k) {
-    const float v = block_sum(g[k % 3] * GA[k], fscratch);
-    if (col == 0) part[k] = v;
+    const float v = warp_tree(g[k % 3] * at(GA + k));
+    if (lead) ws[4 * k + warp] = v;
   }
   for (int k = 0; k < 3 * NL; ++k) {
-    const float v = block_sum(g[k % 3] * GI[k], fscratch);
-    if (col == 0) part[3 * S + k] = v;
+    const float v = warp_tree(g[k % 3] * at(GI + k));
+    if (lead) ws[4 * (3 * S + k) + warp] = v;
   }
-  const float sse = block_sum(d_r * d_r + d_g * d_g + d_b * d_b, fscratch);
-  if (col == 0) part[K - 1] = sse * p.inv_loss_n;
+  const float sse = warp_tree(d_r * d_r + d_g * d_g + d_b * d_b);
+  if (lead) ws[4 * (K - 1) + warp] = sse;
+  __syncthreads();
+  float* part = p.partials + (size_t)row * K;
+  for (int k = col; k < K; k += LANES) {
+    const float* w = ws + 4 * k;
+    const float v = ((w[0] + w[1]) + w[2]) + w[3];
+    part[k] = k == K - 1 ? v * p.inv_loss_n : v;
+  }
+}
+
+// Dynamic shared memory of one block, in bytes: per lane the adjoint in
+// shared memory (launch 1: 7 words per slot, 3 per light) and the radiance
+// sums, then the epilogue's four warp sums per partial (3 per slot, 3 per
+// light, the loss).
+__host__ __device__ constexpr int smem_bytes(int S, int NL, bool scatter) {
+  return 4 * (scatter ? LANES * 3
+                      : LANES * (7 * S + 3 * NL + 3) +
+                            4 * (3 * S + 3 * NL + 1));
 }
 
 // Launch 1, phases "both" and "adjoint". Blocks per SM: 7 for the sphere
@@ -575,9 +641,35 @@ __global__ void __launch_bounds__(LANES, 6)
   replay_walk<true, true, DOF, true>(p);
 }
 
-template <bool MESH, bool TEX, bool DOF>
-void launch(int rows, cudaStream_t st, const Params& p) {
-  replay_persistent_kernel<MESH, TEX, DOF><<<rows, LANES, 0, st>>>(p);
+// Launches `kernel` over `rows` blocks with `smem` bytes of dynamic shared
+// memory (above 48 KB only after the opt-in).
+cudaError_t launch(const void* kernel, int rows, int smem, cudaStream_t st,
+                   Params p) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  void* args[] = {&p};
+  const cudaError_t err = cudaLaunchKernel(kernel, dim3(rows), dim3(LANES),
+                                           args, smem, st);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The kernel of one build: the scatter walk, or launch 1 with or without
+// the mesh, the textures and the lens.
+const void* kernel_of(bool scatter, bool mesh, bool tex, bool dof) {
+  if (scatter)
+    return dof ? (const void*)replay_scatter_kernel<true>
+               : (const void*)replay_scatter_kernel<false>;
+  if (!mesh)
+    return dof ? (const void*)replay_persistent_kernel<false, false, true>
+               : (const void*)replay_persistent_kernel<false, false, false>;
+  if (!tex)
+    return dof ? (const void*)replay_persistent_kernel<true, false, true>
+               : (const void*)replay_persistent_kernel<true, false, false>;
+  return dof ? (const void*)replay_persistent_kernel<true, true, true>
+             : (const void*)replay_persistent_kernel<true, true, false>;
 }
 
 }  // namespace
@@ -626,6 +718,8 @@ int tpt_replay_persistent(
   for (int q = 0; q < n_prims + n_mats; ++q)
     if (slots[q] < (q < n_prims ? 0 : -1) || slots[q] >= n_slots)
       return (int)cudaErrorInvalidValue;
+  const int smem = smem_bytes(n_slots, n_lights, gT != nullptr);
+  if (smem > MAX_SMEM_BLOCK) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaSuccess;
   if (n_prims > 0) {
@@ -695,23 +789,32 @@ int tpt_replay_persistent(
   p.nsf = nsf;
   p.gT = gT;
 
-  const int r = rows_total;
-  if (gT) {
-    if (use_dof)
-      replay_scatter_kernel<true><<<r, LANES, 0, st>>>(p);
-    else
-      replay_scatter_kernel<false><<<r, LANES, 0, st>>>(p);
-  } else if (n_nodes == 0) {
-    use_dof ? launch<false, false, true>(r, st, p)
-            : launch<false, false, false>(r, st, p);
-  } else if (!atlas) {
-    use_dof ? launch<true, false, true>(r, st, p)
-            : launch<true, false, false>(r, st, p);
-  } else {
-    use_dof ? launch<true, true, true>(r, st, p)
-            : launch<true, true, false>(r, st, p);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch(kernel_of(gT != nullptr, n_nodes > 0, atlas != nullptr,
+                               use_dof != 0),
+                     rows_total, smem, st, p);
+}
+
+// Bytes of dynamic shared memory per block of the walk for n_slots and
+// n_lights (ops/kernels/replay_persistent.py::replay_smem_bytes computes
+// the same), and the blocks per SM that it and the registers of one build
+// allow (cudaOccupancyMaxActiveBlocksPerMultiprocessor; -1 on an error).
+int tpt_replay_smem_bytes(int n_slots, int n_lights, int scatter) {
+  return smem_bytes(n_slots, n_lights, scatter != 0);
+}
+
+int tpt_replay_occupancy(int mesh, int tex, int dof, int scatter, int n_slots,
+                         int n_lights) {
+  const int smem = smem_bytes(n_slots, n_lights, scatter != 0);
+  const void* kernel = kernel_of(scatter != 0, mesh != 0, tex != 0, dof != 0);
+  int n = -1;
+  if (smem > MAX_SMEM_BLOCK ||
+      (smem > 48 * 1024 &&
+       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            smem) != cudaSuccess) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, LANES, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

@@ -46,10 +46,11 @@ from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops.kernels import replay_kernel
 from tpu_pathtracer_torch.ops.kernels.camera_jvp import ior_mse_grad
 from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
-    _not_ported, default_budget, persistent_mse_value_and_grad,
-    persistent_replay_call, pixel_lanes_layout, tex_route,
+    default_budget, persistent_mse_value_and_grad, persistent_replay_call,
+    pixel_lanes_layout, tex_route,
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+from tpu_pathtracer_torch.utils.errors import not_ported
 
 ENGINES = ("persistent", "sample")
 PARAMS = ("mat_color", "light_intensity")
@@ -165,8 +166,8 @@ def _check_route(scene: Scene, mesh, engine: str) -> None:
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if mesh is not None:
-        raise _not_ported("gradients sharded over a device mesh (mesh=)",
-                          "15")
+        raise not_ported("gradients sharded over a device mesh (mesh=)",
+                         "15")
     if engine == "sample" and scene.mesh is not None:
         raise ValueError(
             "engine='sample' does not trace mesh geometry; use "

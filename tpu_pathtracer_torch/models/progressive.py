@@ -26,6 +26,7 @@ from tpu_pathtracer_torch.models.integrator import RenderConfig, render
 from tpu_pathtracer_torch.models.scene import Scene, with_packet_mesh
 from tpu_pathtracer_torch.ops.kernels import persistent as pk
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+from tpu_pathtracer_torch.utils.errors import not_ported
 
 
 @dataclasses.dataclass
@@ -127,9 +128,7 @@ class PersistentRenderer:
                  seed: int = 0, *, device, budget: int = 32,
                  tile_rows: int = 32, mesh=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "sharded rendering (mesh=) is not ported yet (ROADMAP Queue 1 "
-                "item 15)")
+            raise not_ported("sharded rendering (mesh=)", "15")
         self.device = torch.device(device)
         if scene.mesh is not None and scene.mesh_packed is None:
             scene = with_packet_mesh(scene, two_pass=False)

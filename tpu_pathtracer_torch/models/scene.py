@@ -463,6 +463,43 @@ def cornell_spheres(device="cuda") -> tuple[Scene, dict]:
                       device=device), cam
 
 
+def limit_spheres(device="cuda") -> tuple[Scene, dict]:
+    """Cornell spheres at the gradient kernels' adjoint limits: 16 materials
+    on surfaces (six walls, a mirror ball, a glass ball, four diffuse balls
+    and four emitter materials, each its own) and 16 lights: sixteen
+    sphere emitters in a 4 x 4 grid above the ceiling, their caps poking
+    through it. The emitters are wide (radius 25) and lit alike, so NEE
+    picks each light alike; a small sphere light would make one ulp change
+    a lane's radiance by more than 1e-4 far more often (its cone pdf
+    cancels). Returns (scene, camera_spec), the camera of
+    cornell_spheres."""
+    e5 = 1e5
+    spheres = [
+        sphere([e5 + 50, 40, 0], e5, 0),
+        sphere([-e5 - 50, 40, 0], e5, 1),
+        sphere([0, 40, -e5 - 80], e5, 2),
+        sphere([0, 40, e5 + 80], e5, 3),
+        sphere([0, -e5, 0], e5, 4),
+        sphere([0, e5 + 80, 0], e5, 5),
+        sphere([-25, 16.5, -50], 16.5, 6),
+        sphere([25, 16.5, -25], 16.5, 7),
+    ]
+    spheres += [sphere([-36 + 24 * i, 8, 10 - 12 * (i % 2)], 6, 8 + i)
+                for i in range(4)]
+    first = len(spheres)
+    spheres += [sphere([-36 + 24 * (i % 4), 104.6, -72 + 20 * (i // 4)], 25,
+                       12 + i % 4, i) for i in range(16)]
+    materials = [diffuse([0.25 + 0.1 * i, 0.75 - 0.1 * i, 0.5])
+                 for i in range(6)]
+    materials += [specular([0.999, 0.999, 0.999]),
+                  transmissive([0.999, 0.999, 0.999], 1.5)]
+    materials += [diffuse([0.8, 0.3 + 0.1 * i, 0.2]) for i in range(8)]
+    lights = [area_light(first + i, [4.0 + 0.4 * (i % 3), 4.0,
+                                     4.0 + 0.4 * (i % 5)]) for i in range(16)]
+    cam = dict(eye=[0, 45, 79.5], look_at=[0, 35, 0], up=[0, 1, 0], fov=60.0)
+    return make_scene(spheres, materials, lights, device=device), cam
+
+
 def small_spheres(device="cuda") -> tuple[Scene, dict]:
     """The reference's commented-out "scene 1" (main.cpp:142-150)."""
     e5 = 1e5

@@ -81,6 +81,8 @@ MAX_MATS = 256
 # planes in VMEM and caps spp at 32; the port keeps the cap, because it
 # decides which samples the chunked driver draws (chunked_mse_value_and_grad)
 MAX_TEX_SPP = 32
+# Shared memory a block may take on the H100 (227 KB, with the opt-in)
+SMEM_PER_BLOCK = 232_448
 
 # Kernel launches by persistent_replay_call (plain-version calls are not
 # counted; a textured gradient is two launches), those of them on a mesh
@@ -90,10 +92,39 @@ mesh_launches = 0
 scatter_launches = 0
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to tpu_pathtracer_torch yet "
-        f"(ROADMAP Queue 1 item {item})")
+def replay_smem_bytes(n_slots: int, n_lights: int, *,
+                      scatter: bool = False) -> int:
+    """Bytes of shared memory that one 128-lane block of the gradient kernel
+    takes (``csrc/replay_persistent.cu::smem_bytes``): per lane, in launch 1
+    the adjoint (7 words per slot: nA, cA, GA; 3 per light: GI) and the
+    radiance sums, in the scatter walk the radiance sums; in launch 1 also
+    the epilogue's four warp sums per partial (3 per slot, 3 per light, the
+    loss). Raises ValueError past SMEM_PER_BLOCK."""
+    words = (LANES * 3 if scatter else
+             LANES * (7 * n_slots + 3 * n_lights + 3)
+             + 4 * (3 * n_slots + 3 * n_lights + 1))
+    if 4 * words > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the gradient kernel's block needs {4 * words} B of shared "
+            f"memory for {n_slots} slots and {n_lights} lights; a block may "
+            f"take {SMEM_PER_BLOCK} B")
+    return 4 * words
+
+
+def blocks_per_sm(n_slots: int, n_lights: int, *, mesh: bool, tex: bool,
+                  dof: bool, scatter: bool = False) -> tuple[int, int]:
+    """(bytes of shared memory per block, blocks per SM) of one build of the
+    kernel for a scene of ``n_slots`` slots and ``n_lights`` lights, as the
+    card's occupancy calculator gives them (needs the card)."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    fn = _build.load_library().tpt_replay_occupancy
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    n = fn(int(mesh), int(tex), int(dof), int(scatter), n_slots, n_lights)
+    if n < 0:
+        raise RuntimeError("the gradient kernel's occupancy query failed")
+    return replay_smem_bytes(n_slots, n_lights, scatter=scatter), n
 
 
 def pixel_lanes_layout(width: int, height: int, tile_rows: int = 32,
@@ -116,9 +147,12 @@ def target_to_lanes(img: Tensor, rows_total: int) -> Tensor:
 
 def default_budget(spp: int, max_bounces: int) -> int:
     """Wavefront iterations per launch: enough to drain spp paths per pixel
-    in practice (mean path ~3 segments with RR after bounce 3, plus slack
-    for the tail). Undrained paths are excluded from both the loss and the
-    gradient, so correctness does not depend on it."""
+    in practice (at config 5 a path is 3.79 segments on average on
+    cornell_spheres, 3.66-3.72 on the Cornell meshes and 1.69 on
+    terrain_textured(32), RR after bounce 3; the rest is slack for the
+    tail: chip_smoke.py's ``[replay live share]``). Undrained paths are
+    excluded from both the loss and the gradient, so correctness does not
+    depend on it."""
     return spp * 4 + max_bounces
 
 
@@ -262,10 +296,11 @@ def persistent_replay_ref(
     returns; if ``counts`` is a dict it also receives ``"shadow"``, the NEE
     shadow segments traced, ``"texel"``, the texel fetches, and from a
     scatter walk ``"scatter"``, the textured vertices scattered into the
-    atlas (for the kernel's bound; the kernel counts none of them).
-    ``walks``, if given, is called as ``mesh_walk_ref``'s ``record`` on
-    every mesh walk of the adjoint walk (to sample the segments for the
-    bound's walk tests)."""
+    atlas (for the kernel's bound; the kernel counts none of them), and
+    the warp occupancy of the schedule, ``"warp_iters"``, ``"warp_live"``
+    and ``"warp_packed"`` (``_count_occupancy``). ``walks``, if given, is
+    called as ``mesh_walk_ref``'s ``record`` on every mesh walk of the
+    adjoint walk (to sample the segments for the bound's walk tests)."""
     tex_grad = _check_route(scene, phase, spp, compute_tex_grad,
                             (ext_g, ext_ct, ext_ns))
     launch = functools.partial(
@@ -436,6 +471,8 @@ def _walk_ref(scene, cam_packed, seed, iteration, target_lanes, kind,
             cI = [[where(regen, 0.0, x) for x in xs] for xs in cI]
         alive = alive | regen
         n_live = n_live + alive.sum()
+        if counts is not None:
+            _count_occupancy(counts, alive)
 
         # ---- closest hit; strict < keeps the FIRST prim on an exact tie
         best_t = fzeros + BIG
@@ -685,6 +722,21 @@ def _walk_ref(scene, cam_packed, seed, iteration, target_lanes, kind,
     return L_lanes, n_samp, grads, n_live, ct, None
 
 
+def _count_occupancy(counts: dict, alive: Tensor) -> None:
+    """Adds one iteration's warp occupancy to ``counts``: ``"warp_iters"``,
+    the 32-lane warps of the layout; ``"warp_live"``, those with a live lane
+    (a lane with no live path has drained: it cannot regenerate);
+    ``"warp_packed"``, the warps that the live lanes of each 128-lane row
+    would fill if packed into its leading threads."""
+    per_row = alive.sum(-1)
+    n_warps = alive.shape[0] * (LANES // 32)
+    counts["warp_iters"] = counts.get("warp_iters", 0) + n_warps
+    counts["warp_live"] = counts.get("warp_live", 0) + alive.reshape(
+        -1, 32).any(-1).sum()
+    counts["warp_packed"] = counts.get("warp_packed", 0) + (
+        (per_row + 31) // 32).sum()
+
+
 def _scatter_taps(gT, scene, mc, mmat, tex_out, n_samp, nsf, step_ok, g,
                   ct, C, nee):
     """One iteration of the plain scatter (JAX ``replay_persistent.py:
@@ -783,6 +835,7 @@ def _launch_cuda(scene, cam_packed, seed, iteration, target_lanes, kind,
             f"{MAX_GRAD_LIGHTS} lights, {MAX_MATS} materials and "
             f"{MAX_SLOTS} materials on a surface; got {n_prims}, {n_lights}, "
             f"{n_mats} and {n_slots}")
+    replay_smem_bytes(n_slots, n_lights, scatter=kind == "scatter")
     prims = pack_prims(scene).contiguous()
     lights = pack_lights(scene).contiguous()
     _check(prims, "prims", torch.float32, (n_prims, 12), dev)
