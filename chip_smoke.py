@@ -102,13 +102,17 @@ print one line; any failure exits non-zero:
    end-to-end ms per gradient (slope, median of REPS), the kernel's ms per
    launch and the device's idle share (one trace), the bound and the plain
    version's ms;
-17. the packet kernel (kernel 5) against packet_ref on the card: three
-   waves recorded from one frame of cornell_boxes (256x256, 8 spp) and of
-   the full terrain (config 4) - the primary wave, the bounce-2 closest-hit
-   wave and the bounce-1 shadow wave, each on a fixed random subset of 64k
-   lanes - as closest-hit and any-hit queries, sorted and unsorted: hit/miss
-   and slot equal on >= 99.9% of lanes, t within 1e-5 max(1, t) there,
-   normal, uv and material equal, the sign test on t;
+17. the packet kernel (kernel 5, the per-thread walk of pack_bvh's tree)
+   on the card: three waves recorded from one frame of cornell_boxes
+   (256x256, 8 spp) and of the full terrain (config 4) - the primary wave,
+   the bounce-2 closest-hit wave and the bounce-1 shadow wave, each on a
+   fixed random subset of 64k lanes - as closest-hit and any-hit queries,
+   against its plain version packet_bvh_ref (the share of bit-equal lanes
+   printed), through a random permutation against a launch on the
+   permuted rays (bit for bit), and against packet_ref on the 64-leaf
+   tree (the TPU kernel's contract, by triangle id) sorted and unsorted:
+   hit/miss and triangle equal on >= 99.9% of lanes, t within 1e-5
+   max(1, t) there, normal, uv and material equal, the sign test on t;
 18. the bin kernel (kernel 6) against bin_rays_ref on the same waves (cell
    equal on >= 99.9% of lanes, tn within 1e-6 relative), and the two-pass
    query against the single-pass one by phase 17's bars;
@@ -125,10 +129,15 @@ print one line; any failure exits non-zero:
    slope between 1 and 3 frames, median of REPS), one profiler trace of 2
    frames (kernels 5 and 6 per launch, sort and gather glue, other ops,
    idle share); then every wave query of one more frame (closest-hit and
-   shadow, at its full 2M lanes, sorted as the kernels received it) runs
-   again through the plain versions on the same inputs: both kernels' answers
-   are held to phases 17 and 18's bars there, the plain versions' counts of
-   that work give both kernels' bounds, and their ms per wave is printed;
+   shadow, at its full 2M lanes, with the permutation the kernels received
+   it in) runs again through the plain versions on the same inputs: kernel
+   5's answers are held to phase 17's bars against packet_bvh_ref and
+   packet_ref, kernel 6's to phase 18's, the plain versions' counts of that
+   work give both kernels' bounds, and their ms per wave is printed; a
+   ``[packet walk tests]`` line gives, per wave kind, the live share and
+   the box and triangle tests per live ray on pack_bvh's leaf-<=4 tree and
+   on the 64-leaf tree, and kernel 5's bound per wave in operations and in
+   bytes on each;
 22. the forward kernel with a thin lens (radius 4, focused at 60) against
    its plain version at 160x120: cornell_spheres and cornell_boxes, brute
    force and NEE (7 and 10 draws), injected and Philox, phase 11's bars;
@@ -236,7 +245,13 @@ forward; spheres with and without the lens, cornell_boxes, cornell_quad
 and textured terrain32 gradients, the scatter launch apart; the tangent
 kernel on cornell_quad; config 4's launch), the sphere forward outputs and
 every gradient output bit for bit (the atlas gradient within the atomic
-bound).
+bound); and kernel 5 on the wave queries of one config-4 frame, recorded
+once and answered by each checkout's own ``intersect_mesh_packet``
+(two-pass): ms per launch of the closest-hit and shadow waves, the
+frame's glue ms, the bounce-1 closest-hit wave unsorted, sorted and
+two-pass, each checkout's answers equal across its runs and this
+checkout's held to the other's by phase 17's bars, and the bound of a
+mean wave.
 ``python3 chip_smoke.py --leaf-cutoff`` runs no phase either: it times the
 forward kernel on small meshes packed as one leaf and as the mesh's
 leaf-<=4 tree (``leaf_cutoff``), the measurement behind ``BVH_MAX_LEAF``.
@@ -1043,7 +1058,11 @@ def _slope_ms(call, k=24, reps=REPS):
 def _bound(ops: float, nbytes: float) -> tuple[float, str]:
     """(bound_ms, bound_by): the larger of operations over the f32 peak and
     bytes over the memory rate."""
-    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return _bound_of(ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3)
+
+
+def _bound_of(t_ops: float, t_bytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by) from the two yardsticks' ms."""
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -2282,8 +2301,9 @@ def _c4_config(**kw):
 class _Recorder:
     """Record the calls of a mesh_kernel function (its tensor arguments
     cloned) and their results while passing them through; ``top`` keeps
-    only calls with sort=True, the wavefront's wave queries (their inner
-    unsorted calls go through the same name)."""
+    only calls with sort=True, the wavefront's wave queries (a shim for
+    ``--ab``: a checkout before the permuted launch makes an inner unsorted
+    call through the same name; see ``_ab_packet``)."""
 
     def __init__(self, name, top=False):
         from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
@@ -2309,15 +2329,35 @@ class _Recorder:
         setattr(self.mk, self.name, self.fn)
 
 
+def _packet_ref_ids(packed, o, d, t_init, tmin, any_hit=False, bvh=None,
+                    perm=None, counts=None):
+    """packet_ref, the walk of the 64-triangle-leaf tree (the TPU kernel's
+    contract), with its padded slots mapped to MeshData triangle ids as
+    kernel 5 returns them; kernel 5's ``bvh`` and ``perm`` change no
+    answer and are not read."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    t, slot, n, uv, mat = mk.packet_ref(packed, o, d, t_init, tmin, any_hit,
+                                        counts=counts)
+    found = t < torch.where(t_init > 0, t_init, 0.0)
+    if any_hit:
+        return t, slot, n, uv, mat
+    return (t, torch.where(found, packed.remap[slot.long()], 0).to(slot.dtype),
+            n, uv, mat)
+
+
 class _PlainMeshQueries:
     """Route the wavefront's mesh queries on CUDA tensors to the plain
-    versions (packet_ref, bin_rays_ref) for a reference run on the card."""
+    versions of the TPU kernels' contract (packet_ref on the 64-leaf tree,
+    by triangle id, and bin_rays_ref) for a reference run on the card."""
 
     def __enter__(self):
         from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
 
         self.mk, self.saved = mk, (mk.packet_query, mk.bin_rays)
-        mk.packet_query = mk.packet_ref
+        mk.packet_query = _packet_ref_ids
         mk.bin_rays = mk.bin_rays_ref
         return self
 
@@ -2353,15 +2393,53 @@ def _subset(n, k=WAVE_LANES, seed=0):
     return torch.randperm(n, generator=g)[:min(k, n)].sort().values.cuda()
 
 
-def _hold_packet(k, r, t0, any_hit, what):
-    """Kernel 5's answer k against the plain version's r on the same query
-    (utils.metrics.packet_agreement's bars). Returns the numbers; fails
-    below the bars."""
+def _hold_packet(k, r, t0, any_hit, what, plain="packet_ref"):
+    """Kernel 5's answer k against a plain version's r on the same query
+    (utils.metrics.packet_agreement's bars; triangles by MeshData id).
+    Returns the numbers and ``bit_equal``, the share of lanes whose t,
+    triangle, normal, uv and material are all equal; fails below the
+    bars."""
+    import torch
+
     from tpu_pathtracer_torch.utils.metrics import packet_agreement
 
     out = packet_agreement(k, r, t0, any_hit)
     if not out["ok"]:
-        fail(f"kernel 5 vs packet_ref ({what}): {out}")
+        fail(f"kernel 5 vs {plain} ({what}): {out}")
+    eq = torch.ones_like(k[0], dtype=torch.bool)
+    for a, b in zip(k, r):
+        e = a == b.to(a.dtype)
+        eq &= e.all(-1) if e.dim() > 1 else e
+    out["bit_equal"] = float(eq.double().mean())
+    return out
+
+
+def _twin_check(pm, bvh, o, d, t0, any_hit, what):
+    """Kernel 5 (one launch of packet_query) against its plain version
+    packet_bvh_ref on the same rays, by _hold_packet's bars (both walk
+    pack_bvh's tree and are built to round alike, so ``bit_equal`` should
+    be 1); then a launch through a random permutation against a launch on
+    the rays permuted beforehand, bit for bit."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    p0 = mk.packet_launches
+    k = mk.packet_query(pm, o, d, t0, 3e-2, any_hit, bvh=bvh)
+    torch.cuda.synchronize()
+    if mk.packet_launches != p0 + 1:
+        fail("packet_query did not launch kernel 5 exactly once")
+    out = _hold_packet(k, mk.packet_bvh_ref(bvh, o, d, t0, 3e-2, any_hit),
+                       t0, any_hit, what, "packet_bvh_ref")
+    g = torch.Generator(device="cuda").manual_seed(o.shape[0])
+    perm = torch.randperm(o.shape[0], generator=g, device="cuda")
+    through = mk.packet_query(pm, o, d, t0, 3e-2, any_hit, bvh=bvh,
+                              perm=perm.to(torch.int32))
+    before = mk.packet_query(pm, o[perm].contiguous(), d[perm].contiguous(),
+                             t0[perm].contiguous(), 3e-2, any_hit, bvh=bvh)
+    if not all(torch.equal(a[perm], b) for a, b in zip(through, before)):
+        fail(f"kernel 5 ({what}): the permuted launch differs from the "
+             "launch on the permuted rays")
     return out
 
 
@@ -2377,14 +2455,15 @@ def _hold_bin(k, r, what):
     return out["agree"], out["tn_rel"], out["tn_abs"]
 
 
-def _packet_check(pm, o, d, t0, any_hit, sort, coarse):
+def _packet_check(pm, bvh, o, d, t0, any_hit, sort, coarse):
     """Kernel 5 (through intersect_mesh_packet) against the same query with
-    packet_ref (and bin_rays_ref) on the card, by _hold_packet's bars."""
+    packet_ref on the 64-leaf tree (and bin_rays_ref) on the card, by
+    _hold_packet's bars, triangles by MeshData id."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
 
-    kw = dict(t_init=t0, any_hit=any_hit, sort=sort, coarse=coarse)
+    kw = dict(t_init=t0, any_hit=any_hit, sort=sort, coarse=coarse, bvh=bvh)
     p0 = mk.packet_launches
     k = mk.intersect_mesh_packet(pm, o, d, 3e-2, **kw)
     torch.cuda.synchronize()
@@ -2404,15 +2483,19 @@ def phase_packet_compare(smi):
     on three waves recorded from one main-path frame of cornell_boxes and of
     the full terrain (the primary wave, the bounce-2 closest-hit wave and
     the bounce-1 shadow wave), each on a fixed random subset of 64k lanes:
-    closest-hit and any-hit, sorted and unsorted; then kernel 6 on the same
-    waves, and the two-pass query against the single-pass one."""
+    kernel 5 against packet_bvh_ref (its plain version on pack_bvh's tree)
+    and through a permutation against the permuted rays (_twin_check), and
+    against packet_ref on the 64-leaf tree by triangle id, closest-hit and
+    any-hit, sorted and unsorted; then kernel 6 on the same waves, and the
+    two-pass query against the single-pass one."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
     from tpu_pathtracer_torch.utils.metrics import PACKET_AGREE, PACKET_T_TOL
 
     worst = dict(agree=1.0, max_abs_err=0.0, sign=0.0, bin_agree=1.0,
-                 bin_tn_err=0.0, bin_abs_err=0.0, two_vs_one=1.0)
+                 bin_tn_err=0.0, bin_abs_err=0.0, two_vs_one=1.0,
+                 twin_agree=1.0, twin_bit_equal=1.0, twin_max_abs_err=0.0)
     parts, bin_parts = [], []
     for name, w, h, spp in (("cornell-boxes", 256, 256, 8),
                             ("terrain", C4_W, C4_H, C4_SPP)):
@@ -2422,15 +2505,25 @@ def phase_packet_compare(smi):
             fail(f"{name}: {len(waves)} wave queries in a frame, want "
                  f"{2 * (C4_MB + 1)}")
         pm, coarse = scene.mesh_packed, scene.mesh_packed_coarse
+        bvh = scene.mesh_bvh
         for label, idx in (("primary", 0), ("bounce2", 4), ("shadow1", 3)):
             o, d, t0, _ = waves[idx]
             sel = _subset(o.shape[0])
             o, d, t0 = o[sel].contiguous(), d[sel].contiguous(), t0[sel]
             dead = float((t0 <= 0).double().mean())
-            cases = []
+            cases, twins = [], []
             for any_hit in (False, True):
+                tw = _twin_check(pm, bvh, o, d, t0, any_hit,
+                                 f"{name} {label}, "
+                                 f"{'any' if any_hit else 'closest'}")
+                twins.append(tw)
+                worst["twin_agree"] = min(worst["twin_agree"], tw["agree"])
+                worst["twin_bit_equal"] = min(worst["twin_bit_equal"],
+                                              tw["bit_equal"])
+                worst["twin_max_abs_err"] = max(worst["twin_max_abs_err"],
+                                                tw["max_abs_err"])
                 for sort in (False, True):
-                    c = _packet_check(pm, o, d, t0, any_hit, sort, None)
+                    c = _packet_check(pm, bvh, o, d, t0, any_hit, sort, None)
                     cases.append(c)
                     worst["agree"] = min(worst["agree"], c["agree"])
                     worst["max_abs_err"] = max(worst["max_abs_err"],
@@ -2438,9 +2531,15 @@ def phase_packet_compare(smi):
                     worst["sign"] = max(worst["sign"], c["sign"])
             parts.append(
                 f"{name} {label} ({o.shape[0]} lanes, dead {dead:.3f}, hits "
-                f"{cases[0]['hits']:.3f}): agree "
+                f"{cases[0]['hits']:.3f}): vs packet_bvh_ref closest/any "
+                f"agree {twins[0]['agree']:.5f}/{twins[1]['agree']:.5f}, "
+                f"bit-equal {twins[0]['bit_equal']:.5f}/"
+                f"{twins[1]['bit_equal']:.5f}, permuted launch equal; vs "
+                f"packet_ref agree "
                 + "/".join(f"{c['agree']:.5f}" for c in cases)
-                + f" max|dt| {max(c['max_abs_err'] for c in cases):.3g}")
+                + f" (bit-equal "
+                + "/".join(f"{c['bit_equal']:.5f}" for c in cases)
+                + f") max|dt| {max(c['max_abs_err'] for c in cases):.3g}")
             # kernel 6 on the same wave
             b0 = mk.bin_launches
             cell, tn = mk.bin_rays(coarse, o, d, t0, 3e-2)
@@ -2451,10 +2550,11 @@ def phase_packet_compare(smi):
                 (cell, tn), mk.bin_rays_ref(coarse, o, d, t0, 3e-2),
                 f"{name} {label}")
             worst["bin_abs_err"] = max(worst["bin_abs_err"], tn_abs)
-            two = _packet_check(pm, o, d, t0, False, True, coarse)
-            k1 = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0)
+            two = _packet_check(pm, bvh, o, d, t0, False, True, coarse)
+            k1 = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0,
+                                          bvh=bvh)
             k2 = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0,
-                                          coarse=coarse)
+                                          coarse=coarse, bvh=bvh)
             lim = torch.where(t0 > 0, t0, 0.0)
             s12 = ((k1.t < lim) == (k2.t < lim)) & (
                 (k1.t >= lim) | (k1.tri == k2.tri))
@@ -2469,10 +2569,11 @@ def phase_packet_compare(smi):
                 f"{float((cell >= 0).double().mean()):.3f}) tn rel "
                 f"{tn_err:.2g}, two-pass kernel vs plain "
                 f"{two['agree']:.5f}, two-pass vs single-pass {a12:.5f}")
-    print(f"[17 packet kernel vs plain] bars: hit/miss and slot >= "
+    print(f"[17 packet kernel vs plain] bars: hit/miss and triangle >= "
           f"{PACKET_AGREE}, |dt| <= {PACKET_T_TOL} max(1, t), n/uv/mat "
-          f"equal, sign test; cases closest unsorted/sorted, any "
-          f"unsorted/sorted: " + " | ".join(parts), flush=True)
+          f"equal, sign test; against packet_ref the cases closest "
+          f"unsorted/sorted, any unsorted/sorted: " + " | ".join(parts),
+          flush=True)
     print(f"[18 bin kernel vs plain] " + " | ".join(bin_parts), flush=True)
     return worst
 
@@ -2684,31 +2785,92 @@ def _timed(fn):
     return out, a.elapsed_time(b)
 
 
+def _packet_bound(live, boxes, tris, found, nbytes) -> tuple[float, float]:
+    """Kernel 5's bound in its two yardsticks, ms: f32 operations over the
+    f32 peak (counted from csrc/packet.cu: the reciprocal direction per live
+    ray, a slab test per box entered, Moller-Trumbore per triangle tested,
+    the attributes per found hit; a lower bound, no compare or select
+    counted) and bytes over the memory rate."""
+    ops = (live * OPS["walk"] + boxes * OPS["slab"] + tris * OPS["tri"]
+           + found * OPS["attrs"])
+    return ops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+
+
+def _packet_tree_bytes(tree) -> int:
+    """Bytes of a tree kernel 5 could walk, read once: pack_bvh's nodes and
+    slots, or the 64-leaf layout's node tables and slot rows."""
+    if hasattr(tree, "tris"):
+        return 4 * (tree.nodes.numel() + tree.tris.numel())
+    return 4 * (tree.boxes.numel() + tree.meta.numel()
+                + tree.tri_rows.numel())
+
+
+def _packet_io_bytes(t_init, any_hit, perm) -> int:
+    """Bytes of one wave query's rays and answers, each moved once:
+    t_init (and the permutation, where there is one) on every lane, the
+    origin and direction on live lanes only (a dead lane returns at once),
+    and the answers the query needs: t, triangle, normal, uv and material
+    (32 B) of a closest hit, t alone of an any-hit query."""
+    lanes = t_init.shape[0]
+    live = int((t_init > 0).sum())
+    per_lane = 4 + 4 * (perm is not None) + (4 if any_hit else 32)
+    return lanes * per_lane + live * 24
+
+
 def _kernel_work(r, mode):
-    """One frame's wave queries, each as the kernels received it (the sorted
-    rays and t_init of every full wave): the kernels' answers held against
-    the plain versions' on the same inputs by phases 17 and 18's bars, the
-    work the plain versions count, and their ms per wave (CUDA events)."""
+    """One frame's wave queries, each as the kernels received it (the rays,
+    t_init and permutation of every full wave): kernel 5's answers held
+    against its plain version packet_bvh_ref (pack_bvh's tree, the one it
+    walks) and against packet_ref (the 64-leaf tree, the TPU kernel's
+    contract, by triangle id) on the same inputs by phase 17's bars, kernel
+    6's against bin_rays_ref by phase 18's, the work the plain versions
+    count (per wave kind: closest hit, shadow), and their ms per wave (CUDA
+    events). The bound counts the leaf-<=4 tree's tests (the kernel's own
+    tree on a mesh of more than BVH_MAX_LEAF triangles) and the bytes each
+    input and output the query needs moves once (``_packet_io_bytes``) with
+    the tree; the 64-leaf tree's tests and bytes give the same yardstick on
+    the old tree."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
 
+    if r.scene.mesh.num_tris <= mk.BVH_MAX_LEAF:
+        fail("phase 21's bound counts the kernel's own tree, which is one "
+             "leaf on this mesh, not the leaf-<=4 tree")
     with _Recorder("packet_query") as pq, _Recorder("bin_rays") as br:
         r.step()
     torch.cuda.synchronize()
-    counts, bins, ms_p, ms_b, rays = {}, {}, [], [], 0
-    held = dict(agree=1.0, max_abs_err=0.0, sign=0.0, bin_agree=1.0,
-                bin_tn_err=0.0, bin_abs_err=0.0)
-    pm = r.scene.mesh_packed
+    kinds = {k: dict(waves=0, lanes=0, live=0, io=0, new={}, old={})
+             for k in ("closest", "shadow")}
+    bins, ms_p, ms_64, ms_b = {}, [], [], []
+    held = dict(agree=1.0, max_abs_err=0.0, sign=0.0, bit_equal=1.0,
+                agree_64=1.0, max_abs_err_64=0.0, sign_64=0.0,
+                bit_equal_64=1.0, bin_agree=1.0, bin_tn_err=0.0,
+                bin_abs_err=0.0)
+    pm, bvh = r.scene.mesh_packed, r.scene.mesh_bvh
     for i, (args, kw, out) in enumerate(pq.calls):
-        ref, ms = _timed(lambda: mk.packet_ref(*args, **kw, counts=counts))
+        _, o, d, t0, tmin, any_hit = args
+        w = kinds["shadow" if any_hit else "closest"]
+        w["waves"] += 1
+        w["lanes"] += o.shape[0]
+        w["live"] += int((t0 > 0).sum())
+        w["io"] += _packet_io_bytes(t0, any_hit, kw.get("perm"))
+        what = f"{mode} wave {i}, {o.shape[0]} lanes"
+        twin, ms = _timed(lambda: mk.packet_bvh_ref(
+            kw["bvh"], o, d, t0, tmin, any_hit, counts=w["new"]))
         ms_p.append(ms)
-        rays += int((args[3] > 0).sum())
-        c = _hold_packet(out, ref, args[3], bool(args[5]),
-                         f"{mode} wave {i}, {args[1].shape[0]} lanes")
-        held["agree"] = min(held["agree"], c["agree"])
-        held["max_abs_err"] = max(held["max_abs_err"], c["max_abs_err"])
-        held["sign"] = max(held["sign"], c["sign"])
+        ref, ms = _timed(lambda: _packet_ref_ids(
+            pm, o, d, t0, tmin, any_hit, counts=w["old"]))
+        ms_64.append(ms)
+        c = _hold_packet(out, twin, t0, any_hit, what, "packet_bvh_ref")
+        c64 = _hold_packet(out, ref, t0, any_hit, what)
+        for suffix, x in (("", c), ("_64", c64)):
+            held["agree" + suffix] = min(held["agree" + suffix], x["agree"])
+            held["bit_equal" + suffix] = min(held["bit_equal" + suffix],
+                                             x["bit_equal"])
+            held["max_abs_err" + suffix] = max(held["max_abs_err" + suffix],
+                                               x["max_abs_err"])
+            held["sign" + suffix] = max(held["sign" + suffix], x["sign"])
     for i, (args, kw, out) in enumerate(br.calls):
         ref, ms = _timed(lambda: mk.bin_rays_ref(*args, **kw, counts=bins))
         ms_b.append(ms)
@@ -2717,24 +2879,34 @@ def _kernel_work(r, mode):
         held["bin_tn_err"] = max(held["bin_tn_err"], rel)
         held["bin_abs_err"] = max(held["bin_abs_err"], absolute)
     n_waves = len(pq.calls)
-    lanes = sum(c[0][1].shape[0] for c in pq.calls)
-    tree_bytes = pm.boxes.numel() * 4 + pm.meta.numel() * 4 \
-        + pm.tri_rows.numel() * 4
-    # f32 operations counted from csrc/packet.cu: the reciprocal direction
-    # per live ray, a slab test per node entered, Moller-Trumbore per
-    # triangle tested, the attributes per found hit (a lower bound: no
-    # compare or select is counted)
-    ops = (rays * OPS["walk"] + counts.get("nodes", 0) * OPS["slab"]
-           + counts.get("tris", 0) * OPS["tri"]
-           + counts.get("found", 0) * OPS["attrs"])
-    nbytes = lanes * (28 + 32) + n_waves * tree_bytes
-    p_bound = _bound(ops / n_waves, nbytes / n_waves)
+    tree, tree_64 = _packet_tree_bytes(bvh), _packet_tree_bytes(pm)
+    for w in kinds.values():
+        n = max(w["waves"], 1)
+        new, old = w["new"], w["old"]
+        w["bound"] = _packet_bound(
+            w["live"] / n, new.get("boxes", 0) / n, new.get("tris", 0) / n,
+            new.get("found", 0) / n, w["io"] / n + tree)
+        w["bound_64"] = _packet_bound(
+            w["live"] / n, old.get("nodes", 0) / n, old.get("tris", 0) / n,
+            old.get("found", 0) / n, w["io"] / n + tree_64)
+    # the frame's mean wave, as kernel 5's ms per launch is taken
+    per_wave = [sum(w[key][j] * w["waves"] for w in kinds.values()) / n_waves
+                for key in ("bound", "bound_64") for j in (0, 1)]
+    p_bound = _bound_of(per_wave[0], per_wave[1])
+    p_bound_64 = _bound_of(per_wave[2], per_wave[3])
+    lanes = sum(w["lanes"] for w in kinds.values())
+    live = sum(w["live"] for w in kinds.values())
     out = dict(held=held, waves=n_waves, lanes_per_wave=lanes / n_waves,
-               live_per_wave=rays / n_waves,
-               nodes_per_wave=counts.get("nodes", 0) / n_waves,
-               tris_per_wave=counts.get("tris", 0) / n_waves,
+               live_per_wave=live / n_waves, kinds=kinds,
+               boxes_per_wave=sum(w["new"].get("boxes", 0)
+                                  for w in kinds.values()) / n_waves,
+               tris_per_wave=sum(w["new"].get("tris", 0)
+                                 for w in kinds.values()) / n_waves,
                packet_plain_ms=statistics.median(ms_p),
-               packet_bound_ms=p_bound[0], packet_bound_by=p_bound[1])
+               packet_plain_64_ms=statistics.median(ms_64),
+               packet_bound_ms=p_bound[0], packet_bound_by=p_bound[1],
+               packet_bound_64_ms=p_bound_64[0],
+               packet_bound_64_by=p_bound_64[1])
     if br.calls:
         coarse = r.scene.mesh_packed_coarse
         C = coarse.cell_ids.shape[0]
@@ -2750,15 +2922,35 @@ def _kernel_work(r, mode):
     return out
 
 
+def _fmt_walk_tests(mode, o) -> str:
+    """One mode's part of the [packet walk tests] line."""
+    parts = []
+    for kind, w in o["kinds"].items():
+        live = max(w["live"], 1)
+        new, old = w["new"], w["old"]
+        parts.append(
+            f"{kind} ({w['waves']} waves, live share "
+            f"{w['live'] / max(w['lanes'], 1):.4f}): boxes / triangles per "
+            f"live ray, leaf-<=4 tree {new.get('boxes', 0) / live:.2f} / "
+            f"{new.get('tris', 0) / live:.2f}, 64-leaf tree "
+            f"{old.get('nodes', 0) / live:.2f} / "
+            f"{old.get('tris', 0) / live:.2f}; bound per wave, operations / "
+            f"bytes ms: leaf-<=4 {w['bound'][0]:.5f} / {w['bound'][1]:.5f}, "
+            f"64-leaf {w['bound_64'][0]:.5f} / {w['bound_64'][1]:.5f}")
+    return f"{mode}: " + "; ".join(parts)
+
+
 def phase_wavefront_times(smi, r2):
     """21: times at config 4, two-pass (the main path's renderer) and
     single-pass: ms per frame (CUDA events, slope between 1 and 3 frames,
     median of REPS), one profiler trace of 2 frames (kernels 5 and 6 per
     launch, sort and gather glue, other ops, idle share), then one more
     frame whose every wave query is run again through the plain versions
-    on the kernels' own inputs: the kernels' answers held to phases 17 and
-    18's bars at the main path's full shapes, the bounds from the plain
-    versions' counts of that work, and their ms per wave."""
+    on the kernels' own inputs (``_kernel_work``): the kernels' answers held
+    to phases 17 and 18's bars at the main path's full shapes, the bounds
+    from the plain versions' counts of that work, and their ms per wave;
+    the ``[packet walk tests]`` line gives those counts per wave kind on
+    both trees and kernel 5's bound in both yardsticks."""
     import dataclasses
 
     from tpu_pathtracer_torch import ProgressiveRenderer
@@ -2781,13 +2973,21 @@ def phase_wavefront_times(smi, r2):
              f"{o['busy_ms']:.3f}, idle share {o['idle_share']:.3f}; "
              f"kernel 5 {o['packet_ms']:.4f} ms/launch x "
              f"{o['packet_per_frame']:.0f}/frame (bound "
-             f"{o['packet_bound_ms']:.5f} ms by {o['packet_bound_by']}; "
-             f"{o['live_per_wave']:.0f} live rays, {o['nodes_per_wave']:.0f} "
-             f"nodes, {o['tris_per_wave']:.0f} triangle tests per wave; "
-             f"plain {o['packet_plain_ms']:.1f} ms/wave; every full wave "
-             f"vs plain: agree >= {o['held']['agree']:.5f}, max|dt| "
+             f"{o['packet_bound_ms']:.5f} ms by {o['packet_bound_by']} on "
+             f"the leaf-<=4 tree, {o['packet_bound_64_ms']:.5f} ms by "
+             f"{o['packet_bound_64_by']} on the 64-leaf tree; "
+             f"{o['live_per_wave']:.0f} live rays, {o['boxes_per_wave']:.0f} "
+             f"box and {o['tris_per_wave']:.0f} triangle tests per wave; "
+             f"plain packet_bvh_ref {o['packet_plain_ms']:.1f} ms/wave, "
+             f"packet_ref {o['packet_plain_64_ms']:.1f}; every full wave vs "
+             f"packet_bvh_ref: agree >= {o['held']['agree']:.5f}, bit-equal "
+             f">= {o['held']['bit_equal']:.5f}, max|dt| "
              f"{o['held']['max_abs_err']:.3g}, sign balance "
-             f"{o['held']['sign']:.3f} of its bar)")
+             f"{o['held']['sign']:.3f} of its bar; vs packet_ref: agree >= "
+             f"{o['held']['agree_64']:.5f}, bit-equal >= "
+             f"{o['held']['bit_equal_64']:.5f}, max|dt| "
+             f"{o['held']['max_abs_err_64']:.3g}, sign balance "
+             f"{o['held']['sign_64']:.3f})")
         if "bin_bound_ms" in o:
             s += (f"; kernel 6 {o['bin_ms']:.4f} ms/launch x "
                   f"{o['bin_per_frame']:.0f}/frame (bound "
@@ -2805,6 +3005,10 @@ def phase_wavefront_times(smi, r2):
         parts.append(s)
     print(f"[21 wavefront times] terrain {C4_W}x{C4_H} spp {C4_SPP}, "
           f"{C4_MB} bounces, NEE on {smi}: " + " | ".join(parts), flush=True)
+    print("[packet walk tests] config 4, every wave of a main-path frame as "
+          "kernel 5 received it: " + " | ".join(
+              _fmt_walk_tests(mode, o) for mode, o in out.items()),
+          flush=True)
     return out
 
 
@@ -4043,7 +4247,95 @@ def _ab_gradient_key(name, nee, lens) -> str:
             f"{'nee' if nee else 'brute'}")
 
 
-def ab_worker(root: str, atlas_out=None) -> dict:
+def _ab_packet(waves_path, answers_out=None) -> dict:
+    """Kernel 5 in this process's checkout on config 4's wave queries of one
+    frame (the textured terrain, two-pass), recorded once by the first
+    worker to ``waves_path`` and read by every worker, so that each checkout
+    answers the same rays through its own ``intersect_mesh_packet``. Device
+    ms per launch of the closest-hit and the shadow waves and the frame's
+    glue (every other device op of the queries: binning, sort, gathers,
+    selects) from one torch.profiler trace per kind; kernel 5's ms on the
+    bounce-1 closest-hit wave unsorted, sorted by packet_sort_key, and
+    two-pass; a digest of every wave's answers, saved to ``answers_out``;
+    and, where the checkout has packet_bvh_ref, the bound of a mean wave as
+    phase 21 counts it."""
+    import inspect
+
+    import torch
+
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    scene, cs = sc.terrain_textured(device="cuda")
+    scene = sc.with_packet_mesh(scene)
+    if not Path(waves_path).is_file():
+        cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
+                             cs["fov"], device="cuda")
+        torch.save([(o.cpu(), d.cpu(), t0.cpu(), a) for o, d, t0, a in
+                    _record_waves(scene, cam, _c4_config())], waves_path)
+    waves = [(o.cuda(), d.cuda(), t0.cuda(), a)
+             for o, d, t0, a in torch.load(waves_path)]
+    pm, coarse = scene.mesh_packed, scene.mesh_packed_coarse
+    # Shim: a checkout whose intersect_mesh_packet predates bvh= walks the
+    # 64-leaf tree and takes no tree argument. It and the packet_bvh_ref
+    # test below (and _Recorder's ``top``) go once no compared checkout
+    # predates the per-thread kernel 5 (ROADMAP, "The kernels' redesign").
+    params = inspect.signature(mk.intersect_mesh_packet).parameters
+    tree = {"bvh": scene.mesh_bvh} if "bvh" in params else {}
+
+    def query(i, **over):
+        o, d, t0, a = waves[i]
+        kw = dict(t_init=t0, any_hit=a, coarse=coarse, **tree)
+        kw.update(over)
+        return mk.intersect_mesh_packet(pm, o, d, 3e-2, **kw)
+
+    ms, glue, total = {}, 0.0, 0.0
+    for kind, any_hit in (("closest", False), ("shadow", True)):
+        idx = [i for i, w in enumerate(waves) if w[3] == any_hit]
+        k_ms, _, _, by_name = _profile(lambda j, idx=idx: query(idx[j]),
+                                       len(idx), "packet_kernel",
+                                       f"ab_packet_{kind}")
+        ms[f"kernel 5 {kind} waves"] = k_ms
+        total += k_ms * len(idx)
+        glue += len(idx) * sum(v for name, v in by_name.items()
+                               if "packet_kernel" not in name
+                               and "bin_kernel" not in name)
+    ms["kernel 5 mean wave"] = total / len(waves)
+    ms["kernel 5 glue per frame"] = glue
+    for label, over in (("unsorted", dict(sort=False, coarse=None)),
+                        ("sorted by packet_sort_key", dict(coarse=None)),
+                        ("two-pass", {})):
+        ms[f"kernel 5 bounce-1 closest wave {label}"] = _profile(
+            lambda j, over=over: query(2, **over), 5, "packet_kernel",
+            "ab_packet_order")[0]
+    answers = [query(i) for i in range(len(waves))]
+    fields = ("t", "tri", "n", "uv", "mat")
+    digests = [_digest([getattr(h, f) for f in fields]) for h in answers]
+    if answers_out:
+        torch.save([[getattr(h, f).cpu() for f in fields] for h in answers],
+                   answers_out)
+    bound = None
+    if hasattr(mk, "packet_bvh_ref"):  # shim: see ``tree`` above
+        with _Recorder("packet_query") as pq:
+            for i in range(len(waves)):
+                query(i)
+        live = boxes = tris = found = nbytes = 0
+        for args, kw, _ in pq.calls:
+            c = {}
+            mk.packet_bvh_ref(kw["bvh"], *args[1:], counts=c)
+            live += int((args[3] > 0).sum())
+            boxes, tris = boxes + c.get("boxes", 0), tris + c.get("tris", 0)
+            found += c.get("found", 0)
+            nbytes += (_packet_io_bytes(args[3], args[5], kw["perm"])
+                       + _packet_tree_bytes(kw["bvh"]))
+        n = len(pq.calls)
+        bound = _bound_of(*_packet_bound(live / n, boxes / n, tris / n,
+                                         found / n, nbytes / n))
+    return dict(ms=ms, digests=digests, bound=bound)
+
+
+def ab_worker(root: str, atlas_out=None, waves=None,
+              answers_out=None) -> dict:
     """With the package of the checkout ``root``: device ms per launch (one
     ``_profile`` trace of 10 launches) of the forward kernel on phases 6,
     12 and 27's workloads (cornell_spheres, cornell_boxes, cornell_quad and
@@ -4063,7 +4355,9 @@ def ab_worker(root: str, atlas_out=None) -> dict:
     plane, rays and on terrain32 the C_tot records; phase "both": the loss
     and raw gradients; on terrain32 the scatter launch's replayed radiance,
     counts and rays); the terrain32 atlas gradient and the same scatter of
-    |g| (its atomic bound) saved to ``atlas_out``; and the build log."""
+    |g| (its atomic bound) saved to ``atlas_out``; kernel 5 on config 4's
+    recorded waves (``_ab_packet``, with ``waves`` and ``answers_out``); and
+    the build log."""
     sys.path.insert(0, root)
     import torch
 
@@ -4176,7 +4470,11 @@ def ab_worker(root: str, atlas_out=None) -> dict:
     out["config 4 launch"] = _profile(lambda i: r.step(), r.state.frame,
                                       "persistent_kernel", "ab",
                                       start=r.reset)[0]
-    return dict(ms=out, digests=digests, log=log)
+    del r
+    torch.cuda.empty_cache()
+    packet = _ab_packet(waves, answers_out)
+    out.update(packet.pop("ms"))
+    return dict(ms=out, digests=digests, log=log, packet=packet)
 
 
 def ab(other: str) -> int:
@@ -4187,9 +4485,10 @@ def ab(other: str) -> int:
     persistent kernels, each run's device ms per launch, then per workload
     the two runs of each checkout, the change against the other checkout's
     mean, and whether the outputs are equal bit for bit across the four
-    runs (the sphere forward workloads and every gradient workload), and
-    the terrain32 atlas gradients' largest gap over the atomic bound; exit
-    1 if outputs differ or a gap exceeds the bound."""
+    runs (the sphere forward workloads and every gradient workload), the
+    terrain32 atlas gradients' largest gap over the atomic bound, and
+    kernel 5's checks (``_ab_packet_report``); exit 1 if outputs differ, a
+    gap exceeds the bound or a kernel-5 check fails."""
     sys.path.insert(0, str(ROOT))
     from tpu_pathtracer_torch.ops.kernels._build import ptxas_report
 
@@ -4197,15 +4496,21 @@ def ab(other: str) -> int:
 
     order = [("other", other), ("this", str(ROOT)), ("this", str(ROOT)),
              ("other", other)]
-    runs, logs, digests, atlases = [], {}, {}, []
+    runs, logs, digests, atlases, packets = [], {}, {}, [], []
     out_dir = ROOT / "build" / "tpu_pathtracer_torch"
     out_dir.mkdir(parents=True, exist_ok=True)
+    waves = out_dir / "ab_packet_waves.pt"
+    waves.unlink(missing_ok=True)
     for i, (tag, root) in enumerate(order):
         atlas = out_dir / f"ab_atlas_{i}.pt"
         atlas.unlink(missing_ok=True)
+        answers = out_dir / f"ab_packet_answers_{i}.pt"
+        answers.unlink(missing_ok=True)
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--ab-worker",
-             str(Path(root).resolve()), "--ab-atlas", str(atlas)],
+             str(Path(root).resolve()), "--ab-atlas", str(atlas),
+             "--ab-waves", str(waves)]
+            + (["--ab-answers", str(answers)] if i < 2 else []),
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)
@@ -4214,6 +4519,7 @@ def ab(other: str) -> int:
         runs.append((tag, got["ms"]))
         logs[tag] = got["log"]
         digests.setdefault(tag, []).append(got["digests"])
+        packets.append((tag, got["packet"]))
         atlases.append(torch.load(atlas))
         print(f"{tag} ({root}): " + ", ".join(
             f"{k} {v:.4f}" for k, v in got["ms"].items()), flush=True)
@@ -4226,7 +4532,8 @@ def ab(other: str) -> int:
             f"{k}: {v.get('regs')} regs, {v.get('stack')} B stack, "
             f"{v.get('spill_st')}/{v.get('spill_ld')} B spill st/ld"
             for k, v in ptxas_report(log).items()
-            if "persistent" in k or "scatter" in k or "camera_jvp" in k))
+            if "persistent" in k or "scatter" in k or "camera_jvp" in k
+            or "packet" in k))
     print("device ms per launch (the plain version: wall ms per step): "
           "workload | other (run 1, run 4) | this (run 2, run 3) | this / "
           "other - 1 | outputs equal")
@@ -4247,11 +4554,54 @@ def ab(other: str) -> int:
     print(f"{key}: replays launch 1 bit for bit, per run: {replays}; atlas "
           f"gradient against run 1 over the atomic bound (1 is the bar): "
           + ", ".join(f"{r:.4g}" for r in ratios))
+    unequal += _ab_packet_report(packets, runs, waves, out_dir)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip())
     return 1 if unequal or not all(r <= 1.0 for r in ratios) else 0
+
+
+def _ab_packet_report(packets, runs, waves, out_dir) -> int:
+    """Kernel 5's part of ``ab``: whether each checkout's runs answered
+    every wave alike (bit for bit), this checkout's answers against the
+    other's on every wave at packet_agreement's bars (triangles by MeshData
+    id), and the bound of a mean wave that this checkout's runs counted,
+    beside both sides' ms. Returns the number of failures."""
+    import torch
+
+    from tpu_pathtracer_torch.utils.metrics import packet_agreement
+
+    bad = 0
+    for tag in ("other", "this"):
+        ds = [p["digests"] for t, p in packets if t == tag]
+        same = all(d == ds[0] for d in ds)
+        bad += not same
+        print(f"kernel 5 {tag}: every wave's answers equal across its runs: "
+              f"{same}")
+    t_inits = [(w[2], w[3]) for w in torch.load(waves)]
+    other, this = (torch.load(out_dir / f"ab_packet_answers_{i}.pt")
+                   for i in (0, 1))
+    parts = []
+    for i, ((t0, any_hit), o, t) in enumerate(zip(t_inits, other, this)):
+        c = packet_agreement(t, o, t0, any_hit)
+        bad += not c["ok"]
+        parts.append(f"wave {i} ({'shadow' if any_hit else 'closest'}): "
+                     f"agree {c['agree']:.6f}, max|dt| "
+                     f"{c['max_abs_err']:.3g}, t ratio {c['t_ratio']:.3g}, "
+                     f"sign {c['sign']:.3f}, ok {c['ok']}")
+    print("kernel 5 this vs other, by packet_agreement's bars: "
+          + "; ".join(parts))
+    bounds = [p["bound"] for t, p in packets if p["bound"] is not None]
+    if bounds:
+        ms = {tag: statistics.mean(r["kernel 5 mean wave"] for t, r in runs
+                                   if t == tag) for tag in ("other", "this")}
+        print(f"kernel 5 bound of a mean wave on the leaf-<=4 tree: "
+              f"{bounds[0][0]:.5f} ms by {bounds[0][1]}" + "".join(
+                  f"; {tag} {v:.4f} ms per launch (the bound is {b:.1%} of "
+                  f"it)" for tag, v in ms.items()
+                  for b in [bounds[0][0] / v]))
+    return bad
 
 
 # --leaf-cutoff: small meshes, the one leaf against the leaf-<=4 tree
@@ -4785,22 +5135,37 @@ def main() -> int:
         "source": "tpu_pathtracer_torch/csrc/packet.cu",
         "replaces": "tpu_pathtracer/ops/pallas/mesh_kernel.py:325",
         "launches": wf_launches["packet"],
-        "max_abs_err": max([p_worst["max_abs_err"]]
+        "max_abs_err": max([p_worst["twin_max_abs_err"]]
                            + [h["max_abs_err"] for h in full]),
         "ms": two["packet_ms"],
         "plain_ms": two["packet_plain_ms"],
         "bound_ms": two["packet_bound_ms"],
         "bound_by": two["packet_bound_by"],
         "library_ms": None,
-        "tolerance": f">= {PACKET_AGREE} of lanes: equal hit/miss and slot "
-                     f"(any-hit: equal occlusion), |dt| <= {PACKET_T_TOL} * "
-                     f"max(1, t), n/uv/mat equal where the slots agree; of "
-                     f"the n lanes that differ, one sign of dt in excess by "
-                     f"<= {SIGN_Z} * sqrt(n)",
-        "agree": p_worst["agree"],
-        "sign_balance": p_worst["sign"],
+        "tree": "pack_bvh's (the mesh's own tree, leaves of <= 4 "
+                "triangles, one leaf for <= 40), walked per thread through "
+                "the wave's permutation",
+        "tolerance": f"against packet_bvh_ref (its plain version, the same "
+                     f"tree) and against packet_ref (the 64-leaf tree, the "
+                     f"TPU kernel's contract, by MeshData triangle id): >= "
+                     f"{PACKET_AGREE} of lanes with equal hit/miss and "
+                     f"triangle (any-hit: equal occlusion), |dt| <= "
+                     f"{PACKET_T_TOL} * max(1, t), n/uv/mat equal where the "
+                     f"triangles agree; of the n lanes that differ, one "
+                     f"sign of dt in excess by <= {SIGN_Z} * sqrt(n); the "
+                     f"permuted launch equal bit for bit to a launch on the "
+                     f"permuted rays",
+        "agree": p_worst["twin_agree"],
+        "bit_equal": p_worst["twin_bit_equal"],
+        "agree_packet_ref": p_worst["agree"],
+        "sign_balance_packet_ref": p_worst["sign"],
+        "max_abs_err_packet_ref": p_worst["max_abs_err"],
         "agree_full_waves": min(h["agree"] for h in full),
+        "bit_equal_full_waves": min(h["bit_equal"] for h in full),
         "sign_balance_full_waves": max(h["sign"] for h in full),
+        "agree_full_waves_packet_ref": min(h["agree_64"] for h in full),
+        "sign_balance_full_waves_packet_ref": max(h["sign_64"]
+                                                  for h in full),
         "two_pass_vs_single_pass": p_worst["two_vs_one"],
         "main_path_frame_vs_plain_px": wf_main["px_agree"],
         "launches_per_frame": two["packet_per_frame"],
@@ -4812,17 +5177,25 @@ def main() -> int:
         "plain_ms_single_pass": one["packet_plain_ms"],
         "bound_ms_single_pass": one["packet_bound_ms"],
         "bound_by_single_pass": one["packet_bound_by"],
+        "plain_ms_packet_ref": two["packet_plain_64_ms"],
+        "bound_ms_64_leaf_tree": two["packet_bound_64_ms"],
+        "bound_by_64_leaf_tree": two["packet_bound_64_by"],
         "sort_ms_per_frame_two_pass": two["sort_ms_per_frame"],
         "gather_ms_per_frame_two_pass": two["gather_ms_per_frame"],
         "sort_ms_per_frame_single_pass": one["sort_ms_per_frame"],
         "gather_ms_per_frame_single_pass": one["gather_ms_per_frame"],
         "wavefront_mean": wf_means[0],
         "persistent_mean": wf_means[1],
-        "note": "ms, plain_ms and bound_ms are per wave of the main path, "
-                "config 4 (terrain 1024x1024, 2 spp, 3 bounces, NEE) "
-                "through the two-pass traversal, averaged over a frame's "
-                "closest-hit and shadow waves; launches are the main "
-                "path's 4 frames",
+        "note": "ms, plain_ms (packet_bvh_ref) and bound_ms are per wave of "
+                "the main path, config 4 (terrain 1024x1024, 2 spp, 3 "
+                "bounces, NEE) through the two-pass traversal, averaged "
+                "over a frame's closest-hit and shadow waves; the bound "
+                "counts the leaf-<=4 tree's box and triangle tests on the "
+                "waves' own rays and the bytes the query needs (t_init and "
+                "the permutation per lane, origin and direction per live "
+                "lane, 32 B of answers per closest-hit lane and t alone per "
+                "shadow lane) plus the tree; launches are the main path's "
+                "4 frames",
     }
     binning = {
         "name": "bin_rays",
@@ -4941,16 +5314,20 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", metavar="CHECKOUT",
                     help="instead of the smoke run, time the persistent "
-                    "kernels per launch against another checkout's (ab)")
+                    "kernels and kernel 5 per launch against another "
+                    "checkout's (ab)")
     ap.add_argument("--ab-worker", help=argparse.SUPPRESS)
     ap.add_argument("--ab-atlas", help=argparse.SUPPRESS)
+    ap.add_argument("--ab-waves", help=argparse.SUPPRESS)
+    ap.add_argument("--ab-answers", help=argparse.SUPPRESS)
     ap.add_argument("--leaf-cutoff", action="store_true",
                     help="instead of the smoke run, time the forward kernel "
                     "on small meshes as one leaf and as a tree "
                     "(leaf_cutoff)")
     args = ap.parse_args()
     if args.ab_worker:
-        print(json.dumps(ab_worker(args.ab_worker, args.ab_atlas)))
+        print(json.dumps(ab_worker(args.ab_worker, args.ab_atlas,
+                                   args.ab_waves, args.ab_answers)))
         sys.exit(0)
     if args.leaf_cutoff:
         sys.exit(leaf_cutoff())

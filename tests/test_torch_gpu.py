@@ -670,24 +670,78 @@ def _terrain_rays(n, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_packet_kernel_matches_plain_on_gpu(any_hit):
-    """Kernel 5 against packet_ref on the same rays: t, slot, normal, uv and
-    material bit for bit (both are built to round alike), one launch per
-    call."""
+    """Kernel 5 against its plain version packet_bvh_ref on the same rays:
+    t, triangle, normal, uv and material bit for bit (both walk pack_bvh's
+    tree and are built to round alike), one launch per call; and against
+    packet_ref on the 64-leaf tree, by triangle id, at packet_agreement's
+    bars."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+    from tpu_pathtracer_torch.utils.metrics import packet_agreement
 
     scene, o, d, t0 = _terrain_rays(20_000, 3)
-    pm = scene.mesh_packed
+    pm, bvh = scene.mesh_packed, scene.mesh_bvh
     launches = mk.packet_launches
-    got = mk.packet_query(pm, o, d, t0, 3e-2, any_hit)
+    got = mk.packet_query(pm, o, d, t0, 3e-2, any_hit, bvh=bvh)
     torch.cuda.synchronize()
     assert mk.packet_launches == launches + 1
-    want = mk.packet_ref(pm, o, d, t0, 3e-2, any_hit)
+    want = mk.packet_bvh_ref(bvh, o, d, t0, 3e-2, any_hit)
     for g, w in zip(got, want):
         assert torch.equal(g, w.to(g.dtype))
     hit = got[0] < t0
     assert 0.05 < float(hit.float().mean()) < 0.95
+    r = list(mk.packet_ref(pm, o, d, t0, 3e-2, any_hit))
+    r[1] = torch.where(r[0] < torch.where(t0 > 0, t0, 0.0),
+                       pm.remap[r[1].long()], 0)
+    out = packet_agreement(got, r, t0, any_hit)
+    assert out["ok"], out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_packet_kernel_permuted_launch_on_gpu(any_hit):
+    """A launch that reads and writes through a permutation equals, at the
+    permuted positions, a launch on the rays permuted beforehand, bit for
+    bit; the sorted query equals the unsorted one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    scene, o, d, t0 = _terrain_rays(20_000, 6)
+    pm, bvh = scene.mesh_packed, scene.mesh_bvh
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    perm = torch.randperm(o.shape[0], generator=gen, device="cuda")
+    through = mk.packet_query(pm, o, d, t0, 3e-2, any_hit, bvh=bvh,
+                              perm=perm.to(torch.int32))
+    before = mk.packet_query(pm, o[perm].contiguous(), d[perm].contiguous(),
+                             t0[perm], 3e-2, any_hit, bvh=bvh)
+    for a, b in zip(through, before):
+        assert torch.equal(a[perm], b)
+    srt = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0, any_hit=any_hit,
+                                   bvh=bvh)
+    uns = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0, any_hit=any_hit,
+                                   sort=False, bvh=bvh)
+    for f in ("t", "tri", "n", "uv", "mat"):
+        assert torch.equal(getattr(srt, f), getattr(uns, f)), f
+
+
+@pytest.mark.gpu
+def test_packet_kernel_needs_the_tree_on_gpu():
+    """On the card the query raises without pack_bvh's tree: no fallback to
+    the 64-leaf walk or to the plain version, and no launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    scene, o, d, t0 = _terrain_rays(256, 8)
+    p0, b0 = mk.packet_launches, mk.bin_launches
+    with pytest.raises(ValueError, match="mesh_bvh"):
+        mk.packet_query(scene.mesh_packed, o, d, t0, 3e-2)
+    with pytest.raises(ValueError, match="mesh_bvh"):
+        mk.intersect_mesh_packet(scene.mesh_packed, o, d, 3e-2, t_init=t0,
+                                 coarse=scene.mesh_packed_coarse)
+    assert (mk.packet_launches, mk.bin_launches) == (p0, b0)
 
 
 @pytest.mark.gpu
@@ -707,9 +761,10 @@ def test_bin_kernel_matches_plain_on_gpu():
     rc, rt = mk.bin_rays_ref(coarse, o, d, t0, 3e-2)
     assert torch.equal(cell, rc) and torch.equal(tn, rt)
     assert 0.05 < float((cell >= 0).float().mean()) < 0.95
-    one = mk.intersect_mesh_packet(scene.mesh_packed, o, d, 3e-2, t_init=t0)
+    one = mk.intersect_mesh_packet(scene.mesh_packed, o, d, 3e-2, t_init=t0,
+                                   bvh=scene.mesh_bvh)
     two = mk.intersect_mesh_packet(scene.mesh_packed, o, d, 3e-2, t_init=t0,
-                                   coarse=coarse)
+                                   coarse=coarse, bvh=scene.mesh_bvh)
     for f in ("t", "tri", "n", "uv", "mat"):
         assert torch.equal(getattr(one, f), getattr(two, f)), f
 

@@ -11,6 +11,10 @@ cornell_boxes. The fine trees are collapsed to 16- and 8-triangle leaves
 there, because interpret mode unrolls a leaf's triangles (a 64-triangle leaf
 costs minutes).
 
+Kernel 5 walks ``pack_bvh``'s tree on the card; its plain version there,
+``packet_bvh_ref``, is held here to the same JAX results, reusing the
+fixtures (no JAX call of its own), and to ``packet_ref`` on the 64-leaf tree.
+
 Bars: hit/miss and slot (triangle) equal on >= 99.9% of lanes, t at rtol
 1e-5 (XLA contracts the Moller-Trumbore products into FMAs, PyTorch rounds
 each one), n and uv within 1e-5, materials equal.
@@ -200,6 +204,99 @@ def test_any_hit_matches_jax(boxes_any_hit):
     np.testing.assert_array_equal(th.t.numpy(), c["jt"])
     for a in (th.tri, th.n, th.uv, th.mat):
         assert not a.numpy().any()
+
+
+# -- kernel 5's tree: pack_bvh's, walked by packet_bvh_ref -------------------
+
+def _bvh_hit(bvh, c, t_init, any_hit):
+    """packet_bvh_ref on a fixture's rays, with intersect_mesh_packet's t
+    (t_init where nothing is closer, BIG on dead lanes); numpy arrays."""
+    t, tri, n, uv, mat = tmk.packet_bvh_ref(bvh, _t(c["o"]), _t(c["d"]),
+                                            _t(t_init), TMIN, any_hit)
+    pos = np.where(t_init > 0, t_init, 0)
+    t = t.numpy()
+    t = np.where(t < pos, t, np.where(t_init > 0, t_init, 1e30))
+    return t, tri.numpy(), n.numpy(), uv.numpy(), mat.numpy()
+
+
+@pytest.mark.parametrize("one_leaf", [tmk.BVH_MAX_LEAF, 0])
+def test_packet_bvh_ref_matches_jax(terrain_case, boxes_any_hit, one_leaf):
+    """Kernel 5's plain version, on pack_bvh's tree (one leaf for a mesh of
+    at most one_leaf triangles: cornell_boxes by default), gives the hits of
+    JAX's interpret-mode queries: the two-pass closest-hit query on the
+    terrain (triangle id, t, normal, uv, material) and the any-hit query on
+    cornell_boxes."""
+    c = terrain_case
+    bvh = tmk.pack_bvh(c["ts"].mesh, one_leaf=one_leaf)
+    t, tri, n, uv, mat = _bvh_hit(bvh, c, c["t_init"], False)
+    jh = c["jh"]
+    jt = np.asarray(jh.t)
+    lim = np.where(c["t_init"] > 0, c["t_init"], 0)
+    agree, both = _hit_agreement(jt, np.asarray(jh.tri), t, tri, lim)
+    assert agree >= AGREE
+    assert 100 < both.sum() < 500
+    np.testing.assert_allclose(t, jt, rtol=T_RTOL)
+    np.testing.assert_allclose(n[both], np.asarray(jh.n)[both],
+                               atol=ATTR_ATOL)
+    np.testing.assert_allclose(uv[both], np.asarray(jh.uv)[both],
+                               atol=ATTR_ATOL)
+    np.testing.assert_array_equal(mat, np.asarray(jh.mat))
+    b = boxes_any_hit
+    bvh = tmk.pack_bvh(b["ts"].mesh, one_leaf=one_leaf)
+    t, tri, n, uv, mat = _bvh_hit(bvh, b, b["seg"], True)
+    occ_j, occ_t = b["jt"] < b["seg"], t < b["seg"]
+    assert (occ_j == occ_t).mean() >= AGREE
+    assert 100 < occ_j.sum() < 500
+    np.testing.assert_array_equal(t, b["jt"])
+    for a in (tri, n, uv, mat):
+        assert not a.any()
+
+
+@pytest.mark.parametrize("case,any_hit,tmin", [
+    ("terrain_case", False, TMIN), ("terrain_case", False, 2.0),
+    ("terrain_case", True, TMIN), ("boxes_any_hit", False, TMIN),
+    ("boxes_any_hit", True, TMIN)])
+def test_packet_bvh_ref_matches_packet_ref(request, case, any_hit, tmin):
+    """Kernel 5's plain version on pack_bvh's tree against packet_ref on the
+    64-leaf tree (the TPU kernel's contract) on the same rays, compared by
+    MeshData triangle id: the same hits on >= AGREE of lanes, and there the
+    same t, normal, uv and material bit for bit (the same triangle
+    arithmetic on the same slot rows)."""
+    c = request.getfixturevalue(case)
+    t_init = c["t_init"] if case == "terrain_case" else c["seg"]
+    mesh = c["ts"].mesh
+    pm = tmk.pack_mesh(mesh, collapse_leaf=64)
+    args = (_t(c["o"]), _t(c["d"]), _t(t_init), tmin, any_hit)
+    r = list(tmk.packet_ref(pm, *args))
+    k = list(tmk.packet_bvh_ref(tmk.pack_bvh(mesh, one_leaf=0), *args))
+    lim = torch.where(args[2] > 0, args[2], 0.0)
+    found = r[0] < lim
+    r[1] = torch.where(found & (not any_hit), pm.remap[r[1].long()], 0)
+    hk = k[0] < lim
+    same = (hk == found) & (~found | (k[1] == r[1]))
+    assert float(same.double().mean()) >= AGREE
+    assert 100 < int(found.sum()) < 500
+    for a, b in zip(k, r):
+        assert torch.equal(a[same], b[same].to(a.dtype))
+
+
+@pytest.mark.parametrize("collapse_leaf", [64, 16, 8])
+@pytest.mark.parametrize("name", ["terrain", "cornell-boxes"])
+def test_packed_slots_follow_triangle_order(name, collapse_leaf):
+    """pack_mesh's slots hold the MeshData triangles in increasing id order
+    (build_bvh's DFS lays leaves out left to right), the same rows as
+    pack_bvh's slots: so both walks, which keep the first of equal t in
+    slot order, break an exact tie toward the lower triangle id alike."""
+    if name == "terrain":
+        _, ts = _terrain()
+    else:
+        js, _ = jsc.cornell_boxes()
+        ts = scene_to_torch(js)
+    pm = tmk.pack_mesh(ts.mesh, collapse_leaf=collapse_leaf)
+    ids = pm.remap[pm.remap >= 0].long()
+    assert torch.equal(ids, torch.arange(ts.mesh.num_tris))
+    rows = pm.tri_rows.reshape(-1, tmk.TRI_STRIDE)[pm.remap >= 0]
+    assert torch.equal(rows, tmk.pack_bvh(ts.mesh).tris)
 
 
 # -- port-internal checks ----------------------------------------------------

@@ -404,6 +404,45 @@ __device__ __forceinline__ float safe_inv(float a) {
   return 1.f / (fabsf(a) > 1e-12f ? a : (a >= 0.f ? 1e-12f : -1e-12f));
 }
 
+// Moller-Trumbore of a ray against a packed triangle slot, whose first
+// three float4 are v0 = a.xyz, e1 = (a.w, b.x, b.y), e2 = (b.z, b.w, c.x):
+// the barycentrics u, v and the distance t; false where the ray is
+// parallel to the triangle's plane (|det| <= 1e-12, where u, v and t are
+// computed with det = 1). The caller tests u, v and t.
+__device__ __forceinline__ bool moller_trumbore(float ox, float oy, float oz,
+                                                float dx, float dy, float dz,
+                                                const float4& a,
+                                                const float4& b,
+                                                const float4& c, float& uu,
+                                                float& vv, float& tt) {
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok = fabsf(det) > 1e-12f;
+  const float inv_det = 1.f / (ok ? det : 1.f);
+  const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
+  uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
+  const float qx = tvy * e1z - tvz * e1y;
+  const float qy = tvz * e1x - tvx * e1z;
+  const float qz = tvx * e1y - tvy * e1x;
+  vv = (dx * qx + dy * qy + dz * qz) * inv_det;
+  tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return ok;
+}
+
+// The unnormalized geometric normal cross(e1, e2) of a packed slot.
+__device__ __forceinline__ float3 slot_normal(const float4& a,
+                                              const float4& b,
+                                              const float4& c) {
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  return make_float3(e1y * e2z - e1z * e2y, e1z * e2x - e1x * e2z,
+                     e1x * e2y - e1y * e2x);
+}
+
 // The BVH walk of ONE ray over pack_bvh's tree (replaces the TPU kernels'
 // shared make_mesh_walk, ops/pallas/_walk.py:22; plain version
 // ops/kernels/_walk.py::bvh_walk_ref). The TPU walk moves a whole tile of
@@ -428,13 +467,21 @@ __device__ __forceinline__ float safe_inv(float a) {
 // in (TMIN, t). Leaves are visited in triangle order and a hit must be
 // strictly closer, so an equal t goes to the lower triangle index, as in
 // the TPU walk. The box test is robust (ROBUST, PRUNE), so the walk enters
-// every box whose triangle the ray hits.
-template <bool OCCLUSION, bool TRACK_UV>
+// every box whose triangle the ray hits. With SLOT_ONLY (the packet kernel,
+// packet.cu) the closest walk keeps only the winner's slot, in *slot (its
+// MeshData triangle id), and leaves the attributes to its caller, which
+// resolves them once after the walk: carrying them through the walk cost
+// that kernel 14 registers and 8% on a closest-hit wave (PERF.md,
+// Findings). The packet kernel also passes its caller's tmin in place of
+// TMIN.
+template <bool OCCLUSION, bool TRACK_UV, bool SLOT_ONLY = false>
 __device__ __forceinline__ float bvh_walk(const MeshView& m, float ox,
                                           float oy, float oz, float dx,
                                           float dy, float dz, float t,
                                           float& gnx, float& gny, float& gnz,
-                                          int& mat, float& hu, float& hv) {
+                                          int& mat, float& hu, float& hv,
+                                          float tmin = TMIN,
+                                          int* slot = nullptr) {
   const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
   int node = 0;
   while (node < m.n_nodes) {
@@ -448,7 +495,7 @@ __device__ __forceinline__ float bvh_walk(const MeshView& m, float ox,
     const float tf =
         fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1)) *
         ROBUST;
-    if (!(tn <= tf && tf > TMIN && tn <= t * PRUNE)) {
+    if (!(tn <= tf && tf > tmin && tn <= t * PRUNE)) {
       node = __float_as_int(lo.w);  // skip the subtree
       continue;
     }
@@ -459,34 +506,28 @@ __device__ __forceinline__ float bvh_walk(const MeshView& m, float ox,
     }
     // a leaf: Moller-Trumbore on its triangles in order, strictly closer
     // wins
-    const float4* S = reinterpret_cast<const float4*>(
-        m.tris + (size_t)(leaf & ((1 << LEAF_BITS) - 1)) * TRI_STRIDE);
-    for (int j = leaf >> LEAF_BITS; j > 0; --j, S += TRI_STRIDE / 4) {
+    const int first = leaf & ((1 << LEAF_BITS) - 1);
+    const int count = leaf >> LEAF_BITS;
+    const float4* S =
+        reinterpret_cast<const float4*>(m.tris + (size_t)first * TRI_STRIDE);
+    for (int j = count; j > 0; --j, S += TRI_STRIDE / 4) {
       const float4 a = __ldg(S), b = __ldg(S + 1), c = __ldg(S + 2);
-      // slot: v0 = a.xyz, e1 = (a.w, b.x, b.y), e2 = (b.z, b.w, c.x), mat c.y
-      const float e1x = a.w, e1y = b.x, e1z = b.y;
-      const float e2x = b.z, e2y = b.w, e2z = c.x;
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-      const bool ok = fabsf(det) > 1e-12f;
-      const float inv_det = 1.f / (ok ? det : 1.f);
-      const float tvx = ox - a.x, tvy = oy - a.y, tvz = oz - a.z;
-      const float uu = (tvx * px + tvy * py + tvz * pz) * inv_det;
-      const float qx = tvy * e1z - tvz * e1y;
-      const float qy = tvz * e1x - tvx * e1z;
-      const float qz = tvx * e1y - tvy * e1x;
-      const float vv = (dx * qx + dy * qy + dz * qz) * inv_det;
-      const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-      if (!(ok && uu >= 0.f && vv >= 0.f && uu + vv <= 1.f && tt > TMIN &&
+      float uu, vv, tt;
+      const bool ok = moller_trumbore(ox, oy, oz, dx, dy, dz, a, b, c, uu,
+                                      vv, tt);
+      if (!(ok && uu >= 0.f && vv >= 0.f && uu + vv <= 1.f && tt > tmin &&
             tt < t))
         continue;
       if (OCCLUSION) return 0.f;
       t = tt;
-      gnx = e1y * e2z - e1z * e2y;
-      gny = e1z * e2x - e1x * e2z;
-      gnz = e1x * e2y - e1y * e2x;
+      if (SLOT_ONLY) {
+        *slot = first + count - j;
+        continue;
+      }
+      const float3 g = slot_normal(a, b, c);
+      gnx = g.x;
+      gny = g.y;
+      gnz = g.z;
       mat = (int)c.y;
       if (TRACK_UV) {
         // uv0 = (c.z, c.w); uv_e1 = (d.x, d.y); uv_e2 = (d.z, d.w)

@@ -96,7 +96,7 @@ def intersect_p(scene: Scene, o: Tensor, d: Tensor, tmin: float = EPSILON,
         ph = intersect_mesh_packet(
             scene.mesh_packed, o, d, tmin=tmin, t_init=t_init,
             sort=(not presorted) or coarse is not None, any_hit=True,
-            coarse=coarse)
+            coarse=coarse, bvh=scene.mesh_bvh)
         occluded = occluded | (ph.t < tmax_t)
         if mask is not None:
             occluded = occluded | ~mask
@@ -159,7 +159,7 @@ def _merge_mesh_hit(scene: Scene, o: Tensor, d: Tensor, tmin: float,
         ph = intersect_mesh_packet(
             scene.mesh_packed, o, d, tmin=tmin, t_init=t_init,
             sort=(not presorted) or coarse is not None, coarse=coarse,
-            want_tri=False)
+            want_tri=False, bvh=scene.mesh_bvh)
         th_t, th_tri, tn = ph.t, ph.tri.to(torch.int64), ph.n
         tmat, uv = ph.mat.to(torch.int64), ph.uv
     else:

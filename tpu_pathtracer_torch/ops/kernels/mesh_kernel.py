@@ -4,28 +4,33 @@ Counterpart of ``tpu_pathtracer/ops/pallas/mesh_kernel.py``:
 
 * ``PackedMesh`` / ``pack_mesh``: the fine layout (16-float triangle slots
   ``v0 e1 e2 | material | uv0 uv_e1 uv_e2``, 8 slots per 128-float row,
-  every leaf starting on a row, one leaf block of tail padding), which
-  kernel 5 and the persistent kernels' plain versions walk
-  (``ops/kernels/_walk.py::mesh_walk_ref``); and with ``nodes_only=True``
+  every leaf starting on a row, one leaf block of tail padding), which the
+  TPU kernels walk and so the plain versions of kernel 5 (``packet_ref``)
+  and of the persistent kernels (``ops/kernels/_walk.py::mesh_walk_ref``);
+  and with ``nodes_only=True``
   the coarse tree of the two-pass traversal: its leaf cells as flat tables
   and, with ``fine_leaf``, each coarse node's subtree as a fine-tree node
   range;
 * ``PackedBvh`` / ``pack_bvh``: the MeshData tree itself (leaves of a few
   triangles; one leaf for a mesh of at most 40), as 32-byte skip-link
-  nodes and unpadded triangle slots, which the persistent kernels walk per
-  thread (``csrc/pt_common.cuh::bvh_walk``; plain version
-  ``ops/kernels/_walk.py::bvh_walk_ref``);
+  nodes and unpadded triangle slots, which the kernels walk per thread
+  (the persistent kernels' ``csrc/pt_common.cuh::bvh_walk``, plain version
+  ``ops/kernels/_walk.py::bvh_walk_ref``; kernel 5);
 * ``intersect_mesh_packet``: the closest-hit or any-hit query of a ray wave,
   with ``t_init`` pruning, the in-call coherence sort, and the two-pass
   binned traversal (``bin_rays`` maps every ray to the coarse cell it enters
   nearest; rays sort by (cell, octant, depth), and rays that enter no cell
   before ``t_init`` are culled);
-* kernel 5, the per-ray walk of the fine tree (``csrc/packet.cu``, which
-  replaces ``_packet_kernel``), and kernel 6, the coarse-cell sweep
-  (``csrc/bin.cu``, which replaces ``_bin_kernel``). Each has its plain
-  PyTorch version here, ``packet_ref`` and ``bin_rays_ref``: a CPU tensor
-  goes to the plain version, a CUDA tensor to the kernel, anything else
-  raises. ``packet_launches`` and ``bin_launches`` count kernel launches.
+* kernel 5, the per-ray walk of ``pack_bvh``'s tree through the wave's
+  permutation (``csrc/packet.cu``, which replaces ``_packet_kernel``; plain
+  version ``packet_bvh_ref``), and kernel 6, the coarse-cell sweep
+  (``csrc/bin.cu``, which replaces ``_bin_kernel``; plain version
+  ``bin_rays_ref``). A CUDA tensor goes to the kernel, anything else but a
+  CPU tensor raises. A CPU tensor goes to ``bin_rays_ref`` and, for the
+  packet query, to ``packet_ref`` on the 64-leaf tree, the TPU kernel's own
+  contract, which kernel 5 is also held to on the card (by triangle id; the
+  two trees can part only on near ties). ``packet_launches`` and
+  ``bin_launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -490,13 +495,14 @@ def _walk_ref(packed: PackedMesh, lanes: Tensor, o: Tensor, d: Tensor,
         node = torch.where(done, M, node)
 
 
-def _attributes(packed: PackedMesh, o: Tensor, d: Tensor, slot: Tensor,
+def _attributes(slots: Tensor, o: Tensor, d: Tensor, slot: Tensor,
                 found: Tensor) -> tuple[Tensor, Tensor, Tensor]:
-    """Normal, uv and material of the winning slot, resolved after the walk
-    (the JAX package's ``defer_attrs`` route), 0 where nothing was found:
-    the geometric normal cross(e1, e2) normalized, the uv from the
-    barycentrics, in the kernel's operation order."""
-    row = packed.tri_rows.reshape(-1, TRI_STRIDE)[slot]
+    """Normal, uv and material of the winning slot of the (S, 16) slot
+    table, resolved after the walk (the JAX package's ``defer_attrs``
+    route), 0 where nothing was found: the geometric normal cross(e1, e2)
+    normalized, the uv from the barycentrics, in the kernel's operation
+    order."""
+    row = slots[slot]
     e1x, e1y, e1z = row[:, 3], row[:, 4], row[:, 5]
     e2x, e2y, e2z = row[:, 6], row[:, 7], row[:, 8]
     nx = e1y * e2z - e1z * e2y
@@ -540,8 +546,41 @@ def packet_ref(packed: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
         found = torch.zeros_like(found)
     if counts is not None:
         counts["found"] = counts.get("found", 0) + int(found.sum())
-    n, uv, mat = _attributes(packed, o, d, slot, found)
+    n, uv, mat = _attributes(packed.tri_rows.reshape(-1, TRI_STRIDE), o, d,
+                             slot, found)
     return t, torch.where(found, slot, 0).to(torch.int32), n, uv, mat
+
+
+def packet_bvh_ref(bvh: PackedBvh, o: Tensor, d: Tensor, t_init: Tensor,
+                   tmin: float, any_hit: bool = False,
+                   counts: dict | None = None):
+    """Plain version of kernel 5 as it runs on the card: every live lane
+    (``t_init > 0``) walks ``pack_bvh``'s tree from t = t_init through
+    ``ops/kernels/_walk.py::bvh_walk_ref`` (the robust box test, a leaf's
+    triangles in order, strictly closer wins; ``any_hit`` stops at the
+    first one with t = 0), and the winner's attributes are resolved as
+    ``packet_ref`` resolves them. Returns (t, tri, n, uv, mat) as
+    ``packet_ref`` does, with tri the MeshData triangle id (``pack_bvh``'s
+    slots are in MeshData order). ``counts`` adds ``bvh_walk_ref``'s
+    segments, boxes and tris, and hits found."""
+    from tpu_pathtracer_torch.ops.kernels._walk import bvh_walk_ref
+
+    live = t_init > 0.0
+    t0 = torch.where(live, t_init, 0.0)
+    planes = (*o.unbind(1), *d.unbind(1))
+    if any_hit:
+        t = bvh_walk_ref(bvh, *planes, t0, occlusion=True, tmin=tmin,
+                         counts=counts)
+        found = torch.zeros_like(live)
+        tri = torch.zeros_like(t, dtype=torch.int64)
+    else:
+        t, *_, tri = bvh_walk_ref(bvh, *planes, t0, with_tri=True, tmin=tmin,
+                                  counts=counts)
+        found = live & (t < t_init)
+    if counts is not None:
+        counts["found"] = counts.get("found", 0) + int(found.sum())
+    n, uv, mat = _attributes(bvh.tris, o, d, tri.clamp_min(0), found)
+    return t, torch.where(found, tri, 0).to(torch.int32), n, uv, mat
 
 
 # ---------------------------------------------------------------------------
@@ -556,8 +595,8 @@ def _kernels():
     lib = _build.load_library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     packet = lib.tpt_packet
-    packet.argtypes = [p, p, p,  # o (N,3), d (N,3), t_init (N,)
-                       p, p, p, i,  # boxes, meta, slots, n_nodes
+    packet.argtypes = [p, p, p, p,  # o (N,3), d (N,3), t_init (N,), perm
+                       p, p, i,  # pack_bvh nodes, triangle slots, n_nodes
                        i, f, i,  # n, tmin, any_hit
                        p, p, p, p, p,  # t, slot, n (N,3), uv (N,2), mat
                        p]  # cudaStream_t
@@ -589,33 +628,42 @@ def _raise_on(err: int, what: str, error_string) -> None:
                            f"{error_string(err).decode()} ({err})")
 
 
-def _packet_cuda(packed, o, d, t_init, tmin, any_hit):
+def _packet_cuda(bvh, o, d, t_init, tmin, any_hit, perm):
     global packet_launches
     dev = o.device
     N = o.shape[0]
     f32, i32 = torch.float32, torch.int32
-    M = packed.num_nodes
+    M = bvh.num_nodes
     o = _checked(o, "o", f32, (N, 3), dev)
     d = _checked(d, "d", f32, (N, 3), dev)
     t_init = _checked(t_init, "t_init", f32, (N,), dev)
-    boxes = _checked(packed.boxes, "boxes", f32, (M * 6,), dev)
-    meta = _checked(packed.meta, "meta", i32, (M * 3,), dev)
-    slots = _checked(packed.tri_rows, "tri_rows", f32,
-                     tuple(packed.tri_rows.shape), dev)
+    if perm is not None:
+        perm = _checked(perm, "perm", i32, (N,), dev)
+    nodes = _checked(bvh.nodes, "bvh nodes", f32, (M, 8), dev)
+    tris = _checked(bvh.tris, "bvh tris", f32, (bvh.tris.shape[0], TRI_STRIDE),
+                    dev)
     t = torch.empty(N, dtype=f32, device=dev)
-    slot = torch.empty(N, dtype=i32, device=dev)
-    n = torch.empty((N, 3), dtype=f32, device=dev)
-    uv = torch.empty((N, 2), dtype=f32, device=dev)
-    mat = torch.empty(N, dtype=i32, device=dev)
+    if any_hit:  # the kernel writes t alone: the attributes are zeros
+        zf = torch.zeros((), dtype=f32, device=dev)
+        zi = torch.zeros((), dtype=i32, device=dev)
+        slot, n, uv, mat = (zi.expand(N), zf.expand(N, 3), zf.expand(N, 2),
+                            zi.expand(N))
+    else:
+        slot = torch.empty(N, dtype=i32, device=dev)
+        n = torch.empty((N, 3), dtype=f32, device=dev)
+        uv = torch.empty((N, 2), dtype=f32, device=dev)
+        mat = torch.empty(N, dtype=i32, device=dev)
     if N == 0:
         return t, slot, n, uv, mat
     packet, _, error_string = _kernels()
+    outs = [None] * 4 if any_hit else [x.data_ptr() for x in (slot, n, uv,
+                                                              mat)]
     with torch.cuda.device(dev):
         err = packet(o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
-                     boxes.data_ptr(), meta.data_ptr(), slots.data_ptr(), M,
-                     N, float(tmin), int(any_hit), t.data_ptr(),
-                     slot.data_ptr(), n.data_ptr(), uv.data_ptr(),
-                     mat.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                     None if perm is None else perm.data_ptr(),
+                     nodes.data_ptr(), tris.data_ptr(), M,
+                     N, float(tmin), int(any_hit), t.data_ptr(), *outs,
+                     torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "packet kernel", error_string)
     packet_launches += 1
     return t, slot, n, uv, mat
@@ -648,12 +696,21 @@ def _bin_cuda(coarse, o, d, t_init, tmin):
 
 
 def packet_query(packed: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
-                 tmin: float, any_hit: bool = False):
-    """Kernel 5 on CUDA tensors, ``packet_ref`` on CPU tensors; (t, slot, n,
-    uv, mat) as ``packet_ref`` returns them."""
+                 tmin: float, any_hit: bool = False, *,
+                 bvh: PackedBvh | None = None, perm: Tensor | None = None):
+    """(t, slot, n, uv, mat) as ``packet_ref`` returns them, with slot the
+    winner's slot in the tree walked. On CUDA tensors kernel 5 walks
+    ``bvh`` (ValueError without it), so slot is the MeshData triangle id;
+    ``perm`` (int32, a permutation of the lanes) is the order its threads
+    take the rays in, which changes no answer. On CPU tensors
+    ``packet_ref`` walks ``packed``, the 64-leaf tree, and slot is a padded
+    slot of it; the walk is per lane, so ``perm`` is not needed there."""
     dev = o.device
     if dev.type == "cuda":
-        return _packet_cuda(packed, o, d, t_init, tmin, any_hit)
+        if bvh is None:
+            raise ValueError("packet_query: kernel 5 walks pack_bvh's tree; "
+                             "pass the scene's mesh_bvh as bvh")
+        return _packet_cuda(bvh, o, d, t_init, tmin, any_hit, perm)
     if dev.type == "cpu":
         return packet_ref(packed, o, d, t_init, tmin, any_hit)
     raise ValueError(f"packet_query: unsupported device {dev}")
@@ -682,7 +739,7 @@ class PacketHit:
     """Closest-hit record with the kernel-resolved shading attributes."""
 
     t: Tensor  # (N,) BIG on a miss
-    tri: Tensor  # (N,) original MeshData triangle id (or slot, want_tri=False)
+    tri: Tensor  # (N,) MeshData triangle id (want_tri=False: the walked slot)
     n: Tensor  # (N, 3) geometric normal
     uv: Tensor  # (N, 2) interpolated texture uv
     mat: Tensor  # (N,) material id
@@ -714,69 +771,67 @@ def intersect_mesh_packet(
     packed: PackedMesh, o: Tensor, d: Tensor, tmin: float, sort: bool = True,
     t_init: Tensor | None = None, any_hit: bool = False,
     coarse: PackedMesh | None = None, hints: Tensor | None = None,
-    want_tri: bool = True,
+    want_tri: bool = True, bvh: PackedBvh | None = None,
 ) -> PacketHit:
     """Closest-hit (or, ``any_hit``, occlusion) query of N rays against the
-    packed mesh; the contract of the JAX function of the same name.
+    mesh; the contract of the JAX function of the same name.
 
     ``t_init`` (N,): the walk only finds hits strictly closer; lanes with
     ``t_init <= 0`` are dead. t equals t_init (or BIG) where no closer hit
     exists. ``any_hit``: the first occluder sets t = 0, and tri, n, uv and
-    mat are zeros. ``sort`` groups rays by ``packet_sort_key`` before the
-    walk and un-permutes the results; with ``coarse`` it is the two-pass
-    binned traversal: ``bin_rays`` maps rays to their nearest coarse cell,
-    rays sort by (cell, octant, quantized entry depth), and rays that enter
-    no cell before t_init skip the walk. ``want_tri=False`` returns the
-    padded slot id instead of the MeshData triangle id. ``hints`` (the JAX
-    kernel's per-tile fine-tree ranges to walk first) order the TPU's shared
-    tile walk and do not change the result; the CUDA kernel walks every ray
-    from the root, one launch per wave, so they are accepted and ignored
-    (the TPU's ``tile_rows`` has no counterpart here)."""
+    mat are zeros. ``sort`` orders the walk by ``packet_sort_key``; with
+    ``coarse`` it is the two-pass binned traversal: ``bin_rays`` maps rays to
+    their nearest coarse cell, rays are ordered by (cell, octant, quantized
+    entry depth), and rays that enter no cell before t_init skip the walk.
+    The order is a permutation that kernel 5 reads and writes through, so
+    the rays and the answers stay in the caller's order (every output is
+    elementwise from there on); on the CPU, where the walk is per lane, no
+    order is made and only the two-pass cull runs. On the card kernel 5 walks ``bvh``, the
+    scene's ``mesh_bvh`` (``pack_bvh``; ValueError without it), and returns
+    MeshData triangle ids; on the CPU ``packet_ref`` walks ``packed``, the
+    64-leaf tree, and its padded slots map to MeshData ids through
+    ``packed.remap``. ``want_tri=False`` returns the walked tree's slot
+    instead: the padded slot on the CPU, the MeshData id on the card.
+    ``hints`` (the JAX kernel's per-tile fine-tree ranges to walk first)
+    order the TPU's shared tile walk and do not change the result; the CUDA
+    kernel walks every ray from the root, one launch per wave, so they are
+    accepted and ignored (the TPU's ``tile_rows`` has no counterpart here)."""
+    if bvh is None and o.device.type == "cuda":
+        raise ValueError("intersect_mesh_packet: kernel 5 walks pack_bvh's "
+                         "tree; pass the scene's mesh_bvh as bvh")
     n = o.shape[0]
     if t_init is None:
         t_init = torch.full((n,), BIG, dtype=torch.float32, device=o.device)
-    if sort:
-        live = t_init > 0.0
-        if coarse is not None:
-            cell, btn = bin_rays(coarse, o, d, t_init, tmin)
-            has = (cell >= 0) & live
+    perm, culled, t_eff = None, None, t_init
+    live = t_init > 0.0 if sort else None
+    # the order is the card's alone: the CPU walk is per lane
+    order = sort and o.device.type == "cuda"
+    if sort and coarse is not None:
+        cell, btn = bin_rays(coarse, o, d, t_init, tmin)
+        has = (cell >= 0) & live
+        t_eff = torch.where(has, t_init, 0.0)
+        culled = live & ~has
+        if order:
             root = coarse.nodes[0]
             diag = torch.sqrt(torch.sum((root[3:6] - root[0:3]) ** 2))
             tq = torch.clamp(btn * (64.0 / torch.clamp_min(diag, 1e-6)),
                              0.0, 63.0).to(torch.int32)
             key = torch.where(has, ((cell * 8 + _octant(d)) << 6) | tq,
                               1 << 26)
-            t_eff = torch.where(has, t_init, 0.0)
-        else:
-            key = packet_sort_key(o, d, alive=live)
-            t_eff = t_init
-        perm = torch.argsort(key, stable=True)
-        rays = torch.cat([o, d, t_eff[:, None]], dim=1)[perm]
-        hit = intersect_mesh_packet(
-            packed, rays[:, 0:3], rays[:, 3:6], tmin, sort=False,
-            t_init=rays[:, 6], any_hit=any_hit, want_tri=want_tri)
-
-        def unsort(a: Tensor) -> Tensor:
-            out = torch.empty_like(a)
-            out[perm] = a
-            return out
-
-        t_u = unsort(hit.t)
-        if coarse is not None:
-            # culled live lanes have no mesh hit before t_init
-            t_u = torch.where(live & ~has, t_init, t_u)
-        if any_hit:
-            return dataclasses.replace(hit, t=t_u)
-        return PacketHit(t=t_u, tri=unsort(hit.tri), n=unsort(hit.n),
-                         uv=unsort(hit.uv), mat=unsort(hit.mat))
-    t, slot, nrm, uv, mat = packet_query(packed, o, d, t_init, tmin,
-                                         any_hit)
-    pos = torch.where(t_init > 0.0, t_init, 0.0)
-    found = t < pos
-    t_out = torch.where(found, t, torch.where(t_init > 0.0, t_init, BIG))
-    if any_hit:  # only t is meaningful: the attributes are zeros
-        tri = torch.zeros_like(slot)
-    elif want_tri:
+    elif order:
+        key = packet_sort_key(o, d, alive=live)
+    if order:
+        perm = torch.argsort(key, stable=True).to(torch.int32)
+    t, slot, nrm, uv, mat = packet_query(packed, o, d, t_eff, tmin, any_hit,
+                                         bvh=bvh, perm=perm)
+    found = t < torch.where(t_eff > 0.0, t_eff, 0.0)
+    t_out = torch.where(found, t, torch.where(t_eff > 0.0, t_eff, BIG))
+    if culled is not None:
+        # culled live lanes have no mesh hit before t_init
+        t_out = torch.where(culled, t_init, t_out)
+    if any_hit:  # only t is meaningful: slot and the attributes are zeros
+        tri = slot
+    elif want_tri and o.device.type == "cpu":
         tri = torch.where(found, packed.remap[slot.to(torch.int64)], 0)
     else:
         tri = slot
