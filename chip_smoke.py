@@ -113,8 +113,10 @@ print one line; any failure exits non-zero:
    tree (the TPU kernel's contract, by triangle id) sorted and unsorted:
    hit/miss and triangle equal on >= 99.9% of lanes, t within 1e-5
    max(1, t) there, normal, uv and material equal, the sign test on t;
-18. the bin kernel (kernel 6) against bin_rays_ref on the same waves (cell
-   equal on >= 99.9% of lanes, tn within 1e-6 relative), and the two-pass
+18. the bin kernel (kernel 6, the coarse tree's walk) on the same waves,
+   with its sort key: cell, tn and key bit for bit against both plain
+   versions, bin_rays_ref (the TPU kernel's sweep) and bin_tree_ref (the
+   walk; its node and cell tests per live ray printed), and the two-pass
    query against the single-pass one by phase 17's bars;
 19. the wavefront main path: ProgressiveRenderer(device="cuda") on the
    terrain at config 4 (1024x1024, 2 spp, 3 bounces, NEE, two-pass) renders
@@ -132,8 +134,10 @@ print one line; any failure exits non-zero:
    shadow, at its full 2M lanes, with the permutation the kernels received
    it in) runs again through the plain versions on the same inputs: kernel
    5's answers are held to phase 17's bars against packet_bvh_ref and
-   packet_ref, kernel 6's to phase 18's, the plain versions' counts of that
-   work give both kernels' bounds, and their ms per wave is printed; a
+   packet_ref, kernel 6's (cell, tn, key) bit for bit to both of its plain
+   versions, the plain versions' counts of that work give both kernels'
+   bounds (kernel 6: the walk's node and cell tests), and their ms per
+   wave is printed; a
    ``[packet walk tests]`` line gives, per wave kind, the live share and
    the box and triangle tests per live ray on pack_bvh's leaf-<=4 tree and
    on the 64-leaf tree, and kernel 5's bound per wave in operations and in
@@ -210,7 +214,8 @@ print one line; any failure exits non-zero:
    Philox; >= 98% of lanes (or the CPU floor), rays within 1%, mode "mse"
    equal to the fold of its own lanes through mode "vjp" (rtol 1e-4), the
    loss (rtol 1e-4) and gradients (2e-3) over the pixels whose lanes agree,
-   the sign test;
+   the sign test; then kernel 7's ptxas line per build and its dynamic
+   shared memory per block and blocks per SM (``_replay_sample_build``);
 35. the engine="sample" trainer at config 5 (cornell 640x480, spp 4, 10
    bounces, strat_k 2), brute force then NEE: the target from
    render_target_kernel(engine="sample"), 5 same-seed Adam steps from phase
@@ -251,13 +256,20 @@ once and answered by each checkout's own ``intersect_mesh_packet``
 frame's glue ms, the bounce-1 closest-hit wave unsorted, sorted and
 two-pass, each checkout's answers equal across its runs and this
 checkout's held to the other's by phase 17's bars, and the bound of a
-mean wave.
+mean wave; kernel 6 on the same waves: ms per wave, its cell, tn and sort
+key bit for bit across checkouts, the coarse-tree walk's tests per live
+ray and the bound of a mean wave (``_ab_bin_report``); and kernel 7 on
+cornell_spheres at 640x480 (``_ab_sample``: modes "mse" and "vjp", brute
+force and NEE, the lens, spp 64; every output bit for bit, -0 as +0),
+with kernel 8 beside it on the same injected draws, the adjoint's cost,
+and phase 35's end-to-end gradient (wall ms per call, CUDA-event slope).
 ``python3 chip_smoke.py --leaf-cutoff`` runs no phase either: it times the
 forward kernel on small meshes packed as one leaf and as the mesh's
 leaf-<=4 tree (``leaf_cutoff``), the measurement behind ``BVH_MAX_LEAF``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -2300,26 +2312,21 @@ def _c4_config(**kw):
 
 class _Recorder:
     """Record the calls of a mesh_kernel function (its tensor arguments
-    cloned) and their results while passing them through; ``top`` keeps
-    only calls with sort=True, the wavefront's wave queries (a shim for
-    ``--ab``: a checkout before the permuted launch makes an inner unsorted
-    call through the same name; see ``_ab_packet``)."""
+    cloned) and their results while passing them through."""
 
-    def __init__(self, name, top=False):
+    def __init__(self, name):
         from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
 
-        self.mk, self.name, self.top = mk, name, top
+        self.mk, self.name = mk, name
         self.fn = getattr(mk, name)
         self.calls = []
 
     def __enter__(self):
         def rec(*args, **kw):
-            keep = not self.top or kw.get("sort", True)
             saved = tuple(a.clone() if hasattr(a, "clone") else a
-                          for a in args) if keep else None
+                          for a in args)
             out = self.fn(*args, **kw)
-            if keep:
-                self.calls.append((saved, dict(kw), out))
+            self.calls.append((saved, dict(kw), out))
             return out
 
         setattr(self.mk, self.name, rec)
@@ -2358,7 +2365,7 @@ class _PlainMeshQueries:
 
         self.mk, self.saved = mk, (mk.packet_query, mk.bin_rays)
         mk.packet_query = _packet_ref_ids
-        mk.bin_rays = mk.bin_rays_ref
+        mk.bin_rays = functools.partial(_bin_plain, mk.bin_rays_ref)
         return self
 
     def __exit__(self, *exc):
@@ -2380,7 +2387,7 @@ def _record_waves(scene, cam, config, seed=11):
     the shadow wave)."""
     from tpu_pathtracer_torch.models.integrator import render
 
-    with _Recorder("intersect_mesh_packet", top=True) as rec:
+    with _Recorder("intersect_mesh_packet") as rec:
         render(scene, cam, seed, config)
     return [(a[1], a[2], kw["t_init"], kw.get("any_hit", False))
             for a, kw, _ in rec.calls]
@@ -2453,6 +2460,41 @@ def _hold_bin(k, r, what):
     if not out["ok"]:
         fail(f"kernel 6 vs bin_rays_ref ({what}): {out}")
     return out["agree"], out["tn_rel"], out["tn_abs"]
+
+
+def _bin_plain(ref, coarse, o, d, t0, tmin, counts=None):
+    """(cell, tn, key) as kernel 6 returns them, from one of its plain
+    versions (bin_rays_ref or bin_tree_ref) and bin_sort_key."""
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    cell, tn = ref(coarse, o, d, t0, tmin, counts=counts)
+    return cell, tn, mk.bin_sort_key(cell, tn, d, coarse.key_scale)
+
+
+def _bin_io_bytes(t_init) -> int:
+    """Bytes of one kernel-6 launch's rays and answers, each moved once:
+    t_init read and cell, tn and key written on every lane, the origin and
+    direction read on live lanes only (a dead lane reads neither)."""
+    return t_init.shape[0] * 16 + int((t_init > 0).sum()) * 24
+
+
+def _bin_exact(got, coarse, o, d, t0, what, counts=None):
+    """Kernel 6's (cell, tn, key) against both plain versions on the same
+    rays, bin_rays_ref (the sweep, the contract) and bin_tree_ref (the
+    walk, adding its node and cell tests to ``counts``), each with
+    bin_sort_key: bit for bit, or fail. Returns the sweep's answer."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    sweep = _bin_plain(mk.bin_rays_ref, coarse, o, d, t0, 3e-2)
+    walk = _bin_plain(mk.bin_tree_ref, coarse, o, d, t0, 3e-2, counts)
+    for ref, name in ((sweep, "bin_rays_ref"), (walk, "bin_tree_ref")):
+        for g, w, f in zip(got, ref, ("cell", "tn", "key")):
+            if not torch.equal(g, w):
+                fail(f"kernel 6 vs {name} ({what}): {f} differs on "
+                     f"{int((g != w).sum())} lanes")
+    return sweep
 
 
 def _packet_check(pm, bvh, o, d, t0, any_hit, sort, coarse):
@@ -2540,15 +2582,19 @@ def phase_packet_compare(smi):
                 + f" (bit-equal "
                 + "/".join(f"{c['bit_equal']:.5f}" for c in cases)
                 + f") max|dt| {max(c['max_abs_err'] for c in cases):.3g}")
-            # kernel 6 on the same wave
+            # kernel 6 on the same wave, with its sort key
             b0 = mk.bin_launches
-            cell, tn = mk.bin_rays(coarse, o, d, t0, 3e-2)
+            got = mk.bin_rays(coarse, o, d, t0, 3e-2)
             torch.cuda.synchronize()
             if mk.bin_launches != b0 + 1:
                 fail("bin_rays did not launch kernel 6 exactly once")
-            b_agree, tn_err, tn_abs = _hold_bin(
-                (cell, tn), mk.bin_rays_ref(coarse, o, d, t0, 3e-2),
-                f"{name} {label}")
+            cell = got[0]
+            walk = {}
+            sweep = _bin_exact(got, coarse, o, d, t0, f"{name} {label}",
+                               walk)
+            b_agree, tn_err, tn_abs = _hold_bin(got[:2], sweep[:2],
+                                                f"{name} {label}")
+            n_live = max(int((t0 > 0).sum()), 1)
             worst["bin_abs_err"] = max(worst["bin_abs_err"], tn_abs)
             two = _packet_check(pm, bvh, o, d, t0, False, True, coarse)
             k1 = mk.intersect_mesh_packet(pm, o, d, 3e-2, t_init=t0,
@@ -2567,7 +2613,10 @@ def phase_packet_compare(smi):
             bin_parts.append(
                 f"{name} {label}: cells {b_agree:.5f} (binned "
                 f"{float((cell >= 0).double().mean()):.3f}) tn rel "
-                f"{tn_err:.2g}, two-pass kernel vs plain "
+                f"{tn_err:.2g}, cell/tn/key equal to both plain versions; "
+                f"walk tests per live ray {walk['nodes'] / n_live:.2f} nodes "
+                f"+ {walk['cells'] / n_live:.2f} cells of "
+                f"{coarse.cell_ids.shape[0]}; two-pass kernel vs plain "
                 f"{two['agree']:.5f}, two-pass vs single-pass {a12:.5f}")
     print(f"[17 packet kernel vs plain] bars: hit/miss and triangle >= "
           f"{PACKET_AGREE}, |dt| <= {PACKET_T_TOL} max(1, t), n/uv/mat "
@@ -2842,7 +2891,7 @@ def _kernel_work(r, mode):
     torch.cuda.synchronize()
     kinds = {k: dict(waves=0, lanes=0, live=0, io=0, new={}, old={})
              for k in ("closest", "shadow")}
-    bins, ms_p, ms_64, ms_b = {}, [], [], []
+    bins, ms_p, ms_64, ms_b, ms_t = {}, [], [], [], []
     held = dict(agree=1.0, max_abs_err=0.0, sign=0.0, bit_equal=1.0,
                 agree_64=1.0, max_abs_err_64=0.0, sign_64=0.0,
                 bit_equal_64=1.0, bin_agree=1.0, bin_tn_err=0.0,
@@ -2872,9 +2921,12 @@ def _kernel_work(r, mode):
                                                x["max_abs_err"])
             held["sign" + suffix] = max(held["sign" + suffix], x["sign"])
     for i, (args, kw, out) in enumerate(br.calls):
-        ref, ms = _timed(lambda: mk.bin_rays_ref(*args, **kw, counts=bins))
+        ref, ms = _timed(lambda: mk.bin_rays_ref(*args, **kw))
         ms_b.append(ms)
-        agree, rel, absolute = _hold_bin(out, ref, f"{mode} wave {i}")
+        ms_t.append(_timed(lambda: mk.bin_tree_ref(*args, **kw))[1])
+        _bin_exact(out, *args[:4], f"{mode} wave {i}", bins)
+        agree, rel, absolute = _hold_bin(out[:2], ref[:2],
+                                         f"{mode} wave {i}")
         held["bin_agree"] = min(held["bin_agree"], agree)
         held["bin_tn_err"] = max(held["bin_tn_err"], rel)
         held["bin_abs_err"] = max(held["bin_abs_err"], absolute)
@@ -2910,14 +2962,22 @@ def _kernel_work(r, mode):
     if br.calls:
         coarse = r.scene.mesh_packed_coarse
         C = coarse.cell_ids.shape[0]
-        b_lanes = sum(c[0][1].shape[0] for c in br.calls)
+        n_b = len(br.calls)
         b_live = sum(int((c[0][3] > 0).sum()) for c in br.calls)
-        b_ops = bins["cells"] * OPS["bin_cell"] + b_live * OPS["walk"]
-        b_bytes = b_lanes * (28 + 8) + len(br.calls) * C * 28
-        b_bound = _bound(b_ops / len(br.calls), b_bytes / len(br.calls))
-        out.update(bin_waves=len(br.calls), cells=C,
-                   cells_per_wave=bins["cells"] / len(br.calls),
+        # the walk's tests (bin_tree_ref's counts), the rays and answers
+        # (_bin_io_bytes) and the walk table per wave
+        b_ops = ((bins["nodes"] + bins["cells"]) * OPS["bin_cell"]
+                 + b_live * OPS["walk"])
+        b_bytes = (sum(_bin_io_bytes(c[0][3]) for c in br.calls)
+                   + n_b * 4 * coarse.walk_nodes.numel())
+        b_bound = _bound(b_ops / n_b, b_bytes / n_b)
+        out.update(bin_waves=n_b, cells=C, nodes=coarse.num_nodes,
+                   bin_tests_per_ray=(bins["nodes"] + bins["cells"])
+                   / max(b_live, 1),
+                   bin_nodes_per_ray=bins["nodes"] / max(b_live, 1),
+                   bin_cells_per_ray=bins["cells"] / max(b_live, 1),
                    bin_plain_ms=statistics.median(ms_b),
+                   bin_tree_plain_ms=statistics.median(ms_t),
                    bin_bound_ms=b_bound[0], bin_bound_by=b_bound[1])
     return out
 
@@ -2992,11 +3052,12 @@ def phase_wavefront_times(smi, r2):
             s += (f"; kernel 6 {o['bin_ms']:.4f} ms/launch x "
                   f"{o['bin_per_frame']:.0f}/frame (bound "
                   f"{o['bin_bound_ms']:.5f} ms by {o['bin_bound_by']}; "
-                  f"{o['cells']} cells, {o['cells_per_wave']:.0f} cell "
-                  f"tests per wave; plain {o['bin_plain_ms']:.1f} ms/wave; "
-                  f"every full wave vs plain: cells >= "
-                  f"{o['held']['bin_agree']:.5f}, tn rel "
-                  f"{o['held']['bin_tn_err']:.2g})")
+                  f"{o['cells']} cells, {o['nodes']} nodes, the walk's "
+                  f"tests per live ray {o['bin_nodes_per_ray']:.2f} nodes "
+                  f"+ {o['bin_cells_per_ray']:.2f} cells; plain "
+                  f"bin_rays_ref {o['bin_plain_ms']:.1f} ms/wave, "
+                  f"bin_tree_ref {o['bin_tree_plain_ms']:.1f}; every full "
+                  f"wave's cell, tn and key equal to both plain versions)")
         s += (f"; device ms/frame: packet {o['packet_ms_per_frame']:.3f}, "
               f"bin {o['bin_ms_per_frame']:.3f}, sort "
               f"{o['sort_ms_per_frame']:.3f}, gather/scatter "
@@ -4026,7 +4087,36 @@ def phase_replay_compare():
         parts.append(f"{case}: {_fmt_replay(c)}")
     print(f"[34 replay kernel vs plain] {w}x{h}, {MB} bounces: "
           + " | ".join(parts), flush=True)
+    print(f"[34 replay kernel build] {_replay_sample_build()}", flush=True)
     return _worst_sample(checks)
+
+
+# (slots, lights, spp) of kernel 7's scenes: cornell_spheres at spp 4 and
+# 64, limit_spheres (16 slots, 16 lights: the largest block) at spp 128
+SAMPLE_OCCUPANCY = ((5, 1, 4), (5, 1, 64), (16, 16, 128))
+
+
+def _replay_sample_build() -> str:
+    """Kernel 7's ptxas line per build (registers, stack, spills) and its
+    dynamic shared memory per block with the blocks per SM that it and the
+    registers allow (the card's occupancy calculator)."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+
+    report = _build.ptxas_report(
+        _build.library_path().with_suffix(".log").read_text())
+    parts = [f"{k}: {v.get('regs')} regs, {v.get('stack')} B stack, "
+             f"{v.get('spill_st')}/{v.get('spill_ld')} B spill st/ld"
+             for k, v in report.items() if k.startswith("replay_kernel")]
+    for dof in (False, True):
+        cells = []
+        for n_slots, n_l, spp in SAMPLE_OCCUPANCY:
+            nbytes, blocks = rk.sample_blocks_per_sm(n_slots, n_l, spp,
+                                                     dof=dof)
+            cells.append(f"{n_slots}/{n_l} spp {spp}: {nbytes} B, {blocks}")
+        parts.append(f"{'lens' if dof else 'pinhole'} slots/lights: shared "
+                     f"memory per block, blocks per SM: " + ", ".join(cells))
+    return " | ".join(parts)
 
 
 def phase_sample_trainer(steps=5):
@@ -4233,12 +4323,17 @@ AB_GRADIENT = [("cornell", False, False), ("cornell", True, False),
                ("terrain32", True, False)]
 
 
-def _digest(tensors) -> str:
+def _digest(tensors, zero_sign=False) -> str:
+    """A short sha256 of the tensors' bytes; ``zero_sign`` maps -0 to +0
+    in float tensors first (x + 0)."""
     import hashlib
 
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        t = t.detach()
+        if zero_sign and t.is_floating_point():
+            t = t + 0.0
+        h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -4248,19 +4343,17 @@ def _ab_gradient_key(name, nee, lens) -> str:
 
 
 def _ab_packet(waves_path, answers_out=None) -> dict:
-    """Kernel 5 in this process's checkout on config 4's wave queries of one
-    frame (the textured terrain, two-pass), recorded once by the first
-    worker to ``waves_path`` and read by every worker, so that each checkout
-    answers the same rays through its own ``intersect_mesh_packet``. Device
-    ms per launch of the closest-hit and the shadow waves and the frame's
-    glue (every other device op of the queries: binning, sort, gathers,
-    selects) from one torch.profiler trace per kind; kernel 5's ms on the
-    bounce-1 closest-hit wave unsorted, sorted by packet_sort_key, and
-    two-pass; a digest of every wave's answers, saved to ``answers_out``;
-    and, where the checkout has packet_bvh_ref, the bound of a mean wave as
-    phase 21 counts it."""
-    import inspect
-
+    """Kernels 5 and 6 in this process's checkout on config 4's wave
+    queries of one frame (the textured terrain, two-pass), recorded once by
+    the first worker to ``waves_path`` and read by every worker, so that
+    each checkout answers the same rays through its own
+    ``intersect_mesh_packet``. Device ms per launch of the closest-hit and
+    the shadow waves and the frame's glue (every other device op of the
+    queries: sort, selects) from one torch.profiler trace per kind; kernel
+    5's ms on the bounce-1 closest-hit wave unsorted, sorted by
+    packet_sort_key, and two-pass; a digest of every wave's answers, saved
+    to ``answers_out``; the bound of a mean wave as phase 21 counts it; and
+    kernel 6 on every wave (``_ab_bin``)."""
     import torch
 
     from tpu_pathtracer_torch.models import camera as cm, scene as sc
@@ -4275,17 +4368,12 @@ def _ab_packet(waves_path, answers_out=None) -> dict:
                     _record_waves(scene, cam, _c4_config())], waves_path)
     waves = [(o.cuda(), d.cuda(), t0.cuda(), a)
              for o, d, t0, a in torch.load(waves_path)]
-    pm, coarse = scene.mesh_packed, scene.mesh_packed_coarse
-    # Shim: a checkout whose intersect_mesh_packet predates bvh= walks the
-    # 64-leaf tree and takes no tree argument. It and the packet_bvh_ref
-    # test below (and _Recorder's ``top``) go once no compared checkout
-    # predates the per-thread kernel 5 (ROADMAP, "The kernels' redesign").
-    params = inspect.signature(mk.intersect_mesh_packet).parameters
-    tree = {"bvh": scene.mesh_bvh} if "bvh" in params else {}
+    pm, coarse, bvh = (scene.mesh_packed, scene.mesh_packed_coarse,
+                       scene.mesh_bvh)
 
     def query(i, **over):
         o, d, t0, a = waves[i]
-        kw = dict(t_init=t0, any_hit=a, coarse=coarse, **tree)
+        kw = dict(t_init=t0, any_hit=a, coarse=coarse, bvh=bvh)
         kw.update(over)
         return mk.intersect_mesh_packet(pm, o, d, 3e-2, **kw)
 
@@ -4314,24 +4402,138 @@ def _ab_packet(waves_path, answers_out=None) -> dict:
     if answers_out:
         torch.save([[getattr(h, f).cpu() for f in fields] for h in answers],
                    answers_out)
-    bound = None
-    if hasattr(mk, "packet_bvh_ref"):  # shim: see ``tree`` above
-        with _Recorder("packet_query") as pq:
-            for i in range(len(waves)):
-                query(i)
-        live = boxes = tris = found = nbytes = 0
-        for args, kw, _ in pq.calls:
-            c = {}
-            mk.packet_bvh_ref(kw["bvh"], *args[1:], counts=c)
-            live += int((args[3] > 0).sum())
-            boxes, tris = boxes + c.get("boxes", 0), tris + c.get("tris", 0)
-            found += c.get("found", 0)
-            nbytes += (_packet_io_bytes(args[3], args[5], kw["perm"])
-                       + _packet_tree_bytes(kw["bvh"]))
-        n = len(pq.calls)
-        bound = _bound_of(*_packet_bound(live / n, boxes / n, tris / n,
-                                         found / n, nbytes / n))
-    return dict(ms=ms, digests=digests, bound=bound)
+    with _Recorder("packet_query") as pq:
+        for i in range(len(waves)):
+            query(i)
+    live = boxes = tris = found = nbytes = 0
+    for args, kw, _ in pq.calls:
+        c = {}
+        mk.packet_bvh_ref(kw["bvh"], *args[1:], counts=c)
+        live += int((args[3] > 0).sum())
+        boxes, tris = boxes + c.get("boxes", 0), tris + c.get("tris", 0)
+        found += c.get("found", 0)
+        nbytes += (_packet_io_bytes(args[3], args[5], kw["perm"])
+                   + _packet_tree_bytes(kw["bvh"]))
+    n = len(pq.calls)
+    bound = _bound_of(*_packet_bound(live / n, boxes / n, tris / n,
+                                     found / n, nbytes / n))
+    b_ms, b_digests = _ab_bin(coarse, waves)
+    ms.update(b_ms)
+    return dict(ms=ms, digests=digests, bound=bound, bin_digests=b_digests)
+
+
+def _parent_bin_key(coarse, cell, tn, d, t_init):
+    """The sort key of the two-pass traversal as intersect_mesh_packet made
+    it in torch before kernel 6 wrote it (a checkout whose bin_rays returns
+    (cell, tn) alone)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    root = coarse.nodes[0]
+    diag = torch.sqrt(torch.sum((root[3:6] - root[0:3]) ** 2))
+    tq = torch.clamp(tn * (64.0 / torch.clamp_min(diag, 1e-6)), 0.0,
+                     63.0).to(torch.int32)
+    has = (cell >= 0) & (t_init > 0.0)
+    return torch.where(has, ((cell * 8 + mk._octant(d)) << 6) | tq, 1 << 26)
+
+
+def _ab_bin(coarse, waves) -> tuple[dict, list]:
+    """Kernel 6 in this process's checkout on every recorded config-4
+    wave: device ms per launch over the frame's 8 waves (one profiler
+    trace) and a digest per wave of (cell, tn, key). The key is the
+    launch's own where the checkout's bin_rays returns it, else the torch
+    key of the checkout's (cell, tn) (a shim for a parent before the
+    in-launch key; it goes once no compared checkout predates it)."""
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    def run(i):
+        o, d, t0, _ = waves[i]
+        got = mk.bin_rays(coarse, o, d, t0, 3e-2)
+        if len(got) == 2:  # shim: see above
+            got = (*got, _parent_bin_key(coarse, *got, d, t0))
+        return got
+
+    ms = {"kernel 6 wave": _profile(run, len(waves), "bin_kernel",
+                                    "ab_bin")[0]}
+    return ms, [_digest(run(i)) for i in range(len(waves))]
+
+
+# kernel 7's workloads (spp, NEE, lens, mode), 640x480, 10 bounces, Philox
+AB_SAMPLE = [(4, False, False, "mse"), (4, True, False, "mse"),
+             (4, False, False, "vjp"), (4, True, False, "vjp"),
+             (4, False, True, "mse"), (4, True, True, "mse"),
+             (64, False, False, "mse"), (64, True, False, "mse")]
+
+
+def _ab_sample() -> tuple[dict, dict]:
+    """Kernels 7 and 8 in this process's checkout on cornell_spheres at
+    640x480, 10 bounces, tile_rows 16: device ms per launch of kernel 7
+    (one profiler trace of 10 launches) on ``AB_SAMPLE``'s workloads, with
+    a digest (-0 as +0) of one launch's radiance planes, loss, raw
+    gradients (the row partials' sum, as the wrapper makes it) and ray
+    count at fixed seeds; mode "vjp" takes the lane cotangent of the "mse"
+    launch's radiance. Then kernels 8 and 7 at spp 4 on one injected
+    uniform block each for brute force and NEE, the same draws for both:
+    their gap is the adjoint's cost. Last, phase 35's end-to-end gradient
+    (mse_value_and_grad at config 5, brute force and NEE): wall ms per call
+    by its CUDA-event slope, host work included."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+
+    scene, cam, cps = _cornell(W, H, "cuda")
+    cps = {False: cps, True: _scene("cornell", W, H, "cuda", LENS)[2]}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    target = torch.rand((H, W, 3), generator=gen, device="cuda")
+    ms, digests = {}, {}
+    for spp, nee, lens, mode in AB_SAMPLE:
+        rows, _ = rk.lanes_layout(W, H, spp, SAMPLE_TR)
+        aux = rk.broadcast_pixels_to_lanes(target, spp, rows)
+        kw = dict(spp=spp, width=W, height=H, max_bounces=MB, rr_start=3,
+                  tile_rows=SAMPLE_TR, use_nee=nee, use_dof=lens)
+        cp = cps[lens]
+        if mode == "vjp":
+            L = rk.replay_call(scene, cp, (600, 0), 0, aux, **kw)[0]
+            aux = rk.lane_cotangent(L, aux, spp, W, H)
+        key = (f"kernel 7 {mode} {'nee' if nee else 'brute'}"
+               f"{' lens' if lens else ''} spp {spp}")
+        digests[key] = _digest(
+            rk.replay_call(scene, cp, (600, 0), 0, aux, mode=mode, **kw),
+            zero_sign=True)
+        ms[key] = _profile(
+            lambda i, cp=cp, aux=aux, kw=kw, mode=mode: rk.replay_call(
+                scene, cp, (400, i), 0, aux, mode=mode, **kw),
+            10, "replay_kernel", "ab_sample")[0]
+        del aux
+    rows, _ = rk.lanes_layout(W, H, SPP, SAMPLE_TR)
+    aux = rk.broadcast_pixels_to_lanes(target, SPP, rows)
+    for nee in (False, True):
+        u = torch.rand((rows * tk.sample_n_draws(MB, nee, False), 128),
+                       generator=gen, device="cuda")
+        kw = dict(spp=SPP, width=W, height=H, max_bounces=MB, rr_start=3,
+                  tile_rows=SAMPLE_TR, use_nee=nee, uniforms=u)
+        mode = "nee" if nee else "brute"
+        ms[f"kernel 8 injected {mode}"] = _profile(
+            lambda i, kw=kw: tk.trace_lanes(scene, cps[False], (400, i, 0),
+                                            **kw),
+            10, "trace_kernel", "ab_sample")[0]
+        key = f"kernel 7 injected {mode}"
+        digests[key] = _digest(
+            rk.replay_call(scene, cps[False], (600, 0), 0, aux, **kw),
+            zero_sign=True)
+        ms[key] = _profile(
+            lambda i, kw=kw: rk.replay_call(scene, cps[False], (400, i), 0,
+                                            aux, **kw),
+            10, "replay_kernel", "ab_sample")[0]
+    for nee in (False, True):
+        kw = dict(spp=SPP, max_bounces=MB, rr_start=3, tile_rows=SAMPLE_TR,
+                  use_nee=nee)
+        ms[f"gradient end to end {'nee' if nee else 'brute'}, wall"] = \
+            _slope_ms(lambda salt, i, kw=kw: rk.mse_value_and_grad(
+                scene, cam, (salt, i), 0, target, **kw))[0]
+    return ms, digests
 
 
 def ab_worker(root: str, atlas_out=None, waves=None,
@@ -4355,9 +4557,10 @@ def ab_worker(root: str, atlas_out=None, waves=None,
     plane, rays and on terrain32 the C_tot records; phase "both": the loss
     and raw gradients; on terrain32 the scatter launch's replayed radiance,
     counts and rays); the terrain32 atlas gradient and the same scatter of
-    |g| (its atomic bound) saved to ``atlas_out``; kernel 5 on config 4's
-    recorded waves (``_ab_packet``, with ``waves`` and ``answers_out``); and
-    the build log."""
+    |g| (its atomic bound) saved to ``atlas_out``; kernels 7 and 8 on
+    cornell_spheres and phase 35's end-to-end gradient (``_ab_sample``);
+    kernels 5 and 6 on config 4's recorded waves (``_ab_packet``, with
+    ``waves`` and ``answers_out``); and the build log."""
     sys.path.insert(0, root)
     import torch
 
@@ -4472,8 +4675,13 @@ def ab_worker(root: str, atlas_out=None, waves=None,
                                       start=r.reset)[0]
     del r
     torch.cuda.empty_cache()
+    sample_ms, sample_digests = _ab_sample()
+    out.update(sample_ms)
+    digests.update(sample_digests)
+    torch.cuda.empty_cache()
     packet = _ab_packet(waves, answers_out)
     out.update(packet.pop("ms"))
+    digests["kernel 6 wave"] = " ".join(packet.pop("bin_digests"))
     return dict(ms=out, digests=digests, log=log, packet=packet)
 
 
@@ -4481,14 +4689,16 @@ def ab(other: str) -> int:
     """``ab_worker`` in one process per checkout, in the order other, this,
     this, other (A B B A, so that a drift of the card's clocks over the call
     shows as a gap between the two runs of one checkout). Prints each
-    checkout's ptxas registers, stack and spills per build of the three
-    persistent kernels, each run's device ms per launch, then per workload
+    checkout's ptxas registers, stack and spills per build of the
+    kernels, each run's device ms per launch, then per workload
     the two runs of each checkout, the change against the other checkout's
     mean, and whether the outputs are equal bit for bit across the four
-    runs (the sphere forward workloads and every gradient workload), the
-    terrain32 atlas gradients' largest gap over the atomic bound, and
-    kernel 5's checks (``_ab_packet_report``); exit 1 if outputs differ, a
-    gap exceeds the bound or a kernel-5 check fails."""
+    runs (the sphere forward workloads, every gradient workload, kernel 7's
+    workloads and kernel 6's waves), the terrain32 atlas gradients' largest
+    gap over the atomic bound, kernel 5's checks (``_ab_packet_report``)
+    and kernel 6's walk against its sweep (``_ab_bin_report``); exit 1 if
+    outputs differ, a gap exceeds the bound or a kernel-5 or kernel-6
+    check fails."""
     sys.path.insert(0, str(ROOT))
     from tpu_pathtracer_torch.ops.kernels._build import ptxas_report
 
@@ -4532,11 +4742,11 @@ def ab(other: str) -> int:
             f"{k}: {v.get('regs')} regs, {v.get('stack')} B stack, "
             f"{v.get('spill_st')}/{v.get('spill_ld')} B spill st/ld"
             for k, v in ptxas_report(log).items()
-            if "persistent" in k or "scatter" in k or "camera_jvp" in k
-            or "packet" in k))
-    print("device ms per launch (the plain version: wall ms per step): "
-          "workload | other (run 1, run 4) | this (run 2, run 3) | this / "
-          "other - 1 | outputs equal")
+            if any(n in k for n in ("persistent", "scatter", "camera_jvp",
+                                    "packet", "bin", "trace", "replay"))))
+    print("device ms per launch (rows ending in 'wall': wall ms per step or "
+          "per call): workload | other (run 1, run 4) | this (run 2, run 3) "
+          "| this / other - 1 | outputs equal")
     unequal = 0
     for key in runs[0][1]:
         oth = [r[key] for t, r in runs if t == "other"]
@@ -4555,6 +4765,7 @@ def ab(other: str) -> int:
           f"gradient against run 1 over the atomic bound (1 is the bar): "
           + ", ".join(f"{r:.4g}" for r in ratios))
     unequal += _ab_packet_report(packets, runs, waves, out_dir)
+    unequal += _ab_bin_report(runs, waves)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
@@ -4601,6 +4812,58 @@ def _ab_packet_report(packets, runs, waves, out_dir) -> int:
                   f"; {tag} {v:.4f} ms per launch (the bound is {b:.1%} of "
                   f"it)" for tag, v in ms.items()
                   for b in [bounds[0][0] / v]))
+    return bad
+
+
+def _ab_bin_report(runs, waves) -> int:
+    """Kernel 6's part of ``ab``, with this checkout's plain versions on the
+    recorded config-4 waves: bin_tree_ref (the coarse tree's DFS walk) equal
+    to bin_rays_ref (the sweep) bit for bit on every wave, the walk's node
+    and cell tests per live ray against the sweep's C cell tests, and the
+    bound of a mean wave (the walk's tests; bytes: ``_bin_io_bytes`` and
+    the walk table) beside both sides' ms per launch. Returns the number of
+    failures."""
+    import torch
+
+    from tpu_pathtracer_torch.models import scene as sc
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    scene, _ = sc.terrain_textured(device="cuda")
+    coarse = sc.with_packet_mesh(scene).mesh_packed_coarse
+    C = coarse.cell_ids.shape[0]
+    counts, live, io, bad, parts = {}, 0, 0, 0, []
+    for i, (o, d, t0, any_hit) in enumerate(torch.load(waves)):
+        o, d, t0 = o.cuda(), d.cuda(), t0.cuda()
+        c = {}
+        walk = mk.bin_tree_ref(coarse, o, d, t0, 3e-2, counts=c)
+        sweep = mk.bin_rays_ref(coarse, o, d, t0, 3e-2)
+        same = all(torch.equal(a, b) for a, b in zip(walk, sweep))
+        bad += not same
+        n_live = int((t0 > 0).sum())
+        live, io = live + n_live, io + _bin_io_bytes(t0)
+        for k in ("nodes", "cells"):
+            counts[k] = counts.get(k, 0) + c.get(k, 0)
+        parts.append(f"wave {i} ({'shadow' if any_hit else 'closest'}, "
+                     f"{n_live} live of {o.shape[0]}): "
+                     f"{c.get('nodes', 0) / max(n_live, 1):.2f} nodes + "
+                     f"{c.get('cells', 0) / max(n_live, 1):.2f} cells per "
+                     f"live ray, walk equals sweep {same}")
+    n = len(parts)
+    ops = ((counts["nodes"] + counts["cells"]) * OPS["bin_cell"]
+           + live * OPS["walk"]) / n
+    nbytes = io / n + 4 * coarse.walk_nodes.numel()
+    bound, by = _bound(ops, nbytes)
+    sweep_ops = (live * C * OPS["bin_cell"] + live * OPS["walk"]) / n
+    print(f"kernel 6 walk tests on the recorded waves ({C} cells, "
+          f"{coarse.num_nodes} nodes): " + "; ".join(parts)
+          + f"; all waves: {counts['nodes'] / live:.2f} nodes + "
+          f"{counts['cells'] / live:.2f} cells per live ray (the sweep: {C} "
+          f"cells); bound of a mean wave {bound:.5f} ms by {by} (the sweep's "
+          f"operations {sweep_ops / F32_PEAK * 1e3:.5f} ms)" + "".join(
+              f"; {tag} {v:.4f} ms per launch (the bound is {bound / v:.1%} "
+              f"of it)" for tag in ("other", "this")
+              for v in [statistics.mean(r["kernel 6 wave"] for t, r in runs
+                                        if t == tag)]))
     return bad
 
 
@@ -5209,16 +5472,23 @@ def main() -> int:
         "bound_ms": two["bin_bound_ms"],
         "bound_by": two["bin_bound_by"],
         "library_ms": None,
-        "tolerance": f">= {PACKET_AGREE} of lanes: equal cell, tn within "
-                     f"{BIN_TN_RTOL} relative",
+        "tolerance": "cell, tn and sort key bit for bit against both "
+                     "plain versions (bin_rays_ref, bin_tree_ref) on every "
+                     f"lane (the bars: >= {PACKET_AGREE} of lanes, tn "
+                     f"within {BIN_TN_RTOL} relative)",
         "agree": p_worst["bin_agree"],
         "tn_rel_err": p_worst["bin_tn_err"],
         "agree_full_waves": two["held"]["bin_agree"],
         "tn_rel_err_full_waves": two["held"]["bin_tn_err"],
         "launches_per_frame": two["bin_per_frame"],
         "cells": two["cells"],
+        "tests_per_live_ray": two["bin_tests_per_ray"],
         "note": "per wave of the main path (config 4, two-pass); the "
-                "single-pass traversal launches no bin kernel",
+                "bound counts the coarse-tree walk's node and cell tests "
+                "and the bytes the launch needs (t_init, cell, tn and key "
+                "per lane, origin and direction per live lane) plus the "
+                "walk table; the single-pass traversal launches no bin "
+                "kernel",
     }
     tb, tn = s_times["brute"]["trace"], s_times["nee"]["trace"]
     trace = {

@@ -745,22 +745,37 @@ def test_packet_kernel_needs_the_tree_on_gpu():
 
 
 @pytest.mark.gpu
-def test_bin_kernel_matches_plain_on_gpu():
-    """Kernel 6 against bin_rays_ref: cells and entry distances bit for bit,
-    one launch per call; the two-pass query equals the single-pass one."""
+@pytest.mark.parametrize("table", ["small", "large"])
+def test_bin_kernel_matches_plain_on_gpu(table):
+    """Kernel 6 against both plain versions, bin_rays_ref (the sweep) and
+    bin_tree_ref (the walk), with bin_sort_key: cells, entry distances and
+    the sort key bit for bit, one launch per call, on a coarse tree of 63
+    nodes and on one of 4,095 (its walk table past 48 KB of shared
+    memory); the two-pass query equals the single-pass one."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
 
     scene, o, d, t0 = _terrain_rays(20_000, 4)
     coarse = scene.mesh_packed_coarse
+    if table == "large":
+        big, _ = sc.terrain_textured(n=64, device="cuda")
+        coarse = mk.pack_mesh(big.mesh, collapse_leaf=4, nodes_only=True)
+        assert mk.bin_smem_bytes(coarse.num_nodes) > 48 * 1024
+        o = o * (coarse.nodes[0, 3] - coarse.nodes[0, 0]) / 100
     launches = mk.bin_launches
-    cell, tn = mk.bin_rays(coarse, o, d, t0, 3e-2)
+    got = mk.bin_rays(coarse, o, d, t0, 3e-2)
     torch.cuda.synchronize()
     assert mk.bin_launches == launches + 1
-    rc, rt = mk.bin_rays_ref(coarse, o, d, t0, 3e-2)
-    assert torch.equal(cell, rc) and torch.equal(tn, rt)
+    cell = got[0]
+    for ref in (mk.bin_rays_ref, mk.bin_tree_ref):
+        c, tn = ref(coarse, o, d, t0, 3e-2)
+        want = (c, tn, mk.bin_sort_key(c, tn, d, coarse.key_scale))
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), ref.__name__
     assert 0.05 < float((cell >= 0).float().mean()) < 0.95
+    if table == "large":
+        return
     one = mk.intersect_mesh_packet(scene.mesh_packed, o, d, 3e-2, t_init=t0,
                                    bvh=scene.mesh_bvh)
     two = mk.intersect_mesh_packet(scene.mesh_packed, o, d, 3e-2, t_init=t0,
@@ -881,3 +896,48 @@ def test_replay_kernel_matches_plain_on_gpu(spp, use_nee, lens):
     for i in (2, 3):
         torch.testing.assert_close(kv[i], k[i], rtol=1e-4,
                                    atol=1e-6 * float(k[i].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,spp,use_nee", [("limit_spheres", 4, True),
+                                              ("cornell_spheres", 128,
+                                               False)])
+def test_replay_kernel_at_its_limits_on_gpu(name, spp, use_nee):
+    """Kernel 7 at its largest shared-memory block (limit_spheres: 16 slots
+    and 16 lights) and at spp 128 (a pixel per row, the pixel mean through
+    shared memory) against replay_call_ref on Philox draws: >= 98% of
+    lanes, rays within 1%, and the loss and raw gradients of mode "vjp"
+    with the cotangent kept on the lanes whose radiance agrees within
+    1e-4 of the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.utils.metrics import sample_lane_agreement
+
+    scene, cs = getattr(sc, name)(device="cuda")
+    if name == "limit_spheres":
+        assert len(rp.material_slots(scene)[0]) == rk.MAX_SLOTS
+        assert len(scene.light_structure) == rk.MAX_GRAD_LIGHTS
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda")
+    cp = pack_camera(cam)
+    rows, n = rk.lanes_layout(W, H, spp, TR)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tgt = rk.broadcast_pixels_to_lanes(
+        torch.rand((H, W, 3), generator=gen, device="cuda"), spp, rows)
+    kw = dict(spp=spp, width=W, height=H, max_bounces=MB, tile_rows=TR,
+              use_nee=use_nee)
+    k = rk.replay_call(scene, cp, (3, 1), 2, tgt, **kw)
+    r = rk.replay_call_ref(scene, cp, (3, 1), 2, tgt, **kw)
+    agree, _, ok = sample_lane_agreement(k[0], r[0], n)
+    assert agree >= AGREE, agree
+    assert abs(int(k[4]) - int(r[4])) <= 0.01 * int(r[4])
+    g = rk.lane_cotangent(r[0], tgt, spp, W, H) * ok.to(
+        device="cuda", dtype=torch.float32)[..., None]
+    kv = rk.replay_call(scene, cp, (3, 1), 2, g, mode="vjp", **kw)
+    rv = rk.replay_call_ref(scene, cp, (3, 1), 2, g, mode="vjp", **kw)
+    for i in (2, 3):
+        assert bool((rv[i] != 0).any())
+        torch.testing.assert_close(kv[i], rv[i], rtol=1e-4,
+                                   atol=1e-5 * float(rv[i].abs().max()))

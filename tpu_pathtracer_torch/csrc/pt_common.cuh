@@ -822,21 +822,9 @@ __device__ __forceinline__ float warp_tree(float v) {
   return v;
 }
 
-// Per-block sum of one value over the block's 128 threads, in a fixed
-// order (warp_tree, then the four warp sums in order), so the result does
-// not depend on scheduling. `scratch` holds 4 floats of shared memory;
+// Per-block sum of an int over the block's 128 threads (exact, so any
+// order gives the same sum). `scratch` holds 4 ints of shared memory;
 // every thread of the block must call it. The sum is valid on thread 0.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  v = warp_tree(v);
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();  // scratch may still be read by the previous call
-  if ((threadIdx.x & 31) == 0) scratch[warp] = v;
-  __syncthreads();
-  return threadIdx.x == 0 ? ((scratch[0] + scratch[1]) + scratch[2]) + scratch[3]
-                          : 0.f;
-}
-
-// block_sum of an int (exact, so any order gives the same sum).
 __device__ __forceinline__ int block_sum_int(int v, int* scratch) {
   v = __reduce_add_sync(0xffffffffu, v);
   __syncthreads();

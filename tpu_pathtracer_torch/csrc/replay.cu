@@ -32,17 +32,31 @@
 //  * one thread per lane, one 128-thread block per 128-lane row, the walk in
 //    registers; a dead lane leaves the loop;
 //  * the adjoint is kept only for the materials that carry prims ("slots",
-//    as in replay_persistent.cu) and the lights; these per-lane arrays are
-//    indexed by the hit's runtime slot, so they live in local memory (L1)
-//    and each vertex touches one slot;
+//    as in replay_persistent.cu) and the lights. Each vertex touches the
+//    slot of its hit, a runtime index, so the lane's nA and cA (4 words per
+//    slot) sit in dynamic shared memory sized to the scene's slots
+//    (S x 4 x 128 x 4 B: 10 KB on cornell_spheres, 32 KB at the limit of
+//    16), [word][lane] so that a warp's accesses fall in distinct banks,
+//    not in a per-thread array in local memory (512 B of stack before);
+//    the light sums cI (3 floats per light) stay in a per-thread array, as
+//    in replay_persistent.cu, where shared memory cost the NEE builds;
+//  * a lane records the slots and lights it reached in two bit masks; a
+//    warp reduces only the columns (3 per slot, 3 per light) that one of
+//    its lanes reached, and the block writes 0 for a column that no lane
+//    reached, unreduced;
 //  * a pixel's spp samples sit in adjacent lanes of one row (spp | 128), so
 //    the pixel mean needs no device-memory round trip: for spp <= 32 the
 //    lanes of each spp-aligned group read each other's radiance by warp
 //    shuffles (the TPU kernel's lane rolls), for spp 64 and 128 through
-//    the block's shared memory; every lane of a group adds the group's
-//    values in sample order, the TPU kernel's order;
-//  * no atomics: the cross-lane sums are block_sum's fixed shuffle tree and
-//    the wrapper's sum over rows, so a launch replays bit for bit;
+//    the same shared buffer; every lane of a group adds the group's values
+//    in sample order, the TPU kernel's order;
+//  * no atomics, and one pass over the partials: each warp's shuffle tree
+//    (warp_tree) per reached column, the loss and the ray count, then one
+//    barrier, then each partial as the four warp sums in order (the order
+//    of the per-partial block reductions this epilogue replaced); the
+//    wrapper sums the rows, so a launch replays bit for bit, and every
+//    output equals the local-memory kernel's (a column that no lane of a
+//    row reached may read +0 where it read -0);
 //  * built twice, with and without the thin lens (DOF), as the persistent
 //    kernels are.
 //
@@ -56,7 +70,8 @@
 // n_draw, tile_rows, 128); production mode draws Philox4x32-10 under stream
 // tag 0x50000 (STREAM_REPLAY), countered on the global lane.
 //
-// C interface (loaded with ctypes): tpt_replay.
+// C interface (loaded with ctypes): tpt_replay, tpt_replay_sample_smem_bytes,
+// tpt_replay_sample_occupancy.
 
 #include "pt_common.cuh"
 
@@ -82,12 +97,24 @@ struct Params {
   int* nrays;             // (rows_total,)
 };
 
+// Words of dynamic shared memory per block: per lane nA and cA (4 per
+// slot) and, at spp > 32, the pixel mean's radiance (3); then the
+// epilogue's four warp sums per partial (3 per slot, 3 per light, the
+// loss) and, per warp, its reached slots, lights and ray count.
+__host__ __device__ constexpr int smem_words(int S, int NL, int spp) {
+  return LANES * (4 * S + (spp > 32 ? 3 : 0)) + 4 * (3 * S + 3 * NL + 1) +
+         3 * 4;
+}
+static_assert(4 * smem_words(MAX_SLOTS, MAX_GRAD_LIGHTS, LANES) <= 48 * 1024,
+              "the largest block fits the default 48 KB");
+
+// 8 blocks per SM (at most 64 registers; ptxas spills 52 B): on Philox
+// draws 8-10% faster than at the 80 registers nvcc picks by itself (6
+// blocks) and 2-3% faster than at 7 (72 registers, no spills); on an
+// injected uniform block 7 blocks ran fastest (PERF.md, Findings).
 template <bool DOF>
-__global__ void __launch_bounds__(LANES)
+__global__ void __launch_bounds__(LANES, 8)
     replay_kernel(const __grid_constant__ Params p) {
-  __shared__ float fscratch[4];
-  __shared__ int iscratch[4];
-  __shared__ float group[3][LANES];  // the pixel means at spp > 32
   const int row = blockIdx.x;  // one block per 128-lane row
   const int col = threadIdx.x;
   const int idx = row * LANES + col;
@@ -107,11 +134,18 @@ __global__ void __launch_bounds__(LANES)
       tile_lanes, (uint32_t)lane, p.iteration, p.seed, p.salt, STREAM_REPLAY,
       -1, make_uint4(0u, 0u, 0u, 0u)};
 
+  // the lane's adjoint in shared memory, word w at adj[w * LANES]: nA from
+  // 0 (S words), cA from CA (3S); then the pixel-mean group (3 words, spp >
+  // 32) from GR
+  extern __shared__ float smem[];
+  float* const adj = smem + col;
+  auto at = [adj](int w) -> float& { return adj[w * LANES]; };
+  const int CA = S, GR = 4 * S;
   float Lr = 0.f, Lg = 0.f, Lb = 0.f;
-  float nA[MAX_SLOTS], cA[MAX_SLOTS * 3], cI[MAX_GRAD_LIGHTS * 3];
-  for (int k = 0; k < S; ++k) nA[k] = 0.f;
-  for (int k = 0; k < 3 * S; ++k) cA[k] = 0.f;
+  for (int k = 0; k < 4 * S; ++k) at(k) = 0.f;
+  float cI[MAX_GRAD_LIGHTS * 3];
   for (int k = 0; k < 3 * NL; ++k) cI[k] = 0.f;
+  unsigned slots_hit = 0u, lights_hit = 0u;  // reached by the lane's path
   int n_live = 0;
 
   if (in_domain) {
@@ -166,6 +200,7 @@ __global__ void __launch_bounds__(LANES)
         for (int li = 0; li < NL; ++li) {
           const int* LSi = c_lstruct + li * LS;
           if (LSi[0] != AREA_LIGHT || LSi[1] != h.prim) continue;
+          lights_hit |= 1u << li;
           cI[3 * li] += e_r;
           cI[3 * li + 1] += e_g;
           cI[3 * li + 2] += e_b;
@@ -210,6 +245,7 @@ __global__ void __launch_bounds__(LANES)
           nee_r += t_r;
           nee_g += t_g;
           nee_b += t_b;
+          lights_hit |= 1u << li;
           cI[3 * li] += t_r;
           cI[3 * li + 1] += t_g;
           cI[3 * li + 2] += t_b;
@@ -227,18 +263,19 @@ __global__ void __launch_bounds__(LANES)
 
       // ---- streaming adjoint at this vertex's material (:491-506)
       const int sl = c_slot[h.prim];
+      slots_hit |= 1u << sl;
       if (step_ok) {
-        nA[sl] += 1.f;
-        cA[3 * sl] += Lr - nee_r;
-        cA[3 * sl + 1] += Lg - nee_g;
-        cA[3 * sl + 2] += Lb - nee_b;
+        at(sl) += 1.f;
+        at(CA + 3 * sl) += Lr - nee_r;
+        at(CA + 3 * sl + 1) += Lg - nee_g;
+        at(CA + 3 * sl + 2) += Lb - nee_b;
         Tr = Tr * lb.fr * lb.wgt;
         Tg = Tg * lb.fg * lb.wgt;
         Tb = Tb * lb.fb * lb.wgt;
       } else {
-        cA[3 * sl] -= nee_r;
-        cA[3 * sl + 1] -= nee_g;
-        cA[3 * sl + 2] -= nee_b;
+        at(CA + 3 * sl) -= nee_r;
+        at(CA + 3 * sl + 1) -= nee_g;
+        at(CA + 3 * sl + 2) -= nee_b;
       }
 
       // ---- Russian roulette once bounce > rr_start, p = min(0.5, max T)
@@ -285,13 +322,14 @@ __global__ void __launch_bounds__(LANES)
         sum[c] = acc;
       }
     } else {
-      group[0][col] = Lr;
-      group[1][col] = Lg;
-      group[2][col] = Lb;
+      at(GR) = Lr;
+      at(GR + 1) = Lg;
+      at(GR + 2) = Lb;
       __syncthreads();
       for (int c = 0; c < 3; ++c) {
-        float acc = group[c][first];
-        for (int j = 1; j < p.spp; ++j) acc += group[c][first + j];
+        const float* grp = smem + (GR + c) * LANES + first;
+        float acc = grp[0];
+        for (int j = 1; j < p.spp; ++j) acc += grp[j];
         sum[c] = acc;
       }
     }
@@ -307,26 +345,61 @@ __global__ void __launch_bounds__(LANES)
     for (int c = 0; c < 3; ++c) g[c] = p.aux[(size_t)idx * 3 + c] * dom;
   }
 
-  // ---- per-row partials (:581-590), summed by the wrapper
+  // ---- per-row partials (:581-590) in one pass, summed by the wrapper:
+  // each warp's shuffle tree over its 32 lanes for the columns its lanes
+  // reached (the others' warp sums are 0), the loss and the ray count; one
+  // barrier; then each partial as the row's four warp sums in order
   const float L[3] = {Lr, Lg, Lb};
   const int K = 3 * S + 3 * NL + 1;
-  float* part = p.partials + (size_t)row * K;
-  for (int k = 0; k < 3 * S; ++k) {
-    const float v = block_sum(g[k % 3] * (L[k % 3] * nA[k / 3] - cA[k]),
-                              fscratch);
-    if (col == 0) part[k] = v;
+  float* const ws = smem + LANES * (4 * S + (p.spp > 32 ? 3 : 0));  // [K][4]
+  int* const wm = reinterpret_cast<int*>(ws + 4 * K);  // slots, lights, rays
+  const int warp = col >> 5, wl = col & 31;
+  const unsigned w_slots = __reduce_or_sync(0xffffffffu, slots_hit);
+  const unsigned w_lights = __reduce_or_sync(0xffffffffu, lights_hit);
+  for (int k = wl; k < K - 1; k += 32) {
+    const bool reached = k < 3 * S ? (w_slots >> (k / 3)) & 1u
+                                   : (w_lights >> ((k - 3 * S) / 3)) & 1u;
+    if (!reached) ws[4 * k + warp] = 0.f;
   }
-  for (int k = 0; k < 3 * NL; ++k) {
-    const float v = block_sum(g[k % 3] * cI[k], fscratch);
-    if (col == 0) part[3 * S + k] = v;
+  for (unsigned m = w_slots; m; m &= m - 1) {
+    const int s = __ffs(m) - 1;
+    for (int c = 0; c < 3; ++c) {
+      const float v =
+          warp_tree(g[c] * (L[c] * at(s) - at(CA + 3 * s + c)));
+      if (wl == 0) ws[4 * (3 * s + c) + warp] = v;
+    }
   }
-  const float loss = block_sum(sse, fscratch);
-  if (col == 0) part[K - 1] = loss * p.inv_loss_n;
+  for (unsigned m = w_lights; m; m &= m - 1) {
+    const int l = __ffs(m) - 1;
+    for (int c = 0; c < 3; ++c) {
+      const float v = warp_tree(g[c] * cI[3 * l + c]);
+      if (wl == 0) ws[4 * (3 * S + 3 * l + c) + warp] = v;
+    }
+  }
+  const float w_sse = warp_tree(sse);
+  const int w_rays = __reduce_add_sync(0xffffffffu, n_live);
+  if (wl == 0) {
+    ws[4 * (K - 1) + warp] = w_sse;
+    wm[warp] = (int)w_slots;
+    wm[4 + warp] = (int)w_lights;
+    wm[8 + warp] = w_rays;
+  }
   p.lr[idx] = Lr * dom;
   p.lg[idx] = Lg * dom;
   p.lb[idx] = Lb * dom;
-  const int rays = block_sum_int(n_live, iscratch);
-  if (col == 0) p.nrays[row] = rays;
+  __syncthreads();
+  const unsigned b_slots = (unsigned)(wm[0] | wm[1] | wm[2] | wm[3]);
+  const unsigned b_lights = (unsigned)(wm[4] | wm[5] | wm[6] | wm[7]);
+  float* part = p.partials + (size_t)row * K;
+  for (int k = col; k < K; k += LANES) {
+    const bool reached =
+        k == K - 1 || (k < 3 * S ? (b_slots >> (k / 3)) & 1u
+                                 : (b_lights >> ((k - 3 * S) / 3)) & 1u);
+    const float* w = ws + 4 * k;
+    const float v = reached ? ((w[0] + w[1]) + w[2]) + w[3] : 0.f;
+    part[k] = k == K - 1 ? v * p.inv_loss_n : v;
+  }
+  if (col == 0) p.nrays[row] = wm[8] + wm[9] + wm[10] + wm[11];
 }
 
 }  // namespace
@@ -409,11 +482,32 @@ int tpt_replay(const float* prims, const int* pflags, const int* slots,
   p.lb = lb;
   p.partials = partials;
   p.nrays = nrays;
+  const int smem = 4 * smem_words(n_slots, n_lights, spp);
   if (use_dof)
-    replay_kernel<true><<<rows_total, LANES, 0, st>>>(p);
+    replay_kernel<true><<<rows_total, LANES, smem, st>>>(p);
   else
-    replay_kernel<false><<<rows_total, LANES, 0, st>>>(p);
+    replay_kernel<false><<<rows_total, LANES, smem, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Bytes of dynamic shared memory per block for n_slots, n_lights and spp
+// (ops/kernels/replay_kernel.py::sample_smem_bytes computes the same), and
+// the blocks per SM that it and the registers of one build allow
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; -1 on an error).
+int tpt_replay_sample_smem_bytes(int n_slots, int n_lights, int spp) {
+  return 4 * smem_words(n_slots, n_lights, spp);
+}
+
+int tpt_replay_sample_occupancy(int dof, int n_slots, int n_lights,
+                                int spp) {
+  const void* kernel = dof ? (const void*)replay_kernel<true>
+                           : (const void*)replay_kernel<false>;
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel, LANES, 4 * smem_words(n_slots, n_lights, spp)) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

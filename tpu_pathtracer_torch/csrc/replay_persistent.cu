@@ -82,7 +82,7 @@
 //    the adjoint sums and their shared memory;
 //  * the reduction across lanes is deterministic and uses no atomics: each
 //    block writes one row of partials (3 per slot, 3 per light, the loss),
-//    each summed in block_sum's order (a warp's shuffle tree, then the
+//    each summed in a fixed order (a warp's shuffle tree, then the
 //    four warp sums in order) in one pass with one barrier, and the
 //    wrapper sums the rows, as the JAX code sums its per-tile partials
 //    outside the pallas_call;
@@ -577,7 +577,7 @@ __device__ __forceinline__ void replay_walk(const Params& p) {
   }
 
   // ---- phase "both": the lane-local MSE cotangent (lane == pixel), then
-  // every partial in block_sum's order in one pass: each warp's shuffle
+  // every partial in a fixed order in one pass: each warp's shuffle
   // tree over its 32 lanes, then the row's four warp sums in order
   const bool have = n_samp > 0 && in_domain;
   const float havef = have ? 1.f : 0.f;

@@ -23,10 +23,12 @@ Counterpart of ``tpu_pathtracer/ops/pallas/mesh_kernel.py``:
   before ``t_init`` are culled);
 * kernel 5, the per-ray walk of ``pack_bvh``'s tree through the wave's
   permutation (``csrc/packet.cu``, which replaces ``_packet_kernel``; plain
-  version ``packet_bvh_ref``), and kernel 6, the coarse-cell sweep
-  (``csrc/bin.cu``, which replaces ``_bin_kernel``; plain version
-  ``bin_rays_ref``). A CUDA tensor goes to the kernel, anything else but a
-  CPU tensor raises. A CPU tensor goes to ``bin_rays_ref`` and, for the
+  version ``packet_bvh_ref``), and kernel 6, the coarse tree's walk to the
+  nearest cell, with the two-pass sort key (``csrc/bin.cu``, which
+  replaces ``_bin_kernel``; plain versions ``bin_rays_ref``, the TPU
+  kernel's sweep and the contract, and ``bin_tree_ref``, the walk). A
+  CUDA tensor goes to the kernel, anything else but a CPU tensor raises.
+  A CPU tensor goes to ``bin_rays_ref`` (and ``bin_sort_key``) and, for the
   packet query, to ``packet_ref`` on the 64-leaf tree, the TPU kernel's own
   contract, which kernel 5 is also held to on the card (by triangle id; the
   two trees can part only on near ties). ``packet_launches`` and
@@ -58,6 +60,8 @@ LEAF_BITS = 24
 # Lanes per chunk of the plain walk's batched leaf tests (bounds its
 # (lanes, leaf_size, 16) gather).
 _LEAF_CHUNK = 1 << 15
+# Shared memory a block may take on the H100 (227 KB, with the opt-in)
+SMEM_PER_BLOCK = 232_448
 
 # Kernel launches (plain-version calls are not counted).
 packet_launches = 0
@@ -82,6 +86,10 @@ class PackedMesh:
     fine_map: Tensor | None = None  # (M, 2) int32 [fine_start, fine_skip)
     cell_boxes: Tensor | None = None  # (C*6,) f32 leaf-cell AABBs, DFS order
     cell_ids: Tensor | None = None  # (C,) int32 leaf-cell node ids
+    # a coarse tree's walk table (``_walk_table``) and its sort-key scale,
+    # 64 / clamp_min(root diagonal, 1e-6), a 0-dim f32 tensor
+    walk_nodes: Tensor | None = None  # (M, 8) f32: min3 skip | max3 leaf
+    key_scale: Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -91,7 +99,8 @@ class PackedMesh:
         return dataclasses.replace(
             self, **{f: getattr(self, f).to(device)
                      for f in ("nodes", "tri_rows", "remap", "boxes",
-                               "meta", "fine_map", "cell_boxes", "cell_ids")
+                               "meta", "fine_map", "cell_boxes", "cell_ids",
+                               "walk_nodes", "key_scale")
                      if getattr(self, f) is not None})
 
 
@@ -263,8 +272,11 @@ def _pack_coarse(arrays, node_start, node_count, node_skip, node_min,
             np.stack([np.where(ok, fs, 0), np.where(ok, fe, 0)],
                      axis=1).astype(np.int32), device=dev)
     leaf_sel = np.nonzero(node_count > 0)[0]
+    nodes_t = torch.tensor(nodes, device=dev)
+    root = nodes_t[0] if M else torch.zeros(16, device=dev)
+    diag = torch.sqrt(torch.sum((root[3:6] - root[0:3]) ** 2))
     return PackedMesh(
-        nodes=torch.tensor(nodes, device=dev),
+        nodes=nodes_t,
         tri_rows=torch.zeros((1, LANES), dtype=torch.float32, device=dev),
         remap=torch.full((1,), -1, dtype=torch.int32, device=dev),
         boxes=torch.tensor(nodes[:, 0:6].reshape(-1), device=dev),
@@ -277,7 +289,35 @@ def _pack_coarse(arrays, node_start, node_count, node_skip, node_min,
             np.concatenate([node_min[leaf_sel], node_max[leaf_sel]], axis=1)
             .reshape(-1).astype(np.float32), device=dev),
         cell_ids=torch.tensor(leaf_sel.astype(np.int32), device=dev),
+        walk_nodes=torch.tensor(
+            _walk_table(node_min, node_max, node_skip, node_count),
+            device=dev),
+        key_scale=64.0 / torch.clamp_min(diag, 1e-6),
     )
+
+
+def _walk_table(node_min, node_max, node_skip, node_count) -> np.ndarray:
+    """(M, 8) f32 table of a coarse tree for the walk of kernel 6 and
+    ``bin_tree_ref``: ``min3 skip | max3 leaf``, skip (the node after the
+    subtree) and leaf (1 for a cell, a node with triangles) as int32 bits.
+    An inner node's box is widened to hold every box of its subtree, so a
+    subtree that the walk prunes at its root holds no cell that the sweep
+    would take; where the boxes nest already, as ``build_bvh``'s do (each a
+    min/max over a subset of its parent's triangles, rounded to f32
+    monotonically), this changes nothing."""
+    M = len(node_skip)
+    lo = np.asarray(node_min, np.float32).copy()
+    hi = np.asarray(node_max, np.float32).copy()
+    skip = np.asarray(node_skip, np.int64)
+    for i in np.nonzero(skip > np.arange(M) + 1)[0]:
+        lo[i] = np.minimum(lo[i], lo[i + 1:skip[i]].min(0))
+        hi[i] = np.maximum(hi[i], hi[i + 1:skip[i]].max(0))
+    table = np.zeros((M, 8), np.float32)
+    bits = table.view(np.int32)
+    table[:, 0:3], table[:, 4:7] = lo, hi
+    bits[:, 3] = skip
+    bits[:, 7] = np.asarray(node_count) > 0
+    return table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -386,11 +426,12 @@ def _slab(b: Tensor, ox, oy, oz, ix, iy, iz) -> tuple[Tensor, Tensor]:
 def bin_rays_ref(coarse: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
                  tmin: float, counts: dict | None = None
                  ) -> tuple[Tensor, Tensor]:
-    """Plain version of kernel 6: per ray, the coarse leaf cell whose box it
-    enters nearest (clamped entry distance; ties to the first cell in DFS
-    order) among cells entered before ``t_init``, and that distance. Lanes
-    with ``t_init <= 0`` or no such cell get (-1, BIG). ``counts['cells']``
-    adds the cell tests of live lanes."""
+    """Plain version of kernel 6, the TPU kernel's sweep over the cells:
+    per ray, the coarse leaf cell whose box it enters nearest (clamped
+    entry distance; ties to the first cell in DFS order) among cells
+    entered before ``t_init``, and that distance. Lanes with ``t_init <=
+    0`` or no such cell get (-1, BIG). ``counts['cells']`` adds the cell
+    tests of live lanes."""
     live = t_init > 0.0
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     ix, iy, iz = (_safe_inv(d[:, k]) for k in range(3))
@@ -408,6 +449,68 @@ def bin_rays_ref(coarse: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
         counts["cells"] = (counts.get("cells", 0)
                            + int(live.sum()) * boxes.shape[0])
     return cell, best
+
+
+def bin_tree_ref(coarse: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
+                 tmin: float, counts: dict | None = None
+                 ) -> tuple[Tensor, Tensor]:
+    """Plain version of kernel 6's walk: ``bin_rays_ref``'s answer, found by
+    a stackless DFS walk of the coarse tree (``coarse.walk_nodes``) per
+    lane. A node whose box fails the sweep's predicate prunes its subtree
+    (the walk jumps to its skip link); a cell that passes it becomes the
+    lane's best. A child's slab interval lies inside its parent's (the
+    boxes nest, and (b - o) * inv is monotone in b under rounding), so a
+    pruned subtree holds no cell that would pass, and the cells are met in
+    the sweep's (DFS) order: the answer is the sweep's bit for bit.
+    ``counts['nodes']`` and ``counts['cells']`` add the inner-node and cell
+    tests of live lanes."""
+    table = coarse.walk_nodes
+    M = table.shape[0]
+    bits = table.view(torch.int32)
+    boxes = torch.cat([table[:, 0:3], table[:, 4:7]], 1)
+    skip, leaf = bits[:, 3].to(torch.int64), bits[:, 7] != 0
+    live = t_init > 0.0
+    ix, iy, iz = (_safe_inv(d[:, k]) for k in range(3))
+    best = torch.full_like(t_init, BIG)
+    cell = torch.full(t_init.shape, -1, dtype=torch.int32, device=o.device)
+    node = torch.where(live, 0, M).to(torch.int64)
+    n_nodes = n_cells = 0
+    while True:
+        lane = torch.nonzero(node < M).squeeze(1)
+        if lane.numel() == 0:
+            break
+        k = node[lane]
+        tn, tf = _slab(boxes[k], o[lane, 0], o[lane, 1], o[lane, 2],
+                       ix[lane], iy[lane], iz[lane])
+        tn_eff = torch.clamp_min(tn, 0.0)
+        b = best[lane]
+        ok = ((tn <= tf) & (tf > tmin)
+              & (tn < torch.minimum(t_init[lane], b)) & (tn_eff < b))
+        is_leaf = leaf[k]
+        take = ok & is_leaf
+        best[lane] = torch.where(take, tn_eff, b)
+        cell[lane] = torch.where(take, k.to(torch.int32), cell[lane])
+        node[lane] = torch.where(ok & ~is_leaf, k + 1, skip[k])
+        if counts is not None:
+            c = int(is_leaf.sum())
+            n_cells += c
+            n_nodes += lane.numel() - c
+    if counts is not None:
+        counts["nodes"] = counts.get("nodes", 0) + n_nodes
+        counts["cells"] = counts.get("cells", 0) + n_cells
+    return cell, best
+
+
+def bin_sort_key(cell: Tensor, tn: Tensor, d: Tensor, scale: Tensor
+                 ) -> Tensor:
+    """The two-pass traversal's sort key per ray from its bin (cell, tn):
+    ``((cell * 8 + octant) << 6) | tq``, tq = tn * scale clamped to [0, 63]
+    as int32 (``scale``: the coarse tree's ``key_scale``), or ``1 << 26``
+    for a ray without a cell (dead lanes included). Kernel 6 writes the
+    same key in its launch."""
+    tq = torch.clamp(tn * scale, 0.0, 63.0).to(torch.int32)
+    return torch.where(cell >= 0, ((cell * 8 + _octant(d)) << 6) | tq,
+                       1 << 26)
 
 
 def _mt_terms(ox, oy, oz, dx, dy, dz, v0x, v0y, v0z, e1x, e1y, e1z, e2x,
@@ -603,10 +706,10 @@ def _kernels():
     packet.restype = i
     binf = lib.tpt_bin
     binf.argtypes = [p, p, p,  # o, d, t_init
-                     p, p, i,  # cell boxes (C*6), cell ids (C), C
-                     i, f,  # n, tmin
-                     p, p,  # cell (N,) int32, tn (N,)
-                     p]  # cudaStream_t
+                     p, i,  # walk table (M, 8), M
+                     i, f, p,  # n, tmin, key_scale (device scalar)
+                     p, p, p,  # cell (N,) int32, tn (N,), key (N,) int32
+                     i, p]  # the grid's most blocks, cudaStream_t
     binf.restype = i
     lib.tpt_error_string.argtypes = [i]
     lib.tpt_error_string.restype = ctypes.c_char_p
@@ -669,30 +772,63 @@ def _packet_cuda(bvh, o, d, t_init, tmin, any_hit, perm):
     return t, slot, n, uv, mat
 
 
+def bin_smem_bytes(n_nodes: int) -> int:
+    """Bytes of shared memory that one block of kernel 6 takes: the walk
+    table, 32 per node. Raises ValueError past SMEM_PER_BLOCK."""
+    nbytes = 32 * n_nodes
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"kernel 6's walk table of {n_nodes} nodes needs {nbytes} B of "
+            f"shared memory; a block may take {SMEM_PER_BLOCK} B")
+    return nbytes
+
+
+@functools.cache
+def _bin_grid(device_index: int, n_nodes: int) -> int:
+    """Kernel 6's most blocks on one card for a walk table of ``n_nodes``
+    nodes: as many as are resident at once, the SMs times the blocks per
+    SM that the table's shared memory allows (the card's occupancy
+    calculator, asked once per card and table size)."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    occupancy = _build.load_library().tpt_bin_occupancy
+    occupancy.argtypes = [ctypes.c_int]
+    occupancy.restype = ctypes.c_int
+    with torch.cuda.device(device_index):
+        per_sm = occupancy(n_nodes)
+    if per_sm <= 0:
+        raise RuntimeError("kernel 6's occupancy query failed")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm
+
+
 def _bin_cuda(coarse, o, d, t_init, tmin):
     global bin_launches
     dev = o.device
     N = o.shape[0]
     f32, i32 = torch.float32, torch.int32
-    C = coarse.cell_ids.shape[0]
+    M = coarse.num_nodes
     o = _checked(o, "o", f32, (N, 3), dev)
     d = _checked(d, "d", f32, (N, 3), dev)
     t_init = _checked(t_init, "t_init", f32, (N,), dev)
-    cboxes = _checked(coarse.cell_boxes, "cell_boxes", f32, (C * 6,), dev)
-    cids = _checked(coarse.cell_ids, "cell_ids", i32, (C,), dev)
+    table = _checked(coarse.walk_nodes, "walk_nodes", f32, (M, 8), dev)
+    scale = _checked(coarse.key_scale, "key_scale", f32, (), dev)
+    bin_smem_bytes(M)
     cell = torch.empty(N, dtype=i32, device=dev)
     tn = torch.empty(N, dtype=f32, device=dev)
+    key = torch.empty(N, dtype=i32, device=dev)
     if N == 0:
-        return cell, tn
+        return cell, tn, key
     _, binf, error_string = _kernels()
     with torch.cuda.device(dev):
         err = binf(o.data_ptr(), d.data_ptr(), t_init.data_ptr(),
-                   cboxes.data_ptr(), cids.data_ptr(), C, N, float(tmin),
-                   cell.data_ptr(), tn.data_ptr(),
+                   table.data_ptr(), M, N, float(tmin), scale.data_ptr(),
+                   cell.data_ptr(), tn.data_ptr(), key.data_ptr(),
+                   _bin_grid(dev.index, M),
                    torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "bin kernel", error_string)
     bin_launches += 1
-    return cell, tn
+    return cell, tn, key
 
 
 def packet_query(packed: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
@@ -717,16 +853,19 @@ def packet_query(packed: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
 
 
 def bin_rays(coarse: PackedMesh, o: Tensor, d: Tensor, t_init: Tensor,
-             tmin: float) -> tuple[Tensor, Tensor]:
-    """(cell, tn): kernel 6 on CUDA tensors, ``bin_rays_ref`` on CPU
-    tensors. cell is the nearest coarse cell's node id (-1: provably no mesh
-    hit before t_init, or a dead lane), tn its clamped entry distance (BIG
-    when none)."""
+             tmin: float) -> tuple[Tensor, Tensor, Tensor]:
+    """(cell, tn, key): kernel 6 on CUDA tensors, ``bin_rays_ref`` and
+    ``bin_sort_key`` on CPU tensors. cell is the nearest coarse cell's node
+    id (-1: provably no mesh hit before t_init, or a dead lane), tn its
+    clamped entry distance (BIG when none), key the two-pass sort key
+    (``bin_sort_key`` with the tree's ``key_scale``), which kernel 6 writes
+    in the same launch."""
     dev = o.device
     if dev.type == "cuda":
         return _bin_cuda(coarse, o, d, t_init, tmin)
     if dev.type == "cpu":
-        return bin_rays_ref(coarse, o, d, t_init, tmin)
+        cell, tn = bin_rays_ref(coarse, o, d, t_init, tmin)
+        return cell, tn, bin_sort_key(cell, tn, d, coarse.key_scale)
     raise ValueError(f"bin_rays: unsupported device {dev}")
 
 
@@ -782,7 +921,8 @@ def intersect_mesh_packet(
     mat are zeros. ``sort`` orders the walk by ``packet_sort_key``; with
     ``coarse`` it is the two-pass binned traversal: ``bin_rays`` maps rays to
     their nearest coarse cell, rays are ordered by (cell, octant, quantized
-    entry depth), and rays that enter no cell before t_init skip the walk.
+    entry depth: ``bin_sort_key``, which kernel 6 writes in its launch),
+    and rays that enter no cell before t_init skip the walk.
     The order is a permutation that kernel 5 reads and writes through, so
     the rays and the answers stay in the caller's order (every output is
     elementwise from there on); on the CPU, where the walk is per lane, no
@@ -807,17 +947,11 @@ def intersect_mesh_packet(
     # the order is the card's alone: the CPU walk is per lane
     order = sort and o.device.type == "cuda"
     if sort and coarse is not None:
-        cell, btn = bin_rays(coarse, o, d, t_init, tmin)
+        # on the card kernel 6 writes the sort key in its launch
+        cell, _, key = bin_rays(coarse, o, d, t_init, tmin)
         has = (cell >= 0) & live
         t_eff = torch.where(has, t_init, 0.0)
         culled = live & ~has
-        if order:
-            root = coarse.nodes[0]
-            diag = torch.sqrt(torch.sum((root[3:6] - root[0:3]) ** 2))
-            tq = torch.clamp(btn * (64.0 / torch.clamp_min(diag, 1e-6)),
-                             0.0, 63.0).to(torch.int32)
-            key = torch.where(has, ((cell * 8 + _octant(d)) << 6) | tq,
-                              1 << 26)
     elif order:
         key = packet_sort_key(o, d, alive=live)
     if order:

@@ -381,6 +381,42 @@ def _kernel():
     return fn, lib.tpt_error_string
 
 
+def sample_smem_bytes(n_slots: int, n_lights: int, spp: int) -> int:
+    """Bytes of dynamic shared memory that one 128-lane block of the kernel
+    takes (``csrc/replay.cu::smem_words``): per lane nA and cA (4 words per
+    slot) and, at spp > 32, the pixel mean's radiance (3 words); the
+    epilogue's four warp sums per partial (3 per slot, 3 per light, the
+    loss) and, per warp, its reached slots and lights and its ray count."""
+    words = (LANES * (4 * n_slots + (3 if spp > 32 else 0))
+             + 4 * (3 * n_slots + 3 * n_lights + 1) + 12)
+    return 4 * words
+
+
+def sample_blocks_per_sm(n_slots: int, n_lights: int, spp: int, *,
+                         dof: bool) -> tuple[int, int]:
+    """(bytes of shared memory per block, blocks per SM) of one build of the
+    kernel, as the card's occupancy calculator gives them (needs the card);
+    raises if the kernel's own count of bytes differs from
+    ``sample_smem_bytes``."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    lib = _build.load_library()
+    size, occ = lib.tpt_replay_sample_smem_bytes, \
+        lib.tpt_replay_sample_occupancy
+    size.argtypes = [ctypes.c_int] * 3
+    occ.argtypes = [ctypes.c_int] * 4
+    size.restype = occ.restype = ctypes.c_int
+    nbytes = size(n_slots, n_lights, spp)
+    if nbytes != sample_smem_bytes(n_slots, n_lights, spp):
+        raise RuntimeError(f"the kernel takes {nbytes} B of shared memory, "
+                           f"sample_smem_bytes says "
+                           f"{sample_smem_bytes(n_slots, n_lights, spp)}")
+    n = occ(int(dof), n_slots, n_lights, spp)
+    if n < 0:
+        raise RuntimeError("the per-sample kernel's occupancy query failed")
+    return nbytes, n
+
+
 def _replay_cuda(scene, cam_packed, seed, iteration, aux_lanes, *, spp,
                  width, height, max_bounces, rr_start, tile_rows, use_nee,
                  use_dof, strat_k, mode, tile_offset, uniforms):
