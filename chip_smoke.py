@@ -9,7 +9,9 @@ print one line; any failure exits non-zero:
    build/tpu_pathtracer_torch/; prints registers, stack and spill bytes of
    every build (kernel and template arguments), and for each build of the
    gradient kernel the shared memory per block and the blocks per SM at
-   its scenes' slots and lights and at the limits of 16 and 16;
+   its scenes' slots and lights and at the limits of 16 and 16; for each
+   (MESH, T) build of the tangent kernel its shared memory and blocks per
+   SM, and kernel 8's blocks per SM and resident grid;
 3. kernel vs plain PyTorch version on the card, with the same injected
    uniforms (cornell 160x120 brute force and NEE, the point-light scene with
    NEE) and with the production Philox draws; >= 98% of lanes must agree on
@@ -101,7 +103,10 @@ print one line; any failure exits non-zero:
    NEE) and the full mat_coef gradient (cornell_spheres NEE) at config 5:
    end-to-end ms per gradient (slope, median of REPS), the kernel's ms per
    launch and the device's idle share (one trace), the bound and the plain
-   version's ms;
+   version's ms, and the schedule's live share per workload from the plain
+   version's counts (``[16 tangent live share]``: segments over lanes x
+   budget, the warp-iterations with a live lane and with every lane
+   drained);
 17. the packet kernel (kernel 5, the per-thread walk of pack_bvh's tree)
    on the card: three waves recorded from one frame of cornell_boxes
    (256x256, 8 spp) and of the full terrain (config 4) - the primary wave,
@@ -223,7 +228,10 @@ print one line; any failure exits non-zero:
    none of another kernel, the last launch replayed bit for bit and held to
    the plain version by phase 34's checks; then the times of both kernels
    by phase 6's and 10's protocol (slope ms, kernel ms and idle share from
-   one trace, bound, plain ms).
+   one trace, bound, plain ms), and kernel 8's live share from its plain
+   version's per-lane walks (``[35 trace live share]``: vertices over 32 x
+   each warp's longest walk, one item per lane, and the same share when the
+   resident grid's threads take the next item as a walk ends).
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -248,10 +256,12 @@ another (``ab``), A B B A, on the workloads of phases 6, 10, 12, 13, 16,
 26, 27 and 31 (spheres, cornell_boxes, cornell_quad and terrain32
 forward; spheres with and without the lens, cornell_boxes, cornell_quad
 and textured terrain32 gradients, the scatter launch apart; the tangent
-kernel on cornell_quad; config 4's launch), the sphere forward outputs and
-every gradient output bit for bit (the atlas gradient within the atomic
-bound); and kernel 5 on the wave queries of one config-4 frame, recorded
-once and answered by each checkout's own ``intersect_mesh_packet``
+kernel on phase 16's four workloads and at T = 4 and 2, each with a
+digest of L, dL, n_samp and rays, and phase 16's gradients end to end;
+config 4's launch), the sphere forward outputs and every gradient output
+bit for bit (the atlas gradient within the atomic bound); and kernel 5 on
+the wave queries of one config-4 frame, recorded once and answered by
+each checkout's own ``intersect_mesh_packet``
 (two-pass): ms per launch of the closest-hit and shadow waves, the
 frame's glue ms, the bounce-1 closest-hit wave unsorted, sorted and
 two-pass, each checkout's answers equal across its runs and this
@@ -262,7 +272,10 @@ ray and the bound of a mean wave (``_ab_bin_report``); and kernel 7 on
 cornell_spheres at 640x480 (``_ab_sample``: modes "mse" and "vjp", brute
 force and NEE, the lens, spp 64; every output bit for bit, -0 as +0),
 with kernel 8 beside it on the same injected draws, the adjoint's cost,
-and phase 35's end-to-end gradient (wall ms per call, CUDA-event slope).
+and on Philox draws (digests of its radiance and rays), and phase 35's
+pallas_render and gradient end to end (wall ms per call, CUDA-event
+slope over ``AB_WALL``). ``--ab-only``
+restricts it to some of its parts (``AB_PARTS``).
 ``python3 chip_smoke.py --leaf-cutoff`` runs no phase either: it times the
 forward kernel on small meshes packed as one leaf and as the mesh's
 leaf-<=4 tree (``leaf_cutoff``), the measurement behind ``BVH_MAX_LEAF``.
@@ -393,7 +406,37 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s (nvcc {compile_s:.2f} s); "
           f"ptxas: {builds or 'no register report'}", flush=True)
     _replay_occupancy()
+    _tangent_trace_occupancy(report)
     return report
+
+
+def _tangent_trace_occupancy(report):
+    """Kernel 4's shared memory per block and blocks per SM for each
+    (MESH, T) build beside its registers, stack and spills, and kernel 8's
+    blocks per SM and resident grid (the card's occupancy calculator)."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+
+    parts = []
+    for mesh in (False, True):
+        for n_tan in range(1, cj.MAX_TAN + 1):
+            nbytes, blocks = cj.tangent_blocks_per_sm(mesh, n_tan)
+            r = report.get(f"camera_jvp_kernel<{int(mesh)},{n_tan}>", {})
+            parts.append(
+                f"<{int(mesh)},{n_tan}>: {r.get('regs')} regs, "
+                f"{r.get('stack')} B stack, {r.get('spill_st')}/"
+                f"{r.get('spill_ld')} B spill st/ld, {nbytes} B shared, "
+                f"{blocks} blocks per SM")
+    r = report.get("trace_kernel", {})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = tk._trace_grid(0)
+    print("[2 tangent occupancy] camera_jvp_kernel<MESH,T>: " + " | ".join(
+        parts) + f" || [2 trace occupancy] trace_kernel: {r.get('regs')} "
+        f"regs, {r.get('stack')} B stack, {r.get('spill_st')}/"
+        f"{r.get('spill_ld')} B spill st/ld, {grid // sms} blocks per SM, "
+        f"{sms} SMs, a grid of {grid} blocks", flush=True)
 
 
 # (slots, lights) of kernel 3's scenes: cornell_spheres; cornell_boxes and
@@ -1729,6 +1772,43 @@ def _fmt_live(label, o) -> str:
             f" packed per row {o['warp_packed']:.4f}")
 
 
+def _trace_live(counts, threads) -> dict:
+    """Occupancy of one kernel-8 launch from the plain version's per-lane
+    walks (``trace_lanes_ref``'s counts on the same seed): ``before``, the
+    vertices over the sum over warps of 32 x the warp's longest walk (one
+    item per lane, each warp running to its longest path); ``fetch``, the
+    same share when ``threads`` threads walk one vertex per iteration and
+    a thread whose walk ends takes the next unstarted item in the next
+    iteration (free threads in index order), a warp running until its
+    threads find no item left. Vertices are traced segments."""
+    import torch
+
+    seg = counts["lane_segments"].reshape(-1).long().cpu()
+    seg = seg[seg > 0]  # the image's items
+    left = torch.zeros(-(-threads // 32) * 32, dtype=torch.int64)
+    nxt, warp_iters = 0, 0
+    while True:
+        free = (left == 0).nonzero().reshape(-1)
+        take = free[:max(0, min(free.numel(), seg.numel() - nxt))]
+        left[take] = seg[nxt:nxt + take.numel()]
+        nxt += take.numel()
+        busy = left > 0
+        if not bool(busy.any()):
+            break
+        warp_iters += int(busy.reshape(-1, 32).any(-1).sum())
+        left = left - busy.long()
+    return dict(before=counts["vertices"] / counts["warp_longest"],
+                fetch=int(seg.sum()) / (32 * warp_iters),
+                vertices=counts["vertices"],
+                warp_longest=counts["warp_longest"], threads=threads)
+
+
+def _fmt_trace_live(label, o) -> str:
+    return (f"{label}: {o['vertices']} vertices over {o['warp_longest']} "
+            f"(32 x the warps' longest walks) = {o['before']:.4f}; with "
+            f"{o['threads']} threads taking items {o['fetch']:.4f}")
+
+
 def phase_grad_times(smi, name="cornell", modes=(False, True),
                      label="10 gradient times", lens=None):
     """Config 5 (or the same workload on another scene): ms per gradient
@@ -2272,11 +2352,14 @@ def phase_jvp_times(smi):
             fail(f"{key}: device busy {busy} ms per gradient exceeds the "
                  f"window's {window} ms")
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        live = _live_share(counts, counts["segments"], W * H, budget)
+        work = {k: v for k, v in counts.items()
+                if k in ("paths", "segments", "shadow", "lit", "score")}
         out[key] = dict(grad_ms=grad_ms, reps=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                         kernel_ms=kernel_ms, busy_ms=busy, window_ms=window,
                         idle_share=1.0 - busy / window, n_tan=n_tan,
-                        work=counts,
+                        work=work, live=live,
                         top="; ".join(f"{n[:40]} {v:.4f}" for n, v in top))
     parts = [
         f"{key} (T {o['n_tan']}): {o['grad_ms']:.4f} ms per gradient (median "
@@ -2289,6 +2372,10 @@ def phase_jvp_times(smi):
         for key, o in out.items()]
     print(f"[16 tangent times] {W}x{H} spp {SPP}, {MB} bounces, budget "
           f"{budget} on {smi}: " + " | ".join(parts), flush=True)
+    print(f"[16 tangent live share] {W}x{H} spp {SPP}, {MB} bounces, budget "
+          f"{budget} on {smi}: " + " | ".join(
+              _fmt_live(key, o["live"]) for key, o in out.items()),
+          flush=True)
     return out
 
 
@@ -4196,6 +4283,16 @@ def phase_sample_trainer(steps=5):
     return launches, _worst_sample(checks)
 
 
+def _trace_ms(profiled) -> float:
+    """Kernel 8's device ms per call from a ``_profile`` of one launch per
+    call: the kernel and the zeroing of its counters (the item fetch's and
+    the ray count's), a device op that every call makes before the
+    launch."""
+    kernel_ms, _, _, by_name = profiled
+    return kernel_ms + sum(v for n, v in by_name.items()
+                           if "FillFunctor" in n or "Memset" in n)
+
+
 def _sample_bound(scene, segments, paths, shadows, shadow_prims, lanes,
                   nbytes, adjoint=None, lens=False):
     """Bound of a per-sample launch from this run's work: per segment the
@@ -4222,8 +4319,9 @@ def phase_sample_times(smi):
     """35 times, by phase 6's and 10's protocol: kernel 8 (pallas_render
     at 640x480, spp 4, 10 bounces) and kernel 7 (mse_value_and_grad at
     config 5), brute force and NEE: ms per call by the CUDA-event slope
-    (median of REPS), the kernel's device ms per launch and the device's
-    idle share from one torch.profiler trace of 10 calls, the bound from
+    (median of REPS), the kernel's device ms per launch (kernel 8's with
+    the zeroing of its counters, ``_trace_ms``) and the device's idle
+    share from one torch.profiler trace of 10 calls, the bound from
     this run's work (the plain version's counts on the same seed) and the
     plain version's ms."""
     import torch
@@ -4271,13 +4369,14 @@ def phase_sample_times(smi):
         o8["bound_ms"], o8["bound_by"] = _sample_bound(
             scene, int(rays_k), n, int(c8["shadow"]),
             int(c8["shadow"]) * int(scene.num_prims), lanes,
-            lanes * 12 + rows * 4)
+            lanes * 12 + 8)
         k_part = 3 * n_slots + 3 * n_l + 1
         o7["bound_ms"], o7["bound_by"] = _sample_bound(
             scene, segs7, n, int(c7["shadow"]), int(c7["shadow_prims"]),
             lanes, lanes * 24 + rows * (4 * k_part + 4),
             adjoint=(n_slots, n_l))
         o8["work"] = (int(rays_k), n, int(c8["shadow"]))
+        o8["live"] = _trace_live(c8, tk._trace_grid(0) * 128)
         o7["work"] = (segs7, n, int(c7["shadow"]))
         del out7, rays_r
         for o, name, run in (
@@ -4286,8 +4385,10 @@ def phase_sample_times(smi):
                 (o7, "replay_kernel",
                  lambda i: rk.mse_value_and_grad(scene, cam, (400, i), 0,
                                                  target, **kw7))):
-            o["kernel_ms"], busy, window, _ = _profile(
-                run, 10, name, f"{name}_{mode}")
+            profiled = _profile(run, 10, name, f"{name}_{mode}")
+            o["kernel_ms"], busy, window, _ = profiled
+            if name == "trace_kernel":
+                o["kernel_ms"] = _trace_ms(profiled)
             o["idle_share"] = 1.0 - busy / window
             o["busy_ms"], o["window_ms"] = busy, window
             if o["idle_share"] < 0.0:
@@ -4308,6 +4409,10 @@ def phase_sample_times(smi):
                 f"{o['idle_share']:.3f}; plain {o['plain_ms']:.2f} ms")
     print(f"[35 sample times] cornell {W}x{H} spp {SPP}, {MB} bounces, "
           f"tile_rows {SAMPLE_TR} on {smi}: " + " | ".join(parts), flush=True)
+    print(f"[35 trace live share] cornell {W}x{H} spp {SPP}, {MB} bounces "
+          f"on {smi}: " + " | ".join(
+              _fmt_trace_live(mode, d["trace"]["live"])
+              for mode, d in out.items()), flush=True)
     return out
 
 
@@ -4321,6 +4426,16 @@ AB_GRADIENT = [("cornell", False, False), ("cornell", True, False),
                ("cornell", False, True), ("cornell", True, True),
                ("cornell-boxes", True, False), ("cornell-quad", True, False),
                ("terrain32", True, False)]
+
+
+# the window and the reps of --ab's end-to-end rows (``_slope_ms``): a
+# longer window than the phases' 24 calls, so that a stall in the one-call
+# run moves the slope less, and more reps for the median
+AB_WALL = (96, 9)
+
+# the parts of ab_worker, each named by --ab-only
+AB_PARTS = ("forward", "gradient", "tangent", "config4", "sample", "trace",
+            "packet")
 
 
 def _digest(tensors, zero_sign=False) -> str:
@@ -4422,37 +4537,15 @@ def _ab_packet(waves_path, answers_out=None) -> dict:
     return dict(ms=ms, digests=digests, bound=bound, bin_digests=b_digests)
 
 
-def _parent_bin_key(coarse, cell, tn, d, t_init):
-    """The sort key of the two-pass traversal as intersect_mesh_packet made
-    it in torch before kernel 6 wrote it (a checkout whose bin_rays returns
-    (cell, tn) alone)."""
-    import torch
-
-    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
-
-    root = coarse.nodes[0]
-    diag = torch.sqrt(torch.sum((root[3:6] - root[0:3]) ** 2))
-    tq = torch.clamp(tn * (64.0 / torch.clamp_min(diag, 1e-6)), 0.0,
-                     63.0).to(torch.int32)
-    has = (cell >= 0) & (t_init > 0.0)
-    return torch.where(has, ((cell * 8 + mk._octant(d)) << 6) | tq, 1 << 26)
-
-
 def _ab_bin(coarse, waves) -> tuple[dict, list]:
     """Kernel 6 in this process's checkout on every recorded config-4
     wave: device ms per launch over the frame's 8 waves (one profiler
-    trace) and a digest per wave of (cell, tn, key). The key is the
-    launch's own where the checkout's bin_rays returns it, else the torch
-    key of the checkout's (cell, tn) (a shim for a parent before the
-    in-launch key; it goes once no compared checkout predates it)."""
+    trace) and a digest per wave of (cell, tn, key)."""
     from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
 
     def run(i):
         o, d, t0, _ = waves[i]
-        got = mk.bin_rays(coarse, o, d, t0, 3e-2)
-        if len(got) == 2:  # shim: see above
-            got = (*got, _parent_bin_key(coarse, *got, d, t0))
-        return got
+        return mk.bin_rays(coarse, o, d, t0, 3e-2)
 
     ms = {"kernel 6 wave": _profile(run, len(waves), "bin_kernel",
                                     "ab_bin")[0]}
@@ -4466,7 +4559,7 @@ AB_SAMPLE = [(4, False, False, "mse"), (4, True, False, "mse"),
              (64, False, False, "mse"), (64, True, False, "mse")]
 
 
-def _ab_sample() -> tuple[dict, dict]:
+def _ab_sample(only=AB_PARTS, trace_out=None) -> tuple[dict, dict]:
     """Kernels 7 and 8 in this process's checkout on cornell_spheres at
     640x480, 10 bounces, tile_rows 16: device ms per launch of kernel 7
     (one profiler trace of 10 launches) on ``AB_SAMPLE``'s workloads, with
@@ -4475,9 +4568,15 @@ def _ab_sample() -> tuple[dict, dict]:
     count at fixed seeds; mode "vjp" takes the lane cotangent of the "mse"
     launch's radiance. Then kernels 8 and 7 at spp 4 on one injected
     uniform block each for brute force and NEE, the same draws for both:
-    their gap is the adjoint's cost. Last, phase 35's end-to-end gradient
-    (mse_value_and_grad at config 5, brute force and NEE): wall ms per call
-    by its CUDA-event slope, host work included."""
+    their gap is the adjoint's cost, and kernel 8 on Philox draws (the
+    main path's), brute force and NEE; each kernel-8 row has a digest of
+    one launch's radiance planes and ray count. Last, phase 35's
+    end to end (pallas_render and mse_value_and_grad at config 5, brute
+    force and NEE): wall ms per call by the CUDA-event slope over
+    ``AB_WALL``, host work included. Kernel 7's rows and the end-to-end
+    gradient are the part "sample" of ``only``, kernel 8's and
+    pallas_render's the part "trace"; kernel 8's digested outputs are
+    saved to ``trace_out`` (for ``_ab_trace_report``)."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import replay_kernel as rk
@@ -4487,8 +4586,9 @@ def _ab_sample() -> tuple[dict, dict]:
     cps = {False: cps, True: _scene("cornell", W, H, "cuda", LENS)[2]}
     gen = torch.Generator(device="cuda").manual_seed(13)
     target = torch.rand((H, W, 3), generator=gen, device="cuda")
-    ms, digests = {}, {}
-    for spp, nee, lens, mode in AB_SAMPLE:
+    ms, digests, traced = {}, {}, {}
+    sample = "sample" in only
+    for spp, nee, lens, mode in AB_SAMPLE if sample else ():
         rows, _ = rk.lanes_layout(W, H, spp, SAMPLE_TR)
         aux = rk.broadcast_pixels_to_lanes(target, spp, rows)
         kw = dict(spp=spp, width=W, height=H, max_bounces=MB, rr_start=3,
@@ -4515,10 +4615,18 @@ def _ab_sample() -> tuple[dict, dict]:
         kw = dict(spp=SPP, width=W, height=H, max_bounces=MB, rr_start=3,
                   tile_rows=SAMPLE_TR, use_nee=nee, uniforms=u)
         mode = "nee" if nee else "brute"
-        ms[f"kernel 8 injected {mode}"] = _profile(
-            lambda i, kw=kw: tk.trace_lanes(scene, cps[False], (400, i, 0),
-                                            **kw),
-            10, "trace_kernel", "ab_sample")[0]
+        for draws, kw8 in (("injected", kw), ("philox", dict(
+                kw, uniforms=None))) if "trace" in only else ():
+            key = f"kernel 8 {draws} {mode}"
+            L, rays = tk.trace_lanes(scene, cps[False], (600, 0, 0), **kw8)
+            digests[key] = _digest([L, torch.tensor(int(rays))])
+            traced[key] = (L.cpu(), int(rays))
+            ms[key] = _trace_ms(_profile(
+                lambda i, kw8=kw8: tk.trace_lanes(scene, cps[False],
+                                                  (400, i, 0), **kw8),
+                10, "trace_kernel", "ab_sample"))
+        if not sample:
+            continue
         key = f"kernel 7 injected {mode}"
         digests[key] = _digest(
             rk.replay_call(scene, cps[False], (600, 0), 0, aux, **kw),
@@ -4528,16 +4636,79 @@ def _ab_sample() -> tuple[dict, dict]:
                                             aux, **kw),
             10, "replay_kernel", "ab_sample")[0]
     for nee in (False, True):
+        mode = "nee" if nee else "brute"
         kw = dict(spp=SPP, max_bounces=MB, rr_start=3, tile_rows=SAMPLE_TR,
                   use_nee=nee)
-        ms[f"gradient end to end {'nee' if nee else 'brute'}, wall"] = \
-            _slope_ms(lambda salt, i, kw=kw: rk.mse_value_and_grad(
-                scene, cam, (salt, i), 0, target, **kw))[0]
+        if "trace" in only:
+            ms[f"pallas_render end to end {mode}, wall"] = _slope_ms(
+                lambda salt, i, kw=kw: tk.pallas_render(
+                    scene, cps[False], (salt, i, 0), width=W, height=H,
+                    **kw), *AB_WALL)[0]
+        if sample:
+            ms[f"gradient end to end {mode}, wall"] = _slope_ms(
+                lambda salt, i, kw=kw: rk.mse_value_and_grad(
+                    scene, cam, (salt, i), 0, target, **kw), *AB_WALL)[0]
+    if trace_out and traced:
+        torch.save(traced, trace_out)
+    return ms, digests
+
+
+# kernel 4's workloads (scene, NEE, tangents) at config 5: phase 16's four
+# (the camera position's 3 rows, "pos", or every transmissive material's
+# IOR, "ior") and one launch each of 4 (the position and the IOR) and 2
+# tangents (the position's x row and the IOR, on a mesh)
+AB_TANGENT = [("cornell", False, "pos"), ("cornell", True, "pos"),
+              ("cornell-quad", True, "pos"), ("cornell", True, "ior"),
+              ("cornell", True, "pos+ior"), ("cornell-glass", True, "x+ior")]
+
+
+def _ab_tangent(scenes, k) -> tuple[dict, dict]:
+    """Kernel 4 in this process's checkout on ``AB_TANGENT``'s workloads:
+    device ms per launch of camera_jvp_call (one profiler trace of ``k``
+    launches) and a digest of one launch's L, dL, n_samp and ray count at a
+    fixed seed; then phase 16's gradients end to end (camera_weighted_grad
+    of the position, ior_mse_grad): wall ms per call by the CUDA-event
+    slope over ``AB_WALL``, host work included."""
+    import torch
+
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+
+    kw = dict(spp=SPP, budget=rp.default_budget(SPP, MB), width=W, height=H,
+              max_bounces=MB, rr_start=3, tile_rows=TR)
+    rows = _position_rows("cuda")
+    ms, digests = {}, {}
+    for name, nee, kind in AB_TANGENT:
+        scene, cams = scenes[name]
+        cp = pack_camera(cams[False])
+        dcam = {"pos": rows, "ior": rows[:0], "pos+ior": rows,
+                "x+ior": rows[:1]}[kind]
+        coef = cj.transmissive_mats(scene) if "ior" in kind else ()
+        call = dict(kw, use_nee=nee, coef_mats=coef)
+        key = (f"tangent {name} {'nee' if nee else 'brute'} {kind} T "
+               f"{dcam.shape[0] + len(coef)}")
+        out = cj.camera_jvp_call(scene, cp, dcam, (600, 0), 0, **call)
+        digests[key] = _digest([*out[:3], torch.tensor(int(out[3]))])
+        ms[key] = _profile(
+            lambda i, scene=scene, cp=cp, dcam=dcam, call=call:
+            cj.camera_jvp_call(scene, cp, dcam, (400, i), 0, **call),
+            k, "camera_jvp_kernel", "ab")[0]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    weights = torch.rand((H, W, 3), generator=gen, device="cuda")
+    kw = {k: v for k, v in kw.items() if k not in ("width", "height")}
+    for key, name, nee, kind in JVP_TIMES:
+        scene, cams = scenes[name]
+        grad = cj.camera_weighted_grad if kind == "pos" else cj.ior_mse_grad
+        ms[f"tangent end to end {key}, wall"] = _slope_ms(
+            lambda salt, i, scene=scene, cam=cams[False], nee=nee, grad=grad:
+            grad(scene, cam, (salt, i), weights, use_nee=nee, **kw),
+            *AB_WALL)[0]
     return ms, digests
 
 
 def ab_worker(root: str, atlas_out=None, waves=None,
-              answers_out=None) -> dict:
+              answers_out=None, only=AB_PARTS, trace_out=None) -> dict:
     """With the package of the checkout ``root``: device ms per launch (one
     ``_profile`` trace of 10 launches) of the forward kernel on phases 6,
     12 and 27's workloads (cornell_spheres, cornell_boxes, cornell_quad and
@@ -4545,8 +4716,8 @@ def ab_worker(root: str, atlas_out=None, waves=None,
     gradient kernel at config 5 on phases 10, 13, 27 and 31's (spheres
     brute force and NEE, with and without the lens, cornell_boxes and
     cornell_quad NEE, terrain32 NEE with the atlas gradient: launch 1 and
-    the scatter), of the tangent kernel on cornell_quad NEE (phase 16, the
-    position's 3 tangents) and of config 4's launch through
+    the scatter), of the tangent kernel on phase 16's workloads and at T =
+    4 and 2 (``_ab_tangent``) and of config 4's launch through
     PersistentRenderer (phase 26, the terrain at 1024x1024, render_to(2)
     from a reset), all pinhole but the lens rows, and the plain version's
     wall ms per step on cornell_boxes brute force, through the calls that
@@ -4560,7 +4731,8 @@ def ab_worker(root: str, atlas_out=None, waves=None,
     |g| (its atomic bound) saved to ``atlas_out``; kernels 7 and 8 on
     cornell_spheres and phase 35's end-to-end gradient (``_ab_sample``);
     kernels 5 and 6 on config 4's recorded waves (``_ab_packet``, with
-    ``waves`` and ``answers_out``); and the build log."""
+    ``waves`` and ``answers_out``); and the build log. ``only`` names the
+    parts to run (``AB_PARTS``); kernel 8's outputs go to ``trace_out``."""
     sys.path.insert(0, root)
     import torch
 
@@ -4580,7 +4752,8 @@ def ab_worker(root: str, atlas_out=None, waves=None,
     log = _build.library_path().with_suffix(".log").read_text()
     k = 10
     out, digests, scenes = {}, {}, {}
-    names = [n for n, _ in AB_FORWARD] + [n for n, _, _ in AB_GRADIENT]
+    names = ([n for n, _ in AB_FORWARD] + [n for n, _, _ in AB_GRADIENT]
+             + [n for n, _, _ in AB_TANGENT])
     for name in dict.fromkeys(names):
         scene, cs = (sc.BUILTIN_SCENES[name](device="cuda")
                      if name in sc.BUILTIN_SCENES
@@ -4590,7 +4763,7 @@ def ab_worker(root: str, atlas_out=None, waves=None,
                                      **(LENS if lens else {}))
                 for lens in (False, True)}
         scenes[name] = (sc.with_packet_mesh(scene), cams)
-    for name, nee in AB_FORWARD:
+    for name, nee in AB_FORWARD if "forward" in only else ():
         scene, cams = scenes[name]
         cp = pack_camera(cams[False])
         st = [None]
@@ -4610,20 +4783,21 @@ def ab_worker(root: str, atlas_out=None, waves=None,
             run(1)
             digests[key] = _digest(getattr(st[0], f) for f in pk.STATE_FIELDS)
         out[key] = _profile(run, k, "persistent_kernel", "ab", start)[0]
-    # the plain version's wall ms per step by phase 12's protocol (one warm
-    # step, then two), host work and all
-    scene, cams = scenes["cornell-boxes"]
-    cp = pack_camera(cams[False])
-    _time_steps(scene, cp, False, 1, 98, pk.persistent_step_ref)
-    out["plain forward cornell-boxes brute, wall"] = _time_steps(
-        scene, cp, False, 2, 300, pk.persistent_step_ref)[0] / 2
+    if "forward" in only:
+        # the plain version's wall ms per step by phase 12's protocol (one
+        # warm step, then two), host work and all
+        scene, cams = scenes["cornell-boxes"]
+        cp = pack_camera(cams[False])
+        _time_steps(scene, cp, False, 1, 98, pk.persistent_step_ref)
+        out["plain forward cornell-boxes brute, wall"] = _time_steps(
+            scene, cp, False, 2, 300, pk.persistent_step_ref)[0] / 2
     gen = torch.Generator(device="cuda").manual_seed(5)
     target = torch.rand((H, W, 3), generator=gen, device="cuda")
     rows, _ = rp.pixel_lanes_layout(W, H, TR)
     tgt = rp.target_to_lanes(target, rows)
     kw = dict(spp=SPP, budget=rp.default_budget(SPP, MB), max_bounces=MB,
               rr_start=3, tile_rows=TR)
-    for name, nee, lens in AB_GRADIENT:
+    for name, nee, lens in AB_GRADIENT if "gradient" in only else ():
         scene, cams = scenes[name]
         cam = cams[lens]
         cp = pack_camera(cam)
@@ -4659,33 +4833,36 @@ def ab_worker(root: str, atlas_out=None, waves=None,
         if scene.textured:  # the scatter launch: one per call
             out[key + " scatter"] = sum(
                 v for n, v in by_name.items() if "replay_scatter_kernel" in n)
-    scene, cams = scenes["cornell-quad"]
-    weights = torch.rand((H, W, 3), generator=gen, device="cuda")
-    out["tangent cornell-quad nee"] = _profile(
-        lambda i: cj.camera_weighted_grad(scene, cams[False], (400, i),
-                                          weights, use_nee=True, **kw),
-        k, "camera_jvp_kernel", "ab")[0]
-    scene, cs = sc.terrain_textured(device="cuda")
-    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
-                         cs["fov"], device="cuda")
-    r = PersistentRenderer(scene, cam, _c4_config(), seed=3, device="cuda")
-    r.render_to(C4_SPP)
-    out["config 4 launch"] = _profile(lambda i: r.step(), r.state.frame,
-                                      "persistent_kernel", "ab",
-                                      start=r.reset)[0]
-    del r
-    torch.cuda.empty_cache()
-    sample_ms, sample_digests = _ab_sample()
-    out.update(sample_ms)
-    digests.update(sample_digests)
-    torch.cuda.empty_cache()
-    packet = _ab_packet(waves, answers_out)
-    out.update(packet.pop("ms"))
-    digests["kernel 6 wave"] = " ".join(packet.pop("bin_digests"))
+    if "tangent" in only:
+        tangent_ms, tangent_digests = _ab_tangent(scenes, k)
+        out.update(tangent_ms)
+        digests.update(tangent_digests)
+    if "config4" in only:
+        scene, cs = sc.terrain_textured(device="cuda")
+        cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
+                             cs["fov"], device="cuda")
+        r = PersistentRenderer(scene, cam, _c4_config(), seed=3,
+                               device="cuda")
+        r.render_to(C4_SPP)
+        out["config 4 launch"] = _profile(lambda i: r.step(), r.state.frame,
+                                          "persistent_kernel", "ab",
+                                          start=r.reset)[0]
+        del r
+        torch.cuda.empty_cache()
+    if "sample" in only or "trace" in only:
+        sample_ms, sample_digests = _ab_sample(only, trace_out)
+        out.update(sample_ms)
+        digests.update(sample_digests)
+        torch.cuda.empty_cache()
+    packet = None
+    if "packet" in only:
+        packet = _ab_packet(waves, answers_out)
+        out.update(packet.pop("ms"))
+        digests["kernel 6 wave"] = " ".join(packet.pop("bin_digests"))
     return dict(ms=out, digests=digests, log=log, packet=packet)
 
 
-def ab(other: str) -> int:
+def ab(other: str, only=AB_PARTS) -> int:
     """``ab_worker`` in one process per checkout, in the order other, this,
     this, other (A B B A, so that a drift of the card's clocks over the call
     shows as a gap between the two runs of one checkout). Prints each
@@ -4693,12 +4870,14 @@ def ab(other: str) -> int:
     kernels, each run's device ms per launch, then per workload
     the two runs of each checkout, the change against the other checkout's
     mean, and whether the outputs are equal bit for bit across the four
-    runs (the sphere forward workloads, every gradient workload, kernel 7's
-    workloads and kernel 6's waves), the terrain32 atlas gradients' largest
-    gap over the atomic bound, kernel 5's checks (``_ab_packet_report``)
-    and kernel 6's walk against its sweep (``_ab_bin_report``); exit 1 if
-    outputs differ, a gap exceeds the bound or a kernel-5 or kernel-6
-    check fails."""
+    runs (the sphere forward workloads, every gradient workload, kernel
+    4's and kernel 7's workloads, kernel 8's and kernel 6's waves), the
+    terrain32 atlas gradients' largest gap over the atomic bound, kernel
+    8's lanes against the other checkout's (``_ab_trace_report``), kernel
+    5's checks (``_ab_packet_report``) and kernel 6's walk against its
+    sweep (``_ab_bin_report``); exit 1 if outputs differ (kernel 8: if its
+    report fails), a gap exceeds the bound or a kernel-5 or kernel-6 check
+    fails. ``only`` names the parts of ``ab_worker`` to run."""
     sys.path.insert(0, str(ROOT))
     from tpu_pathtracer_torch.ops.kernels._build import ptxas_report
 
@@ -4716,10 +4895,13 @@ def ab(other: str) -> int:
         atlas.unlink(missing_ok=True)
         answers = out_dir / f"ab_packet_answers_{i}.pt"
         answers.unlink(missing_ok=True)
+        traced = out_dir / f"ab_trace_{i}.pt"
+        traced.unlink(missing_ok=True)
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--ab-worker",
              str(Path(root).resolve()), "--ab-atlas", str(atlas),
-             "--ab-waves", str(waves)]
+             "--ab-waves", str(waves), "--ab-only", ",".join(only),
+             "--ab-trace", str(traced)]
             + (["--ab-answers", str(answers)] if i < 2 else []),
             capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
@@ -4730,7 +4912,8 @@ def ab(other: str) -> int:
         logs[tag] = got["log"]
         digests.setdefault(tag, []).append(got["digests"])
         packets.append((tag, got["packet"]))
-        atlases.append(torch.load(atlas))
+        if atlas.is_file():
+            atlases.append(torch.load(atlas))
         print(f"{tag} ({root}): " + ", ".join(
             f"{k} {v:.4f}" for k, v in got["ms"].items()), flush=True)
     # each run's terrain32 atlas gradient against the first run's, over the
@@ -4754,23 +4937,66 @@ def ab(other: str) -> int:
         gap = statistics.mean(this) / statistics.mean(oth) - 1.0
         seen = {d[key] for ds in digests.values() for d in ds if key in d}
         same = "-" if not seen else "yes" if len(seen) == 1 else "NO"
-        unequal += same == "NO"
+        # kernel 8's NEE path may round apart from the other checkout (FMA
+        # contraction): _ab_trace_report holds its lanes; brute force is
+        # held bit for bit
+        unequal += same == "NO" and not (key.startswith("kernel 8")
+                                         and key.endswith("nee"))
         print(f"{key} | {oth[0]:.4f}, {oth[1]:.4f} | {this[0]:.4f}, "
               f"{this[1]:.4f} | {gap:+.4f} | {same}")
-    key = _ab_gradient_key("terrain32", True, False) + " scatter"
-    replays = [d[key + " replays launch 1"] for ds in digests.values()
-               for d in ds]
-    unequal += replays.count("False")
-    print(f"{key}: replays launch 1 bit for bit, per run: {replays}; atlas "
-          f"gradient against run 1 over the atomic bound (1 is the bar): "
-          + ", ".join(f"{r:.4g}" for r in ratios))
-    unequal += _ab_packet_report(packets, runs, waves, out_dir)
-    unequal += _ab_bin_report(runs, waves)
+    if "gradient" in only:
+        key = _ab_gradient_key("terrain32", True, False) + " scatter"
+        replays = [d[key + " replays launch 1"] for ds in digests.values()
+                   for d in ds]
+        unequal += replays.count("False")
+        print(f"{key}: replays launch 1 bit for bit, per run: {replays}; "
+              f"atlas gradient against run 1 over the atomic bound (1 is the "
+              f"bar): " + ", ".join(f"{r:.4g}" for r in ratios))
+    if "trace" in only:
+        unequal += _ab_trace_report(out_dir)
+    if "packet" in only:
+        unequal += _ab_packet_report(packets, runs, waves, out_dir)
+        unequal += _ab_bin_report(runs, waves)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip())
     return 1 if unequal or not all(r <= 1.0 for r in ratios) else 0
+
+
+def _ab_trace_report(out_dir) -> int:
+    """Kernel 8's part of ``ab``: per workload, this checkout's launch
+    (run 2) against the other's (run 1) on the same inputs: the lanes that
+    differ at all and by how much, the share within ``sample_lane_
+    agreement``'s bar, and the ray counts, which must be equal (integer
+    sums); each checkout's runs equal to each other. Fails where the rays
+    differ, a checkout does not replay itself, or fewer than AGREE of the
+    lanes agree. Returns the number of failures."""
+    import torch
+
+    from tpu_pathtracer_torch.utils.metrics import (
+        AGREE, sample_lane_agreement,
+    )
+
+    runs = [torch.load(out_dir / f"ab_trace_{i}.pt") for i in range(4)]
+    n = W * H * SPP
+    bad, parts = 0, []
+    for key in runs[0]:
+        (Lo, ro), (Lt, rt) = runs[0][key], runs[1][key]
+        replay = (torch.equal(Lo, runs[3][key][0])
+                  and torch.equal(Lt, runs[2][key][0]))
+        frac, dmax, _ = sample_lane_agreement(Lt, Lo, n)
+        lanes = Lo.reshape(-1, 3)[:n] != Lt.reshape(-1, 3)[:n]
+        n_diff = int(lanes.any(-1).sum())
+        ok = ro == rt and replay and frac >= AGREE
+        bad += not ok
+        parts.append(f"{key}: {n_diff} of {n} lanes differ (max |dL| "
+                     f"{dmax:.3g}), {frac:.6f} within the lane bar; rays "
+                     f"{rt} / {ro} (this / other); each replays itself "
+                     f"{replay}")
+    print("kernel 8 against the other checkout on the same inputs: "
+          + " | ".join(parts), flush=True)
+    return bad
 
 
 def _ab_packet_report(packets, runs, waves, out_dir) -> int:
@@ -5590,15 +5816,23 @@ if __name__ == "__main__":
     ap.add_argument("--ab-atlas", help=argparse.SUPPRESS)
     ap.add_argument("--ab-waves", help=argparse.SUPPRESS)
     ap.add_argument("--ab-answers", help=argparse.SUPPRESS)
+    ap.add_argument("--ab-trace", help=argparse.SUPPRESS)
+    ap.add_argument("--ab-only", default=",".join(AB_PARTS),
+                    help="with --ab, the parts to time, comma-separated, of "
+                    + ", ".join(AB_PARTS) + " (default: all)")
     ap.add_argument("--leaf-cutoff", action="store_true",
                     help="instead of the smoke run, time the forward kernel "
                     "on small meshes as one leaf and as a tree "
                     "(leaf_cutoff)")
     args = ap.parse_args()
+    only = tuple(args.ab_only.split(","))
+    if not set(only) <= set(AB_PARTS):
+        ap.error(f"--ab-only takes parts of {AB_PARTS}, got {only}")
     if args.ab_worker:
         print(json.dumps(ab_worker(args.ab_worker, args.ab_atlas,
-                                   args.ab_waves, args.ab_answers)))
+                                   args.ab_waves, args.ab_answers, only,
+                                   args.ab_trace)))
         sys.exit(0)
     if args.leaf_cutoff:
         sys.exit(leaf_cutoff())
-    sys.exit(ab(args.ab) if args.ab else main())
+    sys.exit(ab(args.ab, only) if args.ab else main())

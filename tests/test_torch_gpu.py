@@ -651,6 +651,88 @@ def test_camera_jvp_chunks_on_gpu():
     assert torch.equal(five[1][4], alone[1][0])
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("budget", [3, 60])
+@pytest.mark.parametrize("n_tan", [1, 2, 3, 4])
+@pytest.mark.parametrize("name", ["cornell", "cornell-glass"])
+def test_camera_jvp_drain_on_gpu(name, n_tan, budget):
+    """Kernel 4's drained warps and its sums in shared memory at T = 1..4,
+    on spheres and on a mesh: n_tan - 1 camera-position tangents beside the
+    glass's IOR (the score state's path), a budget too short to drain
+    (spp 2 needs at least 2 iterations per pixel) and one far too long, held
+    to camera_jvp_ref at the tangent bar: >= 98% of lanes on n_samp, L and
+    every dL plane, rays within 1%; with the long budget every pixel has
+    its spp paths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.utils.metrics import tangent_lane_agreement
+
+    scene, cs = sc.BUILTIN_SCENES[name](device="cuda")
+    scene = sc.with_packet_mesh(scene)
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"],
+                         device="cuda")
+    glass = cj.transmissive_mats(scene)[:1]
+    assert glass
+    kw = dict(spp=2, budget=budget, width=W, height=H, max_bounces=MB,
+              tile_rows=TR, use_nee=True, coef_mats=glass)
+    args = (scene, pack_camera(cam), _position_rows("cuda")[:n_tan - 1],
+            (11, n_tan), 2)
+    launches = cj.launches
+    k = cj.camera_jvp_call(*args, **kw)
+    r = cj.camera_jvp_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert cj.launches == launches + 1 and k[1].shape[0] == n_tan
+    agree = tangent_lane_agreement(r[:3], k[:3], W, H)
+    assert agree["n_samp"] >= AGREE and agree["L"] >= AGREE, agree
+    assert min(agree["planes"].values()) >= AGREE, agree
+    assert abs(int(k[3]) - int(r[3])) <= 0.01 * int(r[3])
+    assert all(bool(torch.isfinite(x).all()) for x in k[:2])
+    if budget > 2 * (MB + 1):
+        assert bool((k[2].reshape(-1)[:W * H] == 2).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp,use_nee,injected", [(1, False, False),
+                                                  (4, True, True),
+                                                  (4, True, False),
+                                                  (64, True, False)])
+def test_trace_kernel_takes_items_on_gpu(spp, use_nee, injected,
+                                         monkeypatch):
+    """Kernel 8's threads take (pixel, sample) items one after another: at
+    29x17 (n_lanes not a multiple of 128) against trace_lanes_ref at its
+    bar (>= 98% of lanes, rays within 1%), the padding lanes zero; on a
+    grid cut to 1 or 2 blocks, so that each thread walks many items, the
+    same radiance and ray count as on the resident grid, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch.ops.kernels import trace_kernel as tk
+    from tpu_pathtracer_torch.utils.metrics import sample_lane_agreement
+
+    w, h = 29, 17
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h,
+                         cs["fov"], device="cuda")
+    rows, n = tk.lanes_layout(w, h, spp, TR)
+    assert n % LANES
+    gen = torch.Generator(device="cuda").manual_seed(spp)
+    u = (torch.rand((rows * tk.sample_n_draws(MB, use_nee), LANES),
+                    generator=gen, device="cuda") if injected else None)
+    kw = dict(spp=spp, width=w, height=h, max_bounces=MB, tile_rows=TR,
+              use_nee=use_nee, uniforms=u)
+    cp = pack_camera(cam)
+    Lk, nk = tk.trace_lanes(scene, cp, (3, 1, 2), **kw)
+    Lr, nr = tk.trace_lanes_ref(scene, cp, (3, 1, 2), **kw)
+    assert sample_lane_agreement(Lk, Lr, n)[0] >= AGREE
+    assert abs(int(nk) - int(nr)) <= 0.01 * int(nr)
+    assert nk.dtype == torch.int64
+    assert not bool(Lk.reshape(-1, 3)[n:].any())
+    for blocks in (1, 2):
+        monkeypatch.setattr(tk, "_trace_grid", lambda index, b=blocks: b)
+        Lb, nb = tk.trace_lanes(scene, cp, (3, 1, 2), **kw)
+        assert int(nb) == int(nk) and torch.equal(Lb, Lk), blocks
+
+
 def _terrain_rays(n, seed):
     """A small terrain packed two-pass, and n rays at it from above with
     random t_init (an eighth dead)."""

@@ -33,7 +33,18 @@
 //
 // What the design does about it:
 //  * one thread per lane, one 128-thread block per 128-lane row of the
-//    layout, the whole walk in registers, as in persistent.cu; the prim,
+//    layout, the path and its tangents in registers, as in persistent.cu;
+//  * a lane that will neither act nor regenerate draws no uniforms (its
+//    draws would go unused), and a warp none of whose lanes will has
+//    drained and leaves the loop: on Cornell a path averages ~3.8 segments,
+//    so a pixel's spp paths end well before the budget;
+//  * what changes only where a path ends, the radiance sums L and the
+//    per-tangent sums dL, and the IOR score state (sS, cS), which changes
+//    only at an IOR tangent's transmissive vertices, live in dynamic shared
+//    memory, [word][lane] (3 + 7T words per lane, smem_bytes; the launcher
+//    passes ops/kernels/camera_jvp.py::tangent_smem_bytes), so they
+//    hold no registers across the walk; each thread touches only its own
+//    column, so no barrier is needed; the prim,
 //    light, camera and tangent-row tables sit in __constant__ memory (copied
 //    device to device), the per-prim flags, the light structure and the
 //    tangent materials travel in the kernel's parameters, so a launch makes
@@ -51,7 +62,8 @@
 //    the intermediates they need from the same inputs, which the compiler
 //    folds into the primal's;
 //  * the per-row ray count is a fixed block reduction with no atomics, so a
-//    launch replays bit for bit;
+//    launch replays bit for bit; every output equals the previous
+//    register-resident kernel's bit for bit (chip_smoke.py --ab);
 //  * nvcc builds this file without FMA contraction (-fmad=false, see
 //    _build.py): it fuses only where it calls fmaf, where the plain version
 //    calls its explicit FMA, so both round alike and a fault cannot hide in
@@ -66,7 +78,7 @@
 // production mode draws Philox4x32-10 under stream tag 0x20000, apart from
 // every draw of the forward (0) and gradient (0x10000) kernels.
 //
-// C interface (loaded with ctypes): tpt_camera_jvp.
+// C interface (loaded with ctypes): tpt_camera_jvp, tpt_camera_jvp_occupancy.
 
 #include "pt_common.cuh"
 
@@ -244,13 +256,57 @@ __device__ __forceinline__ float point_light_tangent(
   return fac;
 }
 
-// Blocks per SM: more tangents, more registers per thread.
-constexpr int min_blocks(int T) { return T <= 1 ? 5 : (T == 2 ? 4 : 3); }
+// Path completion into a lane's column `acc` of the sums (word w at
+// acc[w * LANES]): the radiance, the tangents and the score suffix sum_b
+// s_b (C_tot - C_b) = C_tot sS - cS, added in the previous kernel's order;
+// the score state is cleared for the lane's next path (it is zero when a
+// path starts).
+template <int T>
+__device__ __forceinline__ void flush_path(
+    float* acc, const bool (&ior)[T], float Cr, float Cg, float Cb,
+    const float (&tCr)[T], const float (&tCg)[T], const float (&tCb)[T]) {
+  acc[0] += Cr;
+  acc[LANES] += Cg;
+  acc[2 * LANES] += Cb;
+#pragma unroll
+  for (int j = 0; j < T; ++j) {
+    float* const dl = acc + (3 + 3 * j) * LANES;
+    float vr = dl[0] + tCr[j], vg = dl[LANES] + tCg[j],
+          vb = dl[2 * LANES] + tCb[j];
+    if (ior[j]) {
+      float* const sc = acc + (3 + 3 * T + 4 * j) * LANES;
+      const float sS = sc[0];
+      vr += Cr * sS - sc[LANES];
+      vg += Cg * sS - sc[2 * LANES];
+      vb += Cb * sS - sc[3 * LANES];
+      sc[0] = sc[LANES] = sc[2 * LANES] = sc[3 * LANES] = 0.f;
+    }
+    dl[0] = vr;
+    dl[LANES] = vg;
+    dl[2 * LANES] = vb;
+  }
+}
+
+// Blocks per SM, chosen per build by chip_smoke.py --ab (PERF.md): 5 at
+// T = 1 (96 registers), 4 from T = 2 (128 registers; T = 3 and 4 spill
+// some of their tangent chains, and still ran 4-11% faster than at 3
+// blocks with 151-168 registers).
+constexpr int min_blocks(int T) { return T <= 1 ? 5 : 4; }
+
+// Words of shared memory per lane for T tangents: L rgb, then dL rgb per
+// tangent, then sS, cS rgb per tangent.
+__host__ __device__ constexpr int acc_words(int T) { return 3 + 7 * T; }
+__host__ __device__ constexpr int smem_bytes(int T) {
+  return acc_words(T) * LANES * 4;
+}
+static_assert(smem_bytes(MAX_TAN) <= 48 * 1024,
+              "the widest build needs no shared-memory opt-in");
 
 template <bool MESH, int T>
 __global__ void __launch_bounds__(LANES, min_blocks(T))
     camera_jvp_kernel(const __grid_constant__ Params p) {
   __shared__ int iscratch[4];
+  extern __shared__ float acc_smem[];
   const int row = blockIdx.x;  // one block per 128-lane row
   const int col = threadIdx.x;
   const int idx = row * LANES + col;
@@ -266,7 +322,10 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
 #pragma unroll
   for (int j = 0; j < T; ++j) ior[j] = p.tan_mat[j] >= 0;
 
-  float Lr = 0.f, Lg = 0.f, Lb = 0.f;
+  // this lane's column of the sums: word w at acc[w * LANES]
+  float* const acc = acc_smem + col;
+#pragma unroll
+  for (int w = 0; w < acc_words(T); ++w) acc[w * LANES] = 0.f;
   int n_samp = 0;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 1.f;
   float Tr = 0.f, Tg = 0.f, Tb = 0.f, Cr = 0.f, Cg = 0.f, Cb = 0.f;
@@ -274,20 +333,24 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
   bool alive = false;
   float prev_pdf = 0.f;
   bool prev_delta = false;
-  // per tangent: origin, direction, throughput and path radiance tangents,
-  // the per-pixel sums, and the IOR score state
+  // per tangent: origin, direction, throughput and path radiance tangents
   float tox[T], toy[T], toz[T], tdx[T], tdy[T], tdz[T];
   float tTr[T], tTg[T], tTb[T], tCr[T], tCg[T], tCb[T];
-  float dLr[T], dLg[T], dLb[T], sS[T], cSr[T], cSg[T], cSb[T];
 #pragma unroll
   for (int j = 0; j < T; ++j) {
     tox[j] = toy[j] = toz[j] = tdx[j] = tdy[j] = tdz[j] = 0.f;
     tTr[j] = tTg[j] = tTb[j] = tCr[j] = tCg[j] = tCb[j] = 0.f;
-    dLr[j] = dLg[j] = dLb[j] = sS[j] = cSr[j] = cSg[j] = cSb[j] = 0.f;
   }
   int n_live = 0;
 
   for (int it = 0; it < p.budget; ++it) {
+    // a lane acts while its path is alive or its pixel has samples left; a
+    // warp none of whose lanes acts has drained and stops (break, not
+    // return: block_sum_int below needs every thread), and a lane that does
+    // not act draws nothing (its draws would go unused)
+    const bool acts = alive || (in_domain && n_samp < p.spp);
+    if (!__any_sync(0xffffffffu, acts)) break;
+    if (!acts) continue;
     float u[8];
     draw_uniforms(u, p.uniforms, tile, p.budget, it, n_draw, tile_lanes, trow,
                   col, lane, p.iteration, p.seed, p.salt,
@@ -297,7 +360,7 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
 
     // ---- regenerate while the pixel has samples left, with the primary
     // ray's tangents: d normalize(g) = (dg - n (n.dg)) / |g|
-    if (!alive && in_domain && n_samp < p.spp) {
+    if (!alive) {
       float jx, jy;
       if (p.strat_k > 1) {
         const float inv_k = 1.0f / (float)p.strat_k;
@@ -339,10 +402,8 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
         tdy[j] = (tgy - dy * gdot) * inv_g;
         tdz[j] = (tgz - dz * gdot) * inv_g;
         tTr[j] = tTg[j] = tTb[j] = tCr[j] = tCg[j] = tCb[j] = 0.f;
-        sS[j] = cSr[j] = cSg[j] = cSb[j] = 0.f;
       }
     }
-    if (!alive) continue;  // padding and drained lanes never act
     ++n_live;
 
     // ---- closest hit; `<=` keeps the LAST prim on an exact tie, as the
@@ -374,20 +435,7 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
     const bool mesh_hit = tm < best_t && tm < 0.5f * BIG;
     if (!mesh_hit && !(best_t < 0.5f * BIG)) {
       // miss: the path ends and flushes, its score suffix included
-      Lr += Cr;
-      Lg += Cg;
-      Lb += Cb;
-#pragma unroll
-      for (int j = 0; j < T; ++j) {
-        dLr[j] += tCr[j];
-        dLg[j] += tCg[j];
-        dLb[j] += tCb[j];
-        if (ior[j]) {
-          dLr[j] += Cr * sS[j] - cSr[j];
-          dLg[j] += Cg * sS[j] - cSg[j];
-          dLb[j] += Cb * sS[j] - cSb[j];
-        }
-      }
+      flush_path<T>(acc, ior, Cr, Cg, Cb, tCr, tCg, tCb);
       ++n_samp;
       alive = false;
       continue;
@@ -750,10 +798,11 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
 #pragma unroll
           for (int j = 0; j < T; ++j) {
             if (!tmask[j]) continue;
-            sS[j] += scf;
-            cSr[j] += scf * Cr;
-            cSg[j] += scf * Cg;
-            cSb[j] += scf * Cb;
+            float* const sc = acc + (3 + 3 * T + 4 * j) * LANES;
+            sc[0] += scf;
+            sc[LANES] += scf * Cr;
+            sc[2 * LANES] += scf * Cg;
+            sc[3 * LANES] += scf * Cb;
           }
         }
         fr = ar;
@@ -803,22 +852,7 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
     const bool alive_next =
         step_ok && (survive || !do_rr) && bounce < p.max_bounces;
     if (!alive_next) {
-      // path completion: radiance, tangents and the score suffix
-      // sum_b s_b (C_tot - C_b) = C_tot sS - cS
-      Lr += Cr;
-      Lg += Cg;
-      Lb += Cb;
-#pragma unroll
-      for (int j = 0; j < T; ++j) {
-        dLr[j] += tCr[j];
-        dLg[j] += tCg[j];
-        dLb[j] += tCb[j];
-        if (ior[j]) {
-          dLr[j] += Cr * sS[j] - cSr[j];
-          dLg[j] += Cg * sS[j] - cSg[j];
-          dLb[j] += Cb * sS[j] - cSb[j];
-        }
-      }
+      flush_path<T>(acc, ior, Cr, Cg, Cb, tCr, tCg, tCb);
       ++n_samp;
     }
     // ---- pending ray and its tangents for the next iteration
@@ -845,27 +879,25 @@ __global__ void __launch_bounds__(LANES, min_blocks(T))
 
   const float dom = in_domain ? 1.f : 0.f;
   const size_t plane = (size_t)gridDim.x * LANES;
-  p.out[idx] = Lr * dom;
-  p.out[plane + idx] = Lg * dom;
-  p.out[2 * plane + idx] = Lb * dom;
 #pragma unroll
-  for (int j = 0; j < T; ++j) {
-    p.out[(3 + 3 * j) * plane + idx] = dLr[j] * dom;
-    p.out[(4 + 3 * j) * plane + idx] = dLg[j] * dom;
-    p.out[(5 + 3 * j) * plane + idx] = dLb[j] * dom;
-  }
+  for (int w = 0; w < 3 + 3 * T; ++w)
+    p.out[w * plane + idx] = acc[w * LANES] * dom;
   p.n_samp[idx] = n_samp;
   const int rays = block_sum_int(n_live, iscratch);
   if (col == 0) p.nrays[row] = rays;
 }
 
-template <bool MESH>
-void launch(const Params& p, int n_tan, int rows_total, cudaStream_t st) {
+// The (MESH, T) build of the kernel.
+const void* kernel_of(bool mesh, int n_tan) {
   switch (n_tan) {
-    case 1: camera_jvp_kernel<MESH, 1><<<rows_total, LANES, 0, st>>>(p); break;
-    case 2: camera_jvp_kernel<MESH, 2><<<rows_total, LANES, 0, st>>>(p); break;
-    case 3: camera_jvp_kernel<MESH, 3><<<rows_total, LANES, 0, st>>>(p); break;
-    default: camera_jvp_kernel<MESH, 4><<<rows_total, LANES, 0, st>>>(p);
+    case 1: return mesh ? (const void*)camera_jvp_kernel<true, 1>
+                        : (const void*)camera_jvp_kernel<false, 1>;
+    case 2: return mesh ? (const void*)camera_jvp_kernel<true, 2>
+                        : (const void*)camera_jvp_kernel<false, 2>;
+    case 3: return mesh ? (const void*)camera_jvp_kernel<true, 3>
+                        : (const void*)camera_jvp_kernel<false, 3>;
+    default: return mesh ? (const void*)camera_jvp_kernel<true, 4>
+                         : (const void*)camera_jvp_kernel<false, 4>;
   }
 }
 
@@ -881,8 +913,10 @@ extern "C" {
 // travel in the kernel's parameters. The float tables are copied into
 // __constant__ memory on the same stream, so launches must stay on one
 // stream. `out` holds 3 + 3 n_tan planes of rows_total x 128 floats: L rgb,
-// then dL rgb per tangent. n_nodes == 0 means no mesh. Returns the first
-// CUDA error (0 on success).
+// then dL rgb per tangent. n_nodes == 0 means no mesh. smem is the block's
+// dynamic shared memory, tangent_smem_bytes(n_tan), refused unless it is
+// the kernel's smem_bytes(n_tan). Returns the first CUDA error (0 on
+// success).
 int tpt_camera_jvp(const float* prims, const int* pinfo, int n_prims,
                    const float* lights, const int* lstruct, int n_lights,
                    const float* cam, const float* dcam, const int* tan_mats,
@@ -893,11 +927,12 @@ int tpt_camera_jvp(const float* prims, const int* pinfo, int n_prims,
                    int tile_rows, int budget, int spp, int width, int n_lanes,
                    int max_bounces, int rr_start, int use_nee, int strat_k,
                    int tile_offset, uint32_t seed, uint32_t salt,
-                   uint32_t iteration, void* stream) {
+                   uint32_t iteration, int smem, void* stream) {
   if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 0 ||
       n_lights > MAX_LIGHTS || n_tan < 1 || n_tan > MAX_TAN ||
       rows_total <= 0 || tile_rows <= 0 || rows_total % tile_rows != 0 ||
       width <= 0 || strat_k < 1 || n_nodes < 0 ||
+      smem != smem_bytes(n_tan) ||
       (n_nodes > 0 && !(mesh_nodes && mesh_tris && mesh_mats &&
                         tri_lights)))
     return (int)cudaErrorInvalidValue;
@@ -948,11 +983,23 @@ int tpt_camera_jvp(const float* prims, const int* pinfo, int n_prims,
   for (int k = 0; k < MAX_LIGHTS * LS; ++k)
     p.lstruct[k] = k < n_lights * LS ? lstruct[k] : 0;
 
-  if (n_nodes > 0)
-    launch<true>(p, n_tan, rows_total, st);
-  else
-    launch<false>(p, n_tan, rows_total, st);
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kernel_of(n_nodes > 0, n_tan), dim3(rows_total),
+                         dim3(LANES), args, smem, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Blocks per SM of the (mesh, n_tan) build with smem bytes of shared memory
+// per block, as the card's occupancy calculator gives them (-1 on an error).
+int tpt_camera_jvp_occupancy(int mesh, int n_tan, int smem) {
+  if (n_tan < 1 || n_tan > MAX_TAN || smem != smem_bytes(n_tan)) return -1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, kernel_of(mesh != 0, n_tan), LANES, smem) !=
+      cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

@@ -23,17 +23,35 @@
 // uniform block.
 //
 // What the design does about it:
-//  * one thread per lane, one 128-thread block per 128-lane row, so every
-//    block sits inside one TPU tile; the walk runs in registers and a lane
-//    that dies leaves the loop (the TPU kernel computes every bounce of
-//    every lane under masks);
+//  * a grid of resident blocks (the SMs times the blocks per SM, asked once
+//    per card by the wrapper), each thread walking one path vertex per loop
+//    iteration, the path in registers; when a thread's path ends it writes
+//    that item's radiance and takes the next unstarted (pixel, sample)
+//    item, whose camera ray goes through the same closest-hit call as a
+//    bounce. So a warp no longer idles all its lanes but one until its
+//    longest path ends (RR after bounce 3, up to 11 vertices against ~3.8
+//    on average; one item per lane kept 0.53 of a warp's lane-iterations
+//    live on Cornell): its lanes stay busy until the items run out. Items
+//    come by a warp-aggregated fetch: a ballot of the lanes that need one,
+//    one atomicAdd per warp on a counter, ranks by popc (a static stride
+//    over the grid was built and measured 20-41% slower, PERF.md). The
+//    TPU kernel computes every bounce of every lane under masks;
+//  * __launch_bounds__(128, 7): 72 registers and 7 blocks per SM (at 80
+//    registers and 6 it ran up to 5% slower);
+//  * each item's draws stay keyed on the item (its lane id for Philox, its
+//    tile, row and column of the block in test mode) and its arithmetic is
+//    the per-lane kernel's, so the radiance does not depend on which thread
+//    walks it;
 //  * the scene tables live in __constant__ memory, read at the same address
 //    by every thread of a warp; the per-prim loops run over the table at
 //    runtime (the TPU kernel unrolled them over static tuples);
 //  * the uniforms come one Philox group of four at a time, in draw order
 //    (pt_common.cuh::SampleDraws), so no draw is kept beyond its use;
-//  * the per-row ray count is reduced in the block without atomics, and
-//    the wrapper sums the rows.
+//  * the fetch counter and the ray count are 64-bit integers: the count is
+//    summed per warp and added by one atomicAdd per warp, exact in any
+//    order, and neither wraps however many lanes a launch holds (each
+//    thread's last fetch overshoots the items); the padding lanes past the
+//    image get zero radiance in the same launch.
 //
 // Rounding: the sphere quadratics and hit points use explicit FMAs in XLA's
 // pattern, as persistent.cu does, and the build keeps nvcc's FMA
@@ -50,7 +68,7 @@
 // tile_rows, 128), n_draw = 2 + (max_bounces + 1) * (3 | 6); production mode
 // draws Philox4x32-10 under stream tag 0x40000 (STREAM_TRACE).
 //
-// C interface (loaded with ctypes): tpt_trace.
+// C interface (loaded with ctypes): tpt_trace, tpt_trace_occupancy.
 
 #include "pt_common.cuh"
 
@@ -63,12 +81,13 @@ __constant__ int c_lstruct[MAX_LIGHTS * LS];  // light structure (pt_common)
 __constant__ float c_cam[24];                // pack_camera layout
 
 struct Params {
-  int n_prims, n_lights, tile_rows, spp, strat_k, width, n_lanes;
+  int n_prims, n_lights, tile_rows, spp, strat_k, width, n_lanes, n_total;
   int max_bounces, rr_start, use_nee;
   uint32_t seed, salt, iteration;
   const float* uniforms;  // NULL: production Philox
   float *lr, *lg, *lb;    // (rows_total, 128) per-lane radiance
-  int* nrays;             // (rows_total,) rays per row
+  unsigned long long* counters;  // [0] next unstarted item, [1] rays;
+                                 // zeroed by the caller
 };
 
 // NEE sample of light LT from the hit point, kernel 8's arithmetic
@@ -132,47 +151,95 @@ __device__ __forceinline__ LightSample sample_light_div(
   return s;
 }
 
-__global__ void __launch_bounds__(LANES)
-    trace_kernel(const __grid_constant__ Params p) {
-  __shared__ int iscratch[4];
-  const int row = blockIdx.x;  // one block per 128-lane row
-  const int col = threadIdx.x;
-  const int lane = row * LANES + col;
-  const int tile = row / p.tile_rows;
-  const int trow = row - tile * p.tile_rows;
+// Starts the walk of item `item` (a (pixel, sample) lane): points the
+// draws at its uniforms (test mode: the item's tile, row and column of the
+// block; production: Philox countered on the item) and returns its primary
+// ray, stratified over strat_k^2 cells when spp is a perfect square > 1
+// (the wrapper passes strat_k 1 otherwise).
+__device__ __forceinline__ void start_item(const Params& p, int item,
+                                           int n_draw, SampleDraws& draw,
+                                           float& dx, float& dy, float& dz) {
   const int tile_lanes = p.tile_rows * LANES;
-  const bool in_domain = lane < p.n_lanes;
+  const int row = item / LANES, col = item - row * LANES;
+  const int tile = row / p.tile_rows, trow = row - tile * p.tile_rows;
+  draw.ub = p.uniforms ? p.uniforms + (size_t)tile * n_draw * tile_lanes +
+                             trow * LANES + col
+                       : nullptr;
+  draw.lane = (uint32_t)item;
+  draw.group = -1;
+  const int s = item % p.spp, pix = item / p.spp;
+  float jx, jy;
+  jitter_div(s % (p.strat_k * p.strat_k), p.strat_k, draw(0), draw(1), jx,
+             jy);
+  pinhole_dir(c_cam, (float)(pix % p.width) + jx, (float)(pix / p.width) + jy,
+              dx, dy, dz);
+}
+
+// Items come by a warp-aggregated fetch from p.counters[0]: one atomicAdd
+// per warp for its lanes that need an item.
+__global__ void __launch_bounds__(LANES, 7)
+    trace_kernel(const __grid_constant__ Params p) {
+  const int col = threadIdx.x;
+  const int wl = col & 31;  // lane in the warp
+  const int stride = (int)gridDim.x * LANES;
   const int nb = p.use_nee ? 6 : 3;  // draws per bounce
   const int n_draw = 2 + (p.max_bounces + 1) * nb;
-  SampleDraws draw{
-      p.uniforms ? p.uniforms + (size_t)tile * n_draw * tile_lanes +
-                       trow * LANES + col
-                 : nullptr,
-      tile_lanes, (uint32_t)lane, p.iteration, p.seed, p.salt, STREAM_TRACE,
-      -1, make_uint4(0u, 0u, 0u, 0u)};
+  // the padding lanes past the image's items hold zero radiance
+  for (int i = p.n_lanes + (int)blockIdx.x * LANES + col; i < p.n_total;
+       i += stride)
+    p.lr[i] = p.lg[i] = p.lb[i] = 0.f;
 
-  float Lr = 0.f, Lg = 0.f, Lb = 0.f;
+  SampleDraws draw{nullptr, p.tile_rows * LANES, 0u, p.iteration, p.seed,
+                   p.salt, STREAM_TRACE, -1, make_uint4(0u, 0u, 0u, 0u)};
+  int item = -1;
+  bool busy = false;  // the thread walks an item's path
+  bool done = false;  // the items ran out for this thread
   int n_live = 0;
-  if (in_domain) {
-    n_live = 1;  // the primary ray
-    // ---- camera ray: stratified over strat_k^2 cells when spp is a
-    // perfect square > 1 (the wrapper passes strat_k 1 otherwise)
-    const int s = lane % p.spp, pix = lane / p.spp;
-    float jx, jy, dx, dy, dz;
-    jitter_div(s % (p.strat_k * p.strat_k), p.strat_k, draw(0), draw(1), jx,
-               jy);
-    pinhole_dir(c_cam, (float)(pix % p.width) + jx,
-                (float)(pix / p.width) + jy, dx, dy, dz);
-    float pox = c_cam[9], poy = c_cam[10], poz = c_cam[11];
-    SphereHit h = closest_sphere<false>(c_prims, c_pflags, p.n_prims, pox,
-                                        poy, poz, dx, dy, dz);
-    bool alive = h.hit;
-    float Tr = 1.f, Tg = 1.f, Tb = 1.f;
-    float wox = dx, woy = dy, woz = dz;
-    float prev_pdf = 0.f;
-    bool prev_delta = true;  // primaries take full emitter credit
+  float Lr = 0.f, Lg = 0.f, Lb = 0.f, Tr = 1.f, Tg = 1.f, Tb = 1.f;
+  float pox = 0.f, poy = 0.f, poz = 0.f, wox = 0.f, woy = 0.f, woz = 1.f;
+  float prev_pdf = 0.f;
+  bool prev_delta = true;
+  int bounce = 0;
 
-    for (int bounce = 0; bounce <= p.max_bounces && alive; ++bounce) {
+  // one vertex per iteration: the pending segment's closest hit and its
+  // shading; a thread whose path ends takes the next unstarted item, whose
+  // camera ray goes through the same closest-hit call
+  while (true) {
+    const bool need = !busy && !done;
+    const unsigned want = __ballot_sync(0xffffffffu, need);
+    if (want) {
+      const int leader = __ffs(want) - 1;
+      unsigned long long base = 0;
+      if (wl == leader)
+        base = atomicAdd(p.counters, (unsigned long long)__popc(want));
+      base = __shfl_sync(0xffffffffu, base, leader);
+      if (need) {
+        const unsigned long long next =
+            base + __popc(want & ((1u << wl) - 1u));
+        done = next >= (unsigned long long)p.n_lanes;
+        item = (int)next;  // read only while not done
+      }
+    }
+    // a warp whose threads have all run out of items stops
+    if (!__any_sync(0xffffffffu, !done)) break;
+    if (done) continue;
+    if (!busy) {
+      start_item(p, item, n_draw, draw, wox, woy, woz);
+      pox = c_cam[9];
+      poy = c_cam[10];
+      poz = c_cam[11];
+      Lr = Lg = Lb = 0.f;
+      Tr = Tg = Tb = 1.f;
+      prev_pdf = 0.f;
+      prev_delta = true;  // primaries take full emitter credit
+      bounce = 0;
+      busy = true;
+      ++n_live;  // the primary ray
+    }
+    const SphereHit h = closest_sphere<false>(c_prims, c_pflags, p.n_prims,
+                                              pox, poy, poz, wox, woy, woz);
+    bool alive = h.hit;
+    if (alive) {
       const int base = 2 + bounce * nb;
       const float u1 = draw(base), u2 = draw(base + 1), u3 = draw(base + 2);
       const bool is_s = h.mtype == SPECULAR, is_t = h.mtype == TRANSMISSIVE;
@@ -268,51 +335,61 @@ __global__ void __launch_bounds__(LANES)
         alive = step_ok && survive;
       }
       if (bounce == p.max_bounces) alive = false;
-      if (!alive) break;
-      ++n_live;  // the next segment is a traced ray
-
-      // ---- next segment (MIS previous vertex = this hit)
-      pox = h.hx;
-      poy = h.hy;
-      poz = h.hz;
-      prev_pdf = lb.pdf;
-      prev_delta = !is_d;
-      wox = lb.wix;
-      woy = lb.wiy;
-      woz = lb.wiz;
-      h = closest_sphere<false>(c_prims, c_pflags, p.n_prims, pox, poy, poz,
-                                wox, woy, woz);
-      alive = h.hit;
+      if (alive) {
+        ++n_live;  // the next segment is a traced ray
+        // ---- next segment (MIS previous vertex = this hit)
+        pox = h.hx;
+        poy = h.hy;
+        poz = h.hz;
+        prev_pdf = lb.pdf;
+        prev_delta = !is_d;
+        wox = lb.wix;
+        woy = lb.wiy;
+        woz = lb.wiz;
+        ++bounce;
+      }
+    }
+    if (!alive) {  // the path ends: its radiance, then the next item
+      p.lr[item] = Lr;
+      p.lg[item] = Lg;
+      p.lb[item] = Lb;
+      busy = false;
     }
   }
-  p.lr[lane] = Lr;
-  p.lg[lane] = Lg;
-  p.lb[lane] = Lb;
-  const int rays = block_sum_int(n_live, iscratch);
-  if (col == 0) p.nrays[row] = rays;
+  // the ray count, exact in any order: the warp's sum in 64 bits, one
+  // atomicAdd per warp (the whole warp left the loop together)
+  unsigned long long rays = (unsigned long long)n_live;
+  for (int off = 16; off > 0; off >>= 1)
+    rays += __shfl_down_sync(0xffffffffu, rays, off);
+  if (wl == 0) atomicAdd(p.counters + 1, rays);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch one per-sample render on `stream`. prims/lights/cam/uniforms and
-// the outputs are device pointers; pflags/lstruct (LS ints per light) are
-// host arrays, copied with the tables into __constant__ memory on the same
-// stream, so launches must stay on one stream. lr/lg/lb are rows_total x 128
-// planes, nrays rows_total ints. Returns the first CUDA error (0 on
+// Launch one per-sample render on `stream`, over `blocks` blocks of 128
+// threads (the wrapper passes those resident at once: the SMs times
+// tpt_trace_occupancy). prims/lights/cam/uniforms and the outputs are
+// device pointers;
+// pflags/lstruct (LS ints per light) are host arrays, copied with the
+// tables into __constant__ memory on the same stream, so launches must stay
+// on one stream. lr/lg/lb are rows_total x 128 planes; counters holds two
+// 64-bit integers that the caller has zeroed: the fetch's next item, and
+// the rays traced, which the launch adds there. Returns the first CUDA error (0 on
 // success).
 int tpt_trace(const float* prims, const int* pflags, int n_prims,
               const float* lights, const int* lstruct, int n_lights,
               const float* cam, const float* uniforms, float* lr, float* lg,
-              float* lb, int* nrays, int rows_total, int tile_rows, int spp,
-              int strat_k, int width, int n_lanes, int max_bounces,
+              float* lb, unsigned long long* counters, int rows_total, int tile_rows,
+              int spp, int strat_k, int width, int n_lanes, int max_bounces,
               int rr_start, int use_nee, uint32_t seed, uint32_t salt,
-              uint32_t iteration, void* stream) {
+              uint32_t iteration, int blocks, void* stream) {
   if (n_prims < 0 || n_prims > MAX_PRIMS || n_lights < 0 ||
       n_lights > MAX_LIGHTS || rows_total <= 0 || tile_rows <= 0 ||
       rows_total % tile_rows != 0 || width <= 0 || spp <= 0 || strat_k < 1 ||
-      max_bounces < 0 || n_lanes > rows_total * LANES)
+      max_bounces < 0 || n_lanes < 0 || n_lanes > rows_total * LANES ||
+      blocks <= 0 || !counters)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaSuccess;
@@ -345,6 +422,7 @@ int tpt_trace(const float* prims, const int* pflags, int n_prims,
   p.strat_k = strat_k;
   p.width = width;
   p.n_lanes = n_lanes;
+  p.n_total = rows_total * LANES;
   p.max_bounces = max_bounces;
   p.rr_start = rr_start;
   p.use_nee = use_nee;
@@ -355,9 +433,19 @@ int tpt_trace(const float* prims, const int* pflags, int n_prims,
   p.lr = lr;
   p.lg = lg;
   p.lb = lb;
-  p.nrays = nrays;
-  trace_kernel<<<rows_total, LANES, 0, st>>>(p);
+  p.counters = counters;
+  trace_kernel<<<blocks, LANES, 0, st>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Blocks per SM of the kernel, as the card's occupancy calculator gives
+// them (-1 on an error).
+int tpt_trace_occupancy() {
+  int n = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, trace_kernel, LANES,
+                                                    0) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // extern "C"

@@ -66,7 +66,7 @@ from tpu_pathtracer_torch.ops.kernels.persistent import (
     sample_light, tri_emitter_pdf,
 )
 from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
-    default_budget, pixel_lanes_layout,
+    SMEM_PER_BLOCK, _count_occupancy, default_budget, pixel_lanes_layout,
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import (
     BIG, INV_PI, LANES, pack_camera, pack_lights, pack_prims,
@@ -282,8 +282,15 @@ def camera_jvp_ref(
     FMA quadratics of ``persistent_step_ref``. Same arguments and returns;
     if ``counts`` is a dict it also receives the work done (for the kernel's
     bound): ``"paths"`` started, path ``"segments"``, NEE ``"shadow"``
-    segments needed, of them ``"lit"`` (unoccluded), and ``"score"``
-    vertices (IOR-tangent vertices, summed over the tangents). ``walks``,
+    segments needed, of them ``"lit"`` (unoccluded), ``"score"``
+    vertices (IOR-tangent vertices, summed over the tangents), and the
+    schedule's warp occupancy as ``persistent_replay_ref`` counts it:
+    ``"warp_iters"``, the 32-lane warps of the layout times the budget,
+    ``"warp_live"``, those with a lane alive after regeneration (the others
+    have drained: the kernel's warps stop there), and ``"warp_packed"``;
+    ``"lane_segments"`` is the (rows, 128) int32 plane of each lane's
+    segments (a lane acts in iterations 0 to its segment count - 1, as it
+    regenerates at once while its pixel has samples left). ``walks``,
     if given, is called as ``mesh_walk_ref``'s ``record`` on every mesh
     walk (to sample the segments for the bound's walk tests)."""
     _refuse_textures(scene, "camera_jvp_ref")
@@ -354,6 +361,7 @@ def camera_jvp_ref(
     sS = tz
     n_live = torch.zeros((), dtype=torch.int64, device=dev)
     work = dict.fromkeys(("paths", "segments", "shadow", "lit", "score"), 0)
+    lane_segments = torch.zeros_like(n_samp)
 
     for it in range(budget):
         if uniforms is not None:
@@ -406,6 +414,9 @@ def camera_jvp_ref(
         prev_delta = prev_delta | regen
         alive = alive | regen
         n_live = n_live + alive.sum()
+        if counts is not None:
+            _count_occupancy(work, alive)
+            lane_segments = lane_segments + alive.to(torch.int32)
         work["paths"] += regen.sum()
         work["segments"] += alive.sum()
 
@@ -808,6 +819,7 @@ def camera_jvp_ref(
 
     if counts is not None:
         counts.update({k: int(v) for k, v in work.items()})
+        counts["lane_segments"] = lane_segments
     dom = in_domain.to(torch.float32)
     L = (Lp * dom).permute(1, 2, 0)
     dL = (dL * dom).permute(0, 2, 3, 1)
@@ -817,6 +829,38 @@ def camera_jvp_ref(
 # ---------------------------------------------------------------------------
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
+
+def tangent_smem_bytes(n_tan: int) -> int:
+    """Bytes of dynamic shared memory that one 128-lane block of the
+    tangent kernel takes for a launch of ``n_tan`` tangents, passed to the
+    launch (which refuses any other count): per lane the radiance sums L (3
+    words), and per tangent its sums dL (3) and its IOR score state sS, cS
+    (4). Raises ValueError for ``n_tan < 1`` or past SMEM_PER_BLOCK."""
+    if n_tan < 1:
+        raise ValueError(f"a tangent launch needs a tangent, got {n_tan}")
+    nbytes = 4 * LANES * (3 + 7 * n_tan)
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"the tangent kernel's block needs {nbytes} B of shared memory "
+            f"for {n_tan} tangents; a block may take {SMEM_PER_BLOCK} B")
+    return nbytes
+
+
+def tangent_blocks_per_sm(mesh: bool, n_tan: int) -> tuple[int, int]:
+    """(bytes of shared memory per block, blocks per SM) of the (MESH, T)
+    build of the kernel, as the card's occupancy calculator gives them
+    (needs the card)."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    occ = _build.load_library().tpt_camera_jvp_occupancy
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    occ.restype = ctypes.c_int
+    nbytes = tangent_smem_bytes(n_tan)
+    n = occ(int(mesh), n_tan, nbytes)
+    if n < 0:
+        raise RuntimeError("the tangent kernel's occupancy query failed")
+    return nbytes, n
+
 
 @functools.cache
 def _kernel():
@@ -838,6 +882,7 @@ def _kernel():
         i, i, i, i, i, i,  # rows_total tile_rows budget spp width n_lanes
         i, i, i, i, i,  # max_bounces rr_start use_nee strat_k tile_offset
         u, u, u,  # seed salt iteration
+        i,  # bytes of dynamic shared memory per block
         p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int
@@ -888,6 +933,8 @@ def _camera_jvp_cuda(scene, cam_packed, dcam, seed, iteration, *, spp, budget,
     dls = []
     for c in range(0, n_tan, MAX_TAN):
         k = min(MAX_TAN, n_tan - c)
+        # the first chunk is the widest: a refusal comes before any launch
+        nbytes = tangent_smem_bytes(k)
         out = torch.empty((3 + 3 * k,) + shape, dtype=torch.float32,
                           device=dev)
         ns = torch.empty(shape, dtype=torch.int32, device=dev)
@@ -903,7 +950,8 @@ def _camera_jvp_cuda(scene, cam_packed, dcam, seed, iteration, *, spp, budget,
                      *mesh_ptrs, rows_total, tile_rows, budget, spp, width,
                      n_lanes, max_bounces, rr_start, int(use_nee), strat_k,
                      int(tile_offset), int(seed[0]) & _MASK,
-                     int(seed[1]) & _MASK, int(iteration) & _MASK, stream)
+                     int(seed[1]) & _MASK, int(iteration) & _MASK, nbytes,
+                     stream)
         if err != 0:
             msg = error_string(err).decode()
             raise RuntimeError(f"tangent kernel launch failed: {msg} ({err})")

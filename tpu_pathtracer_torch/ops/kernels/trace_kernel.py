@@ -16,7 +16,9 @@ kernel's: every primary lane, then every lane alive after each bounce.
 ``trace_lanes`` (and ``pallas_render`` on it) launches the CUDA kernel
 (``csrc/trace.cu``) for a packed camera on a CUDA device and runs
 ``trace_lanes_ref``, the plain PyTorch version, for one on the CPU. There is
-no fallback between the two.
+no fallback between the two. The kernel runs a grid of resident blocks
+(``_trace_grid``) whose threads take the (pixel, sample) items one after
+another: each item's radiance and draws are those of its lane.
 
 Randomness: the TPU kernel draws from the TPU's hardware generator, which
 the Pallas interpreter stubs to zeros, and takes no external uniforms. The
@@ -419,7 +421,12 @@ def trace_lanes_ref(
     vectorized over all lanes with masked selects. Returns (L_lanes
     (rows_total, 128, 3), rays traced). If ``counts`` is a dict it also
     receives ``"shadow"``, the NEE shadow sweeps (for the kernel's
-    bound)."""
+    bound), and the walks' lengths in traced segments (a lane's primary
+    ray and each continuing segment: its rays): ``"lane_segments"``, the
+    (rows_total, 128) int32 plane of them (0 on padding lanes),
+    ``"vertices"``, their sum (the ray count), and ``"warp_longest"``, the
+    sum over the 32-lane warps of 32 times the warp's longest walk (what a
+    warp that runs until its longest path ends spends)."""
     from tpu_pathtracer_torch.ops.kernels.persistent import (
         emitter_light_pdf, fma, sample_lobe,
     )
@@ -464,6 +471,7 @@ def trace_lanes_ref(
     alive = h["hit"] & in_domain
     wox, woy, woz = dx, dy, dz
     n_live = in_domain.sum()
+    seg = in_domain.to(torch.int32)
     n_shadow = 0
     prev_pdf = fzeros
     prev_delta = torch.ones(shape, dtype=torch.bool, device=dev)
@@ -559,6 +567,7 @@ def trace_lanes_ref(
         if bounce == max_bounces:
             break
         n_live = n_live + alive.sum()
+        seg = seg + alive.to(torch.int32)
 
         # ---- next segment
         pox, poy, poz = hx, hy, hz
@@ -571,6 +580,9 @@ def trace_lanes_ref(
 
     if counts is not None:
         counts["shadow"] = n_shadow
+        counts["lane_segments"] = seg
+        counts["vertices"] = int(seg.sum())
+        counts["warp_longest"] = 32 * int(seg.reshape(-1, 32).amax(-1).sum())
     return torch.stack([Lr, Lg, Lb], dim=-1), n_live
 
 
@@ -591,16 +603,35 @@ def _kernel():
         p, ip, i,  # prims (device), prim flags (host), n_prims
         p, ip, i,  # lights (device), light structure (host), n_lights
         p, p,  # camera, uniforms (device or NULL)
-        p, p, p, p,  # lr lg lb nrays (device)
+        p, p, p, p,  # lr lg lb, counters (device)
         i, i, i, i, i, i,  # rows_total tile_rows spp strat_k width n_lanes
         i, i, i,  # max_bounces rr_start use_nee
         u, u, u,  # seed salt iteration
+        i,  # blocks
         p,  # cudaStream_t
     ]
     fn.restype = ctypes.c_int
     lib.tpt_error_string.argtypes = [ctypes.c_int]
     lib.tpt_error_string.restype = ctypes.c_char_p
     return fn, lib.tpt_error_string
+
+
+@functools.cache
+def _trace_grid(device_index: int) -> int:
+    """Kernel 8's blocks on one card: as many as are resident at once, the
+    SMs times the blocks per SM (the card's occupancy calculator, asked
+    once per card)."""
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    occupancy = _build.load_library().tpt_trace_occupancy
+    occupancy.argtypes = []
+    occupancy.restype = ctypes.c_int
+    with torch.cuda.device(device_index):
+        per_sm = occupancy()
+    if per_sm <= 0:
+        raise RuntimeError("kernel 8's occupancy query failed")
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return sms * per_sm
 
 
 def scene_arguments(scene: Scene, dev, max_lights: int = MAX_LIGHTS):
@@ -631,6 +662,13 @@ def scene_arguments(scene: Scene, dev, max_lights: int = MAX_LIGHTS):
     return prims, pflags, n_prims, lights, lstruct, n_lights
 
 
+def check_lane_ids(rows_total: int) -> None:
+    """Refuse, before any launch, a layout whose lane ids (int32 in the
+    kernel, as in the TPU kernel) would wrap."""
+    if rows_total * LANES >= 2 ** 31:
+        raise ValueError(f"{rows_total} rows of lanes exceed int32 lane ids")
+
+
 def _trace_cuda(scene, cam_packed, seed3, *, spp, width, height, max_bounces,
                 rr_start, tile_rows, use_nee, uniforms):
     global launches
@@ -638,8 +676,7 @@ def _trace_cuda(scene, cam_packed, seed3, *, spp, width, height, max_bounces,
 
     dev = cam_packed.device
     rows_total, n_lanes = lanes_layout(width, height, spp, tile_rows)
-    if rows_total * LANES >= 2 ** 31:
-        raise ValueError(f"{rows_total} rows of lanes exceed int32 lane ids")
+    check_lane_ids(rows_total)
     _check(cam_packed, "cam_packed", torch.float32, (24,), dev)
     if uniforms is not None:
         _check(uniforms, "uniforms", torch.float32,
@@ -651,7 +688,10 @@ def _trace_cuda(scene, cam_packed, seed3, *, spp, width, height, max_bounces,
     shape = (rows_total, LANES)
     lr, lg, lb = (torch.empty(shape, dtype=torch.float32, device=dev)
                   for _ in range(3))
-    nrays = torch.empty(rows_total, dtype=torch.int32, device=dev)
+    # the item fetch's next item and the ray count (64-bit), zeroed by a
+    # device op of the call
+    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    blocks = max(1, min(_trace_grid(dev.index), -(-n_lanes // LANES)))
     fn, error_string = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -659,15 +699,15 @@ def _trace_cuda(scene, cam_packed, seed3, *, spp, width, height, max_bounces,
                  lstruct, n_lights, cam_packed.data_ptr(),
                  uniforms.data_ptr() if uniforms is not None else None,
                  lr.data_ptr(), lg.data_ptr(), lb.data_ptr(),
-                 nrays.data_ptr(), rows_total, tile_rows, spp,
+                 counters.data_ptr(), rows_total, tile_rows, spp,
                  sample_strat_k(spp), width, n_lanes, max_bounces, rr_start,
                  int(use_nee), seed & _MASK, salt & _MASK, iteration & _MASK,
-                 stream)
+                 blocks, stream)
     if err != 0:
         msg = error_string(err).decode()
         raise RuntimeError(f"trace kernel launch failed: {msg} ({err})")
     launches += 1
-    return torch.stack([lr, lg, lb], dim=-1), nrays.sum()
+    return torch.stack([lr, lg, lb], dim=-1), counters[1]
 
 
 def trace_lanes(
@@ -685,7 +725,7 @@ def trace_lanes(
     uniforms: Tensor | None = None,
 ) -> tuple[Tensor, Tensor]:
     """One per-sample render's lanes: (L_lanes (rows_total, 128, 3), rays
-    traced as a 0-d tensor), lane = pixel * spp + s. ``seed3`` is [seed,
+    traced as a 0-d int64 tensor), lane = pixel * spp + s. ``seed3`` is [seed,
     iteration, salt] as host integers (or a 3-element tensor);
     ``uniforms`` is a test-mode block (module docstring). A packed camera on
     a CUDA device launches the CUDA kernel on the current stream; one on
