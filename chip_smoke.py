@@ -231,7 +231,29 @@ print one line; any failure exits non-zero:
    one trace, bound, plain ms), and kernel 8's live share from its plain
    version's per-lane walks (``[35 trace live share]``: vertices over 32 x
    each warp's longest walk, one item per lane, and the same share when the
-   resident grid's threads take the next item as a walk ends).
+   resident grid's threads take the next item as a walk ends);
+36. the wavefront under autograd at config 5 (cornell 640x480, spp 4, 10
+   bounces), brute force and NEE, on the same Philox draws: path replay's
+   (``render_replay``) gradients of sum(w * image) w.r.t. the colour and
+   light tables against autograd of ``render`` within rtol 2e-3 (atol 2e-4
+   and 2e-5, the JAX suite's bar), the images equal; one band of rows
+   traced on the card and on the CPU, >= 98% of lanes agreeing;
+37. the wavefront trainer main path (``make_train_step``, remat): target
+   from ``render_target`` and 5 same-seed Adam steps at config 5 (brute
+   force, NEE) and on cornell_boxes NEE; the loss falls, everything is
+   finite; on cornell_boxes kernels 5 and 6 launch once per wave in the
+   forward and once more in the backward's recomputation (waves x (1 + 2
+   steps), counted from 0 before the target), and once per wave for a step
+   without remat; ``cli invert --estimator replay`` exits 0;
+38. the IOR and geometry gradients against central differences at the CPU
+   tests' fixtures and bars (the glass ball, the emissive sphere's radius
+   and centre, the floor quad's translation whole and per object, kernels
+   5 and 6 walking it), and one finite run of each at 640x480;
+39. times at 640x480 beside the fused kernels' for the same workload (the
+   CUDA-event slope between 1 and 3 calls, median of 3): the wavefront
+   train step and its device idle share, its heaviest kernels and peak
+   memory with and without remat; ``render_replay``'s value-and-grad;
+   ``ior_value_and_grad``; ``geometry_grads``.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -245,7 +267,9 @@ those of the tree the kernels walk and of the 64-triangle-leaf tree); the
 bytes are each input read once and each output written once.
 
 The line before the last prints one JSON object {"kernels": [...]}, nine
-entries with the scatter launch of kernel 3 as one of its own, and the
+entries with the scatter launch of kernel 3 as one of its own (kernels 5
+and 6 also give their launches in phase 37's trainer,
+``launches_autograd_trainer``), and the
 card's name and power limit, as nvidia-smi prints them, precede it. The last line of standard output
 is ``{"ok": true, "device": {...}}``. Run it with no arguments from the
 repository root: ``python3 chip_smoke.py``.
@@ -274,7 +298,10 @@ force and NEE, the lens, spp 64; every output bit for bit, -0 as +0),
 with kernel 8 beside it on the same injected draws, the adjoint's cost,
 and on Philox draws (digests of its radiance and rays), and phase 35's
 pallas_render and gradient end to end (wall ms per call, CUDA-event
-slope over ``AB_WALL``). ``--ab-only``
+slope over ``AB_WALL``); and config 4's wavefront frame, two-pass and
+single-pass, as phase 21 times it: wall ms per frame, device busy ms and
+the gather and index kernels' ms per frame, the image bit for bit
+(``_ab_frame``). ``--ab-only``
 restricts it to some of its parts (``AB_PARTS``).
 ``python3 chip_smoke.py --leaf-cutoff`` runs no phase either: it times the
 forward kernel on small meshes packed as one leaf and as the mesh's
@@ -4435,7 +4462,7 @@ AB_WALL = (96, 9)
 
 # the parts of ab_worker, each named by --ab-only
 AB_PARTS = ("forward", "gradient", "tangent", "config4", "sample", "trace",
-            "packet")
+            "packet", "frame")
 
 
 def _digest(tensors, zero_sign=False) -> str:
@@ -4707,6 +4734,43 @@ def _ab_tangent(scenes, k) -> tuple[dict, dict]:
     return ms, digests
 
 
+def _ab_frame():
+    """Config 4's wavefront frame as phase 21 times it, two-pass (the main
+    path's renderer) and single-pass: wall ms per frame by the CUDA-event
+    slope between 1 and 3 frames (median of REPS), and the device busy ms
+    and the gather and index ms per frame from one trace of 2 frames
+    (``_wavefront_profile``); with a digest of the image after the first
+    frame for every row. Returns (ms, digests)."""
+    import dataclasses
+
+    import torch
+
+    from tpu_pathtracer_torch import ProgressiveRenderer
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+
+    scene, cs = sc.terrain_textured(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
+                         cs["fov"], device="cuda")
+    r2 = ProgressiveRenderer(scene, cam, _c4_config(), seed=3, device="cuda")
+    r1 = ProgressiveRenderer(
+        dataclasses.replace(r2.scene, mesh_packed_coarse=None), cam,
+        r2.config, seed=3, device="cuda")
+    ms, digests = {}, {}
+    for mode, r in (("two-pass", r2), ("single-pass", r1)):
+        r.step()
+        digest = _digest([r.image()])
+        key = f"config 4 frame {mode}"
+        ms[f"{key} wall"] = _slope_ms(lambda salt, i: r.step(), 3)[0]
+        prof = _wavefront_profile(r, 2, f"ab_{mode}")
+        ms[f"{key} device busy"] = prof["busy_ms"]
+        ms[f"{key} gather and index"] = prof["gather_ms_per_frame"]
+        for k in ("wall", "device busy", "gather and index"):
+            digests[f"{key} {k}"] = digest
+    del r1, r2
+    torch.cuda.empty_cache()
+    return ms, digests
+
+
 def ab_worker(root: str, atlas_out=None, waves=None,
               answers_out=None, only=AB_PARTS, trace_out=None) -> dict:
     """With the package of the checkout ``root``: device ms per launch (one
@@ -4731,7 +4795,8 @@ def ab_worker(root: str, atlas_out=None, waves=None,
     |g| (its atomic bound) saved to ``atlas_out``; kernels 7 and 8 on
     cornell_spheres and phase 35's end-to-end gradient (``_ab_sample``);
     kernels 5 and 6 on config 4's recorded waves (``_ab_packet``, with
-    ``waves`` and ``answers_out``); and the build log. ``only`` names the
+    ``waves`` and ``answers_out``); config 4's wavefront frame
+    (``_ab_frame``); and the build log. ``only`` names the
     parts to run (``AB_PARTS``); kernel 8's outputs go to ``trace_out``."""
     sys.path.insert(0, root)
     import torch
@@ -4859,6 +4924,10 @@ def ab_worker(root: str, atlas_out=None, waves=None,
         packet = _ab_packet(waves, answers_out)
         out.update(packet.pop("ms"))
         digests["kernel 6 wave"] = " ".join(packet.pop("bin_digests"))
+    if "frame" in only:
+        frame_ms, frame_digests = _ab_frame()
+        out.update(frame_ms)
+        digests.update(frame_digests)
     return dict(ms=out, digests=digests, log=log, packet=packet)
 
 
@@ -5166,11 +5235,538 @@ def leaf_cutoff() -> int:
 _LAP = [0.0]
 
 
+# ---------------------------------------------------------------------------
+# The wavefront under autograd (phases 36-39)
+# ---------------------------------------------------------------------------
+
+# rows of config 5's image whose lanes phase 36 traces on the CPU as well
+AD_BAND = (232, 248)
+# the slope window and reps of the wavefront gradients' times (phase 39):
+# a step takes hundreds of ms, so a short window
+AD_K, AD_REPS = 3, 3
+REPLAY_RTOL, REPLAY_ATOL_A, REPLAY_ATOL_I = 2e-3, 2e-4, 2e-5
+
+
+def _ad_inputs(name, w, h, use_nee, seed):
+    """A scene (its mesh packed, two-pass), its camera, config 5's render
+    settings and a random (h, w, 3) adjoint image."""
+    import torch
+
+    from tpu_pathtracer_torch.models.integrator import RenderConfig
+
+    scene, cam, _ = _scene(name, w, h, "cuda")
+    config = RenderConfig(spp=SPP, max_bounces=MB, rr_start=3,
+                          use_nee=use_nee)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return scene, cam, config, torch.rand((h, w, 3), generator=gen,
+                                          device="cuda")
+
+
+def _table_grads(fn, scene, cam, seed, config, weights):
+    """(image, d sum(weights * image) / d mat_color, / d light_intensity)
+    through ``fn`` (``render`` or ``render_replay``)."""
+    import dataclasses
+
+    import torch
+
+    A = scene.mat_color.detach().clone().requires_grad_(True)
+    I = scene.light_intensity.detach().clone().requires_grad_(True)
+    img = fn(dataclasses.replace(scene, mat_color=A, light_intensity=I),
+             cam, seed, config)
+    torch.sum(img * weights).backward()
+    torch.cuda.synchronize()
+    return img.detach(), A.grad, I.grad
+
+
+def _rel_gap(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_autograd_replay():
+    """36: path replay against autograd of the wavefront at config 5
+    (cornell 640x480, spp 4, 10 bounces, RR after 3), brute force and NEE,
+    on the same Philox draws: the image, and the gradients of sum(weights
+    * image) w.r.t. mat_color and light_intensity within rtol 2e-3 (atol
+    2e-4 and 2e-5, the JAX suite's bar); then the lanes of one band of
+    rows traced on the card and on the CPU (the plain run): >= AGREE of
+    lanes within L_TOL."""
+    import torch
+
+    from tpu_pathtracer_torch.diff import replay
+    from tpu_pathtracer_torch.models.integrator import render, trace_pixels
+    from tpu_pathtracer_torch.utils import rng
+    from tpu_pathtracer_torch.utils.metrics import (
+        AGREE, sample_lane_agreement,
+    )
+
+    parts, worst = [], {"l_agree": 1.0, "max_abs_err": 0.0}
+    for use_nee in (False, True):
+        mode = "nee" if use_nee else "brute"
+        scene, cam, config, w = _ad_inputs("cornell", W, H, use_nee, 36)
+        seed = 36
+        img_a, gA_a, gI_a = _table_grads(render, scene, cam, seed, config, w)
+        img_r, gA_r, gI_r = _table_grads(replay.render_replay, scene, cam,
+                                         seed, config, w)
+        for name, x in (("image", img_a), ("mat_color", gA_a),
+                        ("light_intensity", gI_a), ("replay mat_color", gA_r),
+                        ("replay light_intensity", gI_r)):
+            if not bool(torch.isfinite(x).all()):
+                fail(f"autograd vs replay ({mode}): {name} not finite")
+        if tuple(img_a.shape) != (H, W, 3) or float(gA_a.abs().max()) == 0:
+            fail(f"autograd vs replay ({mode}): misshapen image or zero "
+                 "gradient")
+        img_gap = _rel_gap(img_r, img_a)
+        if img_gap > 1e-5:
+            fail(f"autograd vs replay ({mode}): images {img_gap} apart")
+        for name, r, a, atol in (("mat_color", gA_r, gA_a, REPLAY_ATOL_A),
+                                 ("light_intensity", gI_r, gI_a,
+                                  REPLAY_ATOL_I)):
+            if not torch.allclose(r, a, rtol=REPLAY_RTOL, atol=atol):
+                fail(f"autograd vs replay ({mode}): {name} differs: "
+                     f"{r.tolist()} against {a.tolist()}")
+        # one band of rows on the CPU: the card's lanes against the plain run
+        lanes = torch.arange(AD_BAND[0] * W * SPP, AD_BAND[1] * W * SPP,
+                             dtype=torch.int32)
+        with torch.no_grad():
+            L_card = trace_pixels(scene, cam, lanes.cuda(),
+                                  rng.philox_draws(seed, 0), config)
+            t0 = time.perf_counter()
+            L_cpu = trace_pixels(scene.to("cpu"), cam.to("cpu"), lanes,
+                                 rng.philox_draws(seed, 0), config)
+            cpu_s = time.perf_counter() - t0
+        agree, dmax, _ = sample_lane_agreement(L_card, L_cpu, len(lanes))
+        if agree < AGREE:
+            fail(f"wavefront card vs CPU ({mode}): {agree:.4f} of lanes "
+                 f"agree (< {AGREE})")
+        worst["l_agree"] = min(worst["l_agree"], agree)
+        worst["max_abs_err"] = max(worst["max_abs_err"], dmax)
+        parts.append(
+            f"{mode}: image gap {img_gap:.2e}, replay/autograd gradient gaps "
+            f"mat_color {_rel_gap(gA_r, gA_a):.2e} light_intensity "
+            f"{_rel_gap(gI_r, gI_a):.2e} (of max |g| {float(gA_a.abs().max()):.6g}"
+            f" / {float(gI_a.abs().max()):.6g}); rows {AD_BAND[0]}-"
+            f"{AD_BAND[1] - 1} ({len(lanes)} lanes) card vs CPU: "
+            f"{agree:.5f} agree, max |dL| {dmax:.3g}, CPU {cpu_s:.1f} s")
+    print(f"[36 autograd vs replay] cornell {W}x{H} spp {SPP}, {MB} bounces: "
+          + " | ".join(parts), flush=True)
+    return worst
+
+
+def phase_wavefront_trainer(steps=5):
+    """37: the wavefront trainer (``make_train_step``, autograd through the
+    wavefront with ``remat``): at config 5 on cornell_spheres, brute force
+    and NEE, and on cornell_boxes NEE (640x480, spp 4, 10 bounces), the
+    target from ``render_target`` (one iteration at fixed_iteration 0),
+    then ``steps`` same-seed Adam steps from phase 8's perturbed parameters:
+    the loss falls and everything is finite. On cornell_boxes every wave
+    (a closest-hit and a shadow wave per bounce) is one launch of kernel 6
+    and one of kernel 5, and each wave of a step runs twice (the forward
+    and the bounce's recomputation in the backward): launches = waves x (1
+    + 2 steps), counted from 0 just before the target; one more step
+    without remat launches each once per wave. The wall seconds per step
+    are printed. Then ``cli invert --estimator replay --steps 5`` exits
+    0."""
+    import dataclasses
+
+    import torch
+
+    from tpu_pathtracer_torch.diff import inverse
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+
+    parts, counts = [], {}
+    for name, use_nee, mat in (("cornell", False, 3), ("cornell", True, 3),
+                               ("cornell-boxes", True, 0)):
+        mode = f"{name} {'nee' if use_nee else 'brute'}"
+        scene, cam, config, _ = _ad_inputs(name, W, H, use_nee, 37)
+        seed = 37
+        p0 = inverse.params_of(scene)
+        p0["mat_color"][mat] = 0.3
+        p0["light_intensity"] *= 0.5
+        state = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
+        step = inverse.make_train_step(scene, cam, config, fixed_iteration=0)
+        mk.packet_launches = mk.bin_launches = 0
+        target = inverse.render_target(scene, cam, seed, config,
+                                       n_iterations=1, base_iteration=0)
+        t0 = time.perf_counter()
+        losses = [float(step(state, target, seed)[1]) for _ in range(steps)]
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / steps
+        got = (mk.packet_launches, mk.bin_launches)
+        if not (bool(torch.isfinite(target).all())
+                and all(map(math.isfinite, losses))
+                and all(bool(torch.isfinite(v.detach()).all())
+                        for v in state.params.values())):
+            fail(f"wavefront trainer ({mode}): non-finite results")
+        if not losses[-1] < losses[0]:
+            fail(f"wavefront trainer ({mode}): loss {losses[0]} -> "
+                 f"{losses[-1]} did not fall")
+        line = (f"{mode}: loss {' '.join(f'{v:.6g}' for v in losses)} "
+                f"({step_s:.2f} s per step)")
+        if scene.mesh is not None:
+            waves = (MB + 1) * (2 if use_nee else 1)
+            want = waves * (1 + 2 * steps)
+            if got != (want, want):
+                fail(f"wavefront trainer ({mode}): kernel 5 / 6 launched "
+                     f"{got} times, not {want} = {waves} waves x (1 + 2 x "
+                     f"{steps})")
+            counts["remat"] = got
+            mk.packet_launches = mk.bin_launches = 0
+            once = inverse.make_train_step(
+                scene, cam, dataclasses.replace(config, remat=False),
+                fixed_iteration=0)
+            once(state, target, seed)
+            torch.cuda.synchronize()
+            if (mk.packet_launches, mk.bin_launches) != (waves, waves):
+                fail(f"wavefront trainer ({mode}, no remat): kernel 5 / 6 "
+                     f"launched {mk.packet_launches} / {mk.bin_launches} "
+                     f"times for {waves} waves")
+            counts["no_remat"] = waves
+            line += (f"; kernels 5 / 6 {got[0]} / {got[1]} launches = "
+                     f"{waves} waves x (1 + 2 x {steps}) under remat, "
+                     f"{waves} / {waves} for one step without")
+        alb = state.params["mat_color"][mat].detach().cpu().tolist()
+        parts.append(line + f"; albedo {mat} {[round(a, 4) for a in alb]} "
+                     f"(true {[round(a, 4) for a in scene.mat_color[mat].tolist()]})")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_pathtracer_torch.cli", "invert",
+         "--estimator", "replay", "--steps", "5"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "recovered albedo" not in proc.stdout:
+        fail(f"cli invert --estimator replay failed ({proc.returncode}): "
+             f"{proc.stdout[-1000:]}{proc.stderr[-2000:]}")
+    tail = " / ".join(proc.stdout.strip().splitlines()[-2:])
+    parts.append(f"cli invert --estimator replay (32x32, spp 4, 5 steps) in "
+                 f"{time.perf_counter() - t0:.1f} s: {tail}")
+    print(f"[37 wavefront trainer main path] {W}x{H} spp {SPP}, {MB} "
+          f"bounces, lr {LR}, {steps} steps: " + " | ".join(parts),
+          flush=True)
+    return counts
+
+
+def _floor_scene(with_ceiling=False):
+    """The JAX geometry tests' edge-free floor quad (and a far ceiling of
+    material 1) under a point light, packed, and its 48x36 camera."""
+    import numpy as np
+
+    from tpu_pathtracer_torch.models import camera as cm, meshes
+    from tpu_pathtracer_torch.models import scene as sc
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.quad([-40, 0, -40], [-40, 0, 40], [40, 0, 40],
+                           [40, 0, -40])
+    mats, fm = [sc.diffuse([0.8, 0.7, 0.6])], 0
+    if with_ceiling:
+        v2, f2, uv2 = meshes.quad([-40, 30, -40], [40, 30, -40],
+                                  [40, 30, 40], [-40, 30, 40])
+        v, f = np.concatenate([v, v2]), np.concatenate([f, f2 + 4])
+        uv = np.concatenate([uv, uv2])
+        fm = np.array([0, 0, 1, 1], np.int32)
+        mats.append(sc.diffuse([0.3, 0.3, 0.3]))
+    scene = sc.make_scene(
+        [], mats, [sc.point_light([2, 6, 1], [60, 60, 60])],
+        mesh=build_bvh(v, f, uv, fm, device="cuda"), device="cuda")
+    cam = cm.make_camera([0, 5, 0.1], [0, 0, 0], [0, 0, -1], 48, 36, 45.0,
+                         device="cuda")
+    return sc.with_packet_mesh(scene), cam
+
+
+def _np_weights(seed, shape):
+    """The CPU tests' adjoint image: numpy's default_rng(seed), on the
+    card."""
+    import numpy as np
+    import torch
+
+    return torch.tensor(np.random.default_rng(seed).random(shape,
+                                                           np.float32),
+                        device="cuda")
+
+
+def _fd_mean(J, h, iters):
+    """Mean over iterations of the central difference (J(h) - J(-h)) /
+    2h."""
+    return sum((J(h, it) - J(-h, it)) / (2 * h) for it in range(iters)) \
+        / iters
+
+
+def phase_score_geometry_fd():
+    """38: the IOR and geometry gradients on the card against central
+    differences of ``render``, at the CPU tests' fixtures and bars: the
+    glass ball (4x4, spp 64, 6 bounces, 14 iterations, brute force): the
+    mean gradient above 0.3 and within rtol 0.4 of the FD mean;
+    the adjoint images are the CPU tests' (numpy's default_rng); the
+    emissive sphere on black (48x36, spp 48, 8192 edge samples): the
+    radius within 2e-2 (8 iterations, h 0.25), the centre's z within 5e-2
+    (10 iterations, h 0.4); the floor quad (48x36, spp 4, 1 bounce, NEE,
+    kernels 5 and 6): the y translation of the whole mesh and of the
+    floor alone within 2e-2 (6 iterations, h 0.02, ``_translate_mesh``
+    packing the moved mesh again). Then one run of each estimator at
+    640x480 (config 5, NEE; geometry_grads on cornell_spheres,
+    mesh_translation_grads on cornell_boxes): finite."""
+    import dataclasses
+
+    import torch
+
+    from tpu_pathtracer_torch.diff import geometry, score
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.models.integrator import RenderConfig, render
+
+    parts = []
+    glass = _glass_scene("cuda")
+    gcam = cm.make_camera([0, 0, 30], [0, 0, 0], [0, 1, 0], 4, 4, 0.5,
+                          device="cuda")
+    w = torch.full((4, 4, 3), 1.0 / 48, device="cuda")
+    # brute force only: NEE adds nothing on this fixture (its only diffuse
+    # material is black), so both modes give the same numbers
+    for use_nee in (False,):
+        cfg = RenderConfig(spp=64, max_bounces=6, use_nee=use_nee)
+
+        def J(h, it, cfg=cfg):
+            coef = glass.mat_coef.clone()
+            coef[0] += h
+            return float(torch.sum(w * render(dataclasses.replace(
+                glass, mat_coef=coef), gcam, 3, cfg, iteration=it)))
+
+        g = sum(float(score.ior_value_and_grad(glass, gcam, 3, cfg, w,
+                                               iteration=it)[1][0])
+                for it in range(14)) / 14
+        fd = _fd_mean(J, 0.02, 14)
+        if not (math.isfinite(g) and g > 0.3 and abs(g - fd) <= 0.4 * abs(fd)):
+            fail(f"IOR gradient ({'nee' if use_nee else 'brute'}): {g} "
+                 f"against FD {fd}")
+        parts.append(f"IOR {'nee' if use_nee else 'brute'} {g:.4f} vs FD "
+                     f"{fd:.4f}")
+
+    cov = sc.make_scene([sc.sphere([0.0, 0.0, 0.0], 8.0, 0, 0)],
+                        [sc.diffuse([0.0, 0.0, 0.0])],
+                        [sc.area_light(0, [5.0] * 3)], device="cuda")
+    ccam = cm.make_camera([0.0, 5.0, 60.0], [0.0, 0.0, 0.0],
+                          [0.0, 1.0, 0.0], 48, 36, 45.0, device="cuda")
+    wimg = _np_weights(11, (36, 48, 3))
+    cfg = RenderConfig(spp=48, max_bounces=0)
+    g = geometry.geometry_grads(cov, ccam, 3, cfg, wimg, n_edge_samples=8192)
+    for what, h, iters, rtol, get in (
+            ("radius", 0.25, 8, 2e-2, lambda g: float(g["radii"][0])),
+            ("centre z", 0.4, 10, 5e-2,
+             lambda g: float(g["centers"][0, 2]))):
+        def J(d, it, what=what):
+            c, r = cov.centers.clone(), cov.radii.clone()
+            if what == "radius":
+                r[0] += d
+            else:
+                c[0, 2] += d
+            return float(torch.sum(wimg * render(dataclasses.replace(
+                cov, centers=c, radii=r), ccam, 3, cfg, iteration=it)))
+
+        fd = _fd_mean(J, h, iters)
+        if not abs(get(g) - fd) <= rtol * abs(fd):
+            fail(f"geometry gradient ({what}): {get(g)} against FD {fd}")
+        parts.append(f"{what} {get(g):.4f} vs FD {fd:.4f}")
+
+    mcfg = RenderConfig(spp=4, max_bounces=1, use_nee=True)
+    for objects, ceiling, key in ((None, False, 5), ((0,), True, 7)):
+        fl, fcam = _floor_scene(ceiling)
+        wf = _np_weights(2 if objects is None else 4, (36, 48, 3))
+        g = float(geometry.mesh_translation_grads(fl, fcam, key, mcfg, wf,
+                                                  objects=objects)[1])
+
+        def J(h, it, fl=fl, fcam=fcam, wf=wf, objects=objects, key=key):
+            moved = geometry._translate_mesh(
+                fl, torch.tensor([0.0, h, 0.0], device="cuda"), objects)
+            return float(torch.sum(wf * render(moved, fcam, key, mcfg,
+                                               iteration=it)))
+
+        fd = _fd_mean(J, 2e-2, 6)
+        what = "floor" if objects else "mesh"
+        if not (abs(g) > 0.1 and abs(g - fd) <= 2e-2 * abs(fd)):
+            fail(f"mesh translation ({what}): {g} against FD {fd}")
+        parts.append(f"{what} y {g:.4f} vs FD {fd:.4f}")
+
+    # one full-size run of each
+    scene, cam, config, wbig = _ad_inputs("cornell", W, H, True, 38)
+    _, gc = score.ior_value_and_grad(scene, cam, 38, config, wbig)
+    gg = geometry.geometry_grads(scene, cam, 38, config, wbig)
+    boxes, bcam, bconfig, wb = _ad_inputs("cornell-boxes", W, H, True, 38)
+    gm = geometry.mesh_translation_grads(boxes, bcam, 38, bconfig, wb)
+    for name, x in (("ior", gc), ("centers", gg["centers"]),
+                    ("radii", gg["radii"]), ("mesh", gm)):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"{name} gradient at {W}x{H} not finite")
+    parts.append(f"{W}x{H} finite: mat_coef {gc.tolist()}, mesh "
+                 f"{[round(v, 4) for v in gm.tolist()]}")
+    print("[38 score and geometry vs FD] " + " | ".join(parts), flush=True)
+
+
+def _device_idle(run, k, tag, top=4):
+    """(window ms per call, device busy ms per call, idle share, the
+    ``top`` kernels by device ms per call as (ms, launches per call, name))
+    from one torch.profiler trace of run(0..k-1) (``_traced``; every
+    kernel, memcpy and memset counts as busy)."""
+    window, events = _traced(run, k, tag,
+                             lambda ev: None if ev else "no device events")
+    busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in events) / 1e3
+    by_name: dict[str, list] = {}
+    for e in events:
+        acc = by_name.setdefault(e["name"], [0.0, 0])
+        acc[0] += e["dur"] / 1e3 / k
+        acc[1] += 1
+    heavy = sorted(((ms, n / k, name[:60]) for name, (ms, n)
+                    in by_name.items()), reverse=True)[:top]
+    return window / k, busy / k, 1.0 - busy / window, heavy
+
+
+def _peak_mb(fn) -> tuple[float, float]:
+    """(torch.cuda.max_memory_allocated over one call of fn, the same less
+    what was allocated before the call: the call's own peak), MiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2**20, (peak - before) / 2**20
+
+
+def phase_autograd_times(smi):
+    """39: times of the wavefront's gradients at config 5 (cornell
+    640x480, spp 4, 10 bounces), each beside the fused kernel's gradient of
+    the same workload, end to end by the CUDA-event slope between 1 and
+    AD_K calls (median of AD_REPS; the fused ones by phase 10's 24 calls,
+    median of REPS): the train step (``make_train_step``, remat) against
+    ``make_kernel_train_step``'s, brute force and NEE, with the step's
+    device idle share (one torch.profiler trace of one step) and
+    ``torch.cuda.max_memory_allocated`` over one step with remat on and
+    off; ``render_replay``'s value-and-grad of sum(w * image) against
+    ``persistent_mse_value_and_grad``, brute force and NEE; with NEE,
+    ``ior_value_and_grad`` against the tangent kernel's
+    ``ior_weighted_grad``, and ``geometry_grads``, which has no fused
+    counterpart. Each row is printed as it is measured."""
+    import dataclasses
+
+    import torch
+
+    from tpu_pathtracer_torch.diff import geometry, inverse, replay, score
+    from tpu_pathtracer_torch.ops.kernels import camera_jvp as cj
+    from tpu_pathtracer_torch.ops.kernels import replay_persistent as rp
+
+    out = {}
+
+    def row(text):
+        print(f"[39 autograd times] {text}", flush=True)
+
+    def replay_vg(scene, cam, config, w, seed):
+        p = {k: getattr(scene, k).detach().clone().requires_grad_(True)
+             for k in ("mat_color", "light_intensity")}
+        img = replay.render_replay(dataclasses.replace(scene, **p), cam,
+                                   seed, config)
+        torch.sum(img * w).backward()
+
+    for use_nee in (False, True):
+        mode = "nee" if use_nee else "brute"
+        scene, cam, config, w = _ad_inputs("cornell", W, H, use_nee, 39)
+        kw = dict(spp=SPP, budget=rp.default_budget(SPP, MB), max_bounces=MB,
+                  rr_start=3, tile_rows=TR, use_nee=use_nee)
+        o = {}
+        target = inverse.render_target(scene, cam, 39, config,
+                                       n_iterations=1, base_iteration=0)
+        t_img = target.reshape(H, W, 3)
+        p0 = inverse.params_of(scene)
+        p0["mat_color"][3] = 0.3
+        state = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
+        step = inverse.make_train_step(scene, cam, config)
+        o["step_ms"], o["step_reps"] = _slope_ms(
+            lambda salt, i: step(state, target, salt), AD_K, AD_REPS)
+        kstate = inverse.init_state(scene, inverse.make_optimizer(LR), p0)
+        kstep = inverse.make_kernel_train_step(scene, cam, config)
+        o["fused_step_ms"], _ = _slope_ms(
+            lambda salt, i: kstep(kstate, t_img, (salt, i)), 24)
+        row(f"{mode} train step {o['step_ms']:.2f} ms (slope 1-{AD_K}, "
+            f"median of {AD_REPS}: "
+            f"{', '.join(f'{v:.2f}' for v in o['step_reps'])}); fused step "
+            f"{o['fused_step_ms']:.4f} ms; ratio "
+            f"{o['step_ms'] / o['fused_step_ms']:.1f}")
+        (o["window_ms"], o["busy_ms"], o["idle_share"],
+         o["heavy"]) = _device_idle(
+            lambda i: step(state, target, 500 + i), 1,
+            f"wavefront_step_{mode}")
+        for remat in (True, False):
+            s = inverse.make_train_step(
+                scene, cam, dataclasses.replace(config, remat=remat))
+            (o[f"peak_mb_remat_{remat}"],
+             o[f"step_peak_mb_remat_{remat}"]) = _peak_mb(
+                lambda s=s: s(state, target, 600))
+        row(f"{mode} train step profiled: window {o['window_ms']:.2f} ms, "
+            f"device busy {o['busy_ms']:.2f} ms, idle share "
+            f"{o['idle_share']:.3f}; peak memory (the step's own above "
+            f"what was allocated before it / all) "
+            f"{o['step_peak_mb_remat_True']:.0f} / "
+            f"{o['peak_mb_remat_True']:.0f} MiB with remat, "
+            f"{o['step_peak_mb_remat_False']:.0f} / "
+            f"{o['peak_mb_remat_False']:.0f} MiB without; heaviest kernels "
+            "(ms, launches per step): " + "; ".join(
+                f"{ms:.1f} ms x{n:.0f} {name}" for ms, n, name in o["heavy"]))
+        o["replay_ms"], o["replay_reps"] = _slope_ms(
+            lambda salt, i: replay_vg(scene, cam, config, w, salt), AD_K,
+            AD_REPS)
+        o["fused_grad_ms"], _ = _slope_ms(
+            lambda salt, i: rp.persistent_mse_value_and_grad(
+                scene, cam, (salt, i), 0, t_img, **kw), 24)
+        row(f"{mode} render_replay value-and-grad {o['replay_ms']:.2f} ms "
+            f"({', '.join(f'{v:.2f}' for v in o['replay_reps'])}); fused "
+            f"persistent_mse_value_and_grad {o['fused_grad_ms']:.4f} ms; "
+            f"ratio {o['replay_ms'] / o['fused_grad_ms']:.1f}")
+        if use_nee:
+            o["ior_ms"], o["ior_reps"] = _slope_ms(
+                lambda salt, i: score.ior_value_and_grad(scene, cam, salt,
+                                                         config, w),
+                AD_K, AD_REPS)
+            o["fused_ior_ms"], _ = _slope_ms(
+                lambda salt, i: cj.ior_weighted_grad(
+                    scene, cam, (salt, i), w, **kw), 24)
+            row(f"{mode} ior_value_and_grad {o['ior_ms']:.2f} ms "
+                f"({', '.join(f'{v:.2f}' for v in o['ior_reps'])}); fused "
+                f"ior_weighted_grad {o['fused_ior_ms']:.4f} ms; ratio "
+                f"{o['ior_ms'] / o['fused_ior_ms']:.1f}")
+            o["geometry_ms"], o["geometry_reps"] = _slope_ms(
+                lambda salt, i: geometry.geometry_grads(scene, cam, salt,
+                                                        config, w),
+                AD_K, AD_REPS)
+            row(f"{mode} geometry_grads {o['geometry_ms']:.2f} ms "
+                f"({', '.join(f'{v:.2f}' for v in o['geometry_reps'])}); no "
+                "fused counterpart")
+        out[mode] = o
+    row(f"on {smi}")
+    return out
+
+
 def _lap() -> float:
     """Seconds since the previous call."""
     now = time.perf_counter()
     dt, _LAP[0] = now - _LAP[0], now
     return dt
+
+
+def _autograd_phases(smi, laps) -> dict:
+    """Phases 36-39, each followed by a line with its seconds; returns
+    phase 37's launch counts of kernels 5 and 6."""
+
+    def lap(name):
+        laps.append((name, _lap()))
+        print(f"  (phase {name}: {laps[-1][1]:.1f} s)", flush=True)
+
+    ad_worst = phase_autograd_replay()
+    lap('36')
+    counts = phase_wavefront_trainer()
+    lap('37')
+    phase_score_geometry_fd()
+    lap('38')
+    phase_autograd_times(smi)
+    lap('39')
+    counts["l_agree"] = ad_worst["l_agree"]
+    return counts
 
 
 def main() -> int:
@@ -5314,6 +5910,9 @@ def main() -> int:
     laps.append(('35', _lap()))
     s_times = phase_sample_times(smi)
     laps.append(('35 times', _lap()))
+    # the wavefront under autograd: replay, the XLA trainer, IOR and
+    # geometry gradients
+    ad_counts = _autograd_phases(smi, laps)
 
     forward = {
         "name": "persistent_step",
@@ -5624,6 +6223,7 @@ def main() -> int:
         "source": "tpu_pathtracer_torch/csrc/packet.cu",
         "replaces": "tpu_pathtracer/ops/pallas/mesh_kernel.py:325",
         "launches": wf_launches["packet"],
+        "launches_autograd_trainer": ad_counts["remat"][0],
         "max_abs_err": max([p_worst["twin_max_abs_err"]]
                            + [h["max_abs_err"] for h in full]),
         "ms": two["packet_ms"],
@@ -5692,6 +6292,7 @@ def main() -> int:
         "source": "tpu_pathtracer_torch/csrc/bin.cu",
         "replaces": "tpu_pathtracer/ops/pallas/mesh_kernel.py:746",
         "launches": wf_launches["bin"],
+        "launches_autograd_trainer": ad_counts["remat"][1],
         "max_abs_err": max(p_worst["bin_abs_err"], two["held"]["bin_abs_err"]),
         "ms": two["bin_ms"],
         "plain_ms": two["bin_plain_ms"],

@@ -246,15 +246,18 @@ def test_unported_routes_raise(cornell):
             target, (0, 0), 0, spp=1)
     from tpu_pathtracer_torch import cli
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["invert", "--estimator", "replay", "--device", "cpu"])
+    # the wavefront trainer is ported: cli invert's replay route runs
+    assert cli.main(["invert", "--estimator", "replay", "--device", "cpu",
+                     "--size", "8x6", "--spp", "1", "--steps", "2"]) == 0
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tinv.make_train_step(scene, cam, cfg, mesh=object())
 
 
 def test_cli_invert_cpu(capsys):
     from tpu_pathtracer_torch import cli
 
     rc = cli.main(["invert", "--size", "8x6", "--spp", "1", "--steps", "2",
-                   "--device", "cpu"])
+                   "--device", "cpu", "--estimator", "kernel"])
     out = capsys.readouterr().out
     assert rc == 0 and "recovered albedo" in out and "step    1" in out
 
@@ -277,6 +280,9 @@ def test_cuda_without_a_card_raises(capsys):
 def test_inverse_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import tpu_pathtracer_torch.diff.inverse, "
+            "tpu_pathtracer_torch.diff.replay, "
+            "tpu_pathtracer_torch.diff.score, "
+            "tpu_pathtracer_torch.diff.geometry, "
             "tpu_pathtracer_torch.ops.kernels.replay_persistent; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'tpu_pathtracer') and sys.modules[m] is not None]")

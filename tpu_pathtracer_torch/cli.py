@@ -13,7 +13,10 @@ integrator, whose mesh queries run the CUDA packet and bin kernels, and
 ``pallas`` is the persistent CUDA kernel; ``auto`` takes the wavefront on the
 CPU and for meshes of more than 10,000 triangles (the textured ``terrain``),
 else the persistent kernel. ``invert`` is the inverse-rendering demo
-(BASELINE config 5). ``--device`` defaults to ``cuda``, which runs the CUDA
+(BASELINE config 5): ``--estimator kernel`` trains through the fused
+gradient kernel, ``replay`` by autograd through the wavefront, and ``auto``
+(the default, as in JAX) takes the kernel on the card and the wavefront on
+the CPU. ``--device`` defaults to ``cuda``, which runs the CUDA
 kernels. ``--device cpu`` runs the plain PyTorch versions and is only taken
 when asked for.
 """
@@ -101,23 +104,26 @@ def _no_card(device) -> bool:
 def cmd_invert(args: argparse.Namespace) -> int:
     """Inverse-rendering demo (BASELINE config 5): perturb the Cornell
     grey-wall albedo and the light intensity, and recover them by same-seed
-    gradient descent through the fused gradient kernel."""
+    gradient descent: through the fused gradient kernel (``--estimator
+    kernel``, one launch per step) or by autograd through the wavefront
+    (``replay``, the JAX package's route off the TPU); ``auto`` takes the
+    kernel on the card and the wavefront on the CPU, as JAX's does."""
     import numpy as np
     import torch
 
     from tpu_pathtracer_torch.diff import inverse
     from tpu_pathtracer_torch.io.image import save_png
     from tpu_pathtracer_torch.models import camera as cm, scene as sc
-    from tpu_pathtracer_torch.models.integrator import RenderConfig
+    from tpu_pathtracer_torch.models.integrator import (
+        RenderConfig, render_image,
+    )
 
-    if args.estimator == "replay":
-        raise NotImplementedError(
-            "the path-replay estimator (XLA wavefront) is not ported to "
-            "tpu_pathtracer_torch yet (ROADMAP Queue 1 item 14); use "
-            "--estimator kernel")
     device = torch.device(args.device)
     if _no_card(device):
         return 2
+    estimator = args.estimator
+    if estimator == "auto":
+        estimator = "kernel" if device.type == "cuda" else "replay"
     w, h = _parse_size(args.size)
     scene, cs = sc.cornell_spheres(device=device)
     camera = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], w, h,
@@ -129,13 +135,20 @@ def cmd_invert(args: argparse.Namespace) -> int:
     params0["light_intensity"] *= 0.5
     state = inverse.init_state(scene, inverse.make_optimizer(lr=args.lr),
                                params0)
-    seed2 = (args.seed, 0)
-    target = inverse.render_target_kernel(scene, camera, seed2, config,
-                                          iteration=0)
-    step_fn = inverse.make_kernel_train_step(scene, camera, config,
-                                             fixed_iteration=0)
+    if estimator == "kernel":
+        seed = (args.seed, 0)
+        target = inverse.render_target_kernel(scene, camera, seed, config,
+                                              iteration=0)
+        step_fn = inverse.make_kernel_train_step(scene, camera, config,
+                                                 fixed_iteration=0)
+    else:
+        seed = args.seed
+        target = inverse.render_target(scene, camera, seed, config,
+                                       n_iterations=1, base_iteration=0)
+        step_fn = inverse.make_train_step(scene, camera, config,
+                                          fixed_iteration=0)
     for i in range(args.steps):
-        state, loss = step_fn(state, target, seed2)
+        state, loss = step_fn(state, target, seed)
         if i % 5 == 0 or i == args.steps - 1:
             print(f"step {i:4d}  loss {float(loss):.6f}")
     got = state.params["mat_color"][3].detach().cpu().numpy()
@@ -147,8 +160,11 @@ def cmd_invert(args: argparse.Namespace) -> int:
     if args.output:
         final = inverse.apply_params(
             scene, {k: v.detach() for k, v in state.params.items()})
-        img = inverse.render_target_kernel(final, camera, seed2, config,
-                                           iteration=0)
+        if estimator == "kernel":
+            img = inverse.render_target_kernel(final, camera, seed, config,
+                                               iteration=0)
+        else:
+            img = render_image(final, camera, seed, config)
         save_png(args.output, img.reshape(h, w, 3).cpu().numpy())
         print(f"wrote {args.output}")
     return 0
@@ -188,10 +204,12 @@ def main(argv: list[str] | None = None) -> int:
     pi.add_argument("--steps", type=int, default=30)
     pi.add_argument("--lr", type=float, default=5e-2)
     pi.add_argument("--seed", type=int, default=0)
-    pi.add_argument("--estimator", choices=["kernel", "replay"],
-                    default="kernel",
+    pi.add_argument("--estimator", choices=["auto", "replay", "kernel"],
+                    default="auto",
                     help="kernel = the fused value-and-grad kernel (one walk "
-                         "per step); replay is not ported yet")
+                         "per step); replay = autograd through the "
+                         "wavefront; auto = kernel on the card, replay on "
+                         "the CPU")
     pi.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernel) or cpu (plain PyTorch)")
     pi.add_argument("-o", "--output", help="render recovered scene to PNG")

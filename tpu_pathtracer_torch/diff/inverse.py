@@ -26,9 +26,14 @@ the kernels and saves the gradients, its backward scales them by the
 incoming cotangent. A train step is ``loss.backward()``,
 ``optimizer.step()`` and the physical clamps under ``no_grad``.
 
-Not ported yet: device meshes (ROADMAP Queue 1 item 15) and the XLA-side
-estimators (``sharded_loss``, ``make_train_step``, ``render_target``; item
-14).
+The JAX package's other trainer, ``make_train_step`` over ``sharded_loss``
+with a target from ``render_target``, differentiates the wavefront
+(``models/integrator.py``) by autograd: slower than a fused launch, but it
+takes every parameter the wavefront reads, so the atlas of any textured
+scene (no packed mesh needed) and ``mat_coef`` on a textured scene train
+there. The fused routes keep JAX's refusals (``_check_texture_rules``).
+
+Not ported yet: device meshes (ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -41,7 +46,9 @@ import torch
 from torch import Tensor
 
 from tpu_pathtracer_torch.models.camera import Camera
-from tpu_pathtracer_torch.models.integrator import RenderConfig
+from tpu_pathtracer_torch.models.integrator import (
+    RenderConfig, render, trace_pixels,
+)
 from tpu_pathtracer_torch.models.scene import Scene
 from tpu_pathtracer_torch.ops.kernels import replay_kernel
 from tpu_pathtracer_torch.ops.kernels.camera_jvp import ior_mse_grad
@@ -50,6 +57,7 @@ from tpu_pathtracer_torch.ops.kernels.replay_persistent import (
     pixel_lanes_layout, tex_route,
 )
 from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+from tpu_pathtracer_torch.utils import rng
 from tpu_pathtracer_torch.utils.errors import not_ported
 
 ENGINES = ("persistent", "sample")
@@ -185,15 +193,17 @@ def _check_texture_rules(scene_p: Scene, names, engine: str) -> None:
     if IOR in names and scene_p.textures is not None:
         raise ValueError(
             "mat_coef gradients use the tangent kernel, which does not trace "
-            "textured materials — drop 'textures'/'mat_coef' from params or "
-            "use the XLA score path (diff.score.ior_value_and_grad)")
+            "textured materials — drop 'textures'/'mat_coef' from params, "
+            "use the wavefront trainer (diff.inverse.make_train_step) or the "
+            "score path (diff.score.ior_value_and_grad)")
     if TEX in names and not tex_route(scene_p):
         raise ValueError(
             "params include 'textures' but the selected engine cannot "
             f"produce atlas gradients (engine={engine!r}, "
             f"mesh={'present' if scene_p.mesh is not None else 'absent'}): "
             "use engine='persistent' with a packed triangle mesh, or remove "
-            "'textures' from params / use the XLA train step")
+            "'textures' from params / use the wavefront trainer "
+            "(diff.inverse.make_train_step)")
 
 
 def _loss_and_grads(scene_p: Scene, camera: Camera, target: Tensor,
@@ -404,3 +414,87 @@ def render_target_kernel(
     lanes = L_lanes.reshape(-1, 3)[:n_lanes]
     n = torch.clamp_min(ns.reshape(-1)[:n_lanes], 1)[:, None]
     return lanes / n
+
+
+# ---------------------------------------------------------------------------
+# The wavefront trainer: autograd through models/integrator.py
+# ---------------------------------------------------------------------------
+
+def sharded_loss(params: Mapping[str, Tensor], scene: Scene, camera: Camera,
+                 target: Tensor, seed: int, config: RenderConfig, mesh=None,
+                 iteration: int = 0, draws: rng.Draws | None = None
+                 ) -> Tensor:
+    """Mean squared pixel error of the wavefront's render with ``params``
+    against ``target`` (H*W, 3): the mean over each pixel's spp samples,
+    then the mean over pixels and channels (the JAX function's loss; this
+    port has one device, so ``mesh`` must be None). Differentiable in
+    ``params`` by autograd. Draws are Philox keyed on (seed, iteration)
+    unless ``draws`` is given."""
+    if mesh is not None:
+        raise not_ported("the loss sharded over a device mesh (mesh=)", "15")
+    if draws is None:
+        draws = rng.philox_draws(seed, iteration)
+    n_pix = camera.height * camera.width
+    lane_ids = torch.arange(n_pix * config.spp, dtype=torch.int32,
+                            device=camera.device)
+    rad = trace_pixels(apply_params(scene, params), camera, lane_ids, draws,
+                       config)
+    est = rad.reshape(n_pix, config.spp, 3).mean(dim=1)
+    return torch.sum((est - target.reshape(n_pix, 3)) ** 2) / (n_pix * 3)
+
+
+def make_train_step(
+    scene: Scene,
+    camera: Camera,
+    config: RenderConfig,
+    mesh=None,
+    *,
+    fixed_iteration: int | None = None,
+    draws: rng.Draws | None = None,
+) -> Callable[[TrainState, Tensor, int], tuple[TrainState, Tensor]]:
+    """A train step over the wavefront: ``sharded_loss``, its gradients by
+    autograd (every bounce recomputed in the backward under
+    ``config.remat``), the Adam update of the optimizer ``state`` carries
+    and the clamps. ``train_step(state, target, seed)`` updates ``state``
+    in place and returns it with the loss of the parameters it started
+    from. The iteration is the step counter, or ``fixed_iteration`` for
+    same-seed optimization (a target from ``render_target`` at that
+    iteration, so the loss is zero at the true parameters); ``draws``
+    replaces the Philox draws (tests). ``mesh`` must be None."""
+    if mesh is not None:
+        raise not_ported("the loss sharded over a device mesh (mesh=)", "15")
+
+    def train_step(state: TrainState, target: Tensor, seed: int
+                   ) -> tuple[TrainState, Tensor]:
+        it = state.step if fixed_iteration is None else fixed_iteration
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = sharded_loss(state.params, scene, camera, target, seed,
+                                config, None, it, draws)
+            loss.backward()
+        state.optimizer.step()
+        with torch.no_grad():
+            for k, v in clamp_params(state.params).items():
+                state.params[k].copy_(v)
+        state.step += 1
+        return state, loss.detach()
+
+    return train_step
+
+
+@torch.no_grad()
+def render_target(scene: Scene, camera: Camera, seed: int,
+                  config: RenderConfig, n_iterations: int = 4,
+                  base_iteration: int = 1000,
+                  draws: rng.Draws | None = None) -> Tensor:
+    """A (H*W, 3) target: the mean of ``n_iterations`` wavefront renders
+    from ``base_iteration``. For same-seed inverse rendering pass
+    ``n_iterations=1`` and ``base_iteration`` = the trainer's
+    ``fixed_iteration``. ``draws`` (tests) replaces the Philox draws of
+    every iteration."""
+    acc = torch.zeros((camera.height * camera.width, 3), dtype=torch.float32,
+                      device=camera.device)
+    for it in range(n_iterations):
+        acc += render(scene, camera, seed, config, base_iteration + it,
+                      draws).reshape(-1, 3)
+    return acc / n_iterations

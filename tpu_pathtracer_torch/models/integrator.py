@@ -18,8 +18,23 @@ updated by its closed-form weight; Russian roulette after ``rr_start``.
 Draws come from ``utils/rng.py`` keyed on global lane ids, so the
 bounce-level sort of a packet-mesh scene without a coarse tree is invisible
 to the estimate: lanes carry their ids and positions and the radiance is
-scattered back by position once at the end. This slice is forward only: it
-runs under ``torch.no_grad()``.
+scattered back by position once at the end.
+
+``trace`` and ``render`` run under autograd, the estimator of the JAX
+package's ``jax.grad``: gradients reach the material, light and texture
+tables, the sphere centres and radii and the mesh vertices through the
+hits. ``detach_sampling`` detaches the sampled direction and its pdf; the
+Russian-roulette probability, the TRI_LIGHT MIS pdf and the MIS pdf carried
+to the next bounce are detached always, as in JAX. ``attached_geom`` keeps
+the diffuse cosine attached as cos / sg(cos) (the primal is unchanged).
+Every mesh query stays detached (kernel 5 on the card, ``packet_ref`` on the
+CPU); where a gradient can reach a mesh hit, its t and uv are evaluated once
+more from the winning triangle (``ops/intersect.py``), which is the
+derivative the JAX package's JVP through its traversal yields. A masked
+branch whose partials are infinite at degenerate lanes takes a safe input
+(the "double where"), never a multiply by zero, so no NaN reaches the
+backward. The forward renderers (``render_image``, ``models/progressive``,
+``cli render``) run under ``torch.no_grad()`` and build no graph.
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ import dataclasses
 
 import torch
 from torch import Tensor
+from torch.utils.checkpoint import checkpoint
 
 from tpu_pathtracer_torch.models import camera as cam_mod
 from tpu_pathtracer_torch.models.camera import Camera
@@ -45,15 +61,19 @@ class RenderConfig:
     max_bounces: int = 10
     rr_start: int = 3
     tmin: float = EPSILON
-    # Gradient-estimator settings of the JAX package's autodiff; the
-    # wavefront here is forward only and does not read them.
+    # Detach the sampled direction and its pdf from the autograd graph (the
+    # detached-sampling estimator).
     detach_sampling: bool = True
     use_nee: bool = False
+    # Under autograd, recompute each bounce in the backward instead of
+    # keeping its intermediates (torch.utils.checkpoint).
     remat: bool = True
     count_rays: bool = False
     # Packet-mesh scenes without a coarse tree: the shadow wave sorts on
     # its own key instead of riding the bounce-level order.
     shadow_self_sort: bool = True
+    # Keep the diffuse cosine attached as cos / sg(cos) (primal-identical):
+    # the geometry gradients' interior term needs the normal's dependence.
     attached_geom: bool = False
 
 
@@ -74,7 +94,7 @@ def _permute(perm: Tensor, *arrays: Tensor) -> list[Tensor]:
     out = []
     for a, part in zip(arrays, torch.split(packed, split, dim=1)):
         if a.dtype == torch.int32:
-            out.append(part[:, 0].contiguous().view(torch.int32))
+            out.append(part[:, 0].detach().contiguous().view(torch.int32))
         elif a.dtype == torch.bool:
             out.append(part[:, 0] > 0.5)
         else:
@@ -82,134 +102,191 @@ def _permute(perm: Tensor, *arrays: Tensor) -> list[Tensor]:
     return out
 
 
-@torch.no_grad()
+def _bounce(scene: Scene, attrs, draws: rng.Draws, config: RenderConfig,
+            bounce: int, do_sort: bool, presorted: bool, park_d: Tensor, L,
+            T, alive, prev_o, wo, prev_pdf, prev_delta, lids, pos):
+    """One bounce of the wavefront: trace the segment (prev_o, wo), shade
+    the hits and sample the next segment. Returns the new carry and the
+    segments traced (the JAX scan body, ``integrator.py:129-326``)."""
+    if do_sort:
+        # bounce 0 is in raster order, already coherent
+        from tpu_pathtracer_torch.ops.kernels.mesh_kernel import (
+            packet_sort_key,
+        )
+
+        perm = torch.argsort(packet_sort_key(prev_o, wo, alive=alive),
+                             stable=True)
+        (L, T, prev_o, wo, alive, prev_pdf, prev_delta, lids,
+         pos) = _permute(perm, L, T, prev_o, wo, alive, prev_pdf,
+                         prev_delta, lids, pos)
+    hit = intersect(scene, attrs, prev_o, wo, tmin=config.tmin,
+                    alive=alive, presorted=presorted)
+    live = torch.sum(alive.to(torch.int64))
+    alive = alive & hit.hit
+    u = rng.bounce_uniforms(draws, bounce, lids)
+
+    # emitter hit
+    take_le = alive & (vm.dot(hit.n, -wo) > 0.0)
+    w_emit = emitter_weight(scene, hit, prev_o, wo, prev_pdf, prev_delta,
+                            config.use_nee)
+    L = L + T * hit.emission * (take_le.to(T.dtype) * w_emit)[:, None]
+    if config.use_nee:
+        nee, _ = next_event(scene, hit, wo, alive,
+                            rng.light_uniforms(draws, bounce, lids), config,
+                            presorted)
+        L = L + T * nee
+
+    wi, pdf, weight, contrib_ok = sample_bsdf(hit, wo, u, config)
+    step_ok = alive & contrib_ok
+    T = torch.where(step_ok[:, None], T * weight, T)
+    T, rr_ok = roulette(T, step_ok, u, bounce, config)
+
+    # termination; dead lanes park on a fixed finite ray
+    alive = step_ok & rr_ok & (bounce < config.max_bounces)
+    prev_delta = bsdf.is_specular_type(hit.mtype)
+    av = alive[:, None]
+    prev_o = torch.where(av, hit.p, 0.0)
+    wo = torch.where(av, wi, park_d)
+    # the MIS state's pdf is a sampling quantity: detached in the carry
+    return (L, T, alive, prev_o, wo, pdf.detach(), prev_delta, lids,
+            pos), live
+
+
+def emitter_weight(scene: Scene, hit, prev_o: Tensor, wo: Tensor,
+                   prev_pdf: Tensor, prev_delta: Tensor, use_nee: bool
+                   ) -> Tensor:
+    """(N,) MIS weight of the emitter each lane hit: 1 without NEE or after
+    a delta lobe, else the power heuristic of the BSDF pdf that produced
+    the hit against the light sampler's pdf for it (TRI_LIGHT hits by
+    their solid-angle pdf, detached: a sampling pdf)."""
+    if not use_nee:
+        return torch.ones_like(prev_pdf)
+    is_light = ~vm.is_black(hit.emission)
+    lp = lights.light_dir_pdf(scene, prev_o, wo, hit.center, hit.radius,
+                              is_light, hit_prim=hit.prim)
+    if scene.has_tri_lights:
+        is_tri_hit = hit.prim >= scene.centers.shape[0]
+        fac = lights.tri_sel_over_area_by_mat(scene)[
+            torch.clamp(hit.mat, 0, scene.mat_color.shape[0] - 1)]
+        tt = torch.clamp_max(hit.t, 1e6)
+        cos_l = torch.abs(vm.dot(hit.n, wo))
+        lp_tri = tt * tt / torch.clamp_min(cos_l, 1e-9) * fac
+        lp = torch.where(is_tri_hit, lp_tri.detach(), lp)
+    return torch.where(prev_delta, 1.0,
+                       sampling.power_heuristic(1.0, prev_pdf, 1.0, lp))
+
+
+def next_event(scene: Scene, hit, wo: Tensor, alive: Tensor, ul: Tensor,
+               config: RenderConfig, presorted: bool = False
+               ) -> tuple[Tensor, Tensor]:
+    """One light sample per live lane behind a shadow wave: (its radiance
+    per unit throughput (N, 3), zero where the sample does not count; the
+    sampled light's index (N,))."""
+    ls = lights.sample_lights(scene, hit.p, ul, tmin=config.tmin)
+    f_l = bsdf.f(hit.mtype, hit.albedo, wo, ls.wi, hit.n)
+    pdf_b = bsdf.pdf(hit.mtype, wo, ls.wi, hit.n)
+    # a tight shrink of the visibility segment: excludes the light surface,
+    # keeps occluders that hug it
+    vis_tmax = ls.dist * (1.0 - 1e-3) - EPSILON
+    occluded = intersect_p(
+        scene, hit.p, ls.wi, tmin=config.tmin, tmax=vis_tmax,
+        mask=alive & ls.valid,
+        presorted=presorted and not config.shadow_self_sort)
+    w_l = torch.where(ls.is_delta, 1.0,
+                      sampling.power_heuristic(1.0, ls.pdf, 1.0, pdf_b))
+    cos_l = torch.abs(vm.dot(ls.wi, hit.n))
+    take_nee = alive & ls.valid & ~occluded
+    contrib = f_l * ls.radiance * torch.where(
+        ls.pdf > 0.0, cos_l * w_l / torch.where(ls.pdf > 0.0, ls.pdf, 1.0),
+        0.0)[:, None]
+    return contrib * take_nee[:, None].to(contrib.dtype), ls.index
+
+
+def sample_bsdf(hit, wo: Tensor, u: Tensor, config: RenderConfig
+                ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Sample each lane's BSDF: (wi, pdf, the closed-form weight f |wi.n| /
+    pdf per lobe, whether the sample carries light). ``detach_sampling``
+    detaches wi and pdf; ``attached_geom`` keeps the diffuse cosine
+    attached as cos / sg(cos) (the primal ratio is exactly 1, the gradient
+    carries d cos(wi, n) / d geometry)."""
+    f_val, wi, pdf = bsdf.sample(hit.mtype, hit.albedo, hit.coef, wo, hit.n,
+                                 u[:, 0], u[:, 1])
+    if config.detach_sampling:
+        wi, pdf = wi.detach(), pdf.detach()
+    contrib_ok = ~vm.is_black(f_val) & (pdf > 0.0)
+    cos_wi = torch.abs(vm.dot(wi, hit.n))
+    diff_w = hit.albedo
+    if config.attached_geom:
+        c0 = cos_wi.detach()
+        diff_w = hit.albedo * torch.where(
+            c0 > 1e-6, cos_wi / torch.clamp_min(c0, 1e-6), 1.0)[:, None]
+    weight = torch.where(bsdf.is_specular_type(hit.mtype)[:, None],
+                         f_val * cos_wi[:, None], diff_w)
+    return wi, pdf, weight, contrib_ok
+
+
+def roulette(T: Tensor, step_ok: Tensor, u: Tensor, bounce: int,
+             config: RenderConfig) -> tuple[Tensor, Tensor]:
+    """Russian roulette after ``rr_start``: (T boosted by 1 / p on the
+    lanes that survive, whether each lane goes on). The probability is
+    detached always: a discrete decision's parameter, and an attached 1 / p
+    leaks inf into the backward."""
+    do_rr = bounce > config.rr_start
+    p_cont = torch.clamp_max(vm.max_component(T), 0.5).detach()
+    survive = u[:, 2] <= p_cont
+    boost = step_ok & do_rr & survive & (p_cont > 0.0)
+    T = torch.where(boost[:, None],
+                    T / torch.clamp_min(p_cont, 1e-20)[:, None], T)
+    return T, (survive if do_rr else torch.ones_like(survive))
+
+
 def trace(scene: Scene, o: Tensor, d: Tensor, lane_ids: Tensor,
           draws: rng.Draws, config: RenderConfig):
     """Radiance along N rays (o, d: (N, 3)); ``lane_ids`` (N,) int32 are the
     global path-sample ids that key the draws. Returns (N, 3), and with
     ``config.count_rays`` also the closest-hit segments traced, primaries
-    included (the JAX package's count)."""
+    included (the JAX package's count).
+
+    Differentiable under autograd as the JAX function is under ``jax.grad``
+    (module docstring); ``config.remat`` with grad mode on runs each bounce
+    under ``torch.utils.checkpoint``, so the backward traces every wave a
+    second time."""
     attrs = prim_attrs(scene)
     bounce_sort = (scene.mesh_packed is not None
                    and scene.mesh_packed_coarse is None)
+    remat = config.remat and torch.is_grad_enabled()
     n = o.shape[0]
     L = torch.zeros_like(o)
-    T = torch.ones_like(o)
-    prev_pdf = torch.zeros(n, dtype=o.dtype, device=o.device)
     alive = torch.ones(n, dtype=torch.bool, device=o.device)
-    prev_delta = alive.clone()
-    lids = lane_ids.to(torch.int32)
-    pos = torch.arange(n, dtype=torch.int32, device=o.device)
-    prev_o, wo = o, d
-    live_counts = []
+    carry = (L, torch.ones_like(o), alive, o, d,
+             torch.zeros(n, dtype=o.dtype, device=o.device), alive.clone(),
+             lane_ids.to(torch.int32),
+             torch.arange(n, dtype=torch.int32, device=o.device))
     park_d = torch.zeros_like(o)
     park_d[:, 2] = 1.0
+    live_counts = []
     for bounce in range(config.max_bounces + 1):
-        if bounce_sort and bounce > 0:
-            # bounce 0 is in raster order, already coherent
-            from tpu_pathtracer_torch.ops.kernels.mesh_kernel import (
-                packet_sort_key,
-            )
-
-            perm = torch.argsort(packet_sort_key(prev_o, wo, alive=alive),
-                                 stable=True)
-            (L, T, prev_o, wo, alive, prev_pdf, prev_delta, lids,
-             pos) = _permute(perm, L, T, prev_o, wo, alive, prev_pdf,
-                             prev_delta, lids, pos)
-        hit = intersect(scene, attrs, prev_o, wo, tmin=config.tmin,
-                        alive=alive, presorted=bounce_sort)
-        live_counts.append(torch.sum(alive.to(torch.int64)))
-        alive = alive & hit.hit
-        u = rng.bounce_uniforms(draws, bounce, lids)
-
-        # emitter hit
-        one_sided = vm.dot(hit.n, -wo) > 0.0
-        take_le = alive & one_sided
-        if config.use_nee:
-            is_light = ~vm.is_black(hit.emission)
-            lp = lights.light_dir_pdf(scene, prev_o, wo, hit.center,
-                                      hit.radius, is_light,
-                                      hit_prim=hit.prim)
-            if scene.has_tri_lights:
-                is_tri_hit = hit.prim >= scene.centers.shape[0]
-                fac = lights.tri_sel_over_area_by_mat(scene)[
-                    torch.clamp(hit.mat, 0, scene.mat_color.shape[0] - 1)]
-                tt = torch.clamp_max(hit.t, 1e6)
-                cos_l = torch.abs(vm.dot(hit.n, wo))
-                lp_tri = tt * tt / torch.clamp_min(cos_l, 1e-9) * fac
-                lp = torch.where(is_tri_hit, lp_tri, lp)
-            w_emit = torch.where(
-                prev_delta, 1.0,
-                sampling.power_heuristic(1.0, prev_pdf, 1.0, lp))
+        args = (scene, attrs, draws, config, bounce,
+                bounce_sort and bounce > 0, bounce_sort, park_d) + carry
+        if remat:
+            carry, live = checkpoint(_bounce, *args, use_reentrant=False)
         else:
-            w_emit = torch.ones_like(prev_pdf)
-        L = L + T * hit.emission * (take_le.to(T.dtype) * w_emit)[:, None]
-
-        # next-event estimation
-        if config.use_nee:
-            ul = rng.light_uniforms(draws, bounce, lids)
-            ls = lights.sample_lights(scene, hit.p, ul, tmin=config.tmin)
-            f_l = bsdf.f(hit.mtype, hit.albedo, wo, ls.wi, hit.n)
-            pdf_b = bsdf.pdf(hit.mtype, wo, ls.wi, hit.n)
-            # a tight shrink of the visibility segment: excludes the light
-            # surface, keeps occluders that hug it
-            vis_tmax = ls.dist * (1.0 - 1e-3) - EPSILON
-            occluded = intersect_p(
-                scene, hit.p, ls.wi, tmin=config.tmin, tmax=vis_tmax,
-                mask=alive & ls.valid,
-                presorted=bounce_sort and not config.shadow_self_sort)
-            w_l = torch.where(ls.is_delta, 1.0,
-                              sampling.power_heuristic(1.0, ls.pdf, 1.0,
-                                                       pdf_b))
-            cos_l = torch.abs(vm.dot(ls.wi, hit.n))
-            take_nee = alive & ls.valid & ~occluded
-            contrib = f_l * ls.radiance * torch.where(
-                ls.pdf > 0.0,
-                cos_l * w_l / torch.where(ls.pdf > 0.0, ls.pdf, 1.0),
-                0.0)[:, None]
-            L = L + T * contrib * take_nee[:, None].to(T.dtype)
-
-        # BSDF sampling, with the per-lobe closed form of f |wi.n| / pdf
-        f_val, wi, pdf = bsdf.sample(hit.mtype, hit.albedo, hit.coef, wo,
-                                     hit.n, u[:, 0], u[:, 1])
-        contrib_ok = ~vm.is_black(f_val) & (pdf > 0.0)
-        cos_wi = torch.abs(vm.dot(wi, hit.n))
-        weight = torch.where(bsdf.is_specular_type(hit.mtype)[:, None],
-                             f_val * cos_wi[:, None], hit.albedo)
-        step_ok = alive & contrib_ok
-        T = torch.where(step_ok[:, None], T * weight, T)
-
-        # Russian roulette
-        do_rr = bounce > config.rr_start
-        p_cont = torch.clamp_max(vm.max_component(T), 0.5)
-        survive = u[:, 2] <= p_cont
-        boost = step_ok & do_rr & survive & (p_cont > 0.0)
-        T = torch.where(boost[:, None],
-                        T / torch.clamp_min(p_cont, 1e-20)[:, None], T)
-        rr_ok = survive if do_rr else torch.ones_like(survive)
-
-        # termination; dead lanes park on a fixed finite ray
-        alive = step_ok & rr_ok & (bounce < config.max_bounces)
-        prev_delta = bsdf.is_specular_type(hit.mtype)
-        av = alive[:, None]
-        prev_o = torch.where(av, hit.p, 0.0)
-        wo = torch.where(av, wi, park_d)
-        prev_pdf = pdf
+            carry, live = _bounce(*args)
+        live_counts.append(live)
+    L, pos = carry[0], carry[-1]
     if bounce_sort:
-        out = torch.empty_like(L)
-        out[pos.to(torch.int64)] = L
-        L = out
+        L = torch.empty_like(L).index_copy(0, pos.to(torch.int64), L)
     if config.count_rays:
         return L, torch.stack(live_counts).sum()
     return L
 
 
-def trace_pixels(scene: Scene, camera: Camera, lane_ids: Tensor,
-                 draws: rng.Draws, config: RenderConfig):
-    """Primary rays of the given lanes (lane = (py * W + px) * spp + s),
-    traced. A lens camera draws its two lens uniforms from ``LENS_STREAM``
+def primary_rays(camera: Camera, lane_ids: Tensor, draws: rng.Draws,
+                 spp: int) -> tuple[Tensor, Tensor]:
+    """Primary rays (o, d) of the given lanes (lane = (py * W + px) * spp +
+    s). A lens camera draws its two lens uniforms from ``LENS_STREAM``
     (JAX ``integrator.py:419-422``)."""
-    W, spp = camera.width, config.spp
+    W = camera.width
     s = lane_ids % spp
     pix = lane_ids // spp
     px = pix % W
@@ -222,7 +299,14 @@ def trace_pixels(scene: Scene, camera: Camera, lane_ids: Tensor,
                                      lu[:, 1])
     else:
         o, d = cam_mod.generate_rays(camera, px, py, ox, oy)
-    return trace(scene, o.contiguous(), d, lane_ids, draws, config)
+    return o.contiguous(), d
+
+
+def trace_pixels(scene: Scene, camera: Camera, lane_ids: Tensor,
+                 draws: rng.Draws, config: RenderConfig):
+    """The given lanes' primary rays (``primary_rays``), traced."""
+    o, d = primary_rays(camera, lane_ids, draws, config.spp)
+    return trace(scene, o, d, lane_ids, draws, config)
 
 
 def render(scene: Scene, camera: Camera, seed: int, config: RenderConfig,
@@ -241,8 +325,10 @@ def render(scene: Scene, camera: Camera, seed: int, config: RenderConfig,
     return out.reshape(H, W, spp, 3).mean(dim=2)
 
 
+@torch.no_grad()
 def render_image(scene: Scene, camera: Camera, seed: int,
                  config: RenderConfig, iteration: int = 0,
                  draws: rng.Draws | None = None):
-    """Single-iteration render (the JAX package's jitted entry point)."""
+    """Single-iteration render (the JAX package's jitted entry point), with
+    no autograd graph: ``render`` is the differentiable one."""
     return render(scene, camera, seed, config, iteration, draws)

@@ -49,9 +49,11 @@ def reset(state: AccumulatorState) -> AccumulatorState:
     return AccumulatorState(torch.zeros_like(state.radiance_sum), 0)
 
 
+@torch.no_grad()
 def step(state: AccumulatorState, scene: Scene, camera: Camera, seed: int,
          config: RenderConfig) -> AccumulatorState:
-    """One progressive iteration; its draws are keyed on the iteration."""
+    """One progressive iteration, with no autograd graph; its draws are
+    keyed on the iteration."""
     frame = render(scene, camera, seed, config, iteration=state.iteration)
     return AccumulatorState(state.radiance_sum + frame, state.iteration + 1)
 

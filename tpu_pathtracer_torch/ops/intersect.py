@@ -10,6 +10,15 @@ with kernel 6 for the two-pass traversal), an unpacked one through
 ``ops/triangle.py::intersect_mesh`` (CPU tensors only). Hit attributes are
 gathers from the material and light tables; a textured material's albedo is
 the texture sample times its colour.
+
+Under autograd the sphere pass is differentiable in the rays and in the
+centres and radii, as the JAX package's is. The mesh walks are not: where a
+gradient can reach a mesh hit (grad mode on and the rays or the mesh's
+vertices require grad), its t and uv are evaluated once more by
+``moller_trumbore`` from the winning triangle's vertices and enter as
+``x + (x_re - sg(x_re))``, so the primal stays the walk's bit for bit and
+the derivative is the one the JAX package's JVP through its traversal gives
+(the walk's decisions carry no tangent).
 """
 from __future__ import annotations
 
@@ -93,18 +102,20 @@ def intersect_p(scene: Scene, o: Tensor, d: Tensor, tmin: float = EPSILON,
         if mask is not None:
             t_init = torch.where(mask, t_init, 0.0)
         coarse = scene.mesh_packed_coarse
-        ph = intersect_mesh_packet(
-            scene.mesh_packed, o, d, tmin=tmin, t_init=t_init,
-            sort=(not presorted) or coarse is not None, any_hit=True,
-            coarse=coarse, bvh=scene.mesh_bvh)
+        with torch.no_grad():
+            ph = intersect_mesh_packet(
+                scene.mesh_packed, o, d, tmin=tmin, t_init=t_init,
+                sort=(not presorted) or coarse is not None, any_hit=True,
+                coarse=coarse, bvh=scene.mesh_bvh)
         occluded = occluded | (ph.t < tmax_t)
         if mask is not None:
             occluded = occluded | ~mask
         return occluded
     from tpu_pathtracer_torch.ops.triangle import intersect_mesh
 
-    th = intersect_mesh(scene.mesh, o, d, tmin=tmin, tmax=tmax_t,
-                        any_hit=True)
+    with torch.no_grad():
+        th = intersect_mesh(scene.mesh, o, d, tmin=tmin, tmax=tmax_t,
+                            any_hit=True)
     return occluded | (th.t < tmax_t)
 
 
@@ -119,11 +130,11 @@ def intersect(scene: Scene, attrs: PrimAttrs, o: Tensor, d: Tensor,
     t = torch.amin(t_np, dim=-1)
     idx = torch.argmin(t_np, dim=-1)  # the first index of the minimum
     hit = t < 0.5 * BIG
-    center = scene.centers[idx]
-    radius = scene.radii[idx]
-    albedo = attrs.albedo[idx]
-    emission = attrs.emission[idx]
-    coef = attrs.coef[idx]
+    center = vm.take(scene.centers, idx)
+    radius = vm.take(scene.radii, idx)
+    albedo = vm.take(attrs.albedo, idx)
+    emission = vm.take(attrs.emission, idx)
+    coef = vm.take(attrs.coef, idx)
     mtype = attrs.mtype[idx]
     mat = scene.material_id[idx]
     # a miss lane gets a unit-distance dummy point, not o + BIG d
@@ -146,6 +157,8 @@ def _merge_mesh_hit(scene: Scene, o: Tensor, d: Tensor, tmin: float,
     texture sample times its colour; a triangle of a TRI_LIGHT's material
     emits that light's intensity."""
     mesh = scene.mesh
+    attach = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (o, d, mesh.v0, mesh.e1, mesh.e2))
     if scene.mesh_packed is not None:
         from tpu_pathtracer_torch.ops.kernels.mesh_kernel import (
             intersect_mesh_packet,
@@ -156,24 +169,28 @@ def _merge_mesh_hit(scene: Scene, o: Tensor, d: Tensor, tmin: float,
         if alive is not None:
             t_init = torch.where(alive, t_init, 0.0)
         coarse = scene.mesh_packed_coarse
-        ph = intersect_mesh_packet(
-            scene.mesh_packed, o, d, tmin=tmin, t_init=t_init,
-            sort=(not presorted) or coarse is not None, coarse=coarse,
-            want_tri=False, bvh=scene.mesh_bvh)
+        with torch.no_grad():
+            ph = intersect_mesh_packet(
+                scene.mesh_packed, o, d, tmin=tmin, t_init=t_init,
+                sort=(not presorted) or coarse is not None, coarse=coarse,
+                want_tri=attach, bvh=scene.mesh_bvh)
         th_t, th_tri, tn = ph.t, ph.tri.to(torch.int64), ph.n
         tmat, uv = ph.mat.to(torch.int64), ph.uv
     else:
         from tpu_pathtracer_torch.ops.triangle import intersect_mesh
 
-        th = intersect_mesh(mesh, o, d, tmin=tmin)
+        with torch.no_grad():
+            th = intersect_mesh(mesh, o, d, tmin=tmin)
         th_t, th_tri = th.t, th.tri
         tn = mesh.n_geom[th_tri]
         tmat = mesh.material_id[th_tri].to(torch.int64)
         uv = (mesh.uv0[th_tri] + th.u[:, None] * mesh.uv_e1[th_tri]
               + th.v[:, None] * mesh.uv_e2[th_tri])
     closer = th_t < h.t
+    if attach:
+        th_t, uv = _reattach(mesh, o, d, tmin, closer, th_tri, th_t, uv)
 
-    t_albedo = scene.mat_color[tmat]
+    t_albedo = vm.take(scene.mat_color, tmat)
     if scene.textures is not None:
         from tpu_pathtracer_torch.ops.texture import sample_bilinear
 
@@ -190,7 +207,7 @@ def _merge_mesh_hit(scene: Scene, o: Tensor, d: Tensor, tmin: float,
         em_by_mat = torch.zeros((M, 3), dtype=h.emission.dtype,
                                 device=o.device).index_add_(
             0, lm, scene.light_intensity * is_tl[:, None])
-        t_emission = em_by_mat[tmat]
+        t_emission = vm.take(em_by_mat, tmat)
     else:
         t_emission = torch.zeros_like(h.emission)
     return Hit(
@@ -202,8 +219,26 @@ def _merge_mesh_hit(scene: Scene, o: Tensor, d: Tensor, tmin: float,
         center=torch.where(cl, tp, h.center),
         radius=torch.where(closer, 0.0, h.radius),
         albedo=torch.where(cl, t_albedo, h.albedo),
-        coef=torch.where(closer, scene.mat_coef[tmat], h.coef),
+        coef=torch.where(closer, vm.take(scene.mat_coef, tmat), h.coef),
         mtype=torch.where(closer, scene.mat_type[tmat], h.mtype),
         emission=torch.where(cl, t_emission, h.emission),
         mat=torch.where(closer, tmat, h.mat),
     )
+
+
+def _reattach(mesh, o: Tensor, d: Tensor, tmin: float, won: Tensor,
+              tri: Tensor, t: Tensor, uv: Tensor) -> tuple[Tensor, Tensor]:
+    """t and uv of the lanes ``won`` by a triangle, with the derivative of
+    Moller-Trumbore on its vertices and the rays and the walk's values as
+    the primal. Lanes that no triangle won keep theirs, with no gradient."""
+    from tpu_pathtracer_torch.ops.triangle import moller_trumbore
+
+    tri = torch.where(won, tri, 0)
+    v0, e1, e2, uv0, uv_e1, uv_e2 = (
+        vm.take(getattr(mesh, f), tri)
+        for f in ("v0", "e1", "e2", "uv0", "uv_e1", "uv_e2"))
+    _, t_re, u_re, v_re = moller_trumbore(o, d, v0, e1, e2, tmin, t)
+    uv_re = uv0 + u_re[:, None] * uv_e1 + v_re[:, None] * uv_e2
+    t = t + torch.where(won, t_re - t_re.detach(), 0.0)
+    uv = uv + torch.where(won[:, None], uv_re - uv_re.detach(), 0.0)
+    return t, uv

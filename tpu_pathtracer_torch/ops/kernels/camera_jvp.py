@@ -36,8 +36,9 @@ iteration, wavefront step, ``STREAM | draw group``).
 
 A textured scene raises ValueError, as in the JAX package
 (``camera_jvp.py:1095-1098``): its interior estimator would need the
-texture's uv-motion term, so textured scenes take the XLA attached-autodiff
-route, which is not ported yet (ROADMAP Slice E). A lens camera
+texture's uv-motion term, so textured scenes take the attached-autodiff
+route: autograd of ``models/integrator.py::render`` with ``attached_geom``
+(for the IOR, ``diff/score.py::ior_value_and_grad``). A lens camera
 (``lens_radius > 0``) raises ValueError too, a recorded departure from the
 JAX package: its kernel reads only the pinhole slots of the packed camera,
 so on a lens camera it returns a pinhole camera's gradients.
@@ -85,9 +86,10 @@ mesh_launches = 0
 def _refuse_textures(scene: Scene, who: str) -> None:
     refuse_textures(
         scene, who, "the tangent walk's interior estimator would need the "
-        "texture's uv-motion term, so textured scenes take the XLA "
-        "attached-autodiff route (JAX camera_jvp.py:1095-1098), which is not "
-        "ported yet (ROADMAP Slice E)", ValueError)
+        "texture's uv-motion term, so textured scenes take the "
+        "attached-autodiff route (JAX camera_jvp.py:1095-1098): autograd of "
+        "models.integrator.render, or diff.score.ior_value_and_grad for the "
+        "IOR", ValueError)
 
 
 def tangent_rows(dcam: Tensor, coef_mats: Sequence[int]) -> Tensor:

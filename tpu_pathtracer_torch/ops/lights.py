@@ -22,7 +22,8 @@ from tpu_pathtracer_torch.ops import sampling, vecmath as vm
 
 def light_selection_dist(scene: Scene) -> tuple[Tensor, Tensor]:
     """Power-proportional selection (cdf, pdfs): luminance times the surface
-    area for sphere and triangle lights, luminance for point lights."""
+    area for sphere and triangle lights, luminance for point lights.
+    Detached from autograd: a sampling decision, like the BSDF draws."""
     l_radius = scene.radii[scene.light_prim]
     lum = vm.luminance(scene.light_intensity)
     w = torch.where(scene.light_type == AREA_LIGHT,
@@ -30,7 +31,7 @@ def light_selection_dist(scene: Scene) -> tuple[Tensor, Tensor]:
     if scene.has_tri_lights:
         w = torch.where(scene.light_type == TRI_LIGHT, scene.tl_area, w)
     power = lum * w * scene.light_valid
-    return sampling.make_distribution_1d(power)
+    return sampling.make_distribution_1d(power.detach())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,12 +54,12 @@ def sample_lights(scene: Scene, p: Tensor, u: Tensor, tmin: float = EPSILON
     cdf, sel_pdfs = light_selection_dist(scene)
     li, sel_pdf = sampling.sample_distribution_1d(cdf, sel_pdfs, u[:, 2])
     l_type = scene.light_type[li]
-    l_pos = scene.light_pos[li]
-    l_int = scene.light_intensity[li]
+    l_pos = vm.take(scene.light_pos, li)
+    l_int = vm.take(scene.light_intensity, li)
     l_valid = scene.light_valid[li]
     l_prim = scene.light_prim[li]
-    c = scene.centers[l_prim]
-    r = scene.radii[l_prim]
+    c = vm.take(scene.centers, l_prim)
+    r = vm.take(scene.radii, l_prim)
 
     # point light
     to_l = l_pos - p
@@ -145,7 +146,8 @@ def _sample_tri_light(scene: Scene, p: Tensor, u: Tensor, li: Tensor,
     c_hi = cdf.gather(1, k[:, None])[:, 0]
     u0r = torch.clamp((u0 - c_lo) / torch.clamp_min(c_hi - c_lo, 1e-12),
                       0.0, 1.0)
-    tv0, te1, te2, tn = (getattr(scene, f)[li, k]
+    tv0, te1, te2, tn = (vm.take(getattr(scene, f).reshape(-1, 3),
+                                 li * K + k)
                          for f in ("tl_v0", "tl_e1", "tl_e2", "tl_n"))
     su = torch.sqrt(u0r)
     b1 = 1.0 - su

@@ -10,6 +10,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from tpu_pathtracer_torch.ops import vecmath as vm
+
 
 def sample_bilinear(textures: Tensor, tex_id: Tensor, uv: Tensor) -> Tensor:
     """textures (K, TH, TW, 3); tex_id (N,); uv (N, 2), wrapped into [0, 1).
@@ -30,7 +32,7 @@ def sample_bilinear(textures: Tensor, tex_id: Tensor, uv: Tensor) -> Tensor:
     def at(xi, yi):
         xi = torch.remainder(xi.to(torch.int64), TW)
         yi = torch.remainder(yi.to(torch.int64), TH)
-        return flat[(k * TH + yi) * TW + xi]
+        return vm.take(flat, (k * TH + yi) * TW + xi)
 
     c00 = at(x0, y0)
     c10 = at(x0 + 1, y0)

@@ -7,7 +7,10 @@ id) alone, so sorting, sharding or batching lanes never changes a value.
 * ``CAMERA_STREAM``: 2 uniforms per path sample (sub-pixel jitter);
 * ``BOUNCE_STREAM``, per bounce: 3 (bsdf u, bsdf v, russian roulette);
 * ``LIGHT_STREAM``, per bounce: 3 for NEE (light u, light v, select);
-* ``LENS_STREAM``: 2 per path sample for thin-lens DOF (lens cameras).
+* ``LENS_STREAM``: 2 per path sample for thin-lens DOF (lens cameras);
+* ``EDGE_STREAM``: 1 per sphere, keyed on its prim index, the offset of
+  ``diff/geometry.py``'s stratified silhouette angles (the JAX package
+  folds the prim index into its own key).
 
 The JAX package derives them from threefry keys by ``fold_in``; the port
 draws Philox4x32-10 (``ops/kernels/persistent.py::philox4x32``) keyed on
@@ -32,6 +35,7 @@ CAMERA_STREAM = 0
 BOUNCE_STREAM = 1
 LIGHT_STREAM = 2
 LENS_STREAM = 3
+EDGE_STREAM = 4
 # Philox stream tags, the high half of the counter's last word (the kernels'
 # list is csrc/pt_common.cuh's STREAM_*): 0 the persistent forward kernel,
 # 0x10000 the persistent gradient kernel, 0x20000 the tangent kernel,
