@@ -165,8 +165,9 @@ print one line; any failure exits non-zero:
    through the persistent kernel against the wavefront in image mean (256x256,
    64 spp, within MEAN_TOL);
 26. config 4 at full width through the persistent kernel: the terrain at
-   1024x1024, 3 bounces, NEE, PersistentRenderer, render_to(2) (launches
-   counted), its mean within MEAN_TOL of phase 19's wavefront image; every
+   1024x1024, 3 bounces, NEE, PersistentRenderer at budget 16,
+   render_to(2) (launches counted), its mean within MEAN_TOL of phase 19's
+   wavefront image; every
    launch replayed and checked as in phase 4 on three bands of tiles (top,
    middle, bottom of the image), each band also launched alone and equal
    bit for bit to the whole launch's; ms to 2 spp (median of REPS) beside
@@ -176,7 +177,9 @@ print one line; any failure exits non-zero:
    fetch counted);
 27. times by phase 6's and 10's protocol: the forward kernel and the
    gradient with the lens on cornell_spheres; the forward kernel on
-   terrain32 textured and with its texture stripped;
+   terrain32 textured and with its texture stripped (on a mesh or textured
+   scene the plain version's ms per step is that of the one plain launch
+   the bound needs);
 28. texture-atlas gradients against the plain version at 640x480, spp 4,
    10 bounces, budget 10: the JAX suite's tex_scene and terrain32, brute
    force and NEE, injected and Philox. Phase 7's bars on L, n_samp, every
@@ -253,7 +256,25 @@ print one line; any failure exits non-zero:
    CUDA-event slope between 1 and 3 calls, median of 3): the wavefront
    train step and its device idle share, its heaviest kernels and peak
    memory with and without remat; ``render_replay``'s value-and-grad;
-   ``ior_value_and_grad``; ``geometry_grads``.
+   ``ior_value_and_grad``; ``geometry_grads``;
+40. sphere_field (128 spheres) through PersistentRenderer at 640x480, spp
+   4, 10 bounces, budget 16, brute force and NEE, to 4 spp: every launch
+   held to the plain version by phase 4's bars and the sign test; then
+   phase 6's times and bound;
+41. a JSON scene file (a quad, a rotated box, a uv_sphere and an OBJ
+   triangle lit as a TRI_LIGHT) through ``cli render --scene <file>`` at
+   640x480 on both backends: the pallas launches replayed bit for bit and
+   each held to the plain version; the xla frame's primary wave held whole
+   to packet_ref (kernel 5) and bin_rays_ref (kernel 6);
+42. resume from a checkpoint bit for bit: kernel 1 on cornell NEE at
+   640x480 (2 + 2 steps against 4) and the config-4 wavefront (1 + 1
+   frames against 2);
+43. ``[bvh trees]``: the SAH tree against the NumPy median split, A B B A:
+   kernel 1's terrain32 NEE launch, config 4's persistent launch (budget
+   32) and config 4's wavefront device ms per frame;
+44. the terminal viewer headless (cornell 192x144, 8 frames) on both
+   backends, frames per second; after a drag, a frame equal to a fresh
+   renderer's first frame at the moved camera.
 
 Each kernel's bound (the least time the card could take for the same work)
 is the larger of its f32 operations over 67 TFLOP/s and its bytes over
@@ -318,6 +339,7 @@ import sys
 import time
 from pathlib import Path
 
+_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 MEAN_TOL = 0.03
 RAY_TOL = 0.01
@@ -406,6 +428,11 @@ def phase_environment():
     except (OSError, RuntimeError, subprocess.TimeoutExpired) as e:
         nvcc = f"nvcc unavailable: {e}"
     try:
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()[0]
+    except (OSError, IndexError, subprocess.TimeoutExpired) as e:
+        gxx = f"g++ unavailable: {e}"
+    try:
         import triton  # noqa: F401
         has_triton = f"yes ({triton.__version__})"
     except ImportError:
@@ -413,7 +440,8 @@ def phase_environment():
     print(f"[1 environment] torch {torch.__version__} cuda "
           f"{torch.version.cuda} device '{torch.cuda.get_device_name(0)}' "
           f"count {torch.cuda.device_count()} | nvidia-smi: {smi} | "
-          f"nvcc: {nvcc} | triton: {has_triton}", flush=True)
+          f"nvcc: {nvcc} | g++ (the host BVH builder): {gxx} | triton: "
+          f"{has_triton}", flush=True)
     return smi
 
 
@@ -670,22 +698,24 @@ def _render_plain(scene, cp, seed, steps, use_nee, budget, use_dof=False,
     return st, rays
 
 
-def _replay_per_step(scene, cam, cp, use_nee, main, floor_always=True):
+def _replay_per_step(scene, cam, cp, use_nee, main):
     """Replay the main path's launches one at a time and check each: a second
     renderer with the same seed takes the same steps, and before each step
     the plain version runs from a copy of the kernel's input state, on the
     same Philox draws, on the card and on the CPU. Returns, per launch, the
-    kernel's agreement with the plain version on the card and the plain
-    version's agreement with itself across the two backends. Fails unless
-    the replay ends in the main path's exact state.
+    kernel's agreement with the plain version on the card, the plain
+    version's agreement with itself across the two backends and the sign
+    test of the radiance of the lanes that differ (``_sign_balance``; only
+    phase 40 holds a main path to it). Fails unless the replay ends in the
+    main path's exact state.
 
     Each launch is checked from a shared input because a lane whose f32
     closest hit flips once takes other paths for every later sample, so over
     a whole run the share of diverged lanes grows with the iterations run.
     The plain version on the CPU against itself on the card is the floor of
     that chaos for one launch: the same code, rounded by two math
-    libraries. Unless ``floor_always``, that floor is computed only for a
-    launch below the 98% bar (it is reported as 1.0 otherwise)."""
+    libraries. The floor is computed only for a launch below the 98% bar
+    (it is reported as 1.0 otherwise)."""
     import dataclasses
 
     import torch
@@ -709,15 +739,19 @@ def _replay_per_step(scene, cam, cp, use_nee, main, floor_always=True):
                                              **kw)
         n_ok, l_ok, dmax = lane_agreement(ref, r.state, w, h)
         n_fl = l_fl = 1.0
-        if floor_always or min(n_ok, l_ok) < AGREE:
+        if min(n_ok, l_ok) < AGREE:
             before_cpu = dataclasses.replace(
                 before,
                 **{f: getattr(before, f).cpu() for f in pk.STATE_FIELDS})
             ref_cpu, _ = pk.persistent_step_ref(scene_cpu, cp_cpu,
                                                 (r.seed, 0), before_cpu, **kw)
             n_fl, l_fl, _ = lane_agreement(ref, ref_cpu, w, h)
+        sign, n_off = _sign_balance(
+            [(torch.stack([r.state.lr, r.state.lg, r.state.lb]),
+              torch.stack([ref.lr, ref.lg, ref.lb]))], w * h)
         out.append(dict(n_agree=n_ok, l_agree=l_ok, max_abs_err=dmax,
-                        n_floor=n_fl, l_floor=l_fl,
+                        n_floor=n_fl, l_floor=l_fl, sign_balance=sign,
+                        n_off=n_off,
                         ray_err=abs(rays_k - int(rays_r))
                         / max(int(rays_r), 1)))
     for f in pk.STATE_FIELDS:
@@ -831,7 +865,7 @@ def _replay_bands(main, bands, walks=None):
 
 
 def phase_main_path(name="cornell", modes=(False, True), budget=32,
-                    target=16, floor_always=True, label="4 main path",
+                    target=16, label="4 main path",
                     lens=None, max_bounces=10):
     """PersistentRenderer on ``name`` (with ``lens``, a thin-lens camera)
     until ``target`` spp in each mode, every launch replayed and checked
@@ -862,7 +896,7 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
         fail(f"main path: {launches} kernel launches for {steps} steps")
     parts = []
     worst = dict(n_agree=1.0, l_agree=1.0, n_floor=1.0, l_floor=1.0,
-                 max_abs_err=0.0)
+                 max_abs_err=0.0, sign_balance=0.0)
     for use_nee, r in renderers.items():
         mode = "nee" if use_nee else "brute"
         img = r.image()
@@ -870,8 +904,7 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
             fail(f"main path ({mode}): bad image {tuple(img.shape)}")
         if r.min_samples < target:
             fail(f"main path ({mode}): min samples {r.min_samples}")
-        launches_checked = _replay_per_step(scene, cam, cp, use_nee, r,
-                                            floor_always)
+        launches_checked = _replay_per_step(scene, cam, cp, use_nee, r)
         for i, c in enumerate(launches_checked):
             # the reference's 98% bar, lowered only as far as the plain
             # version's own CPU-vs-card floor on this launch
@@ -881,11 +914,12 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
                 fail(f"main path ({mode}), launch {i} vs plain: {c}")
         step = {k: min(c[k] for c in launches_checked)
                 for k in ("n_agree", "l_agree", "n_floor", "l_floor")}
-        step["max_abs_err"] = max(c["max_abs_err"] for c in launches_checked)
-        step["ray_err"] = max(c["ray_err"] for c in launches_checked)
+        for key in ("max_abs_err", "ray_err", "sign_balance"):
+            step[key] = max(c[key] for c in launches_checked)
         for key in ("n_agree", "l_agree", "n_floor", "l_floor"):
             worst[key] = min(worst[key], step[key])
-        worst["max_abs_err"] = max(worst["max_abs_err"], step["max_abs_err"])
+        for key in ("max_abs_err", "sign_balance"):
+            worst[key] = max(worst[key], step[key])
         # the whole run against the plain version's whole run
         ref_st, ref_rays = _render_plain(scene, cp, 7, r.state.frame,
                                          use_nee, r.budget, cam.use_dof,
@@ -901,7 +935,8 @@ def phase_main_path(name="cornell", modes=(False, True), budget=32,
             f"{mode}: {r.state.frame} steps, min spp {r.min_samples}; worst "
             f"launch vs plain: n {step['n_agree']:.4f} L "
             f"{step['l_agree']:.4f} max|dL| {step['max_abs_err']:.3g} rays "
-            f"err {step['ray_err']:.2e} (plain cpu vs card: n "
+            f"err {step['ray_err']:.2e} sign balance "
+            f"{step['sign_balance']:.3f} (plain cpu vs card: n "
             f"{step['n_floor']:.4f} L {step['l_floor']:.4f}); whole run vs "
             f"plain: n {n_run:.4f} "
             f"L {l_run:.4f} rays {rays[use_nee]}/{ref_rays} mean "
@@ -986,8 +1021,9 @@ def _profile_steps(scene, cp, use_nee, k=10, tag="", use_dof=False,
     numbers), and the work per launch: rays, paths started and lanes; on a
     textured scene also the texel fetches, from the plain version's first
     launch on the same seed, scaled to the kernel's rays per launch. That
-    plain launch also runs, untimed, on a mesh scene, where it samples its
-    walks' segments into ``walks``."""
+    plain launch also runs on a mesh scene, where it samples its walks'
+    segments into ``walks``; its seconds, less the sampler's, are the plain
+    version's ms per step (``plain_ms``)."""
     import torch
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
@@ -1015,11 +1051,17 @@ def _profile_steps(scene, cp, use_nee, k=10, tag="", use_dof=False,
                 lanes=st.lr.numel(), texel=0.0)
     if scene.textured or walks is not None:
         counts = {}
+        sampled = walks.seconds if walks is not None else 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         _, nr = pk.persistent_step_ref(
             scene, cp, (400, 0), pk.init_state(W, H, TR, device="cuda"),
             budget=16, width=W, height=H, max_bounces=10, rr_start=3,
             tile_rows=TR, use_nee=use_nee, use_dof=use_dof, counts=counts,
             walks=walks)
+        torch.cuda.synchronize()
+        sampled = (walks.seconds if walks is not None else 0.0) - sampled
+        work["plain_ms"] = (time.perf_counter() - t0 - sampled) * 1e3
         work["texel"] = counts.get("texel", 0) / max(int(nr), 1) \
             * work["rays"]
     return kernel_ms, busy, window, by_name, work
@@ -1311,7 +1353,9 @@ def phase_times(smi, name="cornell", label="6 times", lens=None):
     """End-to-end step time and rays/s (CUDA events, slope between 1 and K
     steps, median of REPS), the plain version's step time, then one profiled
     window for the kernel's device time and the device's idle share (last,
-    so its tracing touches no other number)."""
+    so its tracing touches no other number). On a mesh or textured scene the
+    plain version's step time is that of the one plain launch the bound
+    needs anyway (``_profile_steps``), not of two more."""
     import functools
 
     from tpu_pathtracer_torch.ops.kernels import persistent as pk
@@ -1334,14 +1378,16 @@ def phase_times(smi, name="cornell", label="6 times", lens=None):
             tk, rk = _time_steps(scene, cp, use_nee, K, 200 + rep, step_k)
             steps_ms.append((tk - t1) / (K - 1))
             rates.append((rk - r1) / (tk - t1) * 1e3)
-        _time_steps(scene, cp, use_nee, 1, 98, step_r)
-        t2, _ = _time_steps(scene, cp, use_nee, 2, 300, step_r)
         out[mode] = dict(step_ms=statistics.median(steps_ms),
-                         rays_per_s=statistics.median(rates), reps=rates,
-                         plain_ms=t2 / 2)
+                         rays_per_s=statistics.median(rates), reps=rates)
+        if walks is None and not scene.textured:
+            _time_steps(scene, cp, use_nee, 1, 98, step_r)
+            t2, _ = _time_steps(scene, cp, use_nee, 2, 300, step_r)
+            out[mode]["plain_ms"] = t2 / 2
     for mode, o in out.items():
         o["kernel_ms"], busy, window, by_name, o["work"] = _profile_steps(
             scene, cp, mode == "nee", tag=tag, use_dof=dof, walks=walks)
+        o.setdefault("plain_ms", o["work"].get("plain_ms"))
         o["busy_ms"], o["window_ms"] = busy, window
         o["idle_share"] = 1.0 - busy / window
         if o["idle_share"] < 0.0:
@@ -2413,6 +2459,7 @@ def phase_jvp_times(smi):
 # Config 4 (BASELINE.md): the textured terrain at 1024x1024, 2 spp, 3
 # bounces, NEE, the two-pass binned packet traversal.
 C4_W, C4_H, C4_SPP, C4_MB = 1024, 1024, 2, 3
+C4_BUDGET = 16  # phase 26's renderer budget
 C4_BAND_TILES = 1  # tiles per band of phase 26's check against the plain
 WAVE_LANES = 1 << 16  # lanes per kernel check (a fixed random subset)
 
@@ -3214,7 +3261,7 @@ def phase_dof_main():
     total, mesh_total, worst, parts = 0, 0, [], []
     for name in ("cornell", "cornell-boxes"):
         launches, mesh_l, w, images = phase_main_path(
-            name, (False, True), budget=16, target=4, floor_always=False,
+            name, (False, True), budget=16, target=4,
             label="23 DOF main path", lens=LENS)
         total, mesh_total = total + launches, mesh_total + mesh_l
         worst.append(w)
@@ -3251,7 +3298,7 @@ def phase_texture_main(smi):
     )
 
     launches, walks, worst, _ = phase_main_path(
-        "terrain32", (True,), budget=16, target=4, floor_always=False,
+        "terrain32", (True,), budget=16, target=4,
         label="25 textured main path", max_bounces=C4_MB)
     if walks != launches:
         fail(f"textured main path: {walks} of {launches} launches walked a "
@@ -3289,7 +3336,9 @@ def phase_texture_main(smi):
 def phase_c4_persistent(smi, wf_renderer, wf_times):
     """26: config 4 at full width through the persistent kernel: the terrain
     (99,458 triangles) at 1024x1024, 3 bounces, NEE, PersistentRenderer
-    (the backend cli render --backend pallas takes), render_to(2), the
+    (the backend cli render --backend pallas takes) at budget C4_BUDGET
+    (half the renderer's default, so the plain version's replay of a launch
+    takes half as long; phase 43 times a default launch), render_to(2), the
     launch count set to 0 just before and read just after; the image is
     finite, shows the checker and its mean is within MEAN_TOL of the
     wavefront's (phase 19's 4 frames). Every launch is replayed and held to
@@ -3310,7 +3359,8 @@ def phase_c4_persistent(smi, wf_renderer, wf_times):
     scene, cs = sc.terrain_textured(device="cuda")
     cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], C4_W, C4_H,
                          cs["fov"], device="cuda")
-    r = PersistentRenderer(scene, cam, _c4_config(), seed=3, device="cuda")
+    r = PersistentRenderer(scene, cam, _c4_config(), seed=3, device="cuda",
+                           budget=C4_BUDGET)
     setup_s = time.perf_counter() - t0
     pk.launches = pk.mesh_launches = 0
     rays = r.render_to(C4_SPP)
@@ -5742,6 +5792,422 @@ def phase_autograd_times(smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Scenes, the host builder, resume and the viewer: sphere-field, a JSON
+# scene through the CLI, checkpoints, the SAH and median-split trees, and the
+# terminal viewer
+# ---------------------------------------------------------------------------
+
+# A JSON scene in the shape of tests/test_io.py:115-150 (a quad floor, a
+# rotated box, an OBJ triangle lit as a TRI_LIGHT) with a uv_sphere beside
+# them; the OBJ file is written next to it.
+JSON_OBJ = "v -2 6 -2\nv 2 6 -2\nv 0 6 2\nf 1 2 3\n"
+JSON_SCENE = {
+    "camera": {"eye": [0, 4, 12], "look_at": [0, 2, 0], "fov": 60.0},
+    "materials": [
+        {"type": "diffuse", "color": [0.7, 0.7, 0.7]},
+        {"type": "diffuse", "color": [0.8, 0.2, 0.2]},
+        {"type": "diffuse", "color": [1.0, 1.0, 1.0]},
+        {"type": "specular", "color": [0.9, 0.9, 0.9]},
+    ],
+    "meshes": [
+        {"type": "quad", "corners": [[-8, 0, 8], [8, 0, 8], [8, 0, -8],
+                                     [-8, 0, -8]], "material": 0},
+        {"type": "box", "center": [0, 1.5, 0], "size": [2, 3, 2],
+         "rotation_y": 0.4, "material": 1},
+        {"type": "uv_sphere", "center": [3, 1.5, -1], "radius": 1.2,
+         "material": 3, "n_lat": 16, "n_lon": 24},
+        {"type": "obj", "path": "chip_smoke_tri.obj", "material": 2},
+    ],
+    "lights": [{"type": "tri", "material": 2, "intensity": [25, 25, 25]}],
+}
+VIEW_W, VIEW_H, VIEW_FRAMES = 192, 144, 8
+
+
+def phase_sphere_field(smi):
+    """40: sphere_field (128 spheres, half of the kernels' MAX_PRIMS, never
+    on the card before) through PersistentRenderer at 640x480, spp 4, 10
+    bounces, RR after 3, budget 16, brute force and NEE, to 4 spp: every
+    launch replayed and held to the plain version by phase 4's bars (98% of
+    lanes or the plain version's CPU-vs-card floor, rays within 1%) and by
+    the sign test; then phase 6's times and bound at bench.py's workload."""
+    from tpu_pathtracer_torch.utils.metrics import AGREE
+
+    launches, _, worst, _ = phase_main_path(
+        "sphere-field", (False, True), budget=16, target=4,
+        label="40 sphere-field main path")
+    if worst["sign_balance"] > 1.0:
+        fail(f"sphere-field main path: sign balance {worst} of its bar")
+    times = phase_times(smi, "sphere-field", "40 sphere-field times")
+    floor_s = (" (below the bar, held to the floor)"
+               if min(worst["n_agree"], worst["l_agree"]) < AGREE else "")
+    print(f"[40 sphere-field] {launches} launches checked{floor_s}; kernel "
+          + ", ".join(f"{m} {o['kernel_ms']:.4f} ms/launch (bound "
+                      f"{o['bound_ms']:.5f} ms by {o['bound_by']}, "
+                      f"{o['bound_ms'] / o['kernel_ms']:.3f} of it)"
+                      for m, o in times.items()), flush=True)
+    return dict(launches=launches, worst=worst, times=times)
+
+
+def _write_json_scene():
+    from tpu_pathtracer_torch.ops.kernels import _build
+
+    d = _build.build_dir()
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "chip_smoke_tri.obj").write_text(JSON_OBJ)
+    path = d / "chip_smoke_scene.json"
+    path.write_text(json.dumps(JSON_SCENE, indent=1))
+    return path
+
+
+def _cli_quiet(args):
+    """cli.main(args) in this process, its stdout kept."""
+    import contextlib
+    import io
+
+    from tpu_pathtracer_torch.cli import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(args)
+    if rc != 0:
+        fail(f"cli {' '.join(args)} exited {rc}: {out.getvalue()[-1000:]}")
+    return out.getvalue()
+
+
+def phase_json_scene():
+    """41: a JSON scene file (``JSON_SCENE``: a quad floor, a rotated box, a
+    uv_sphere and an OBJ triangle lit as a TRI_LIGHT; the mesh built by the
+    SAH builder) through ``cli render --scene <file>`` at 640x480, spp 4, 10
+    bounces, NEE, on both backends, the kernels' counts set to 0 before each
+    and read after. pallas: a PersistentRenderer on the same file renders
+    the CLI's image bit for bit in as many launches, and each launch is
+    replayed and held to the plain version by phase 4's bars. xla: one frame
+    of ``--iterations 1``; its first wave (the primary rays) is held whole
+    to the plain versions on the card, kernel 5 (two-pass, sorted) against
+    packet_ref on the 64-leaf tree (``packet_agreement``) and kernel 6
+    against bin_rays_ref (``bin_agreement``)."""
+    import numpy as np
+    import torch
+
+    from tpu_pathtracer_torch import PersistentRenderer, RenderConfig
+    from tpu_pathtracer_torch.io.scene_io import load_scene
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.ops.kernels import _build
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+    from tpu_pathtracer_torch.utils.metrics import AGREE
+
+    path = _write_json_scene()
+    d = _build.build_dir()
+    base = ["render", "--scene", str(path), "--size", f"{W}x{H}", "--spp",
+            "4", "--iterations", "1", "--bounces", str(MB), "--nee", "-q"]
+    hdr = {}
+    counts = {}
+    for backend in ("pallas", "xla"):
+        out = d / f"chip_smoke_scene_{backend}.npy"
+        pk.launches = pk.mesh_launches = 0
+        mk.packet_launches = mk.bin_launches = 0
+        _cli_quiet(base + ["--backend", backend, "--hdr-output", str(out)])
+        torch.cuda.synchronize()
+        counts[backend] = (pk.launches, pk.mesh_launches, mk.packet_launches,
+                           mk.bin_launches)
+        hdr[backend] = np.load(out)
+        if hdr[backend].shape != (H, W, 3) \
+                or not np.isfinite(hdr[backend]).all() \
+                or hdr[backend].max() <= 0:
+            fail(f"json scene ({backend}): bad image")
+    k1, k1_mesh, _, _ = counts["pallas"]
+    _, _, k5, k6 = counts["xla"]
+    if k1 == 0 or k1_mesh != k1 or counts["pallas"][2:] != (0, 0):
+        fail(f"json scene (pallas): launches {counts['pallas']}")
+    waves = 2 * (MB + 1)
+    if (k5, k6) != (waves, waves) or counts["xla"][:2] != (0, 0):
+        fail(f"json scene (xla): launches {counts['xla']}, want {waves} of "
+             "kernels 5 and 6")
+    scene, cs = load_scene(str(path), device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H, cs["fov"],
+                         device="cuda")
+    config = RenderConfig(spp=4, max_bounces=MB, use_nee=True)
+    # pallas: the CLI's launches again, each held to the plain version
+    r = PersistentRenderer(scene, cam, config, seed=0, device="cuda")
+    r.render_to(4)
+    if r.state.frame != k1 or not np.array_equal(r.image().cpu().numpy(),
+                                                  hdr["pallas"]):
+        fail("json scene: the renderer's replay is not the CLI's render")
+    checks = _replay_per_step(r.scene, cam, pack_camera(cam), True, r)
+    for i, c in enumerate(checks):
+        if c["n_agree"] < min(AGREE, c["n_floor"]) \
+                or c["l_agree"] < min(AGREE, c["l_floor"]) \
+                or c["ray_err"] > RAY_TOL:
+            fail(f"json scene (pallas), launch {i} vs plain: {c}")
+    # xla: the first wave of the CLI's frame, whole
+    packed = sc.with_packet_mesh(scene)
+    o, dd, t0, _ = _record_waves(packed, cam, config, seed=0)[0]
+    pm, bvh, coarse = (packed.mesh_packed, packed.mesh_bvh,
+                       packed.mesh_packed_coarse)
+    p_out = _packet_check(pm, bvh, o, dd, t0, False, True, coarse)
+    b0 = mk.bin_launches
+    got = mk.bin_rays(coarse, o, dd, t0, 3e-2)
+    torch.cuda.synchronize()
+    if mk.bin_launches != b0 + 1:
+        fail("bin_rays did not launch kernel 6 exactly once")
+    sweep = _bin_plain(mk.bin_rays_ref, coarse, o, dd, t0, 3e-2)
+    b_agree, tn_err, tn_abs = _hold_bin(got[:2], sweep[:2],
+                                        "json scene, primary wave")
+    worst = {k: min(c[k] for c in checks)
+             for k in ("n_agree", "l_agree", "n_floor", "l_floor")}
+    worst["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+    means = {b: float(x.mean()) for b, x in hdr.items()}
+    print(f"[41 json scene] {path.relative_to(ROOT)}: "
+          f"{scene.mesh.num_tris} triangles, SAH tree of "
+          f"{scene.mesh.num_nodes} nodes; cli render pallas: {k1} launches "
+          f"of kernel 1, replayed bit for bit, each vs plain: n "
+          f"{worst['n_agree']:.4f} L {worst['l_agree']:.4f} max|dL| "
+          f"{worst['max_abs_err']:.3g} (floor n {worst['n_floor']:.4f} L "
+          f"{worst['l_floor']:.4f}); cli render xla: {k5} launches of kernel "
+          f"5 and {k6} of kernel 6 in one frame; its primary wave "
+          f"({o.shape[0]} lanes) kernel 5 vs packet_ref agree "
+          f"{p_out['agree']:.5f} (bit-equal {p_out['bit_equal']:.5f}) "
+          f"max|dt| {p_out['max_abs_err']:.3g}, kernel 6 vs bin_rays_ref "
+          f"cells {b_agree:.5f} tn rel {tn_err:.2g}; image means pallas "
+          f"{means['pallas']:.5f} (4 spp or more) xla {means['xla']:.5f} "
+          f"(4 spp)", flush=True)
+    return dict(k1=k1, k5=k5, k6=k6, worst=worst, packet=p_out,
+                bin_agree=b_agree, bin_abs_err=tn_abs)
+
+
+def phase_resume(wf_renderer):
+    """42: checkpoints on the card. Kernel 1: cornell_spheres NEE at
+    640x480 through PersistentRenderer (budget 32), 2 steps, save, restore
+    into a fresh renderer and 2 more steps: its PathState equals 4
+    uninterrupted steps' bit for bit. The wavefront: ProgressiveRenderer on
+    the terrain at config 4 (1024x1024, 2 spp, 3 bounces, NEE; phase 19's
+    scene), 1 frame, save, restore, 1 more: equal to 2 uninterrupted frames
+    bit for bit. Returns the launches of kernels 1, 5 and 6."""
+    import shutil
+
+    import torch
+
+    from tpu_pathtracer_torch import (
+        PersistentRenderer, ProgressiveRenderer, RenderConfig,
+    )
+    from tpu_pathtracer_torch.ops.kernels import _build
+    from tpu_pathtracer_torch.ops.kernels import mesh_kernel as mk
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.utils import checkpoint as ckpt
+
+    root = _build.build_dir() / "chip_smoke_checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    pk.launches = 0
+    mk.packet_launches = mk.bin_launches = 0
+    scene, cam, _ = _scene("cornell", W, H, "cuda")
+    config = RenderConfig(spp=4, max_bounces=MB, use_nee=True)
+
+    def persistent():
+        return PersistentRenderer(scene, cam, config, seed=5, device="cuda")
+
+    full, part = persistent(), persistent()
+    for _ in range(4):
+        full.step()
+    for _ in range(2):
+        part.step()
+    ckpt.save_state(str(root / "persistent"), part.state.frame, part.state)
+    resumed = persistent()
+    resumed.state = ckpt.restore_state(str(root / "persistent"),
+                                       resumed.state)
+    for _ in range(2):
+        resumed.step()
+    for f in pk.STATE_FIELDS:
+        if not torch.equal(getattr(resumed.state, f), getattr(full.state, f)):
+            fail(f"resume (kernel 1): {f} differs from the uninterrupted run")
+    if resumed.state.frame != full.state.frame:
+        fail("resume (kernel 1): frame differs")
+
+    def wavefront():
+        return ProgressiveRenderer(wf_renderer.scene, wf_renderer.camera,
+                                   _c4_config(), seed=11, device="cuda")
+
+    wf_full, wf_part = wavefront(), wavefront()
+    for _ in range(2):
+        wf_full.step()
+    wf_part.step()
+    ckpt.save_state(str(root / "wavefront"), wf_part.iteration, wf_part.state)
+    wf_res = wavefront()
+    wf_res.state = ckpt.restore_state(str(root / "wavefront"), wf_res.state)
+    wf_res.step()
+    torch.cuda.synchronize()
+    if wf_res.iteration != 2 or not torch.equal(wf_res.state.radiance_sum,
+                                                wf_full.state.radiance_sum):
+        fail("resume (wavefront, config 4): the image differs from the "
+             "uninterrupted run's")
+    out = dict(k1=pk.launches, k5=mk.packet_launches, k6=mk.bin_launches)
+    if out != dict(k1=8, k5=32, k6=32):
+        fail(f"resume: launches {out}")
+    print(f"[42 resume] kernel 1, cornell NEE {W}x{H}: 2 steps + save + "
+          f"restore + 2 steps equal 4 steps bit for bit (every PathState "
+          f"field, frame {full.state.frame}, min spp {full.min_samples}); "
+          f"the wavefront at config 4: 1 frame + save + restore + 1 frame "
+          f"equal 2 frames bit for bit; launches {out}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _median_split(scene, n=224):
+    """``terrain_textured(n)`` with its mesh built by the NumPy median split
+    (``use_native=False``) in place of the SAH tree (its one light is a
+    sphere, so nothing else of the scene depends on the tree)."""
+    import dataclasses
+
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.terrain(n=n, extent=120.0, height=14.0, seed=3)
+    return dataclasses.replace(
+        scene, mesh=build_bvh(v, f, uv, 0, use_native=False, device="cuda"))
+
+
+def phase_bvh_trees(smi):
+    """43: the SAH tree (the default, as in the JAX package) against the
+    NumPy median split (the port's tree before) on the same seeds, A B B A:
+    kernel 1's terrain32 NEE launch (640x480, budget 16, phase 27's
+    workload) and config 4's persistent launch (1024x1024, 3 bounces, NEE,
+    budget 32, from a fresh state: phase 26's launch), each the kernel's ms
+    per launch from one torch.profiler trace, and config 4's wavefront
+    (two-pass) device busy ms per frame from one trace of 2 frames. Only
+    printed: the SAH tree is the default whatever they read."""
+    from tpu_pathtracer_torch import PersistentRenderer, ProgressiveRenderer
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.ops.kernels.trace_kernel import pack_camera
+
+    t_start = time.perf_counter()
+    scenes = {}
+    for tree in ("sah", "median"):
+        t32, cs32 = sc.terrain_textured(n=32, device="cuda")
+        c4, cs4 = sc.terrain_textured(device="cuda")
+        if tree == "median":
+            t32, c4 = _median_split(t32, 32), _median_split(c4)
+        # the two-pass packing also serves the persistent kernel, which
+        # never reads its coarse tree
+        scenes[tree] = (sc.with_packet_mesh(t32), sc.with_packet_mesh(c4))
+    cam32 = cm.make_camera(cs32["eye"], cs32["look_at"], cs32["up"], W, H,
+                           cs32["fov"], device="cuda")
+    cam4 = cm.make_camera(cs4["eye"], cs4["look_at"], cs4["up"], C4_W, C4_H,
+                          cs4["fov"], device="cuda")
+    cp32 = pack_camera(cam32)
+    runs = {tree: {"t32": [], "c4p": [], "c4w": []}
+            for tree in ("sah", "median")}
+    nodes = {}
+    for rep, tree in enumerate(("sah", "median", "median", "sah")):
+        t32, c4 = scenes[tree]
+        nodes[tree] = (t32.mesh.num_nodes, c4.mesh.num_nodes)
+        st = {}
+
+        def start32():
+            st["s"] = pk.init_state(W, H, TR, device="cuda")
+
+        def run32(i):
+            st["s"], _ = pk.persistent_step(
+                t32, cp32, (400, i), st["s"], budget=16, width=W, height=H,
+                max_bounces=10, rr_start=3, tile_rows=TR, use_nee=True)
+
+        ms, _, _, _ = _profile(run32, 10, "persistent_kernel",
+                               f"trees_t32_{tree}{rep}", start=start32)
+        runs[tree]["t32"].append(ms)
+        rp = PersistentRenderer(c4, cam4, _c4_config(), seed=3,
+                                device="cuda")
+        ms, _, _, _ = _profile(lambda i: rp.step(), 1, "persistent_kernel",
+                               f"trees_c4p_{tree}{rep}", start=rp.reset)
+        runs[tree]["c4p"].append(ms)
+        rw = ProgressiveRenderer(c4, cam4, _c4_config(), seed=11,
+                                 device="cuda")
+        rw.step()  # warm
+        prof = _wavefront_profile(rw, 2, f"trees_{tree}{rep}")
+        runs[tree]["c4w"].append(prof["busy_ms"])
+    med = {tree: {k: statistics.median(v) for k, v in r.items()}
+           for tree, r in runs.items()}
+    print(f"[bvh trees] on {smi}, SAH / median split, A B B A (ms: each "
+          f"run, then the median): terrain32 nodes {nodes['sah'][0]} / "
+          f"{nodes['median'][0]}, config 4 nodes {nodes['sah'][1]} / "
+          f"{nodes['median'][1]} | "
+          + " | ".join(
+              f"{label} " + " / ".join(
+                  f"{', '.join(f'{x:.4f}' for x in runs[t][k])} -> "
+                  f"{med[t][k]:.4f}" for t in ("sah", "median"))
+              for k, label in (("t32", "kernel 1 terrain32 NEE ms/launch"),
+                               ("c4p", "kernel 1 config 4 ms/launch"),
+                               ("c4w", "config 4 wavefront device busy "
+                                       "ms/frame")))
+          + f" | {time.perf_counter() - t_start:.1f} s", flush=True)
+    return med
+
+
+def phase_viewer():
+    """44: the terminal viewer (``viewer.run_viewer``) headless on the card,
+    VIEW_FRAMES frames of cornell_spheres at 192x144 (cli view's defaults:
+    2 spp, 6 bounces), on backend pallas (kernel 1, counted) and xla (the
+    wavefront; a sphere scene runs no mesh kernel); frames per second by
+    the host clock. Then, on each backend, a left-button drag
+    (``drag_camera``) through ``update_camera``: the next frame equals a
+    fresh renderer's first frame at the moved camera bit for bit (the
+    persistent one reset once, as a restart draws with the next salt)."""
+    import io
+
+    import torch
+
+    from tpu_pathtracer_torch import RenderConfig
+    from tpu_pathtracer_torch.models import camera as cm, scene as sc
+    from tpu_pathtracer_torch.ops.kernels import persistent as pk
+    from tpu_pathtracer_torch.viewer import (
+        drag_camera, make_renderer, run_viewer,
+    )
+
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], VIEW_W, VIEW_H,
+                         cs["fov"], device="cuda")
+    config = RenderConfig(spp=2, max_bounces=6)
+    out, parts = {}, []
+    for backend in ("pallas", "xla"):
+        run_viewer(scene, cam, config, max_frames=1, interactive=False,
+                   backend=backend, device="cuda")  # warm
+        pk.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = run_viewer(scene, cam, config, max_frames=VIEW_FRAMES,
+                            interactive=False, out=io.StringIO(),
+                            backend=backend, device="cuda")
+        fps = frames / (time.perf_counter() - t0)
+        launches = pk.launches
+        want = VIEW_FRAMES if backend == "pallas" else 0
+        if frames != VIEW_FRAMES or launches != want:
+            fail(f"viewer ({backend}): {frames} frames, {launches} kernel 1 "
+                 "launches")
+        r = make_renderer(scene, cam, config, seed=0, backend=backend,
+                          device="cuda")
+        r.step()
+        moved = drag_camera(r.camera, 0, 3, -2, 1.0)
+        r.update_camera(moved)
+        r.step()
+        fresh = make_renderer(scene, moved, config, seed=0, backend=backend,
+                              device="cuda")
+        if backend == "pallas":
+            fresh.reset()
+        fresh.step()
+        if not torch.equal(r.image(), fresh.image()):
+            fail(f"viewer ({backend}): the frame after a drag is not a fresh "
+                 "renderer's first frame")
+        out[backend] = dict(fps=fps, launches=launches)
+        parts.append(f"{backend}: {frames} frames at {fps:.2f} frames/s, "
+                     f"{launches} launches of kernel 1, the frame after a "
+                     f"drag equals a fresh renderer's")
+    print(f"[44 viewer] cornell {VIEW_W}x{VIEW_H}, spp 2, 6 bounces, "
+          f"headless: " + " | ".join(parts), flush=True)
+    return out
+
+
 def _lap() -> float:
     """Seconds since the previous call."""
     now = time.perf_counter()
@@ -5749,22 +6215,22 @@ def _lap() -> float:
     return dt
 
 
+def _record_lap(laps, name) -> None:
+    """Append (name, seconds since the previous lap) and print it."""
+    laps.append((name, _lap()))
+    print(f"  (phase {name}: {laps[-1][1]:.1f} s)", flush=True)
+
+
 def _autograd_phases(smi, laps) -> dict:
-    """Phases 36-39, each followed by a line with its seconds; returns
-    phase 37's launch counts of kernels 5 and 6."""
-
-    def lap(name):
-        laps.append((name, _lap()))
-        print(f"  (phase {name}: {laps[-1][1]:.1f} s)", flush=True)
-
+    """Phases 36-39; returns phase 37's launch counts of kernels 5 and 6."""
     ad_worst = phase_autograd_replay()
-    lap('36')
+    _record_lap(laps, '36')
     counts = phase_wavefront_trainer()
-    lap('37')
+    _record_lap(laps, '37')
     phase_score_geometry_fd()
-    lap('38')
+    _record_lap(laps, '38')
     phase_autograd_times(smi)
-    lap('39')
+    _record_lap(laps, '39')
     counts["l_agree"] = ad_worst["l_agree"]
     return counts
 
@@ -5791,128 +6257,139 @@ def main() -> int:
     _lap()
     laps = []
     smi = phase_environment()
-    laps.append(('1', _lap()))
+    _record_lap(laps, '1')
     builds = phase_build()
-    laps.append(('2', _lap()))
+    _record_lap(laps, '2')
     worst = phase_compare()
-    laps.append(('3', _lap()))
+    _record_lap(laps, '3')
     launches, _, worst_main, _ = phase_main_path()
-    laps.append(('4', _lap()))
+    _record_lap(laps, '4')
     phase_cli()
-    laps.append(('5', _lap()))
+    _record_lap(laps, '5')
     times = phase_times(smi)
-    laps.append(('6', _lap()))
+    _record_lap(laps, '6')
     worst_grad = phase_grad_compare()
     worst_limits = phase_grad_limits()
     for k in ("n_agree", "l_agree", "plane_agree"):
         worst_grad[k] = min(worst_grad[k], worst_limits[k])
     for k in ("max_abs_err", "sign_balance"):
         worst_grad[k] = max(worst_grad[k], worst_limits[k])
-    laps.append(('7', _lap()))
+    _record_lap(laps, '7')
     grad_launches, _, worst_train = phase_trainer()
-    laps.append(('8', _lap()))
+    _record_lap(laps, '8')
     phase_cli_invert()
-    laps.append(('9', _lap()))
+    _record_lap(laps, '9')
     gtimes = phase_grad_times(smi)
-    laps.append(('10', _lap()))
+    _record_lap(laps, '10')
     # the mesh slice: cornell_boxes, cornell_glass and cornell_quad
     m_worst = phase_compare(MESH_CASES, "11 mesh kernel vs plain")
-    laps.append(('11', _lap()))
+    _record_lap(laps, '11')
     phase_cli("cornell-boxes", "12 mesh cli")
-    laps.append(('12 cli', _lap()))
+    _record_lap(laps, '12 cli')
     m_launches, m_walks, m_worst_main, _ = phase_main_path(
-        "cornell-quad", (True,), budget=16, target=4, floor_always=False,
+        "cornell-quad", (True,), budget=16, target=4,
         label="12 mesh main path")
-    laps.append(('12 main', _lap()))
+    _record_lap(laps, '12 main')
     if m_walks != m_launches:
         fail(f"mesh main path: {m_walks} of {m_launches} launches walked a "
              "mesh")
     m_times = {name: phase_times(smi, name, "12 mesh times")
                for name in ("cornell-boxes", "cornell-quad")}
-    laps.append(('12 times', _lap()))
+    _record_lap(laps, '12 times')
     m_worst_grad = phase_grad_compare(
         (("cornell-boxes", True), ("cornell-quad", True)),
         "13 mesh gradient kernel vs plain")
-    laps.append(('13', _lap()))
+    _record_lap(laps, '13')
     m_grad_launches, m_grad_walks, m_worst_train = phase_trainer(
         "cornell-boxes", (True,), mat=0, steps=5,
         label="13 mesh trainer main path")
-    laps.append(('13 trainer', _lap()))
+    _record_lap(laps, '13 trainer')
     if m_grad_walks != sum(m_grad_launches.values()):
         fail(f"mesh trainer: {m_grad_walks} of "
              f"{sum(m_grad_launches.values())} launches walked a mesh")
     m_gtimes = phase_grad_times(smi, "cornell-boxes", (True,),
                                 "13 mesh gradient times")
-    laps.append(('13 times', _lap()))
+    _record_lap(laps, '13 times')
     # the tangent kernel: camera-pose and IOR gradients
     j_worst = phase_jvp_compare()
-    laps.append(('14', _lap()))
+    _record_lap(laps, '14')
     fd = phase_jvp_fd()
-    laps.append(('15', _lap()))
+    _record_lap(laps, '15')
     j_launches, j_worst_main = phase_ior_trainer()
-    laps.append(('16', _lap()))
+    _record_lap(laps, '16')
     j_times = phase_jvp_times(smi)
-    laps.append(('16 times', _lap()))
+    _record_lap(laps, '16 times')
     # the wavefront slice: the packet and bin kernels
     p_worst = phase_packet_compare(smi)
-    laps.append(('17-18', _lap()))
+    _record_lap(laps, '17-18')
     wf_launches, wf_renderer, wf_main = phase_wavefront_main(smi)
-    laps.append(('19', _lap()))
+    _record_lap(laps, '19')
     wf_means = phase_wavefront_vs_persistent()
-    laps.append(('20', _lap()))
+    _record_lap(laps, '20')
     wf_times = phase_wavefront_times(smi, wf_renderer)
-    laps.append(('21', _lap()))
+    _record_lap(laps, '21')
     # thin-lens DOF and textures in the persistent kernels
     d_worst = phase_compare(DOF_CASES, "22 DOF kernel vs plain")
-    laps.append(('22', _lap()))
+    _record_lap(laps, '22')
     d_launches, d_walks, d_worst_main = phase_dof_main()
-    laps.append(('23', _lap()))
+    _record_lap(laps, '23')
     d_worst_grad = phase_grad_compare(
         (("cornell", False), ("cornell", True)),
         "24 DOF gradient kernel vs plain", lens=LENS)
-    laps.append(('24', _lap()))
+    _record_lap(laps, '24')
     d_grad_launches, _, d_worst_train = phase_trainer(
         "cornell", (False, True), steps=5, label="24 DOF trainer main path",
         lens=LENS)
-    laps.append(('24 trainer', _lap()))
+    _record_lap(laps, '24 trainer')
     t_worst = phase_compare(TEX_CASES, "25 textured kernel vs plain")
-    laps.append(('25', _lap()))
+    _record_lap(laps, '25')
     t_launches, t_walks, t_worst_main, t_checks = phase_texture_main(smi)
-    laps.append(('25 main', _lap()))
+    _record_lap(laps, '25 main')
     c4p = phase_c4_persistent(smi, wf_renderer, wf_times)
-    laps.append(('26', _lap()))
+    _record_lap(laps, '26')
     d_times = phase_times(smi, "cornell", "27 DOF times", lens=LENS)
-    laps.append(('27 lens', _lap()))
+    _record_lap(laps, '27 lens')
     d_gtimes = phase_grad_times(smi, "cornell", (False, True),
                                 "27 DOF gradient times", lens=LENS)
-    laps.append(('27 lens gradient', _lap()))
+    _record_lap(laps, '27 lens gradient')
     t_times = {name: phase_times(smi, name, "27 texture times")
                for name in ("terrain32", "terrain32-bare")}
-    laps.append(('27 texture', _lap()))
+    _record_lap(laps, '27 texture')
     # texture-atlas gradients: kernel 3's TEX build and its scatter walk
     tg_worst = phase_tex_grad_compare()
-    laps.append(('28', _lap()))
+    _record_lap(laps, '28')
     tg_counts, tg_worst_train = phase_tex_trainer()
-    laps.append(('29', _lap()))
+    _record_lap(laps, '29')
     tg_chunked = phase_tex_chunked()
-    laps.append(('30', _lap()))
+    _record_lap(laps, '30')
     tg_times = phase_tex_grad_times(smi)
-    laps.append(('31', _lap()))
+    _record_lap(laps, '31')
     # the per-sample kernels: kernel 8 (pallas_render) and kernel 7 (the
     # engine="sample" trainer)
     s_worst = phase_trace_compare()
-    laps.append(('32', _lap()))
+    _record_lap(laps, '32')
     s_launches, s_worst_main, s_tpu = phase_trace_main()
-    laps.append(('33', _lap()))
+    _record_lap(laps, '33')
     r_worst = phase_replay_compare()
-    laps.append(('34', _lap()))
+    _record_lap(laps, '34')
     r_launches, r_worst_main = phase_sample_trainer()
-    laps.append(('35', _lap()))
+    _record_lap(laps, '35')
     s_times = phase_sample_times(smi)
-    laps.append(('35 times', _lap()))
+    _record_lap(laps, '35 times')
     # the wavefront under autograd: replay, the XLA trainer, IOR and
     # geometry gradients
     ad_counts = _autograd_phases(smi, laps)
+    # scenes, the host builder, checkpoints and the viewer
+    sf = phase_sphere_field(smi)
+    _record_lap(laps, '40')
+    js = phase_json_scene()
+    _record_lap(laps, '41')
+    resumed = phase_resume(wf_renderer)
+    _record_lap(laps, '42')
+    trees = phase_bvh_trees(smi)
+    _record_lap(laps, '43')
+    viewer = phase_viewer()
+    _record_lap(laps, '44')
 
     forward = {
         "name": "persistent_step",
@@ -6386,6 +6863,53 @@ def main() -> int:
                 "brute force; *_nee with NEE); launches are phase 35's "
                 "trainer (target + 5 steps per mode)",
     }
+    # this slice: sphere-field, the JSON scene through the CLI, resume and
+    # the viewer (the launches of their runs, not of the comparisons)
+    sft = sf["times"]
+    forward.update(
+        launches=forward["launches"] + sf["launches"] + js["k1"]
+        + resumed["k1"] + viewer["pallas"]["launches"],
+        launches_sphere_field_path=sf["launches"],
+        launches_json_scene_cli=js["k1"], launches_resume=resumed["k1"],
+        launches_viewer=viewer["pallas"]["launches"],
+        n_agree_sphere_field=sf["worst"]["n_agree"],
+        l_agree_sphere_field=sf["worst"]["l_agree"],
+        n_floor_sphere_field=sf["worst"]["n_floor"],
+        l_floor_sphere_field=sf["worst"]["l_floor"],
+        max_abs_err_sphere_field=sf["worst"]["max_abs_err"],
+        sign_balance_sphere_field=sf["worst"]["sign_balance"],
+        n_agree_json_scene=js["worst"]["n_agree"],
+        l_agree_json_scene=js["worst"]["l_agree"],
+        resume_bit_exact=True,
+        viewer_frames_per_s={b: o["fps"] for b, o in viewer.items()},
+        bvh_trees_sah_median=trees)
+    for mode, o in sft.items():
+        forward.update({
+            f"ms_sphere_field_{mode}": o["kernel_ms"],
+            f"plain_ms_sphere_field_{mode}": o["plain_ms"],
+            f"bound_ms_sphere_field_{mode}": o["bound_ms"],
+            f"bound_by_sphere_field_{mode}": o["bound_by"],
+            f"step_ms_sphere_field_{mode}": o["step_ms"],
+            f"idle_share_sphere_field_{mode}": o["idle_share"],
+            f"rays_per_s_sphere_field_{mode}": o["rays_per_s"]})
+    for entry, k, extra in ((packet, "k5", dict(
+            agree_json_scene_packet_ref=js["packet"]["agree"])),
+                            (binning, "k6", dict(
+            agree_json_scene=js["bin_agree"]))):
+        entry.update(launches=entry["launches"] + js[k] + resumed[k],
+                     launches_json_scene_cli=js[k],
+                     launches_resume=resumed[k], **extra)
+    packet["max_abs_err"] = max(packet["max_abs_err"],
+                                js["packet"]["max_abs_err"])
+    binning["max_abs_err"] = max(binning["max_abs_err"], js["bin_abs_err"])
+    print(f"[slice checks] sphere-field {sf['launches']} launches held to "
+          f"the plain version (n {sf['worst']['n_agree']:.4f} L "
+          f"{sf['worst']['l_agree']:.4f}, sign balance "
+          f"{sf['worst']['sign_balance']:.3f}); json scene through cli "
+          f"render, pallas {js['k1']} launches, xla {js['k5']} + {js['k6']}; "
+          f"resume bit for bit on kernel 1 and the config-4 wavefront; "
+          f"viewer " + ", ".join(f"{b} {o['fps']:.2f} frames/s"
+                                 for b, o in viewer.items()), flush=True)
     for entry, kernel in ((forward, "persistent_kernel"),
                           (gradient, "replay_persistent_kernel"),
                           (scatter, "replay_scatter_kernel"),
@@ -6395,7 +6919,9 @@ def main() -> int:
         entry["ptxas"] = {k: v for k, v in builds.items()
                           if k.split("<")[0] == kernel}
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in laps)
-          + f"; total {sum(v for _, v in laps):.1f}", flush=True)
+          + f"; total {sum(v for _, v in laps):.1f}; the script "
+          f"{time.perf_counter() - _START:.1f} s since it started",
+          flush=True)
     print(smi)
     print(json.dumps({"kernels": [forward, gradient, scatter, walk, jvp,
                                   packet, binning, trace, replay]}))

@@ -154,11 +154,19 @@ def test_walk_equals_sweep(coarse, kind):
         assert C >= 64 and tests < C / 4, (C, tests)
 
 
-def test_walk_keeps_the_first_of_tied_cells(terrain):
+def test_walk_keeps_the_first_of_tied_cells():
     """Rays aimed at a face that two cells of the deeper tree share, in its
     plane: where both cells pass at the same distance the first cell in DFS
-    order wins, in the walk as in the sweep."""
-    tree = tmk.pack_mesh(terrain.mesh, collapse_leaf=16, nodes_only=True)
+    order wins, in the walk as in the sweep. The tree is the median split's
+    (``use_native=False``): its cells cut the terrain's grid at grid lines,
+    so neighbours share whole faces and are entered at the same distance;
+    the SAH tree's neighbours differ in height and give no such ties."""
+    from tpu_pathtracer_torch.models import meshes
+    from tpu_pathtracer_torch.models.mesh import build_bvh
+
+    v, f, uv = meshes.terrain(n=32, extent=120.0, height=14.0, seed=3)
+    mesh = build_bvh(v, f, uv, 0, use_native=False, device="cpu")
+    tree = tmk.pack_mesh(mesh, collapse_leaf=16, nodes_only=True)
     o, d, t0 = _face_rays(tree, 1024, 11)
     walk = tmk.bin_tree_ref(tree, o, d, t0, TMIN)
     sweep = tmk.bin_rays_ref(tree, o, d, t0, TMIN)

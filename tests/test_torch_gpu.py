@@ -1023,3 +1023,76 @@ def test_replay_kernel_at_its_limits_on_gpu(name, spp, use_nee):
         assert bool((rv[i] != 0).any())
         torch.testing.assert_close(kv[i], rv[i], rtol=1e-4,
                                    atol=1e-5 * float(rv[i].abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_nee", [False, True])
+@pytest.mark.parametrize("injected", [True, False])
+def test_sphere_field_kernel_matches_plain_on_gpu(use_nee, injected):
+    """sphere_field's 128 spheres (half of the kernel's MAX_PRIMS) through
+    the forward kernel against its plain version, as the Cornell test: 98%
+    of lanes, or, where the f32 chaos of the 1e5-radius floor and the glass
+    balls is larger, no fewer than the plain version on the CPU agrees with
+    itself on the card (chip_smoke.py's floor for main-path launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    scene, cs = sc.sphere_field(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda")
+    cp = pack_camera(cam)
+    kw = dict(budget=BUDGET, width=W, height=H, max_bounces=MB, tile_rows=TR,
+              use_nee=use_nee)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    st_k = pk.init_state(W, H, tile_rows=TR, device="cuda")
+    st_r, st_c = st_k.clone(), pk.init_state(W, H, tile_rows=TR, device="cpu")
+    scene_c, cp_c = scene.to("cpu"), cp.cpu()
+    rows = st_k.lr.shape[0] * BUDGET * pk.n_draws(use_nee)
+    rays_k = rays_r = 0
+    for _ in range(2):
+        u = (torch.rand((rows, LANES), generator=gen, device="cuda")
+             if injected else None)
+        st_r, nr = pk.persistent_step_ref(scene, cp, (4, 0), st_r,
+                                          uniforms=u, **kw)
+        st_c, _ = pk.persistent_step_ref(
+            scene_c, cp_c, (4, 0), st_c,
+            uniforms=None if u is None else u.cpu(), **kw)
+        st_k, nk = pk.persistent_step(scene, cp, (4, 0), st_k, uniforms=u,
+                                      **kw)
+        rays_r, rays_k = rays_r + int(nr), rays_k + int(nk)
+    n_agree, l_agree, _ = lane_agreement(st_r, st_k, W, H)
+    n_floor, l_floor, _ = lane_agreement(st_r, st_c, W, H)
+    assert n_agree >= min(AGREE, n_floor) and l_agree >= min(AGREE, l_floor), \
+        (n_agree, l_agree, n_floor, l_floor)
+    assert abs(rays_k - rays_r) <= 0.01 * rays_r
+
+
+@pytest.mark.gpu
+def test_persistent_resume_on_gpu(tmp_path):
+    """Kernel 1 resumed from a checkpoint continues bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from tpu_pathtracer_torch import PersistentRenderer, RenderConfig
+    from tpu_pathtracer_torch.utils import checkpoint as ckpt
+
+    scene, cs = sc.cornell_spheres(device="cuda")
+    cam = cm.make_camera(cs["eye"], cs["look_at"], cs["up"], W, H,
+                         cs["fov"], device="cuda")
+
+    def renderer():
+        return PersistentRenderer(scene, cam, RenderConfig(use_nee=True),
+                                  seed=2, device="cuda", budget=BUDGET,
+                                  tile_rows=TR)
+
+    full, part = renderer(), renderer()
+    for _ in range(4):
+        full.step()
+    for _ in range(2):
+        part.step()
+    ckpt.save_state(str(tmp_path), part.state.frame, part.state)
+    resumed = renderer()
+    resumed.state = ckpt.restore_state(str(tmp_path), resumed.state)
+    assert resumed.state.lr.is_cuda
+    for _ in range(2):
+        resumed.step()
+    for f in pk.STATE_FIELDS:
+        assert torch.equal(getattr(resumed.state, f), getattr(full.state, f))

@@ -5,9 +5,8 @@ tables and light table, and ``mesh_walk_ref`` (the plain version of the
 kernels' in-kernel walk) against the XLA traversal
 (``tpu_pathtracer/ops/triangle.py::intersect_mesh`` and, for the merge
 with the sphere pass, ``ops/intersect.py::intersect``). Meshes built by the
-JAX package are carried across with ``mesh_from_numpy``: the JAX build may
-use its native SAH builder, whose triangle order the port's NumPy builder
-does not reproduce.
+JAX package are carried across with ``mesh_from_numpy``; the SAH builder,
+both packages' default, is held to JAX's in ``test_torch_native_bvh.py``.
 """
 from __future__ import annotations
 
@@ -63,7 +62,8 @@ def test_numpy_bvh_matches_jax(leaf_size):
     triangle order exactly."""
     v, f, uv, m = _geometry(jmeshes)
     jm = jmesh.build_bvh(v, f, uv, m, leaf_size=leaf_size, use_native=False)
-    tm = tmesh.build_bvh(v, f, uv, m, leaf_size=leaf_size, device="cpu")
+    tm = tmesh.build_bvh(v, f, uv, m, leaf_size=leaf_size, use_native=False,
+                         device="cpu")
     for name in tmesh.ARRAY_FIELDS:
         np.testing.assert_array_equal(getattr(tm, name).numpy(),
                                       np.asarray(getattr(jm, name)),
@@ -174,7 +174,8 @@ def test_pack_lights_weights_triangle_lights_by_area():
     v, f, uv, m = _geometry(jmeshes)
     m = np.where(m == 3, 2, 0)
     js = _mixed_lights(jsc, jmesh.build_bvh(v, f, uv, m, use_native=False))
-    ts = _mixed_lights(tsc, tmesh.build_bvh(v, f, uv, m, device="cpu"))
+    ts = _mixed_lights(tsc, tmesh.build_bvh(v, f, uv, m, use_native=False,
+                                            device="cpu"))
     got, want = ttk.pack_lights(ts).numpy(), np.asarray(jtk.pack_lights(js))
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     assert got[1, 7] > 0.5  # the big quad takes most of the power

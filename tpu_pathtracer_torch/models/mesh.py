@@ -6,11 +6,11 @@ traversal is ``node = hit ? node + 1 : skip[node]``. Leaves hold up to
 ``leaf_size`` contiguous triangles, reordered at build time; triangles are
 stored as (v0, e1, e2) with per-triangle normal, uvs and material.
 
-The builder here is the JAX package's NumPy median split on the longest
-centroid axis. The JAX package prefers its native SAH builder when
-``native/libbvh.so`` loads, so the two packages may order the triangles of
-the same scene differently; ``mesh_from_numpy`` carries a built JAX mesh
-across unchanged where the order matters (exact-tie hits).
+``build_bvh`` takes the host binned-SAH builder (``native/bvh.py``, C++)
+by default, as the JAX package does, and gives the JAX package's trees and
+triangle order bit for bit; ``use_native=False`` takes the NumPy median
+split on the longest centroid axis (JAX's ``use_native=False``).
+``mesh_from_numpy`` carries a built JAX mesh across unchanged.
 """
 from __future__ import annotations
 
@@ -82,11 +82,15 @@ def build_bvh(
     uvs: np.ndarray | None = None,  # (V, 2)
     material_id: np.ndarray | int = 0,
     leaf_size: int = LEAF_SIZE,
+    use_native: bool = True,
     *,
     device="cuda",
 ) -> MeshData:
-    """Build the threaded BVH over a triangle mesh on the host (median split
-    on the longest centroid axis; the JAX package's NumPy builder)."""
+    """Build the threaded BVH over a triangle mesh on the host: by the C++
+    binned-SAH builder (``native/bvh.py``), which raises where it cannot be
+    built rather than fall back, or with ``use_native=False`` by the NumPy
+    median split on the longest centroid axis. Both emit the same threaded
+    DFS layout, and each equals the JAX package's builder of that name."""
     vertices = np.asarray(vertices, np.float64)
     faces = np.asarray(faces, np.int64)
     T = faces.shape[0]
@@ -105,6 +109,16 @@ def build_bvh(
         material_id = np.full((T,), material_id, np.int64)
     else:
         material_id = np.asarray(material_id, np.int64)
+
+    if use_native:
+        from tpu_pathtracer_torch.native import bvh as native_bvh
+
+        perm, nmin, nmax, nskip, nstart, ncount = native_bvh.build_arrays(
+            tri_min.astype(np.float32), tri_max.astype(np.float32),
+            centroid.astype(np.float32), leaf_size)
+        return _finalize(v0, v1, v2, uvs, faces, material_id,
+                         perm.astype(np.int64), nmin, nmax, nskip, nstart,
+                         ncount, leaf_size=leaf_size, device=device)
 
     order: list[int] = []  # triangle permutation (leaf order)
     nodes_min: list[np.ndarray] = []

@@ -1,9 +1,10 @@
-"""Mesh constructors: boxes, quads, terrain, merging, textures, in NumPy.
+"""Mesh constructors: boxes, quads, UV spheres, OBJ files, terrain,
+merging, textures, in NumPy.
 
-Counterpart of ``box``, ``quad``, ``terrain``, ``merge`` and
-``checker_texture`` in ``tpu_pathtracer/models/meshes.py``: the geometry of
-the mesh Cornell scenes and of the textured terrain (BASELINE config 4).
-``uv_sphere`` and ``load_obj`` are not ported yet.
+Counterpart of ``tpu_pathtracer/models/meshes.py``: the geometry of the mesh
+Cornell scenes, of the textured terrain (BASELINE config 4) and of scene
+files (``io/scene_io.py``). Every builder gives the JAX package's arrays bit
+for bit.
 """
 from __future__ import annotations
 
@@ -50,6 +51,68 @@ def quad(p0, p1, p2, p3):
     faces = np.array([[0, 1, 2], [0, 2, 3]], np.int64)
     uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64)
     return verts, faces, uvs
+
+
+def uv_sphere(center, radius, n_lat: int = 32, n_lon: int = 64):
+    """Triangulated sphere: ~2 n_lat n_lon triangles with spherical uvs.
+    Returns (vertices, faces, uvs)."""
+    c = np.asarray(center, np.float64)
+    lats = np.linspace(0, np.pi, n_lat + 1)
+    lons = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    verts, uvs = [], []
+    for th in lats:
+        for ph in lons:
+            verts.append(c + radius * np.array(
+                [np.sin(th) * np.cos(ph), np.cos(th), np.sin(th) * np.sin(ph)]))
+            uvs.append([ph / (2 * np.pi), th / np.pi])
+    faces = []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a = i * n_lon + j
+            b = i * n_lon + (j + 1) % n_lon
+            cc = (i + 1) * n_lon + j
+            dd = (i + 1) * n_lon + (j + 1) % n_lon
+            if i > 0:
+                faces.append([a, b, cc])
+            if i < n_lat - 1:
+                faces.append([b, dd, cc])
+    return np.asarray(verts), np.asarray(faces, np.int64), np.asarray(uvs)
+
+
+def load_obj(path: str):
+    """Minimal OBJ parser: ``v``, ``vt`` and ``f`` records, polygons
+    fan-triangulated. A vertex shared by faces with different ``vt`` keeps
+    the last one. Returns (vertices, faces, uvs)."""
+    verts, uvs, faces, face_uvs = [], [], [], []
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "vt":
+                uvs.append([float(x) for x in parts[1:3]])
+            elif parts[0] == "f":
+                idx, tdx = [], []
+                for tok in parts[1:]:
+                    comp = tok.split("/")
+                    idx.append(int(comp[0]) - 1)
+                    tdx.append(int(comp[1]) - 1
+                               if len(comp) > 1 and comp[1] else -1)
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+                    face_uvs.append([tdx[0], tdx[k], tdx[k + 1]])
+    verts = np.asarray(verts, np.float64)
+    faces = np.asarray(faces, np.int64)
+    uv_arr = np.zeros((len(verts), 2))
+    if uvs:
+        uvsrc = np.asarray(uvs, np.float64)
+        for f, fu in zip(faces, face_uvs):
+            for vi, ti in zip(f, fu):
+                if ti >= 0:
+                    uv_arr[vi] = uvsrc[ti]
+    return verts, faces, uv_arr
 
 
 def merge(*parts):

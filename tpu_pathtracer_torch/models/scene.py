@@ -658,6 +658,31 @@ def terrain_textured(n: int = 224, device="cuda") -> tuple[Scene, dict]:
                       mat_texture=[0, -1], device=device), cam
 
 
+def sphere_field(n: int = 128, seed: int = 7, device="cuda"
+                 ) -> tuple[Scene, dict]:
+    """An n-sphere stress scene: a 1e5-radius floor, an emitter overhead and
+    a pseudo-random field of diffuse, mirror and glass balls, drawn from
+    ``np.random.default_rng(seed)`` in the JAX package's order, so every
+    array equals JAX's. At n = 128 it fills half the kernels' MAX_PRIMS."""
+    rng = np.random.default_rng(seed)
+    e5 = 1e5
+    spheres = [
+        sphere([0, -e5, 0], e5, 3),  # floor
+        sphere([0, 90.0, 0], 30.0, 1, 0),  # emitter overhead
+    ]
+    n_field = n - len(spheres)
+    pos = rng.uniform([-45, 2, -45], [45, 14, 45], (n_field, 3))
+    rad = rng.uniform(1.0, 3.5, n_field)
+    mat = rng.choice([0, 2, 3, 4, 5], size=n_field,
+                     p=[0.3, 0.25, 0.25, 0.1, 0.1])
+    for p, r, m in zip(pos, rad, mat):
+        spheres.append(sphere(p.tolist(), float(r), int(m)))
+    lights = [area_light(1, [14.0, 14.0, 14.0])]
+    cam = dict(eye=[0, 26, 95], look_at=[0, 8, 0], up=[0, 1, 0], fov=55.0)
+    return make_scene(spheres, reference_materials(), lights,
+                      device=device), cam
+
+
 BUILTIN_SCENES = {
     "cornell": cornell_spheres,
     "cornell-glass": cornell_glass,
@@ -666,4 +691,5 @@ BUILTIN_SCENES = {
     "cornell-boxes": cornell_boxes,
     "cornell-quad": cornell_quad,
     "terrain": terrain_textured,
+    "sphere-field": sphere_field,
 }

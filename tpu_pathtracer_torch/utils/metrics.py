@@ -13,6 +13,7 @@ JAX kernel to ``AGREE`` with it.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import torch
@@ -61,6 +62,31 @@ class RenderMeter:
             parts.append(f"{self.rays_per_sec / 1e6:.0f} Mrays/s")
         parts.append(f"{self.lanes_per_iteration * self.ips / 1e6:.1f} Mspp-px/s")
         return "  ".join(parts)
+
+
+def sync_card() -> None:
+    """Wait for the card's queued work, where this process has used it."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+class Timer:
+    """Context-manager wall timer (``with Timer() as t: ...; t.seconds``).
+
+    Where this process has used the card, it synchronizes the device before
+    it reads the clock, on entry and on exit, so the seconds cover the work
+    queued inside the scope and not only its launches; on the CPU it reads
+    the clock alone."""
+
+    def __enter__(self):
+        sync_card()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        sync_card()
+        self.seconds = time.perf_counter() - self.t0
+        return False
 
 
 def lane_agreement(a, b, width: int, height: int
